@@ -21,11 +21,20 @@ def _to_torch(arr, device) -> torch.Tensor:
     return t.to(device)
 
 
-def params_from_numpy(tree, device="cpu"):
+def params_from_numpy(tree, device):
     """Nested dict of numpy arrays (anything ``np.asarray`` takes) -> the
-    same tree of torch tensors on ``device``."""
+    same tree of torch tensors on ``device``.  There is no default device:
+    the caller names the card (``"cuda"``) or the host (``"cpu"``), and a
+    CUDA device with no card visible raises."""
+    if torch.device(device).type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError(f"params_from_numpy(device={device!r}): no CUDA "
+                           "device is visible")
+    return _from_numpy(tree, device)
+
+
+def _from_numpy(tree, device):
     if isinstance(tree, dict):
-        return {k: params_from_numpy(v, device) for k, v in tree.items()}
+        return {k: _from_numpy(v, device) for k, v in tree.items()}
     return _to_torch(np.asarray(tree), device)
 
 

@@ -6,10 +6,13 @@ with a plain C interface and loaded through ``ctypes``:
     nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 -shared
          -Xcompiler -fPIC -o build/repro_torch/lib<name>_<hash>.so <name>.cu
 
-The build runs at first CUDA use (never at import), into ``build/`` at the
-root of the checkout.  The library's file name carries a hash of the sources
-and flags, so a stale library never loads.  :func:`build_all` starts one
-``nvcc`` per source at once and waits for all of them.
+The build runs at first CUDA use (never at import), into
+``build/repro_torch`` at the root of the checkout when the package runs from
+one (``<root>/src/repro_torch`` beside ``<root>/pyproject.toml``), else, for
+an installed package, into ``$XDG_CACHE_HOME/repro_torch`` (default
+``~/.cache/repro_torch``).  The library's file name carries a hash of the
+sources and flags, so a stale library never loads.  :func:`build_all` starts
+one ``nvcc`` per source at once and waits for all of them.
 
 A failed build raises with nvcc's output; nothing falls back.
 """
@@ -25,7 +28,19 @@ import tempfile
 from pathlib import Path
 
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
-BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "repro_torch"
+
+
+def build_dir(pkg: Path) -> Path:
+    """Where the libraries of the package at ``pkg`` are built: the
+    checkout's ``build/`` for a source tree, a user cache for an install."""
+    root = pkg.parent.parent
+    if pkg.parent.name == "src" and (root / "pyproject.toml").is_file():
+        return root / "build" / "repro_torch"
+    cache = os.environ.get("XDG_CACHE_HOME") or Path.home() / ".cache"
+    return Path(cache) / "repro_torch"
+
+
+BUILD_DIR = build_dir(CSRC.parent)
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 

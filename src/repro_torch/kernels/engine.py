@@ -13,9 +13,9 @@ backend)`` behind one entry point, :func:`qmatmul`, which
 
 Backends: ``"cuda"`` (the hand-written kernels of ``csrc/``) and
 ``"torch"`` (their plain versions).  With ``backend=None`` a CUDA tensor
-goes to the kernel and a CPU tensor to the plain version; nothing switches
-to the plain path while a card is present unless the caller passes
-``backend="torch"``.
+goes to the kernel and a CPU tensor to the plain version; ``"cuda"`` with a
+CPU tensor raises; nothing switches to the plain path while a card is
+present unless the caller passes ``backend="torch"``.
 
 A second registry keyed on ``(attn_kind, kv_bits, backend)`` serves the
 dense-cache decode attention (:func:`decode_attention`).
@@ -161,9 +161,16 @@ def default_backend(t: torch.Tensor) -> str:
     return BACKEND_CUDA if t.is_cuda else BACKEND_TORCH
 
 
-def _check_backend(backend: str) -> str:
+def _check_backend(backend: str | None, t: torch.Tensor) -> str:
+    """The backend for an input on ``t``'s device: the device decides when
+    ``backend`` is None; ``"cuda"`` is refused for a host tensor, so a
+    dispatch recorded as ``cuda`` always ran on the card."""
+    backend = backend or default_backend(t)
     if backend not in BACKENDS:
         raise ValueError(f"unknown backend {backend!r}; known: {BACKENDS}")
+    if backend == BACKEND_CUDA and not t.is_cuda:
+        raise ValueError(f"backend='cuda' needs CUDA tensors, got one on "
+                         f"{t.device} (pass backend='torch' or None)")
     return backend
 
 
@@ -326,7 +333,7 @@ def qmatmul(x: torch.Tensor, pw: PackedWeight, cfg: PrecisionConfig, *,
     if cfg.w_mode == W_FLOAT:
         raise ValueError("qmatmul needs a quantized-weight config; "
                          "float weights are a plain matmul")
-    backend = _check_backend(backend or default_backend(x))
+    backend = _check_backend(backend, x)
     a_bits = 0 if (cfg.a_mode == A_FLOAT or cfg.a_bits > 8) else cfg.a_bits
     if a_bits == 1:
         raise NotImplementedError(
@@ -401,7 +408,7 @@ def decode_attention(q, k_codes, k_scale, v_codes, v_scale, pos, *,
 
     q: (B, KV, G, Dh); codes (B, S, KV, Dh'); scales (B, S, KV, 1);
     pos scalar or (B,).  Returns (B, KV, G, Dh) in ``dtype``."""
-    backend = _check_backend(backend or default_backend(q))
+    backend = _check_backend(backend, q)
     fn, matched = resolve_attention_entry(ATTN_DECODE, kv_bits, backend)
     _record_dispatch(op="decode_attention", kind=ATTN_DECODE,
                      requested_backend=backend, impl_backend=matched[2],

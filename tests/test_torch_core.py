@@ -74,11 +74,30 @@ def test_interop_roundtrip_bf16():
     """A JAX bf16 leaf crosses as its bit pattern (no ml_dtypes needed)."""
     x = jnp.asarray(RNG.normal(size=(3, 4)).astype(np.float32)).astype(jnp.bfloat16)
     tree = {"a": {"w": np.asarray(x)}, "b": np.arange(5, dtype=np.int32)}
-    t = interop.params_from_numpy(tree)
+    t = interop.params_from_numpy(tree, "cpu")
     assert t["a"]["w"].dtype == torch.bfloat16
     np.testing.assert_array_equal(t["a"]["w"].to(torch.float32).numpy(),
                                   np.asarray(x.astype(jnp.float32)))
+    with pytest.raises(TypeError):                   # no default device
+        interop.params_from_numpy(tree)
+    if not torch.cuda.is_available():                # the card, asked for
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            interop.params_from_numpy(tree, "cuda")
     back = interop.params_to_numpy(t)
     np.testing.assert_array_equal(back["b"], tree["b"])
     np.testing.assert_array_equal(back["a"]["w"],
                                   np.asarray(x.astype(jnp.float32)))
+
+
+def test_build_dir_checkout_or_cache(tmp_path, monkeypatch):
+    """Kernels build into the checkout's build/ for a source tree, and into
+    the user cache for an installed package (no directory beside
+    site-packages)."""
+    from pathlib import Path
+
+    from repro_torch.kernels import _build
+    root = Path(__file__).resolve().parents[1]
+    assert _build.BUILD_DIR == root / "build" / "repro_torch"
+    monkeypatch.setenv("XDG_CACHE_HOME", str(tmp_path / "cache"))
+    installed = tmp_path / "lib" / "site-packages" / "repro_torch"
+    assert _build.build_dir(installed) == tmp_path / "cache" / "repro_torch"

@@ -95,17 +95,24 @@ def test_qmatmul_float_acts(name, shape):
 
 def test_engine_resolution_and_trace():
     """CPU tensors go to the plain versions; kinds with no CUDA kernel
-    resolve to the torch registration even when "cuda" is asked for; the
-    CPU path launches nothing."""
+    resolve to the torch registration even when "cuda" is asked for;
+    "cuda" with a host tensor is refused, so no dispatch is recorded as
+    "cuda" without a card; the CPU path launches nothing."""
     _, _, tpw, _ = _packed_pair("2xT", 128, 64)
     _, _, cpw, _ = _packed_pair("3x3", 128, 64)
     x = torch.randn(4, 128)
     engine.reset_launch_counts()
     with engine.dispatch_trace() as ev:
         engine.qmatmul(x, tpw, signed(get_precision("2xT")))
-        engine.qmatmul(x, cpw, signed(get_precision("3x3")), backend="cuda")
+        engine.qmatmul(x, cpw, signed(get_precision("3x3")))
+        for pw, name in ((tpw, "2xT"), (cpw, "3x3")):
+            with pytest.raises(ValueError, match="needs CUDA tensors"):
+                engine.qmatmul(x, pw, signed(get_precision(name)),
+                               backend="cuda")
     assert [(e.kind, e.requested_backend, e.impl_backend) for e in ev] == [
-        ("ternary", "torch", "torch"), ("codes", "cuda", "torch")]
+        ("ternary", "torch", "torch"), ("codes", "torch", "torch")]
+    assert engine.resolve_entry("codes", 3, 3, "cuda")[1] == (
+        "codes", 3, 3, "torch")
     assert ev[0].a_scale_shape == (4, 1)
     assert engine.launch_counts() == {k: 0 for k in engine.KERNELS}
     with pytest.raises(ValueError):

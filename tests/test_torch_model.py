@@ -68,7 +68,7 @@ def _pair(precision, kv_bits, dtype="float32"):
         jp = jm.init(jax.random.PRNGKey(0))
         jsv = jto_serving(jp, jcfg)
         _CACHE[key] = (jm, jsv, build_model(tcfg),
-                       params_from_numpy(_np_tree(jsv)), jp)
+                       params_from_numpy(_np_tree(jsv), "cpu"), jp)
     return _CACHE[key]
 
 
@@ -82,7 +82,8 @@ def test_to_serving_words_match(precision):
     int8 codes equal to the reference's (default tp=16 layout, so the
     reduced wo keeps int8 codes); scales within rtol 1e-6 (f32 means)."""
     jm, jsv, tm, _, jp = _pair(precision, 8)
-    got = dict(_leaves(to_serving(params_from_numpy(_np_tree(jp)), tm.cfg)))
+    got = dict(_leaves(to_serving(params_from_numpy(_np_tree(jp), "cpu"),
+                                  tm.cfg)))
     want = dict(_leaves(_np_tree(jsv)))
     assert got.keys() == want.keys()
     n_words = 0

@@ -39,7 +39,7 @@ def models():
     tcfg = treduce(get_config("smollm-135m", precision="2xT", kv_bits=8))
     jm = jbuild(jcfg)
     jsv = jto_serving(jm.init(jax.random.PRNGKey(0)), jcfg)
-    tp = params_from_numpy(jax.tree_util.tree_map(np.array, jsv))
+    tp = params_from_numpy(jax.tree_util.tree_map(np.array, jsv), "cpu")
     return jm, jsv, build_model(tcfg), tp
 
 
