@@ -5,22 +5,33 @@
 
 Phases (each prints its own lines; any failed check exits non-zero):
   1. environment: the card's name and power limit, torch and CUDA versions;
-  2. build: every CUDA kernel of the serving path, built from
+  2. build: every CUDA kernel of the serving paths, built from
      ``src/repro_torch/csrc`` with nvcc (one process per source, in
      parallel), with its time;
-  3. kernels against their plain PyTorch versions at the serving path's
+  3. kernels against their plain PyTorch versions at the serving paths'
      shapes, with the kernel's time, the plain version's time, one PyTorch
      library call's time (a yardstick the port never calls) and the least
      time the card could take (bytes over memory rate, or operations over
-     peak rate, whichever is larger);
-  4. the serving path at full width: smollm-135m, 2xT weights/activations,
-     int8 KV cache, bf16, random weights from seed 0, served by the
-     continuous batcher (8 requests over 4 slots); the kernel launch counts
-     of that run; one prefill chunk and one decode step through the kernels
-     against the same calls through the plain versions; a shorter 4x4 run
-     for the packed kernel;
-  5. decode steps of the 2xT path under ``torch.profiler``: device
-     operations per step, device busy time and idle share.
+     peak rate, whichever is larger): the matmuls, the dense decode
+     attention, the paged attention at kv 8/4/16 and the fused decode at kv8;
+  4. the dense serving path at full width: smollm-135m, 2xT
+     weights/activations, int8 KV cache, bf16, random weights from seed 0,
+     served by the continuous batcher (8 requests over 4 slots); the kernel
+     launch counts of that run; one prefill chunk and one decode step
+     through the kernels against the same calls through the plain versions;
+     a shorter 4x4 run for the packed kernel;
+  4c. the paged serving path at full width (2xT, kv8 blocks of 16
+     positions, the same 8 requests, which share a 32-token prefix): prefix
+     hits, ``paged_attention`` launches per decode step, one paged prefill
+     chunk and decode step through the kernels against the plain versions,
+     the streams against the dense run's; then an overcommitted 10-block
+     pool that preempts, with ``check_pool()`` after every step;
+  4d. the fused decode: fp32 weights, paged kv8, bf16 (``fused_decode``
+     launches per decode step), and a float32 paged decode step through the
+     kernel against the plain versions;
+  5. decode steps of the dense and the paged 2xT paths under
+     ``torch.profiler``: device operations per step, device busy time and
+     idle share.
 The last lines are the per-kernel JSON record, the card's name and power
 limit, and ``{"ok": true, "device": {...}}``.
 
@@ -30,6 +41,7 @@ nothing of JAX.
 from __future__ import annotations
 
 import contextlib
+import dataclasses
 import json
 import statistics
 import subprocess
@@ -50,6 +62,9 @@ SMOLLM_DECODE_PROJ = (            # (N, K) of one layer's seven projections
     (1536, 576), (1536, 576), (576, 1536))               # w_gate w_up w_down
 MAIN_SHAPES = sorted(set(SMOLLM_DECODE_PROJ))
 N_SLOTS, CHUNK, PROMPT, GEN, N_REQ = 4, 32, 64, 16, 8
+S_MAX = PROMPT + GEN
+BLOCK = 16                        # positions per paged KV block
+KV_HEADS, GROUP, DH, D_MODEL = 3, 3, 64, 576
 
 
 def fail(msg: str) -> None:
@@ -60,6 +75,12 @@ def fail(msg: str) -> None:
 def check(cond: bool, msg: str) -> None:
     if not cond:
         fail(msg)
+
+
+def model_config(**kw):
+    """The configuration every serving phase runs, at full width."""
+    from repro_torch.configs import get_config
+    return get_config("smollm-135m", **kw)
 
 
 def _event_ms(run, iters: int) -> float:
@@ -214,7 +235,7 @@ def _attention_record(gen, device):
     import torch.nn.functional as F
     from repro_torch.kernels.decode_attention import (decode_attention,
                                                       decode_attention_ref)
-    b, kv, g, dh, s = N_SLOTS, 3, 3, 64, PROMPT + GEN
+    b, kv, g, dh, s = N_SLOTS, KV_HEADS, GROUP, DH, S_MAX
     q = torch.randn((b, kv, g, dh), generator=gen).to(device, torch.bfloat16)
     kc = torch.randint(-127, 128, (b, s, kv, dh), generator=gen,
                        dtype=torch.int8).to(device)
@@ -256,6 +277,162 @@ def _attention_record(gen, device):
             "shape": f"B={b} KV={kv} G={g} Dh={dh} S={s} pos={pos_list}"}
 
 
+# the paged kernels' serving shapes: one decode step of 4 slots at ragged
+# positions (0, and one in the last of S_MAX/BLOCK = 5 blocks)
+PAGED_POS = [S_MAX - 1, 0, 40, 63]
+
+
+def _paged_operands(gen, device, kv_bits: int, pos_list=PAGED_POS):
+    """(q, k_pool, k_scale, v_pool, v_scale, page_table, pos) of one paged
+    decode step: q (B, KV, G, Dh) bf16; a pool of 1 + B*5 random blocks
+    (kv8 int8 codes, kv4 nibble pairs, both with f32 scales; kv16 bf16); a
+    random permuted page table whose entries past each sequence's last live
+    block are the null block 0."""
+    import torch
+    b, nb = len(pos_list), S_MAX // BLOCK
+    nb_pool = 1 + b * nb
+    q = torch.randn((b, KV_HEADS, GROUP, DH), generator=gen).to(
+        device, torch.bfloat16)
+    shape = (nb_pool, BLOCK, KV_HEADS, DH // 2 if kv_bits == 4 else DH)
+    if kv_bits == 16:
+        k, v = (torch.randn(shape, generator=gen).to(device, torch.bfloat16)
+                for _ in range(2))
+        ks = vs = None
+    else:
+        lo = -128 if kv_bits == 4 else -127     # kv4: any byte is a nibble pair
+        k, v = (torch.randint(lo, 128, shape, generator=gen,
+                              dtype=torch.int8).to(device) for _ in range(2))
+        ks, vs = ((torch.rand((nb_pool, BLOCK, KV_HEADS, 1), generator=gen)
+                   * 0.02 + 1e-3).to(device) for _ in range(2))
+    pt = (torch.randperm(nb_pool - 1, generator=gen) + 1).reshape(b, nb)
+    for i, p in enumerate(pos_list):
+        pt[i, p // BLOCK + 1:] = 0
+    pos = torch.tensor(pos_list, dtype=torch.int32)
+    return (q, k, ks, v, vs, pt.to(device, torch.int32), pos.to(device))
+
+
+def _sdpa_paged(q, k, ks, v, vs, pt, pos, kv_bits):
+    """Yardstick: gather the blocks dense, dequantize in f32, then f32
+    ``scaled_dot_product_attention``.  Returns (B, KV, G, Dh)."""
+    import torch
+    import torch.nn.functional as F
+    from repro_torch.core.packing import unpack_nibbles
+    from repro_torch.kernels.paged_attention import gather_pool
+    b, kv, g, dh = q.shape
+
+    def dense(leaf, scale):
+        x = gather_pool(leaf, pt)                     # (B, S, KV, Dh')
+        if kv_bits == 4:
+            x = unpack_nibbles(x)
+        x = x.float() if scale is None else x.float() * gather_pool(scale, pt)
+        return x.permute(0, 2, 1, 3).repeat_interleave(g, 1)
+    kf, vf = dense(k, ks), dense(v, vs)
+    mask = (torch.arange(kf.shape[2], device=q.device)[None, :]
+            <= pos[:, None].long())[:, None, None, :]
+    out = F.scaled_dot_product_attention(
+        q.float().reshape(b, kv * g, 1, dh), kf, vf, attn_mask=mask)
+    return out.reshape(b, kv, g, dh)
+
+
+def _paged_cost(q, k, ks, pt, rows: int, pos_list) -> tuple[float, float]:
+    """(bytes, f32 operations) of paged attention for ``rows`` query rows
+    over the positions <= pos of the sequences in ``pos_list``: each input
+    read once (q rows, K and V of those positions with their scales, page
+    table, pos), the f32 output written once."""
+    kv, g, dh = q.shape[1:]
+    valid = sum(min(p + 1, pt.shape[1] * BLOCK) for p in pos_list)
+    row = k.shape[-1] * k.element_size() + (4 if ks is not None else 0)
+    nbytes = (rows * q[0].numel() * q.element_size() + valid * kv * 2 * row
+              + 4 * (pt.numel() + len(pos_list)) + 4 * rows * kv * g * dh)
+    return nbytes, valid * kv * g * 4 * dh
+
+
+def _paged_attention_record(gen, device):
+    """``paged_attention`` against its f32 plain version at kv 8, 4 and 16
+    (bf16 pool); the record carries kv8, the paged serving path's width."""
+    import torch
+    from repro_torch.kernels.paged_attention import (paged_attention,
+                                                     paged_attention_ref)
+    rec, err_max = None, 0.0
+    for kv_bits in (8, 4, 16):
+        args = _paged_operands(gen, device, kv_bits)
+        out = paged_attention(*args, kv_bits=kv_bits)
+        ref = paged_attention_ref(*args, kv_bits=kv_bits,
+                                  out_dtype=torch.float32)
+        torch.cuda.synchronize()
+        err = (out - ref).abs().max().item()
+        tol = 1e-5 + 1e-4 * ref.abs().max().item()
+        check(err <= tol, f"paged_attention kv{kv_bits}: max |diff| {err} > "
+                          f"{tol}")
+        err_max = max(err_max, err)
+        tk, tk_eager = time_ms(lambda: paged_attention(*args, kv_bits=kv_bits))
+        tp, _ = time_ms(lambda: paged_attention_ref(
+            *args, kv_bits=kv_bits, out_dtype=torch.float32))
+        tl, _ = time_ms(lambda: _sdpa_paged(*args, kv_bits))
+        nbytes, ops = _paged_cost(args[0], args[1], args[2], args[5],
+                                  N_SLOTS, PAGED_POS)
+        bt, by = bound(nbytes, ops, PEAK_F32)
+        print(f"paged_attention kv{kv_bits} B={N_SLOTS} KV={KV_HEADS} "
+              f"G={GROUP} Dh={DH} bs={BLOCK} pos={PAGED_POS}: max |diff| vs "
+              f"f32 plain version {err:.3e} (tolerance {tol:.3e}); kernel "
+              f"{tk:.5f} ms (eager call {tk_eager:.4f} ms), plain {tp:.5f} ms, "
+              f"gather + sdpa f32 {tl:.5f} ms, bound {bt:.6f} ms ({by})")
+        if kv_bits == 8:
+            rec = {"name": "paged_attention", "ms": tk, "plain_ms": tp,
+                   "bound_ms": bt, "bound_by": by, "library_ms": tl,
+                   "shape": f"kv8 B={N_SLOTS} KV={KV_HEADS} G={GROUP} Dh={DH} "
+                            f"bs={BLOCK} pos={PAGED_POS}"}
+    rec["max_abs_err"] = err_max
+    return rec
+
+
+def _fused_decode_record(gen, device):
+    """``fused_decode`` at kv8 with an f32 (576, 576) wo against its f32
+    plain version for slot maps of 1, 3 and 4 rows (the last repeats a
+    slot, as occupancy padding does); timed with all 4 slots live."""
+    import torch
+    from repro_torch.kernels.decode_fused import fused_decode, fused_decode_ref
+    args = _paged_operands(gen, device, 8)
+    q = args[0]
+    wo = (torch.randn((q[0].numel(), D_MODEL), generator=gen) / 24).to(device)
+    err_max = 0.0
+    for sm_list in ([2], [0, 1, 3], [0, 2, 3, 3]):
+        sm = torch.tensor(sm_list, dtype=torch.int32, device=device)
+        out = fused_decode(*args, sm, wo, kv_bits=8)
+        ref = fused_decode_ref(*args, sm, wo, kv_bits=8)
+        torch.cuda.synchronize()
+        err = (out - ref).abs().max().item()
+        tol = 1e-5 + 1e-4 * ref.abs().max().item()
+        check(err <= tol, f"fused_decode slot_map {sm_list}: max |diff| "
+                          f"{err} > {tol}")
+        for i, s in enumerate(sm_list):
+            j = sm_list.index(s)
+            check(torch.equal(out[i], out[j]),
+                  f"fused_decode slot_map {sm_list}: rows {j} and {i} of "
+                  f"slot {s} differ")
+        err_max = max(err_max, err)
+        print(f"fused_decode kv8 L={len(sm_list)} slot_map={sm_list} "
+              f"wo=({q[0].numel()}, {D_MODEL}) f32: max |diff| vs f32 plain "
+              f"version {err:.3e} (tolerance {tol:.3e}); duplicate rows equal")
+    sm = torch.arange(N_SLOTS, dtype=torch.int32, device=device)
+    tk, tk_eager = time_ms(lambda: fused_decode(*args, sm, wo, kv_bits=8))
+    tp, _ = time_ms(lambda: fused_decode_ref(*args, sm, wo, kv_bits=8))
+    tl, _ = time_ms(lambda: torch.matmul(
+        _sdpa_paged(*args, 8).reshape(N_SLOTS, -1), wo))
+    nbytes, ops = _paged_cost(q, args[1], args[2], args[5], N_SLOTS, PAGED_POS)
+    k_in = q[0].numel()
+    bt, by = bound(nbytes + 4 * k_in * D_MODEL + 4 * N_SLOTS
+                   + 4 * N_SLOTS * (D_MODEL - k_in),     # out is (L, D)
+                   ops + 2 * N_SLOTS * k_in * D_MODEL, PEAK_F32)
+    print(f"  L={N_SLOTS}: kernel {tk:.5f} ms (eager call {tk_eager:.4f} ms), "
+          f"plain {tp:.5f} ms, gather + sdpa f32 + torch.matmul {tl:.5f} ms, "
+          f"bound {bt:.6f} ms ({by})")
+    return {"name": "fused_decode", "ms": tk, "plain_ms": tp, "bound_ms": bt,
+            "bound_by": by, "library_ms": tl, "max_abs_err": err_max,
+            "shape": f"kv8 L={N_SLOTS} KV={KV_HEADS} G={GROUP} Dh={DH} "
+                     f"bs={BLOCK} pos={PAGED_POS} wo=({k_in}, {D_MODEL}) f32"}
+
+
 def phase_kernels(device):
     import torch
     print("== 3. kernels against their plain versions", flush=True)
@@ -263,21 +440,88 @@ def phase_kernels(device):
     return [_matmul_record("ternary_matmul", gen, device, 2),
             _matmul_record("packed_matmul", gen, device, 2, timed=False),
             _matmul_record("packed_matmul", gen, device, 4),
-            _attention_record(gen, device)]
+            _attention_record(gen, device),
+            _paged_attention_record(gen, device),
+            _fused_decode_record(gen, device)]
+
+
+# ---------------------------------------------------------------------------
+def _requests(cfg, n: int, gen: int):
+    """``n`` requests of 62-64 prompt tokens (PROMPT - rid % 3) whose first
+    CHUNK tokens are one shared prefix, ``gen`` new tokens each; every call
+    makes the same tokens."""
+    import numpy as np
+    from repro_torch.runtime.serving import Request, RequestOptions
+    rng = np.random.default_rng(1)
+    prefix = rng.integers(0, cfg.vocab, CHUNK)
+    return [Request(rid, np.concatenate(
+                [prefix, rng.integers(0, cfg.vocab, PROMPT - rid % 3 - CHUNK)]
+            )[None].astype(np.int64), options=RequestOptions(max_new=gen))
+            for rid in range(n)]
+
+
+def _warm(batcher, cfg):
+    """First-call set-up (one request through a throw-away batcher)."""
+    import torch
+    for r in _requests(cfg, 1, 2):
+        batcher.submit(r)
+    batcher.run()
+    torch.cuda.synchronize()
+
+
+def _run(batcher, reqs, card, label, each_step=None):
+    """Serve ``reqs`` through ``batcher``, the launch counts set to 0 just
+    before and read just after; check that every request completed with
+    in-vocabulary tokens, print the metrics.  ``each_step(batcher)`` runs
+    after every scheduler step.  Returns ({rid: tokens}, launches)."""
+    import numpy as np
+    import torch
+    from repro_torch.kernels import engine
+    for r in reqs:
+        batcher.submit(r)
+    engine.reset_launch_counts()
+    done = []
+    for _ in range(10_000):
+        done += batcher.step()
+        if each_step is not None:
+            each_step(batcher)
+        if batcher.idle:
+            break
+    torch.cuda.synchronize()
+    launches = engine.launch_counts()
+    print(f"{label} launches: {launches}")
+    vocab = batcher.model.cfg.vocab
+    check(len(done) == len(reqs), f"{label}: served {len(done)} of "
+                                  f"{len(reqs)} requests")
+    for r in done:
+        check(len(r.output) == r.max_new,
+              f"{label} request {r.rid}: {len(r.output)} tokens")
+        check(all(0 <= t < vocab for t in r.output),
+              f"{label} request {r.rid}: token out of vocabulary {r.output}")
+    m = batcher.metrics
+    s = m.summary()
+    print(m.format())
+    decode_tps = m.decode_slot_tokens / s["throughput"]["wall_s"]
+    print(f"[{card}] {label}: served {len(reqs)} requests x "
+          f"{reqs[0].max_new} tokens: {s['throughput']['tok_per_s']:.1f} tok/s "
+          f"overall, TTFT p50 {s['ttft_ms']['p50']:.1f} ms, ITL p50 "
+          f"{s['itl_ms']['p50']:.2f} ms, decode tok/s {decode_tps:.1f} "
+          "(decode-step tokens per wall second)")
+    done.sort(key=lambda r: r.rid)
+    print("sample generations (first 8 tokens/request):\n"
+          f"{np.array([r.output[:8] for r in done])}")
+    return {r.rid: list(r.output) for r in done}, launches
 
 
 def _serve(device, card, precision: str, n_req: int, gen: int):
     """Serve ``n_req`` requests of ``gen`` tokens at full width through the
     continuous batcher, after one warm-up request; returns (model, params,
-    serving config, requests, kernel launches of the measured run)."""
-    import numpy as np
+    serving config, requests, streams, kernel launches of the measured
+    run)."""
     import torch
-    from repro_torch.configs import get_config
-    from repro_torch.kernels import engine
     from repro_torch.models import build_model, to_serving
-    from repro_torch.runtime.serving import (ContinuousBatcher, Request,
-                                             RequestOptions, ServingConfig)
-    cfg = get_config("smollm-135m", precision=precision, kv_bits=8)
+    from repro_torch.runtime.serving import ContinuousBatcher, ServingConfig
+    cfg = model_config(precision=precision, kv_bits=8)
     model = build_model(cfg)
     t0 = time.time()
     params = model.init(torch.Generator().manual_seed(0), device)
@@ -286,54 +530,21 @@ def _serve(device, card, precision: str, n_req: int, gen: int):
     print(f"params: {cfg.n_layers} layers, d_model {cfg.d_model}, vocab "
           f"{cfg.padded_vocab}, {cfg.dtype}, {precision}; init + to_serving "
           f"{time.time() - t0:.1f} s")
-    sc = ServingConfig(n_slots=N_SLOTS, s_max=PROMPT + GEN, chunk_size=CHUNK)
-    rng = np.random.default_rng(1)
-
-    def requests(n):
-        return [Request(rid, rng.integers(0, cfg.vocab, (1, PROMPT - rid % 3)
-                                          ).astype(np.int64),
-                        options=RequestOptions(max_new=gen))
-                for rid in range(n)]
-
-    warm = ContinuousBatcher(model, params, sc)       # first-call set-up
-    for r in requests(1):
-        warm.submit(r)
-    warm.run()
-    torch.cuda.synchronize()
-
-    batcher = ContinuousBatcher(model, params, sc)
-    reqs = requests(n_req)
-    for r in reqs:
-        batcher.submit(r)
-    engine.reset_launch_counts()
-    done = batcher.run()
-    torch.cuda.synchronize()
-    launches = engine.launch_counts()
-    print(f"{precision} path launches: {launches}")
-    check(len(done) == n_req, f"served {len(done)} of {n_req} requests")
-    for r in done:
-        check(len(r.output) == gen, f"request {r.rid}: {len(r.output)} tokens")
-        check(all(0 <= t < cfg.vocab for t in r.output),
-              f"request {r.rid}: token out of vocabulary {r.output}")
-    s = batcher.metrics.summary()
-    print(batcher.metrics.format())
-    decode_tps = batcher.metrics.decode_slot_tokens / s["throughput"]["wall_s"]
-    print(f"[{card}] {precision}: served {n_req} requests x {gen} tokens: "
-          f"{s['throughput']['tok_per_s']:.1f} tok/s overall, TTFT p50 "
-          f"{s['ttft_ms']['p50']:.1f} ms, ITL p50 {s['itl_ms']['p50']:.2f} ms, "
-          f"decode tok/s {decode_tps:.1f} (decode-step tokens per wall second)")
-    toks = np.array([r.output[:8] for r in sorted(done, key=lambda r: r.rid)])
-    print(f"sample generations (first 8 tokens/request):\n{toks}")
-    return model, params, sc, reqs, launches
+    sc = ServingConfig(n_slots=N_SLOTS, s_max=S_MAX, chunk_size=CHUNK)
+    _warm(ContinuousBatcher(model, params, sc), cfg)
+    reqs = _requests(cfg, n_req, gen)
+    streams, launches = _run(ContinuousBatcher(model, params, sc), reqs,
+                             card, precision)
+    return model, params, sc, reqs, streams, launches
 
 
 def phase_serve(device, card):
     import torch
-    from repro_torch.configs import get_config
     from repro_torch.models import build_model
     print("== 4. serving path: smollm-135m 2xT kv8 bf16 (full width)",
           flush=True)
-    model, params, sc, reqs, launches = _serve(device, card, "2xT", N_REQ, GEN)
+    model, params, sc, reqs, streams, launches = _serve(device, card, "2xT",
+                                                        N_REQ, GEN)
     check(launches["ternary_matmul"] > 0, "ternary_matmul never launched")
     check(launches["decode_attention"] > 0, "decode_attention never launched")
 
@@ -373,8 +584,7 @@ def phase_serve(device, card):
           f"{cmp['dequant_agree']}/{N_SLOTS} rows; attention outputs equal "
           f"in bf16 in the first {cmp['dequant_layers_equal']} layers")
 
-    cfg32 = get_config("smollm-135m", precision="fp32", kv_bits=8,
-                       dtype="float32")
+    cfg32 = model_config(precision="fp32", kv_bits=8, dtype="float32")
     model32 = build_model(cfg32)
     params32 = model32.init(torch.Generator().manual_seed(0), device)
     c32 = _compare_backends(model32, params32, sc, reqs[0].tokens, device)
@@ -391,31 +601,155 @@ def phase_serve(device, card):
     # the same entry point at --precision 4x4 runs the packed_matmul kernel
     print("== 4b. serving path: smollm-135m 4x4 kv8 bf16 (full width)",
           flush=True)
-    _, _, _, _, launches4 = _serve(device, card, "4x4", N_SLOTS, 4)
+    *_, launches4 = _serve(device, card, "4x4", N_SLOTS, 4)
     check(launches4["packed_matmul"] > 0, "packed_matmul never launched")
     launches = dict(launches, packed_matmul=launches4["packed_matmul"])
-    return launches, (model, params, sc)
+    return launches, (model, params, sc, streams)
 
 
-def phase_profile(card, model, params, sc, steps: int = 5):
-    """Decode steps of the 2xT serving path under ``torch.profiler``: the
-    device operations (kernels, copies, fills) per step, the device's busy
-    time (the union of their intervals) and its idle share of the step's
-    wall time.  The same steps are timed without the profiler first."""
+def _paged_config(**kw):
+    """The paged batcher's configuration: kv8 blocks of BLOCK positions,
+    the dense phase's slots, s_max and chunk."""
+    from repro_torch.runtime.serving import ServingConfig
+    return ServingConfig(n_slots=N_SLOTS, s_max=S_MAX, chunk_size=CHUNK,
+                         kv_bits=8, block_size=BLOCK, **kw)
+
+
+def phase_paged(device, card, dense):
+    """4c: the paged batcher at full width on the dense phase's params and
+    requests; ``dense`` is that phase's (model, params, sc, streams)."""
+    from repro_torch.models import build_model
+    from repro_torch.runtime.kvcache import PagedBatcher
+    print("== 4c. paged serving path: smollm-135m 2xT kv8 bf16, blocks of "
+          f"{BLOCK} (full width)", flush=True)
+    dense_model, params, _, dense_streams = dense
+    cfg = dense_model.cfg
+    # paged serving quantizes KV in its block pool: the model's own dense
+    # cache quantizer stays off
+    model = build_model(dataclasses.replace(cfg, kv_bits=0))
+    _warm(PagedBatcher(model, params, _paged_config()), cfg)
+    reqs = _requests(cfg, N_REQ, GEN)
+    batcher = PagedBatcher(model, params, _paged_config())
+    streams, launches = _run(batcher, reqs, card, "2xT paged kv8")
+    m = batcher.metrics
+    print(f"paged_attention launches {launches['paged_attention']} over "
+          f"{m.decode_steps} decode steps ({cfg.n_layers} layers); prefix-hit "
+          f"tokens {m.prefix_hit_tokens} of {m.prompt_tokens} prompt tokens; "
+          f"kv blocks peak {m.kv_blocks_peak} of {m.kv_blocks_total}")
+    check(launches["paged_attention"] == cfg.n_layers * m.decode_steps,
+          f"paged_attention launched {launches['paged_attention']} times in "
+          f"{m.decode_steps} decode steps, not {cfg.n_layers} per step")
+    check(launches["ternary_matmul"] > 0, "paged run launched no "
+                                          "ternary_matmul")
+    check(m.prefix_hit_tokens > 0, "no prefix-cache hit on shared prefixes")
+    agree = sum(streams[r] == dense_streams[r] for r in streams)
+    print(f"2xT paged kv8 streams equal to the dense kv8 batcher's on the "
+          f"same requests: {agree}/{N_REQ}")
+
+    # one paged chunk and decode step, kernels vs plain versions, as the
+    # dense phase compares them (the plain side's paged attention is the
+    # kernel's own f32-dequant plain version)
+    cmp = _compare_paged(model, params, reqs[0].tokens, device, probe=True)
+    tol0 = 1e-5 + 1e-4 * cmp["attn0_scale"]
+    print(f"launches per paged prefill chunk (C={CHUNK}): "
+          f"{cmp['launches']['chunk']}; per paged decode step (B={N_SLOTS}): "
+          f"{cmp['launches']['decode']}")
+    print(f"2xT bf16 paged, kernels vs plain versions (f32 K/V dequant): "
+          f"prefill_chunk_paged max |dlogit| {cmp['chunk']:.3e} (tolerance "
+          f"0); decode_step_paged layer 0 attention max |diff| "
+          f"{cmp['attn0']:.3e} (tolerance {tol0:.3e}, identical inputs); "
+          f"attention outputs equal in bf16 in the first "
+          f"{cmp['layers_equal']} of {cmp['n_layers']} layers; logits max "
+          f"|dlogit| {cmp['decode']:.3e} of max|logit| {cmp['scale']:.3e}, "
+          f"greedy tokens agree on {cmp['agree']}/{N_SLOTS} rows (not "
+          "bounded)")
+    check(cmp["chunk"] == 0.0, f"2xT prefill_chunk_paged logits differ by "
+                               f"{cmp['chunk']}")
+    check(cmp["q0_equal"], "2xT decode_step_paged: layer 0 attention inputs "
+                           "differ between kernels and plain versions")
+    check(cmp["attn0"] <= tol0, f"2xT decode_step_paged layer 0 attention "
+                                f"differs by {cmp['attn0']} > {tol0}")
+    check(cmp["launches"]["decode"]["paged_attention"] == cfg.n_layers,
+          "paged decode step: not one paged_attention launch per layer")
+
+    # an overcommitted pool: 9 allocatable blocks for 4 slots of up to 5
+    over = PagedBatcher(model, params, _paged_config(num_blocks=10))
+    n_checked = []
+
+    def check_pool(b):
+        b.check_pool()
+        n_checked.append(1)
+    ostreams, _ = _run(over, _requests(cfg, N_REQ, GEN), card,
+                       "2xT paged kv8, 10-block pool", each_step=check_pool)
+    om = over.metrics
+    agree = sum(ostreams[r] == streams[r] for r in streams)
+    print(f"overcommitted pool: {om.preemptions} preemptions, "
+          f"{om.recomputed_tokens} recomputed tokens, {om.blocks_evicted} "
+          f"evicted blocks; check_pool() clean after each of {len(n_checked)} "
+          f"steps; streams equal to the unpreempted run: {agree}/{N_REQ}")
+    check(om.preemptions > 0, "the 10-block pool preempted nothing")
+    return launches, model
+
+
+def phase_fused(device, card):
+    """4d: fp32 weights (float ``wo``) through the fused decode kernel."""
+    import torch
+    from repro_torch.models import build_model
+    from repro_torch.runtime.kvcache import PagedBatcher
+    print("== 4d. paged serving path, fp32 weights (fused decode): "
+          "smollm-135m kv8 bf16 (full width)", flush=True)
+    cfg = model_config(precision="fp32", kv_bits=0)
+    model = build_model(cfg)
+    params = model.init(torch.Generator().manual_seed(0), device)
+    _warm(PagedBatcher(model, params, _paged_config()), cfg)
+    batcher = PagedBatcher(model, params, _paged_config())
+    _, launches = _run(batcher, _requests(cfg, N_SLOTS, GEN), card,
+                       "fp32 paged kv8")
+    steps = batcher.metrics.decode_steps
+    print(f"fused_decode launches {launches['fused_decode']} over {steps} "
+          f"decode steps ({cfg.n_layers} layers)")
+    check(launches["fused_decode"] == cfg.n_layers * steps,
+          f"fused_decode launched {launches['fused_decode']} times in "
+          f"{steps} decode steps, not {cfg.n_layers} per step")
+    prompt = _requests(cfg, 1, GEN)[0].tokens
+    del model, params, batcher
+
+    cfg32 = model_config(precision="fp32", kv_bits=0, dtype="float32")
+    model32 = build_model(cfg32)
+    params32 = model32.init(torch.Generator().manual_seed(0), device)
+    c32 = _compare_paged(model32, params32, prompt, device, probe=False)
+    tol = 1e-4 * c32["scale"]
+    print(f"fp32 weights, float32, paged kv8, kernels vs plain versions: "
+          f"prefill_chunk_paged max |dlogit| {c32['chunk']:.3e}; "
+          f"decode_step_paged max |dlogit| {c32['decode']:.3e} (tolerance "
+          f"{tol:.3e} = 1e-4 of max|logit| {c32['scale']:.3e}), greedy tokens "
+          f"agree on {c32['agree']}/{N_SLOTS} rows; launches "
+          f"{c32['launches']['decode']}")
+    check(c32["launches"]["decode"]["fused_decode"] == cfg32.n_layers,
+          "float32 paged decode step: not one fused_decode launch per layer")
+    check(c32["decode"] <= tol, f"float32 decode_step_paged logits differ by "
+                                f"{c32['decode']} > {tol}")
+    return launches
+
+
+def phase_profile(card, label, batcher, steps: int = 5):
+    """Decode steps of a 2xT batcher with all slots live under
+    ``torch.profiler``: the device operations (kernels, copies, fills) per
+    step, the device's busy time (the union of their intervals) and its
+    idle share of the step's wall time.  The same steps are timed without
+    the profiler first."""
     import numpy as np
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
-    from repro_torch.runtime.serving import (ContinuousBatcher, Request,
-                                             RequestOptions)
-    print("== 5. decode steps under torch.profiler (2xT, all slots live)",
+    from repro_torch.runtime.serving import Request, RequestOptions
+    print(f"== 5. decode steps under torch.profiler ({label}, all slots live)",
           flush=True)
-    batcher = ContinuousBatcher(model, params, sc)
     rng = np.random.default_rng(2)
     for rid in range(N_SLOTS):                # one-chunk prompts, long runs
         batcher.submit(Request(rid, rng.integers(
-            0, model.cfg.vocab, (1, CHUNK - rid % 3)).astype(np.int64),
-            options=RequestOptions(max_new=sc.s_max - CHUNK)))
+            0, batcher.model.cfg.vocab, (1, CHUNK - rid % 3)).astype(np.int64),
+            options=RequestOptions(max_new=batcher.s_max - CHUNK)))
     for _ in range(2 * N_SLOTS):              # admission: chunks + decode
         if not batcher.queue and not any(batcher.done):
             break
@@ -455,7 +789,7 @@ def phase_profile(card, model, params, sc, steps: int = 5):
     for e in dev:
         n, t = by_name.get(e.name, (0, 0.0))
         by_name[e.name] = (n + 1, t + (e.time_range.end - e.time_range.start))
-    print(f"[{card}] 2xT decode step (B={N_SLOTS}, 30 layers): wall "
+    print(f"[{card}] {label} decode step (B={N_SLOTS}, 30 layers): wall "
           f"{plain_ms:.2f} ms unprofiled, {prof_ms:.2f} ms profiled; device "
           f"operations {len(dev) / steps:.0f} per step (host launch calls "
           f"{len(launches) / steps:.0f}); device busy {busy_ms:.3f} ms per "
@@ -506,6 +840,17 @@ def _attention_probe(plain_f32: bool):
             engine.register_attention(*key, b)(fn)
 
 
+def _layers_equal(a, b, dtype) -> int:
+    """How many leading layers' attention outputs are equal in ``dtype``."""
+    import torch
+    n = 0
+    for (_, x), (_, y) in zip(a, b):
+        if not torch.equal(x.to(dtype), y.to(dtype)):
+            break
+        n += 1
+    return n
+
+
 def _compare_backends(model, params, sc, prompt, device):
     """One prefill chunk, then one decode step over N_SLOTS slots holding
     that chunk's cache at ragged positions, three ways: the kernels
@@ -548,15 +893,6 @@ def _compare_backends(model, params, sc, prompt, device):
                   for n in launches[f"{c}_{run}"].values()),
           "backend='torch' launched a kernel")
     dtype = getattr(torch, cfg.dtype)           # the model dtype
-
-    def layers_equal(a, b):
-        n = 0
-        for (_, x), (_, y) in zip(a, b):
-            if not torch.equal(x.to(dtype), y.to(dtype)):
-                break
-            n += 1
-        return n
-
     (cc, cd, ca), (pc, pd, pa), (_, sd, sa) = (runs["cuda"], runs["plain"],
                                                runs["serving"])
     return {
@@ -566,14 +902,121 @@ def _compare_backends(model, params, sc, prompt, device):
         "q0_equal": torch.equal(ca[0][0], pa[0][0]),
         "attn0": (ca[0][1] - pa[0][1]).abs().max().item(),
         "attn0_scale": pa[0][1].abs().max().item(),
-        "layers_equal": layers_equal(ca, pa), "n_layers": cfg.n_layers,
+        "layers_equal": _layers_equal(ca, pa, dtype), "n_layers": cfg.n_layers,
         "decode": (cd - pd).abs().max().item(),
         "scale": pd.abs().max().item(),
         "agree": int((cd.argmax(-1) == pd.argmax(-1)).sum()),
         "dequant": (sd - pd).abs().max().item(),
         "dequant_agree": int((sd.argmax(-1) == pd.argmax(-1)).sum()),
-        "dequant_layers_equal": layers_equal(sa, pa),
+        "dequant_layers_equal": _layers_equal(sa, pa, dtype),
     }
+
+
+@contextlib.contextmanager
+def _paged_probe():
+    """Record each layer's paged attention in a quantized-``wo`` decode
+    step on both sides: the kernel inside the engine's ``cuda`` fused entry
+    (which composes it with ``qmatmul``), and, in the ``torch`` slot of the
+    fused kind, the kernel's f32 plain version composed the same way.
+    Restores both on exit.  Yields the list of (q rows, f32 output)."""
+    import torch
+    from repro_torch.kernels import engine
+    from repro_torch.kernels.paged_attention import paged_attention_ref
+    key = (engine.ATTN_FUSED, 8)
+    saved_plain = engine.resolve_attention_entry(*key, engine.BACKEND_TORCH)[0]
+    saved_kernel = engine._paged_attention_kernel
+    calls = []
+
+    def kernel(q, *args, **kw):
+        out = saved_kernel(q, *args, **kw)
+        calls.append((q.clone(), out))
+        return out
+
+    def plain(q, k, ks, v, vs, extras, *, kv_bits, dtype):
+        page_table, pos, slot_map, wo_p, pcfg = extras
+        ql, ptl, posl = engine._live_rows(q, page_table, pos, slot_map)
+        out = paged_attention_ref(ql, k, ks, v, vs, ptl, posl,
+                                  kv_bits=kv_bits, out_dtype=torch.float32)
+        calls.append((ql.clone(), out))
+        return engine._project_wo(out.to(dtype).reshape(ql.shape[0], 1, -1),
+                                  wo_p, pcfg, dtype, engine.BACKEND_TORCH)
+
+    engine._paged_attention_kernel = kernel
+    engine.register_attention(*key, engine.BACKEND_TORCH)(plain)
+    try:
+        yield calls
+    finally:
+        engine._paged_attention_kernel = saved_kernel
+        engine.register_attention(*key, engine.BACKEND_TORCH)(saved_plain)
+
+
+def _compare_paged(model, params, prompt, device, probe: bool):
+    """One ``prefill_chunk_paged`` of the prompt's first chunk into blocks
+    1-2, then one ``decode_step_paged`` over N_SLOTS slots, each holding its
+    own copy of those blocks and decoding at a ragged position, through the
+    kernels (backend "cuda") and the plain versions (backend "torch").  With
+    ``probe`` (a quantized ``wo``) the plain side's paged attention is the
+    kernel's f32 plain version and each layer's attention is recorded on
+    both sides.  Returns launches per call and the differences."""
+    import torch
+    from repro_torch.kernels import engine
+    from repro_torch.models import transformer as tfm
+    cfg = model.cfg
+    nb, n_chunk = S_MAX // BLOCK, CHUNK // BLOCK
+    tokens = torch.as_tensor(prompt[:, :CHUNK], device=device)
+    chunk_row = torch.zeros((1, nb), dtype=torch.int32)
+    chunk_row[0, :n_chunk] = torch.arange(1, 1 + n_chunk)
+    pos_list = [CHUNK, CHUNK - 3, CHUNK - 7, 5]
+    pt = torch.zeros((N_SLOTS, nb), dtype=torch.int32)
+    src, dst = [], []
+    for i, p in enumerate(pos_list):
+        base = 1 + n_chunk + i * nb
+        pt[i, :p // BLOCK + 1] = torch.arange(base, base + p // BLOCK + 1)
+        src += list(range(1, 1 + n_chunk))
+        dst += list(range(base, base + n_chunk))
+    chunk_row, pt = chunk_row.to(device), pt.to(device)
+    pos = torch.tensor(pos_list, dtype=torch.int32, device=device)
+    launches, runs = {}, {}
+    for run, backend in (("cuda", "cuda"), ("plain", "torch")):
+        pool = tfm.make_pool(cfg, 1 + n_chunk + N_SLOTS * nb, BLOCK, 8, device)
+        engine.reset_launch_counts()
+        lc, pool = model.prefill_chunk_paged(params, tokens, pool, chunk_row,
+                                             0, 8, backend=backend)
+        torch.cuda.synchronize()
+        launches[f"chunk_{run}"] = engine.launch_counts()
+        for leaves in pool.values():                # every slot's own copy
+            for t in leaves.values():
+                t[:, dst] = t[:, src]
+        tok = lc[:, -1:].argmax(-1).expand(N_SLOTS, 1).contiguous()
+        engine.reset_launch_counts()
+        with (_paged_probe() if probe else contextlib.nullcontext([])) as attn:
+            ld, _ = model.decode_step_paged(params, tok, pool, pt, pos, 8,
+                                            backend=backend)
+        torch.cuda.synchronize()
+        launches[f"decode_{run}"] = engine.launch_counts()
+        check(not probe or len(attn) == cfg.n_layers,
+              f"{len(attn)} paged attention calls for {cfg.n_layers} layers")
+        check(bool(torch.isfinite(lc).all() and torch.isfinite(ld).all()),
+              f"non-finite paged logits ({cfg.precision}, {run})")
+        runs[run] = (lc, ld, attn)
+    check(not any(n for c in ("chunk", "decode")
+                  for n in launches[f"{c}_plain"].values()),
+          "backend='torch' launched a kernel")
+    (cc, cd, ca), (pc, pd, pa) = runs["cuda"], runs["plain"]
+    out = {"launches": {"chunk": launches["chunk_cuda"],
+                        "decode": launches["decode_cuda"]},
+           "chunk": (cc - pc).abs().max().item(),
+           "decode": (cd - pd).abs().max().item(),
+           "scale": pd.abs().max().item(),
+           "agree": int((cd.argmax(-1) == pd.argmax(-1)).sum())}
+    if probe:
+        out.update(q0_equal=torch.equal(ca[0][0], pa[0][0]),
+                   attn0=(ca[0][1] - pa[0][1]).abs().max().item(),
+                   attn0_scale=pa[0][1].abs().max().item(),
+                   layers_equal=_layers_equal(ca, pa, getattr(torch,
+                                                              cfg.dtype)),
+                   n_layers=cfg.n_layers)
+    return out
 
 
 def main() -> None:
@@ -584,12 +1027,22 @@ def main() -> None:
     import torch
     if not torch.cuda.is_available():
         fail("torch.cuda.is_available() is false: this smoke test needs a GPU")
+    from repro_torch.runtime.kvcache import PagedBatcher
+    from repro_torch.runtime.serving import ContinuousBatcher
+    t_start = time.time()
     device = torch.device("cuda", 0)
     card = phase_env()
     phase_build()
     records = [r for r in phase_kernels(device) if r is not None]
     launches, served = phase_serve(device, card)
-    phase_profile(card, *served)
+    paged_launches, paged_model = phase_paged(device, card, served)
+    fused_launches = phase_fused(device, card)
+    launches.update(paged_attention=paged_launches["paged_attention"],
+                    fused_decode=fused_launches["fused_decode"])
+    model, params, sc, _ = served
+    phase_profile(card, "2xT dense", ContinuousBatcher(model, params, sc))
+    phase_profile(card, "2xT paged kv8",
+                  PagedBatcher(paged_model, params, _paged_config()))
     for rec in records:
         rec["launches"] = launches[rec["name"]]
     replaces = {
@@ -599,6 +1052,10 @@ def main() -> None:
                           "src/repro/kernels/packed_matmul.py:78"),
         "decode_attention": ("src/repro_torch/csrc/decode_attention.cu",
                              "src/repro/kernels/decode_attention.py:68"),
+        "paged_attention": ("src/repro_torch/csrc/paged_attention.cu",
+                            "src/repro/kernels/paged_attention.py:99"),
+        "fused_decode": ("src/repro_torch/csrc/decode_fused.cu",
+                         "src/repro/kernels/decode_fused.py:117"),
     }
     kernels = [{"name": r["name"], "route": "cuda",
                 "source": replaces[r["name"]][0],
@@ -607,6 +1064,7 @@ def main() -> None:
                 "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
                 "bound_by": r["bound_by"], "library_ms": r["library_ms"],
                 "shape": r["shape"]} for r in records]
+    print(f"all phases passed in {time.time() - t_start:.1f} s")
     print(json.dumps({"kernels": kernels}))
     print(card)
     print(json.dumps({"ok": True, "device": {

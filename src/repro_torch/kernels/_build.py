@@ -60,6 +60,18 @@ SIGNATURES = {
         "decode_attention_int8": (P, I, P, P, P, P, P, P,
                                   I, I, I, I, I, F, P),
     },
+    "paged_attention": {
+        # (q, q_kind, k, k_scale, v, v_scale, kv_kind, page_table, pos, out,
+        #  B, NB, bs, n_blocks, KV, G, Dh, stream)
+        "paged_attention": (P, I, P, P, P, P, I, P, P, P,
+                            I, I, I, I, I, I, I, P),
+    },
+    "decode_fused": {
+        # (q, q_kind, k, k_scale, v, v_scale, kv_kind, page_table, pos,
+        #  slot_map, wo, out, B, L, NB, bs, n_blocks, KV, G, Dh, D, stream)
+        "fused_decode": (P, I, P, P, P, P, I, P, P, P, P, P,
+                         I, I, I, I, I, I, I, I, I, P),
+    },
 }
 
 # kernel launches, by wrapper name: each wrapper adds one where it launches

@@ -98,12 +98,16 @@ def decode_attention_serving_ref(q, k_codes, k_scale, v_codes, v_scale,
     ``repro.kernels.decode_attention.decode_attention_serving_ref``: K/V are
     dequantized to the MODEL dtype, the grouped einsum and ``/ sqrt(dh)``
     follow ``layers._attend``, -1e30 mask fill, f32 softmax.  kv_bits=4
-    nibble-unpacks the codes.  Returns (B, KV, G, Dh) in ``dtype``."""
+    nibble-unpacks the codes; the scales are None iff kv_bits=16 (raw
+    model-dtype storage).  Returns (B, KV, G, Dh) in ``dtype``."""
     b, kv, g, dh = q.shape
     if kv_bits == 4:
         k_codes, v_codes = unpack_nibbles(k_codes), unpack_nibbles(v_codes)
-    kk = (k_codes.to(torch.float32) * k_scale).to(dtype)
-    vv = (v_codes.to(torch.float32) * v_scale).to(dtype)
+    if k_scale is None:
+        kk, vv = k_codes.to(dtype), v_codes.to(dtype)
+    else:
+        kk = (k_codes.to(torch.float32) * k_scale).to(dtype)
+        vv = (v_codes.to(torch.float32) * v_scale).to(dtype)
     s = kk.shape[1]
     pos_b = _pos_vector(pos, b, q.device)
     qg = q.reshape(b, 1, kv, g, dh)

@@ -18,7 +18,9 @@ CPU tensor raises; nothing switches to the plain path while a card is
 present unless the caller passes ``backend="torch"``.
 
 A second registry keyed on ``(attn_kind, kv_bits, backend)`` serves the
-dense-cache decode attention (:func:`decode_attention`).
+decode attention: the dense cache (:func:`decode_attention`), the paged
+block pool (:func:`paged_attention`) and the fused paged decode with the
+``wo`` projection folded in (:func:`fused_paged_decode`).
 
 ``weight_kind`` is the *storage* kind: "int" / "ternary" / "binary" for
 bit-packed int32 words, "codes" for the unpacked int8 fallback (3-bit,
@@ -38,8 +40,12 @@ from repro_torch.core.precision import (A_FLOAT, PrecisionConfig, W_BINARY,
 from repro_torch.core.quantize import weight_quant
 
 from . import _build, ref
-from .decode_attention import (decode_attention as _decode_attention_kernel,
+from .decode_attention import (_pos_vector,
+                               decode_attention as _decode_attention_kernel,
                                decode_attention_serving_ref)
+from .decode_fused import fused_decode as _fused_decode_kernel
+from .paged_attention import paged_attention as _paged_attention_kernel
+from .paged_attention import paged_attention_ref
 from .packed_matmul import packed_matmul
 from .ternary_matmul import ternary_matmul
 
@@ -51,7 +57,8 @@ BACKENDS = (BACKEND_CUDA, BACKEND_TORCH)
 K_CODES = "codes"
 
 # the hand-written kernels, by launch-counter name
-KERNELS = ("ternary_matmul", "packed_matmul", "decode_attention")
+KERNELS = ("ternary_matmul", "packed_matmul", "decode_attention",
+           "paged_attention", "fused_decode")
 
 
 # ---------------------------------------------------------------------------
@@ -182,7 +189,8 @@ class DispatchEvent(NamedTuple):
     matched (``torch`` when the kind has no CUDA kernel); ``a_scale_shape``
     is the per-row activation scale's shape (None for float/pre-quantized
     inputs)."""
-    op: str                     # "qmatmul" | "decode_attention"
+    op: str                     # "qmatmul" | "decode_attention" |
+                                # "paged_attention" | "fused_paged_decode"
     kind: str                   # storage kind / attn kind
     requested_backend: str
     impl_backend: str
@@ -362,8 +370,11 @@ def qmatmul(x: torch.Tensor, pw: PackedWeight, cfg: PrecisionConfig, *,
 # keyed on (attn_kind, kv_bits, backend); resolution falls back to the
 # ``torch`` backend like the matmul registry.  The torch registration
 # reproduces the model's in-layer math op-for-op (dequant to the model
-# dtype); kv_bits=4 has no kernel on either package's accelerator.
+# dtype); the dense kv_bits=4 cache has no kernel on either package's
+# accelerator, the paged kernels take kv 16/8/4.
 ATTN_DECODE = "decode"
+ATTN_PAGED = "paged"
+ATTN_FUSED = "fused_decode"
 AttnKey = tuple[str, int, str]
 _ATTN_REGISTRY: dict[AttnKey, Callable] = {}
 
@@ -416,3 +427,120 @@ def decode_attention(q, k_codes, k_scale, v_codes, v_scale, pos, *,
                      a_scale_shape=None)
     return fn(q, k_codes, k_scale, v_codes, v_scale, pos, kv_bits=kv_bits,
               dtype=dtype)
+
+
+@register_attention(ATTN_PAGED, (16, 8, 4), BACKEND_TORCH)
+def _paged_attn_torch(q, k, ks, v, vs, pt_pos, *, kv_bits, dtype):
+    page_table, pos = pt_pos
+    return paged_attention_ref(q, k, ks, v, vs, page_table, pos,
+                               kv_bits=kv_bits, out_dtype=dtype)
+
+
+@register_attention(ATTN_PAGED, (16, 8, 4), BACKEND_CUDA)
+def _paged_attn_cuda(q, k, ks, v, vs, pt_pos, *, kv_bits, dtype):
+    page_table, pos = pt_pos
+    return _paged_attention_kernel(q.contiguous(), k, ks, v, vs, page_table,
+                                   pos, kv_bits=kv_bits).to(dtype)
+
+
+def paged_attention(q, k_pool, k_scale, v_pool, v_scale, page_table, pos, *,
+                    kv_bits: int = 8, dtype=torch.float32,
+                    backend: str | None = None) -> torch.Tensor:
+    """One-step paged decode attention (block pool + page table) via the
+    registry.  Pool leaves (NB, bs, KV, Dh'); page_table (B, n_blocks)
+    int32; pos (B,).  Returns (B, KV, G, Dh) in ``dtype``."""
+    backend = _check_backend(backend, q)
+    fn, matched = resolve_attention_entry(ATTN_PAGED, kv_bits, backend)
+    _record_dispatch(op="paged_attention", kind=ATTN_PAGED,
+                     requested_backend=backend, impl_backend=matched[2],
+                     a_bits=kv_bits, w_bits=8, m_rows=int(q.shape[0]),
+                     a_scale_shape=None)
+    return fn(q, k_pool, k_scale, v_pool, v_scale, (page_table, pos),
+              kv_bits=kv_bits, dtype=dtype)
+
+
+# ---------------------------------------------------------------------------
+# fused ragged decode: paged attention + output projection, live slots only
+# ---------------------------------------------------------------------------
+def _project_wo(x, wo_p: dict, pcfg: PrecisionConfig, model_dtype, backend):
+    """The decode output projection, op for op as the model's
+    ``qlinear_apply(p["wo"], x, cfg)``: packed serving weights go through
+    :func:`qmatmul` (per-row activation scales, so a gathered sub-batch
+    gives the padded batch's rows), float weights are a plain matmul."""
+    if "wt_packed" in wo_p:
+        pw = as_packed_weight(wo_p, pcfg)
+        return qmatmul(x, pw, pcfg, backend=backend).to(model_dtype)
+    if pcfg.w_mode != W_FLOAT:
+        raise NotImplementedError(
+            f"{pcfg.name}: the fake-quant (QAT) form of wo is not ported; "
+            "serve packed weights (models.convert.to_serving)")
+    return x @ wo_p["qw"].to(x.dtype)
+
+
+def _wo_is_float(wo_p: dict, pcfg: PrecisionConfig) -> bool:
+    return "wt_packed" not in wo_p and pcfg.w_mode == W_FLOAT
+
+
+def _live_rows(q, page_table, pos, slot_map):
+    sm = slot_map.long()
+    return q[sm], page_table[sm], _pos_vector(pos, q.shape[0], q.device)[sm]
+
+
+@register_attention(ATTN_FUSED, (16, 8, 4), BACKEND_TORCH)
+def _fused_decode_torch(q, k, ks, v, vs, extras, *, kv_bits, dtype):
+    """Reference composition: gather the live rows -> the paged-attention
+    plain version in the model dtype -> the model's wo projection."""
+    page_table, pos, slot_map, wo_p, pcfg = extras
+    ql, ptl, posl = _live_rows(q, page_table, pos, slot_map)
+    attn = paged_attention_ref(ql, k, ks, v, vs, ptl, posl, kv_bits=kv_bits,
+                               out_dtype=dtype)
+    flat = attn.reshape(ql.shape[0], 1, -1)              # (L, 1, KV*G*Dh)
+    return _project_wo(flat, wo_p, pcfg, dtype, BACKEND_TORCH)
+
+
+@register_attention(ATTN_FUSED, (16, 8, 4), BACKEND_CUDA)
+def _fused_decode_cuda(q, k, ks, v, vs, extras, *, kv_bits, dtype):
+    """One fused kernel launch for float ``wo``; a quantized ``wo``
+    composes the paged-attention kernel with :func:`qmatmul`, so the
+    per-row requantization of the projection's input never forks from the
+    matmul the rest of the model uses (as the reference's Pallas entry)."""
+    page_table, pos, slot_map, wo_p, pcfg = extras
+    if not _wo_is_float(wo_p, pcfg):
+        ql, ptl, posl = _live_rows(q, page_table, pos, slot_map)
+        attn = _paged_attention_kernel(ql.contiguous(), k, ks, v, vs,
+                                       ptl.contiguous(), posl,
+                                       kv_bits=kv_bits).to(dtype)
+        flat = attn.reshape(ql.shape[0], 1, -1)
+        return _project_wo(flat, wo_p, pcfg, dtype, BACKEND_CUDA)
+    out = _fused_decode_kernel(q.contiguous(), k, ks, v, vs, page_table, pos,
+                               slot_map, wo_p["qw"], kv_bits=kv_bits)
+    return out[:, None, :].to(dtype)                      # (L, 1, D)
+
+
+def fused_paged_decode(q, k_pool, k_scale, v_pool, v_scale, page_table, pos,
+                       slot_map, wo_p: dict, pcfg: PrecisionConfig, *,
+                       kv_bits: int = 8, dtype=torch.float32,
+                       backend: str | None = None) -> torch.Tensor:
+    """Fused ragged decode step via the registry: paged attention over the
+    slots of ``slot_map`` ((L,) int32 into the padded batch; None = every
+    slot) with the ``wo`` projection folded in.  Returns the padded
+    (B, 1, D) output: live rows carry the projection, the other rows are
+    zeros.  ``slot_map`` may repeat a slot (occupancy padding): duplicates
+    compute identical rows, so the scatter writes identical values."""
+    backend = _check_backend(backend, q)
+    b = q.shape[0]
+    if slot_map is None:
+        slot_map = torch.arange(b, dtype=torch.int32, device=q.device)
+    slot_map = torch.as_tensor(slot_map, dtype=torch.int32, device=q.device)
+    fn, matched = resolve_attention_entry(ATTN_FUSED, kv_bits, backend)
+    _record_dispatch(op="fused_paged_decode", kind=ATTN_FUSED,
+                     requested_backend=backend, impl_backend=matched[2],
+                     a_bits=kv_bits, w_bits=8, m_rows=int(slot_map.shape[0]),
+                     a_scale_shape=None)
+    compact = fn(q, k_pool, k_scale, v_pool, v_scale,
+                 (page_table, pos, slot_map, wo_p, pcfg),
+                 kv_bits=kv_bits, dtype=dtype)             # (L, 1, D)
+    out = torch.zeros((b, 1, compact.shape[-1]), dtype=compact.dtype,
+                      device=q.device)
+    out[slot_map.long()] = compact
+    return out

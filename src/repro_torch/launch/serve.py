@@ -9,6 +9,12 @@ Flow: seeded params -> ``to_serving(tp=1)`` packs the weights to k-bit words
 batched greedy decode serves every active slot -> TTFT / ITL / tok/s and
 the per-kernel launch counts are printed.
 
+``--paged`` serves through the paged KV cache instead (block pool, radix
+prefix sharing, lazy allocation and preemption; ``runtime.kvcache``):
+
+    PYTHONPATH=src python -m repro_torch.launch.serve --paged --kv-bits 8 \
+        --requests 8 --slots 4 --gen 16
+
 Runs on the card (``--device cuda``, the default) and refuses to start when
 no card is visible; ``--device cpu`` runs the plain PyTorch versions of the
 kernels instead.
@@ -25,6 +31,7 @@ from repro_torch.configs import ARCH_IDS, get_config
 from repro_torch.kernels import engine
 from repro_torch.models import build_model, reduce_for_smoke, to_serving
 from repro_torch.models.convert import serving_param_bytes
+from repro_torch.runtime.kvcache import PagedBatcher, paged_block_bytes
 from repro_torch.runtime.serving import (ContinuousBatcher, Request,
                                          RequestOptions, ServingConfig)
 
@@ -40,7 +47,20 @@ def resolve_device(name: str) -> torch.device:
 
 def serve(args) -> list:
     device = resolve_device(args.device)
-    cfg = get_config(args.arch, precision=args.precision, kv_bits=args.kv_bits)
+    if args.paged and args.kv_bits == 0:
+        args.kv_bits = 16                  # dense spelling of "unquantized"
+    if not args.paged and args.kv_bits not in (0, 4, 8):
+        raise SystemExit(
+            f"--kv-bits {args.kv_bits}: the dense cache stores int8/int4 "
+            "codes (or model dtype with 0); 16 is a --paged storage width")
+    if args.paged and args.kv_block_size == 0:
+        raise SystemExit(
+            "--kv-block-size 0 picks the block size from the tuning cache, "
+            "which is not ported yet; pass a block size (16-128)")
+    # paged serving owns KV quantization in the block pool; the in-model
+    # dense-cache quantizer stays off
+    cfg = get_config(args.arch, precision=args.precision,
+                     kv_bits=0 if args.paged else args.kv_bits)
     if args.reduced:
         cfg = reduce_for_smoke(cfg)
     model = build_model(cfg)
@@ -55,8 +75,21 @@ def serve(args) -> list:
 
     sc = ServingConfig(n_slots=args.slots or args.requests,
                        s_max=args.prompt_len + args.gen,
-                       chunk_size=args.chunk_size)
-    batcher = ContinuousBatcher(model, params, sc)
+                       chunk_size=args.chunk_size, kv_bits=args.kv_bits,
+                       block_size=args.kv_block_size,
+                       pool_bytes=args.pool_bytes or None,
+                       prefix_cache=args.prefix_cache, reserve=args.reserve,
+                       preemption=args.preemption)
+    if args.paged:
+        batcher = PagedBatcher(model, params, sc)
+        print(f"paged KV cache: {batcher.num_blocks - 1} blocks x "
+              f"{batcher.block_size} positions at kv_bits={args.kv_bits} "
+              f"({paged_block_bytes(cfg, batcher.block_size, args.kv_bits)} "
+              f"B/block), prefix cache "
+              f"{'on' if args.prefix_cache else 'off'}, "
+              f"reserve={args.reserve}, preemption={args.preemption}")
+    else:
+        batcher = ContinuousBatcher(model, params, sc)
     if batcher.chunk_size:
         print(f"chunked prefill: chunk={batcher.chunk_size}")
     else:
@@ -91,8 +124,34 @@ def main(argv=None):
     ap = argparse.ArgumentParser()
     ap.add_argument("--arch", choices=ARCH_IDS, default="smollm-135m")
     ap.add_argument("--precision", default="2xT")
-    ap.add_argument("--kv-bits", type=int, default=8, choices=(0, 4, 8),
-                    help="KV-cache storage: 0 = model dtype, 8/4 = int codes")
+    ap.add_argument("--kv-bits", type=int, default=8, choices=(0, 4, 8, 16),
+                    help="KV-cache storage width.  Dense batcher: 0 = model "
+                         "dtype, 8/4 = quantized in-cache.  --paged: 16 (or "
+                         "0) = raw blocks, 8/4 = quantized blocks")
+    ap.add_argument("--paged", action="store_true",
+                    help="serve through the paged KV cache (block pool + "
+                         "radix prefix sharing, runtime.kvcache)")
+    ap.add_argument("--kv-block-size", type=int, default=16,
+                    help="positions per paged KV block (0, the tuned pick of "
+                         "the reference, is not ported yet)")
+    ap.add_argument("--prefix-cache", action=argparse.BooleanOptionalAction,
+                    default=True,
+                    help="radix prefix sharing across requests (--paged)")
+    ap.add_argument("--reserve", choices=["prompt", "budget"],
+                    default="prompt",
+                    help="--paged admission policy: 'prompt' reserves only "
+                         "the prompt's blocks (decode allocates on demand), "
+                         "'budget' reserves the whole generation budget up "
+                         "front (never preempts)")
+    ap.add_argument("--preemption", choices=["recompute", "off"],
+                    default="recompute",
+                    help="--paged pool-exhaustion policy: 'recompute' "
+                         "preempts the latest-admitted request and replays "
+                         "it via chunked prefill; 'off' stalls starved "
+                         "slots until blocks free up")
+    ap.add_argument("--pool-bytes", type=int, default=0,
+                    help="--paged pool byte budget (0 -> size the pool to "
+                         "n_slots+1 full sequences)")
     ap.add_argument("--requests", type=int, default=4)
     ap.add_argument("--slots", type=int, default=0,
                     help="decode slots (0 -> one per request)")

@@ -5,6 +5,9 @@ serving API of ``repro.models.Model`` for dense token LMs:
     model.prefill(params, batch, s_max)                -> (logits, cache)
     model.prefill_chunk(params, tokens, cache, pos)    -> (logits, cache)
     model.decode_step(params, token, cache, pos)       -> (logits, cache)
+    model.prefill_chunk_paged(params, tokens, pool, page_table, pos, kv_bits)
+    model.decode_step_paged(params, token, pool, page_table, pos, kv_bits,
+                            slot_map=None, fused=True)  -> (logits, pool)
 
 ``batch`` is {"tokens": (B, S)}.  Every step takes an optional ``backend``
 ("cuda" | "torch"); None picks by the device of the inputs.
@@ -26,6 +29,9 @@ class Model:
     prefill: Callable
     decode_step: Callable
     prefill_chunk: Callable
+    # paged-KV serving (runtime.kvcache): block pool + page table
+    prefill_chunk_paged: Callable
+    decode_step_paged: Callable
 
 
 def build_model(cfg: ModelConfig) -> Model:
@@ -44,4 +50,12 @@ def build_model(cfg: ModelConfig) -> Model:
         prefill_chunk=lambda p, tok, cache, pos, backend=None:
             transformer.prefill_chunk(p, tok, cache, pos, cfg,
                                       backend=backend),
+        prefill_chunk_paged=lambda p, tok, pool, pt, pos, kv_bits,
+        backend=None: transformer.prefill_chunk_paged(
+            p, tok, pool, pt, pos, cfg, kv_bits, backend=backend),
+        decode_step_paged=lambda p, tok, pool, pt, pos, kv_bits,
+        slot_map=None, fused=True, backend=None:
+            transformer.decode_step_paged(
+                p, tok, pool, pt, pos, cfg, kv_bits, slot_map=slot_map,
+                fused=fused, backend=backend),
     )

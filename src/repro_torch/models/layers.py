@@ -12,9 +12,9 @@ Serving matmuls go through the precision-dispatch engine; the dense KV
 cache is int8/int4 codes with per-(position, head) scales, or the model
 dtype when ``kv_bits`` is 0.
 
-Unlike the JAX package, the cached attention paths update the cache
-tensors IN PLACE (and return the same dict): a serving step never copies
-the cache.
+Unlike the JAX package, the cached attention paths update the cache (and
+the paged block pool) IN PLACE and return the same dict: a serving step
+never copies the cache.
 """
 from __future__ import annotations
 
@@ -24,6 +24,7 @@ import torch.nn.functional as F
 from repro_torch.core.packing import pack_nibbles, unpack_nibbles
 from repro_torch.core.precision import W_FLOAT, get_precision, signed
 from repro_torch.kernels import engine
+from repro_torch.kernels.paged_attention import gather_pool
 
 from .config import ModelConfig
 
@@ -261,6 +262,120 @@ def make_kv_cache(cfg: ModelConfig, b: int, s_max: int, device,
             "vs": torch.full(scales, 1e-6, dtype=torch.float32, device=device),
         }
     shape = lead + (b, s_max, kvh, dh)
+    return {"k": torch.zeros(shape, dtype=pdtype(cfg), device=device),
+            "v": torch.zeros(shape, dtype=pdtype(cfg), device=device)}
+
+
+def attn_apply_paged(p, x, cfg: ModelConfig, positions, *, local: bool,
+                     pool, page_table, kv_bits: int, slot_map=None,
+                     fused: bool = True, backend: str | None = None):
+    """Attention over a block-paged KV pool (``runtime.kvcache``) instead
+    of a per-slot dense cache.
+
+    pool: one layer's block storage ``{"k","v"[,"ks","vs"]}`` with leaves
+    (NB, bs, KV, Dh'), shared by every request; block 0 is the null block.
+    page_table: (B, n_blocks) int32, each sequence's logical block j ->
+    physical block.  positions: (B, Sq) — Sq > 1 is a B=1 prefill-chunk
+    append, Sq == 1 the batched decode step.  Both write their KV into the
+    owning blocks (``positions // bs`` -> page-table row -> block, IN PLACE)
+    with out-of-range positions and zeroed page-table rows deflected to the
+    null block, then attend: a chunk over the gathered (B, n_blocks*bs)
+    view with the causal mask, a decode step through the engine.
+
+    Decode steps (global, no softcap) take the **fused** path by default:
+    one engine dispatch for paged attention and the ``wo`` projection over
+    ``slot_map`` (None = all slots).  ``fused=False`` keeps the two-dispatch
+    path.  Returns (out, pool)."""
+    b = x.shape[0]
+    h, kvh, dh = cfg.n_heads, cfg.n_kv_heads, cfg.dh
+    nb, bs = page_table.shape[1], pool["k"].shape[1]
+    s_pad = nb * bs
+    xn = rmsnorm(p["norm"], x, cfg.norm_eps)
+    q = qlinear_apply(p["wq"], xn, cfg, backend).reshape(b, -1, h, dh)
+    k = qlinear_apply(p["wk"], xn, cfg, backend).reshape(b, -1, kvh, dh)
+    v = qlinear_apply(p["wv"], xn, cfg, backend).reshape(b, -1, kvh, dh)
+    q = rope(q, positions, cfg.rope_theta)
+    k = rope(k, positions, cfg.rope_theta)
+    sq = x.shape[1]
+
+    # ---- block writes: (b, sq) positions -> (physical block, offset) -----
+    pos = positions.to(torch.int64)                              # (B, Sq)
+    lb = torch.clamp(pos // bs, 0, nb - 1)
+    phys = torch.gather(page_table.to(torch.int64), 1, lb)
+    phys = torch.where(pos < s_pad, phys, torch.zeros_like(phys))  # OOB -> null
+    pi, oi = phys.reshape(-1), (pos % bs).reshape(-1)
+
+    def write(name, upd):
+        # duplicate (block, offset) pairs come from occupancy padding (the
+        # same values) or from dead rows aimed at the null block
+        pool[name][pi, oi] = upd.reshape(b * sq, *upd.shape[2:]).to(
+            pool[name].dtype)
+
+    if kv_bits < 16:
+        kq, ks, vq, vs = _kv_quantize(k, v, kv_bits)
+        for name, upd in (("k", kq), ("v", vq), ("ks", ks), ("vs", vs)):
+            write(name, upd)
+    else:
+        write("k", k)
+        write("v", v)
+
+    pt32 = page_table.to(torch.int32)
+    if sq == 1 and not local and cfg.attn_softcap <= 0:
+        q4 = q[:, 0].reshape(b, kvh, h // kvh, dh)
+        if fused:
+            # attention + wo in one engine dispatch over the live slots;
+            # rows outside slot_map come back as zeros
+            pcfg = signed(get_precision(cfg.precision))
+            out = engine.fused_paged_decode(
+                q4, pool["k"], pool.get("ks"), pool["v"], pool.get("vs"),
+                pt32, pos[:, 0], slot_map, p["wo"], pcfg, kv_bits=kv_bits,
+                dtype=x.dtype, backend=backend)
+            return out, pool
+        out = engine.paged_attention(
+            q4, pool["k"], pool.get("ks"), pool["v"], pool.get("vs"), pt32,
+            pos[:, 0], kv_bits=kv_bits, dtype=x.dtype, backend=backend)
+        out = out.reshape(b, 1, h * dh)
+    else:
+        # prefill-chunk append (or local/softcap attention): attend over the
+        # gathered dense (B, s_pad) page-table view
+        def gather(leaf):
+            return gather_pool(leaf, page_table)
+        if kv_bits < 16:
+            kk = _kv_dequant(gather(pool["k"]), gather(pool["ks"]), x.dtype,
+                             kv_bits)
+            vv = _kv_dequant(gather(pool["v"]), gather(pool["vs"]), x.dtype,
+                             kv_bits)
+        else:
+            kk, vv = gather(pool["k"]), gather(pool["v"])
+        j = torch.arange(s_pad, device=x.device)[None, None, :]     # (1,1,S)
+        qpos = pos[:, :, None]                                      # (B,Sq,1)
+        mask = (j <= qpos)[:, None]                                 # (B,1,Sq,S)
+        if local:
+            mask &= (j > qpos - cfg.window)[:, None]
+        out = _attend(q, kk, vv, mask, cfg)
+
+    out = qlinear_apply(p["wo"], out, cfg, backend)
+    return out, pool
+
+
+def make_kv_pool(cfg: ModelConfig, num_blocks: int, block_size: int,
+                 kv_bits: int, device, stacked: int = None):
+    """Block pool for one attention layer (or with a stacked leading dim):
+    ``num_blocks`` physical blocks of ``block_size`` positions.  Block 0 is
+    the reserved null block (never allocated)."""
+    kvh, dh = cfg.n_kv_heads, cfg.dh
+    lead = (stacked,) if stacked else ()
+    if kv_bits < 16:
+        dh_store = dh // 2 if kv_bits == 4 else dh
+        codes = lead + (num_blocks, block_size, kvh, dh_store)
+        scales = lead + (num_blocks, block_size, kvh, 1)
+        return {
+            "k": torch.zeros(codes, dtype=torch.int8, device=device),
+            "v": torch.zeros(codes, dtype=torch.int8, device=device),
+            "ks": torch.full(scales, 1e-6, dtype=torch.float32, device=device),
+            "vs": torch.full(scales, 1e-6, dtype=torch.float32, device=device),
+        }
+    shape = lead + (num_blocks, block_size, kvh, dh)
     return {"k": torch.zeros(shape, dtype=pdtype(cfg), device=device),
             "v": torch.zeros(shape, dtype=pdtype(cfg), device=device)}
 

@@ -10,8 +10,12 @@ Entry points (functions of (params, inputs)):
   prefill(params, tokens, cfg, s_max)              -> logits, cache
   prefill_chunk(params, tokens, cache, pos, cfg)   -> logits, cache
   decode_step(params, token, cache, pos, cfg)      -> logits, cache
+  prefill_chunk_paged(params, tokens, pool, page_table, pos, cfg, kv_bits)
+  decode_step_paged(params, token, pool, page_table, pos, cfg, kv_bits)
+                                                   -> logits, pool
 
-The cached entry points update ``cache`` in place and return it.  Every
+The cached entry points update ``cache`` (or the block ``pool``) in place
+and return it.  Every
 entry point takes ``backend`` ("cuda" | "torch" | None = by device), which
 reaches every engine dispatch.
 """
@@ -165,3 +169,71 @@ def decode_step(params, token, cache, pos, cfg: ModelConfig, backend=None):
                           caches=_period(cache, per), cache_pos=pos_b,
                           backend=backend)
     return _logits(params, x, cfg), cache
+
+
+# ---------------------------------------------------------------------------
+# paged KV cache (runtime.kvcache)
+# ---------------------------------------------------------------------------
+def make_pool(cfg: ModelConfig, num_blocks: int, block_size: int,
+              kv_bits: int, device):
+    """Stacked per-period block pool for the paged KV cache: every attention
+    layer gets ``num_blocks`` physical blocks of ``block_size`` positions
+    (block 0 reserved as null)."""
+    if not all(m.startswith("attn") for m in cfg.layer_pattern):
+        raise ValueError(f"{cfg.name}: paged KV cache needs an attention-only "
+                         "stack")
+    return {f"layer_{i}": L.make_kv_pool(cfg, num_blocks, block_size, kv_bits,
+                                         device, stacked=cfg.n_periods)
+            for i in range(cfg.period)}
+
+
+def _paged_scan(params, x, cfg: ModelConfig, positions, pool, page_table,
+                kv_bits: int, slot_map=None, fused: bool = False,
+                backend=None):
+    for per in range(cfg.n_periods):
+        pp, pool_p = _period(params["blocks"], per), _period(pool, per)
+        for i, mixer in enumerate(cfg.layer_pattern):
+            lp = pp[f"layer_{i}"]
+            out, _ = L.attn_apply_paged(
+                lp["attn"], x, cfg, positions, local=(mixer == "attn_local"),
+                pool=pool_p[f"layer_{i}"], page_table=page_table,
+                kv_bits=kv_bits, slot_map=slot_map, fused=fused,
+                backend=backend)
+            x = x + out
+            x = x + L.ffn_apply(lp["ffn"], x, cfg, backend)
+    return x, pool
+
+
+def prefill_chunk_paged(params, tokens, pool, page_table, pos,
+                        cfg: ModelConfig, kv_bits: int, backend=None):
+    """Paged counterpart of :func:`prefill_chunk`: the chunk's KV is written
+    into the pool blocks named by ``page_table`` (B=1 row) at positions
+    [pos, pos + C), and queries attend through the page table.  ``pos`` may
+    start past 0 (a radix prefix-cache hit covers [0, pos)).  Returns
+    (logits (B, C, V), pool)."""
+    b, c = tokens.shape
+    x = _embed(params, tokens, cfg)
+    positions = (int(pos) + torch.arange(c, device=tokens.device))[None
+                                                                   ].expand(b, c)
+    x, pool = _paged_scan(params, x, cfg, positions, pool, page_table,
+                          kv_bits, backend=backend)
+    return _logits(params, x, cfg), pool
+
+
+def decode_step_paged(params, token, pool, page_table, pos, cfg: ModelConfig,
+                      kv_bits: int, slot_map=None, fused: bool = True,
+                      backend=None):
+    """Paged counterpart of :func:`decode_step`: per-slot page tables
+    (B, n_blocks) resolve each slot's blocks; the new token's KV row lands
+    in the slot's current block (zeroed rows deflect to the null block).
+    ``fused=True`` runs each layer's attention and ``wo`` projection as one
+    engine dispatch over ``slot_map`` (None = every slot).  Returns
+    (logits (B, 1, V), pool)."""
+    b = token.shape[0]
+    pos_b = torch.as_tensor(pos, device=token.device).to(torch.int64
+                                                         ).reshape(-1).expand(b)
+    x = _embed(params, token, cfg)
+    x, pool = _paged_scan(params, x, cfg, pos_b[:, None], pool, page_table,
+                          kv_bits, slot_map=slot_map, fused=fused,
+                          backend=backend)
+    return _logits(params, x, cfg), pool

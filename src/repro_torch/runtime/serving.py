@@ -42,11 +42,27 @@ class RequestOptions:
 
 @dataclasses.dataclass
 class ServingConfig:
-    """Dense batcher configuration (the dense fields of the reference's
-    ``ServingConfig``)."""
+    """Batcher configuration: the dense and paged fields of the reference's
+    ``ServingConfig``, with its names and defaults.  The paged fields
+    (``kv_bits`` .. ``ragged_decode``) are read by
+    :class:`repro_torch.runtime.kvcache.PagedBatcher` and ignored by
+    :class:`ContinuousBatcher`."""
     n_slots: int = 8
     s_max: int = 128
     chunk_size: int | None = None      # None -> min(32, s_max); 0 -> whole
+    # ---- paged KV cache (PagedBatcher) ----------------------------------
+    kv_bits: int = 16
+    block_size: int = 16
+    num_blocks: int | None = None
+    pool_bytes: int | None = None
+    prefix_cache: bool = True
+    reserve: str = "prompt"
+    preemption: str = "recompute"
+    # one engine dispatch per decode layer for attention + wo (False: the
+    # two-dispatch layer), over live slots bucketed to power-of-two
+    # occupancy (ragged_decode=False pads to the full (n_slots, 1) batch)
+    fused_decode: bool = True
+    ragged_decode: bool = True
 
 
 class Request:
@@ -83,9 +99,11 @@ class _Admission:
     """One request mid-chunked-prefill (its cache is not yet slot-resident)."""
     req: Request
     slot: int
-    tokens: np.ndarray                 # (1, L_pad) bucket-padded prompt
+    tokens: np.ndarray                 # (1, L_pad) bucket-padded prompt tail
     length: int                        # true prompt length L
-    next_pos: int = 0                  # next chunk start
+    next_pos: int = 0                  # next chunk start (relative to start)
+    start: int = 0                     # first position to prefill (> 0 when a
+                                       # radix prefix-cache hit covers [0, start))
 
 
 def bucket_length(length: int, chunk: int) -> int:
@@ -130,26 +148,34 @@ class ContinuousBatcher:
         self.s_adm = (bucket_length(s_max, self.chunk_size)
                       if self.chunk_size else s_max)
 
-        from repro_torch.models import transformer as tfm
-        self._make_cache = lambda b, s: tfm.make_cache(cfg, b, s, self.device)
-        self.cache = self._make_cache(n_slots, s_max)
         self._adm_cache = None             # reused (1, s_adm) admission cache
-
         self.metrics = metrics if metrics is not None else Metrics(n_slots)
         self.queue: deque[Request] = deque()
         self.slots: list[Request | None] = [None] * n_slots
         self.pos = np.zeros(n_slots, np.int64)
         self.done = np.ones(n_slots, bool)
+        # slots paused by the paged batcher (block-pool exhaustion with
+        # preemption off): they stay out of the decode step's live set
+        self.stalled = np.zeros(n_slots, bool)
         self.tokens = np.zeros((n_slots, 1), np.int64)
         self._adm: _Admission | None = None
         self._just_finished: list[Request] = []
+        self._build_runtime(cfg)
+
+    def _build_runtime(self, cfg):
+        """KV state construction: one (n_slots, s_max) slot cache.  The
+        paged batcher overrides this with a block pool + page tables."""
+        from repro_torch.models import transformer as tfm
+        self._make_cache = lambda b, s: tfm.make_cache(cfg, b, s, self.device)
+        self.cache = self._make_cache(self.n_slots, self.s_max)
 
     # ---------------------------------------------------------------- steps
-    def _decode(self, tokens: np.ndarray, pos: np.ndarray) -> np.ndarray:
-        """One batched decode step with the greedy argmax fused in: returns
-        the (n_slots,) next tokens — the step's only device->host copy."""
-        tok = torch.from_numpy(tokens).to(self.device)
-        pos_t = torch.from_numpy(pos).to(self.device)
+    def _decode_call(self, live: list[int]) -> np.ndarray:
+        """One batched decode step with the greedy argmax taken on the
+        device: returns the (n_slots,) next tokens — the step's only
+        device->host copy."""
+        tok = torch.from_numpy(self.tokens).to(self.device)
+        pos_t = torch.from_numpy(self.pos).to(self.device)
         logits, self.cache = self.model.decode_step(
             self.params, tok, self.cache, pos_t)
         return logits[:, 0].argmax(dim=-1).cpu().numpy()
@@ -200,9 +226,26 @@ class ContinuousBatcher:
     def _finish(self, req: Request, slot: int):
         req.finished_at = time.time()
         self.metrics.on_finish(req)
+        self._release_slot(req, slot)
         self.done[slot] = True
         self.slots[slot] = None
         self._just_finished.append(req)
+
+    def _release_slot(self, req: Request, slot: int):
+        """Dense slots hold no shared state; the paged batcher releases the
+        request's block references (and registers its prefix) here."""
+
+    def _requeue(self, req: Request, slot: int):
+        """Preemption: return an admitted request to the FRONT of the queue
+        with its slot freed.  ``rid`` and ``output`` survive, so
+        re-admission prefills prompt + generated tokens and the stream
+        continues from the next token.  Victims are preempted
+        latest-admitted-first, so successive appendlefts keep admission
+        order at the queue head."""
+        self.slots[slot] = None
+        self.done[slot] = True
+        self.stalled[slot] = False
+        self.queue.appendleft(req)
 
     # ----------------------------------------------------------------- admit
     def _free_slot(self) -> int | None:
@@ -212,19 +255,32 @@ class ContinuousBatcher:
         return None
 
     def _activate(self, req: Request, slot: int, one_cache, first_logits_row):
-        """First token chosen from the prefill logits; the admission cache
-        joins the slot cache."""
+        """First token of this admission chosen from the prefill logits; the
+        admission cache joins the slot cache.
+
+        A preemption-resumed request (non-empty ``output``) re-enters here
+        mid-stream: ``length`` counts prompt + generated tokens, the budget
+        check runs against the whole stream, and the cache-budget cap the
+        decode loop would have applied fires here instead."""
         tok = int(first_logits_row.argmax())
-        finished = (req.max_new <= 1
-                    or (req.eos_id is not None and tok == req.eos_id))
+        resumed = bool(req.output)
+        length = req.tokens.shape[1] + len(req.output)
+        finished = (len(req.output) + 1 >= req.max_new
+                    or (req.eos_id is not None and tok == req.eos_id)
+                    or (resumed and length >= self.s_max - 1))
         self._emit(req, tok)
         if finished:
             self._finish(req, slot)
             return
-        write_slot(self.cache, one_cache, slot)
+        self._join_slot(slot, one_cache)
         self.tokens[slot, 0] = tok
-        self.pos[slot] = req.tokens.shape[1]
+        self.pos[slot] = length
         self.done[slot] = False
+
+    def _join_slot(self, slot: int, one_cache):
+        """Copy the admission cache into slot ``slot`` (a no-op for the
+        paged batcher, whose prefill chunks write blocks in place)."""
+        write_slot(self.cache, one_cache, slot)
 
     def _admit_request(self) -> tuple[Request, int] | None:
         slot = self._free_slot()
@@ -278,23 +334,39 @@ class ContinuousBatcher:
             self._activate(req, slot, one_cache, logits[0, -1])
 
     # ----------------------------------------------------------------- step
-    def step(self):
-        """One scheduler iteration: a prefill chunk (if a request is being
-        admitted) plus one decode step for every active slot.  Returns the
-        requests finished this step."""
+    def _live_slots(self) -> list[int]:
+        """Slots the decode step advances: occupied, not done, not stalled
+        (computed after :meth:`_pre_decode`)."""
+        return [i for i in range(self.n_slots)
+                if self.slots[i] is not None and not self.done[i]
+                and not self.stalled[i]]
+
+    def _pre_decode(self):
+        """Hook before the batched decode step; the paged batcher allocates
+        blocks here (and may preempt or stall slots)."""
+
+    def _tick(self):
+        """Per-step scheduler sample (queue depth, active slots)."""
         active = sum(1 for i in range(self.n_slots)
                      if self.slots[i] is not None and not self.done[i])
         self.metrics.on_step(
             len(self.queue) + (1 if self._adm is not None else 0),
             active=active)
+
+    def step(self):
+        """One scheduler iteration: a prefill chunk (if a request is being
+        admitted) plus one decode step for every active slot.  Returns the
+        requests finished this step."""
+        self._tick()
         if self.chunk_size:
             self._advance_admission()
         else:
             self._admit_full()
-        live = [i for i in range(self.n_slots)
-                if self.slots[i] is not None and not self.done[i]]
+        if not all(self.done):
+            self._pre_decode()
+        live = self._live_slots()
         if live:
-            nxt = self._decode(self.tokens, self.pos)
+            nxt = self._decode_call(live)
             self.metrics.decode_steps += 1
             for i in live:
                 req = self.slots[i]

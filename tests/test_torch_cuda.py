@@ -12,7 +12,9 @@ torch = pytest.importorskip("torch")
 from repro_torch.core import packing  # noqa: E402
 from repro_torch.core.precision import get_precision, signed  # noqa: E402
 from repro_torch.kernels import decode_attention as tattn  # noqa: E402
+from repro_torch.kernels import decode_fused as tfused  # noqa: E402
 from repro_torch.kernels import engine  # noqa: E402
+from repro_torch.kernels import paged_attention as tpaged  # noqa: E402
 
 pytestmark = pytest.mark.cuda
 
@@ -84,3 +86,89 @@ def test_decode_attention_kernel(gpu, q_dtype):
     want = tattn.decode_attention_ref(*args)
     torch.cuda.synchronize()
     assert (got - want).abs().max() <= 1e-5 + 1e-4 * want.abs().max()
+
+
+def _paged_args(gpu, kv_bits, q_dtype, pool_dtype, seed=2):
+    """One paged decode step at the serving shapes: B=4, KV=3, G=3, Dh=64,
+    blocks of 16, 5 blocks per sequence, positions 79 (last block), 0, 40
+    and 63; a random permuted page table with null entries past each
+    sequence's last live block."""
+    gen = torch.Generator().manual_seed(seed)
+    b, kv, g, dh, bs, nb = 4, 3, 3, 64, 16, 5
+    nb_pool = 1 + b * nb
+    pos = [79, 0, 40, 63]
+    q = torch.randn((b, kv, g, dh), generator=gen).to(gpu, q_dtype)
+    shape = (nb_pool, bs, kv, dh // 2 if kv_bits == 4 else dh)
+    if kv_bits == 16:
+        k, v = (torch.randn(shape, generator=gen).to(gpu, pool_dtype)
+                for _ in range(2))
+        ks = vs = None
+    else:
+        k, v = (torch.randint(-128 if kv_bits == 4 else -127, 128, shape,
+                              generator=gen, dtype=torch.int8).to(gpu)
+                for _ in range(2))
+        ks, vs = ((torch.rand((nb_pool, bs, kv, 1), generator=gen) * 0.02
+                   + 1e-3).to(gpu) for _ in range(2))
+    pt = (torch.randperm(nb_pool - 1, generator=gen) + 1).reshape(b, nb)
+    for i, p in enumerate(pos):
+        pt[i, p // bs + 1:] = 0
+    return (q, k, ks, v, vs, pt.to(gpu, torch.int32),
+            torch.tensor(pos, dtype=torch.int32, device=gpu))
+
+
+POOLS = [(16, torch.float32), (16, torch.bfloat16), (8, torch.int8),
+         (4, torch.int8)]
+POOL_IDS = ["kv16-f32", "kv16-bf16", "kv8", "kv4"]
+
+
+@pytest.mark.parametrize("q_dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("kv_bits,pool_dtype", POOLS, ids=POOL_IDS)
+def test_paged_attention_kernel(gpu, kv_bits, pool_dtype, q_dtype):
+    """Against the f32 plain version (f32 dequant): rounding only, atol
+    1e-5 + 1e-4 of max|out|; one launch counted per call."""
+    args = _paged_args(gpu, kv_bits, q_dtype, pool_dtype)
+    engine.reset_launch_counts()
+    got = tpaged.paged_attention(*args, kv_bits=kv_bits)
+    assert engine.launch_counts()["paged_attention"] == 1
+    want = tpaged.paged_attention_ref(*args, kv_bits=kv_bits,
+                                      out_dtype=torch.float32)
+    torch.cuda.synchronize()
+    assert got.dtype == torch.float32 and got.shape == want.shape
+    assert (got - want).abs().max() <= 1e-5 + 1e-4 * want.abs().max()
+
+
+@pytest.mark.parametrize("q_dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("kv_bits,pool_dtype", POOLS, ids=POOL_IDS)
+def test_fused_decode_kernel(gpu, kv_bits, pool_dtype, q_dtype):
+    """Against the f32 plain version with an f32 (576, 576) wo, slot map
+    (0, 2, 3, 3): within 1e-5 + 1e-4 of max|out|; the repeated slot's rows
+    are identical; one launch counted per call."""
+    args = _paged_args(gpu, kv_bits, q_dtype, pool_dtype, seed=3)
+    gen = torch.Generator().manual_seed(4)
+    wo = (torch.randn((576, 576), generator=gen) / 24).to(gpu)
+    sm = torch.tensor([0, 2, 3, 3], dtype=torch.int32, device=gpu)
+    engine.reset_launch_counts()
+    got = tfused.fused_decode(*args, sm, wo, kv_bits=kv_bits)
+    assert engine.launch_counts()["fused_decode"] == 1
+    want = tfused.fused_decode_ref(*args, sm, wo, kv_bits=kv_bits)
+    torch.cuda.synchronize()
+    assert got.shape == (4, 576)
+    assert torch.equal(got[2], got[3])
+    assert (got - want).abs().max() <= 1e-5 + 1e-4 * want.abs().max()
+
+
+def test_paged_wrappers_refuse_what_the_kernels_do_not_take(gpu):
+    """An int64 page table, kv8 without scales, or an int64 slot map raise
+    before any launch."""
+    q, k, ks, v, vs, pt, pos = _paged_args(gpu, 8, torch.bfloat16, torch.int8)
+    wo = torch.zeros((576, 576), device=gpu)
+    sm = torch.arange(4, dtype=torch.int32, device=gpu)
+    engine.reset_launch_counts()
+    with pytest.raises(ValueError):
+        tpaged.paged_attention(q, k, ks, v, vs, pt.long(), pos, kv_bits=8)
+    with pytest.raises(ValueError):
+        tpaged.paged_attention(q, k, None, v, None, pt, pos, kv_bits=8)
+    with pytest.raises(ValueError):
+        tfused.fused_decode(q, k, ks, v, vs, pt, pos, sm.long(), wo,
+                            kv_bits=8)
+    assert sum(engine.launch_counts().values()) == 0
