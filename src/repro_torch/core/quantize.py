@@ -1,18 +1,51 @@
-"""Weight quantizers — the ternary/binary/k-bit schemes of ``repro.core.quantize``.
+"""Quantizers — the schemes of ``repro.core.quantize``.
 
+Weights:
   * ternary (TWN): w_q = alpha * sign(w) * 1{|w| > delta},
     delta = 0.7 * mean|w|, alpha = mean |w| over the retained entries;
   * binary (XNOR-net): w_q = alpha * sign(w), alpha = mean |w|;
   * k-bit signed ints with a per-output-channel scale (symmetric).
 
-Serving needs only the integer codes and their scales; the straight-through
-(QAT) forms are not ported yet.
+Activations (paper eq. 4, k bits): post-ReLU values clip to [0, 1] and round
+to 2^k - 1 uniform levels; signed k-bit values round to a symmetric grid
+with a per-tensor scale; 1-bit signed values are sign(x).
+
+The fake-quant (quantize -> dequantize) functions are the FORWARD of the
+reference's straight-through estimators, value for value: the reference
+computes ``w + stop_gradient(wq - w)``, and the port computes the same
+``w + (wq - w)`` in the same order (not plain ``wq``, which can differ by
+one rounding).  ``torch.round`` and ``jnp.round`` both round half to even.
+The STE backward (identity gradient) comes with the training slice.
 """
 from __future__ import annotations
 
 import torch
 
-from .precision import PrecisionConfig, W_BINARY, W_FLOAT, W_INT, W_TERNARY
+from .precision import (A_FLOAT, A_SIGNED, A_UNSIGNED, PrecisionConfig,
+                        W_BINARY, W_FLOAT, W_INT, W_TERNARY)
+
+
+def _round_ste(x: torch.Tensor) -> torch.Tensor:
+    """round(x), as the reference's ``x + stop_gradient(round(x) - x)``."""
+    return x + (torch.round(x) - x)
+
+
+def act_fake_quant(x: torch.Tensor, cfg: PrecisionConfig) -> torch.Tensor:
+    """Fake-quantized activations (forward only): unsigned eq. (4) levels,
+    signed k-bit with a per-tensor absmax scale, or sign(x) at 1 bit."""
+    if cfg.a_mode == A_FLOAT:
+        return x
+    bits = cfg.a_bits
+    if cfg.a_mode == A_UNSIGNED:
+        levels = (1 << bits) - 1
+        return _round_ste(torch.clamp(x, 0.0, 1.0) * levels) / levels
+    if cfg.a_mode == A_SIGNED:
+        if bits == 1:
+            return torch.sign(x) + 0.0 * x          # XNOR-net binary activations
+        qmax = (1 << (bits - 1)) - 1
+        scale = x.abs().amax().clamp_min(1e-8) / qmax
+        return _round_ste(torch.clamp(x / scale, -qmax, qmax)) * scale
+    raise ValueError(cfg.a_mode)
 
 
 def ternary_quant(w: torch.Tensor, axis=0) -> tuple[torch.Tensor, torch.Tensor]:
@@ -55,3 +88,14 @@ def weight_quant(w: torch.Tensor, cfg: PrecisionConfig, axis=0
     if cfg.w_mode == W_INT:
         return int_quant(w, cfg.w_bits, axis=axis)
     raise ValueError(cfg.w_mode)
+
+
+def weight_fake_quant(w: torch.Tensor, cfg: PrecisionConfig, axis=0
+                      ) -> torch.Tensor:
+    """Quantize -> dequantize weights (the QAT forward; float configs pass
+    through)."""
+    if cfg.w_mode == W_FLOAT:
+        return w
+    codes, alpha = weight_quant(w.detach(), cfg, axis=axis)
+    wq = codes.to(w.dtype) * alpha.to(w.dtype)
+    return w + (wq - w)

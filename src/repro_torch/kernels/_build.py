@@ -48,6 +48,10 @@ P, I, F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 # C signatures of every extern "C" launcher, by source; each returns a
 # cudaError_t (0 = success).  The last argument is the CUDA stream.
 SIGNATURES = {
+    "binary_matmul": {
+        # (a, w, alpha, bias, out, M, N, K, stream)
+        "binary_matmul": (P, P, P, P, P, I, I, I, P),
+    },
     "qmatmul": {
         # (x, x_kind, w, alpha, bias, out, M, N, K, stream)
         "ternary_matmul": (P, I, P, P, P, P, I, I, I, P),

@@ -5,7 +5,8 @@ A kernel **registry** keyed on ``(weight_kind, act_bits, weight_bits,
 backend)`` behind one entry point, :func:`qmatmul`, which
 
   1. prepares activations for the config (dynamic symmetric PER-ROW
-     quantization to int8 codes, or float passthrough),
+     quantization to int8 codes; at 1 bit the signs, bit-packed for the
+     XNOR kernel; or float passthrough),
   2. resolves the implementation: the exact key first, then the plain
      ``torch`` backend (keys with no CUDA kernel, such as the unpacked
      int8-codes storage, are registered for ``torch`` only),
@@ -37,9 +38,10 @@ import torch
 from repro_torch.core import packing
 from repro_torch.core.precision import (A_FLOAT, PrecisionConfig, W_BINARY,
                                         W_FLOAT, W_INT, W_TERNARY)
-from repro_torch.core.quantize import weight_quant
+from repro_torch.core.quantize import weight_fake_quant, weight_quant
 
 from . import _build, ref
+from .binary_matmul import binary_matmul
 from .decode_attention import (_pos_vector,
                                decode_attention as _decode_attention_kernel,
                                decode_attention_serving_ref)
@@ -57,8 +59,8 @@ BACKENDS = (BACKEND_CUDA, BACKEND_TORCH)
 K_CODES = "codes"
 
 # the hand-written kernels, by launch-counter name
-KERNELS = ("ternary_matmul", "packed_matmul", "decode_attention",
-           "paged_attention", "fused_decode")
+KERNELS = ("ternary_matmul", "packed_matmul", "binary_matmul",
+           "decode_attention", "paged_attention", "fused_decode")
 
 
 # ---------------------------------------------------------------------------
@@ -293,11 +295,32 @@ def _dequant_dot(x, codes, scale, bias, out_dtype, a_scale):
     return out.to(out_dtype)
 
 
+@register_kernel(W_BINARY, 1, 1, BACKEND_CUDA)
+def _binary_xnor_cuda(x, pw, scale, bias, *, out_dtype, a_scale=None):
+    """x: (M, K/32) int32 +/-1 bits.  The XNOR + popcount kernel; the bias
+    goes into the kernel only when no per-row scale follows."""
+    return _kernel_call(binary_matmul, x, pw, scale, bias, out_dtype, a_scale,
+                        k=pw.k)
+
+
+@register_kernel(W_BINARY, 1, 1, BACKEND_TORCH)
+def _binary_xnor_torch(x, pw, scale, bias, *, out_dtype, a_scale=None):
+    out = ref.binary_matmul_ref(x, pw.wt_packed, pw.k, alpha=scale,
+                                row_scale=a_scale)
+    if bias is not None:
+        out = out + bias[None, :]
+    return out.to(out_dtype)
+
+
 @register_kernel(W_BINARY, tuple(a for a in ACT_BITS_RANGE if a != 1), 1,
                  BACKEND_TORCH)
 def _binary_dequant_torch(x, pw, scale, bias, *, out_dtype, a_scale=None):
     """Binary weights with multi-bit/float activations (8xB): decode the
-    +/-1 codes and run the plain dot — no XNOR trick applies."""
+    +/-1 codes and run the plain dot — no XNOR trick applies.  Activations
+    that come pre-packed as int32 +/-1 bits take the XNOR semantics."""
+    if x.dtype == torch.int32:
+        return _binary_xnor_torch(x, pw, scale, bias, out_dtype=out_dtype,
+                                  a_scale=a_scale)
     codes = packing.unpack_binary_pm1(pw.wt_packed)            # (N, K) int8
     return _dequant_dot(x, codes, scale, bias, out_dtype, a_scale)
 
@@ -311,14 +334,27 @@ def _codes_torch(x, pw, scale, bias, *, out_dtype, a_scale=None):
 # ---------------------------------------------------------------------------
 # activation preparation
 # ---------------------------------------------------------------------------
-def _prep_activations(x2: torch.Tensor, a_bits: int):
+def _prep_activations(x2: torch.Tensor, pw: PackedWeight, a_bits: int):
     """Returns (x_prepped, a_scale or None).  Integer inputs are taken as
     ready-made codes (the caller owns their scale); float inputs are
     quantized symmetric PER ROW: each row's codes and scale depend only on
     that row, so any batch shape gives the same values.  a_scale is (M, 1).
-    """
-    if not x2.is_floating_point() or a_bits == 0:
+
+    At 1 bit the codes are the signs (x >= 0 -> +1) with a_scale = mean|x|
+    of the row; they are bit-packed for the XNOR kernel only when the
+    weights are packed too (int32 storage): the unaligned-K binary fallback
+    stores int8 +/-1 codes, which feed the plain integer dot directly."""
+    xnor = pw.mode == W_BINARY and pw.wt_packed.dtype == torch.int32
+    if not x2.is_floating_point():
+        if xnor and a_bits == 1 and x2.dtype != torch.int32:
+            return packing.pack_binary_pm1(x2), None
         return x2, None
+    if a_bits == 0:
+        return x2, None
+    if a_bits == 1:
+        a_scale = x2.abs().mean(dim=1, keepdim=True).clamp_min(1e-8)
+        xq = torch.where(x2 >= 0, 1, -1).to(torch.int8)
+        return (packing.pack_binary_pm1(xq) if xnor else xq), a_scale
     qmax = (1 << (min(a_bits, 8) - 1)) - 1
     a_scale = x2.abs().amax(dim=1, keepdim=True).clamp_min(1e-8) / qmax
     xq = torch.clamp(torch.round(x2 / a_scale), -qmax, qmax).to(torch.int8)
@@ -333,8 +369,8 @@ def qmatmul(x: torch.Tensor, pw: PackedWeight, cfg: PrecisionConfig, *,
             backend: str | None = None) -> torch.Tensor:
     """``x @ W`` with quantized/packed ``W`` under ``cfg``.
 
-    x       : (..., K) float activations or int8 codes; leading dims are
-              flattened and restored.
+    x       : (..., K) float activations, int8 codes, or (binary) int32
+              +/-1 bits; leading dims are flattened and restored.
     pw      : :func:`pack_weight` / :func:`as_packed_weight` output.
     backend : "cuda" | "torch"; None picks by the device of ``x``.
     """
@@ -343,13 +379,9 @@ def qmatmul(x: torch.Tensor, pw: PackedWeight, cfg: PrecisionConfig, *,
                          "float weights are a plain matmul")
     backend = _check_backend(backend, x)
     a_bits = 0 if (cfg.a_mode == A_FLOAT or cfg.a_bits > 8) else cfg.a_bits
-    if a_bits == 1:
-        raise NotImplementedError(
-            f"{cfg.name}: 1-bit activations (the XNOR-popcount path) are not "
-            "ported yet")
     lead = x.shape[:-1]
     x2 = x.reshape(-1, x.shape[-1])
-    xq, a_scale = _prep_activations(x2, a_bits)
+    xq, a_scale = _prep_activations(x2, pw, a_bits)
     # weight scale (N,) and per-row act scale (M, 1) stay separate: folding
     # them would couple the epilogue to the batch
     scale = pw.scale.reshape(-1).to(torch.float32)
@@ -362,6 +394,16 @@ def qmatmul(x: torch.Tensor, pw: PackedWeight, cfg: PrecisionConfig, *,
                                     else tuple(a_scale.shape)))
     out = fn(xq, pw, scale, bias, out_dtype=out_dtype, a_scale=a_scale)
     return out.reshape(*lead, out.shape[-1])
+
+
+def fake_quant_dot(x: torch.Tensor, w: torch.Tensor, cfg: PrecisionConfig, *,
+                   axis=0) -> torch.Tensor:
+    """QAT-form ``x @ fake_quant(w)`` — the float counterpart of
+    :func:`qmatmul` (forward only: the STE backward waits for training)."""
+    if cfg.w_mode == W_FLOAT:
+        return x @ w.to(x.dtype)
+    wq = weight_fake_quant(w.to(torch.float32), cfg, axis=axis).to(x.dtype)
+    return x @ wq
 
 
 # ---------------------------------------------------------------------------

@@ -1,6 +1,6 @@
-"""Plain PyTorch versions of the packed matmul kernels — the semantics of
-``repro.kernels.ref`` (integer paths match exactly, float paths to a
-tolerance).  They run on any device: the CPU path of every wrapper, and the
+"""Plain PyTorch versions of the packed and binary matmul kernels — the
+semantics of ``repro.kernels.ref`` (integer paths match exactly, float paths
+to a tolerance).  They run on any device: the CPU path of every wrapper, and the
 yardstick the CUDA kernels are held against on the card.
 
 Integer products accumulate in float64, which holds every int8 x int8 sum
@@ -53,3 +53,23 @@ def ternary_matmul_ref(x, wt_packed, alpha, bias=None,
     else:
         acc = x.to(torch.float32) @ wt.to(torch.float32).T
     return _epilogue(acc, alpha, row_scale, bias, out_dtype)
+
+
+def binary_matmul_ref(x_packed, wt_packed, k: int, alpha=None,
+                      out_dtype=torch.float32, row_scale=None):
+    """1-bit x 1-bit dot products over +/-1 values stored as {1, 0} bits,
+    32 per int32 word: x_packed (M, K/32), wt_packed (N, K/32); ``k`` is
+    the unpacked K.  out[m, n] = sum_k a[m, k] * w[n, k]
+    = K - 2 * popcount(a XOR w), exact, then ``* alpha`` (N,) and
+    ``* row_scale`` (M, 1) in f32."""
+    if x_packed.shape[-1] * 32 != k or wt_packed.shape[-1] * 32 != k:
+        raise ValueError(f"K mismatch: {k} against words {x_packed.shape[-1]}"
+                         f" and {wt_packed.shape[-1]}")
+    a = packing.unpack_binary_pm1(x_packed)                   # (M, K) int8
+    w = packing.unpack_binary_pm1(wt_packed)                  # (N, K) int8
+    acc = int_dot(a, w).to(torch.float32)
+    if alpha is not None:
+        acc = acc * alpha[None, :]
+    if row_scale is not None:
+        acc = acc * row_scale
+    return acc.to(out_dtype)

@@ -56,6 +56,71 @@ def test_qmatmul_kernel_equals_plain(gpu, name, m):
             assert torch.equal(got, want), (name, m, n, k)
 
 
+BINARY_SHAPES = SHAPES + [(200, 320), (256, 2304)]
+
+
+@pytest.mark.parametrize("m", [1, 4, 17, 32, 33, 1568])
+def test_binary_matmul_kernel_equals_plain(gpu, m):
+    """XNOR + popcount on random bits: bit-equal to the plain version, with
+    and without a bias, at the LM's decode shapes, a ragged N and a CNN
+    shape; one launch counted per call."""
+    kernel, _ = engine.resolve_entry("binary", 1, 1, "cuda")
+    plain, _ = engine.resolve_entry("binary", 1, 1, "torch")
+    gen = torch.Generator().manual_seed(m)
+    for n, k in BINARY_SHAPES:
+        a, w = (torch.randint(-2 ** 31, 2 ** 31 - 1, shape, generator=gen,
+                              dtype=torch.int64).to(torch.int32).to(gpu)
+                for shape in ((m, k // 32), (n, k // 32)))
+        alpha = (torch.rand(n, generator=gen) + 0.5).to(gpu)
+        bias = torch.randn(n, generator=gen).to(gpu)
+        pw = engine.PackedWeight(w, alpha, 1, "binary", k)
+        for b in (None, bias):
+            engine.reset_launch_counts()
+            got = kernel(a, pw, alpha, b, out_dtype=torch.float32)
+            assert engine.launch_counts()["binary_matmul"] == 1
+            want = plain(a, pw, alpha, b, out_dtype=torch.float32)
+            torch.cuda.synchronize()
+            assert torch.equal(got, want), (m, n, k)
+
+
+@pytest.mark.parametrize("m", [1, 4, 33])
+def test_qmatmul_1x1_kernel_equals_plain(gpu, m):
+    """1x1 through the engine: bf16 activations -> signs and row scale ->
+    bit-packed -> the kernel, bit-equal to the plain path."""
+    pcfg = signed(get_precision("1x1"))
+    gen = torch.Generator().manual_seed(m)
+    for n, k in SHAPES:
+        w = torch.randn((k, n), generator=gen).to(gpu)
+        pw = engine.pack_weight(w, pcfg)
+        x = torch.randn((m, k), generator=gen).to(gpu, torch.bfloat16)
+        bias = torch.randn(n, generator=gen).to(gpu)
+        for b in (None, bias):
+            engine.reset_launch_counts()
+            got = engine.qmatmul(x, pw, pcfg, bias=b, backend="cuda")
+            assert engine.launch_counts()["binary_matmul"] == 1
+            want = engine.qmatmul(x, pw, pcfg, bias=b, backend="torch")
+            torch.cuda.synchronize()
+            assert torch.equal(got, want), (m, n, k)
+
+
+def test_binary_wrapper_refuses_what_the_kernel_does_not_take(gpu):
+    """int8 words, a K that is not 32 per word, or a float64 alpha raise
+    before any launch."""
+    kernel, _ = engine.resolve_entry("binary", 1, 1, "cuda")
+    a = torch.zeros((4, 18), dtype=torch.int32, device=gpu)
+    w = torch.zeros((64, 18), dtype=torch.int32, device=gpu)
+    alpha = torch.ones(64, device=gpu)
+    pw = engine.PackedWeight(w, alpha, 1, "binary", 576)
+    engine.reset_launch_counts()
+    with pytest.raises(TypeError):
+        kernel(a.to(torch.int8), pw, alpha, None, out_dtype=torch.float32)
+    with pytest.raises(ValueError):
+        kernel(a, pw._replace(k=560), alpha, None, out_dtype=torch.float32)
+    with pytest.raises(TypeError):
+        kernel(a, pw, alpha.double(), None, out_dtype=torch.float32)
+    assert sum(engine.launch_counts().values()) == 0
+
+
 def test_qmatmul_float_path(gpu):
     """Float activations straight into the kernel (no quantization):
     f32 sums in another order, within 1e-4 of max|out|."""

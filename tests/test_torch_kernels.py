@@ -97,7 +97,8 @@ def test_engine_resolution_and_trace():
     """CPU tensors go to the plain versions; kinds with no CUDA kernel
     resolve to the torch registration even when "cuda" is asked for;
     "cuda" with a host tensor is refused, so no dispatch is recorded as
-    "cuda" without a card; the CPU path launches nothing."""
+    "cuda" without a card; the CPU path launches nothing; 1x1 resolves to
+    the XNOR kernel's key."""
     _, _, tpw, _ = _packed_pair("2xT", 128, 64)
     _, _, cpw, _ = _packed_pair("3x3", 128, 64)
     x = torch.randn(4, 128)
@@ -117,8 +118,16 @@ def test_engine_resolution_and_trace():
     assert engine.launch_counts() == {k: 0 for k in engine.KERNELS}
     with pytest.raises(ValueError):
         engine.qmatmul(x, tpw, signed(get_precision("2xT")), backend="xla")
-    with pytest.raises(NotImplementedError):
-        engine.qmatmul(x, tpw, signed(get_precision("1x1")))
+    # 1x1 (1-bit activations) runs the XNOR path: the binary key, plain
+    # version on the host, no launch
+    bpw = engine.pack_weight(torch.randn(128, 64), get_precision("1x1"))
+    with engine.dispatch_trace() as ev1:
+        engine.qmatmul(x, bpw, signed(get_precision("1x1")))
+    assert [(e.kind, e.impl_backend, e.a_bits) for e in ev1] == [
+        ("binary", "torch", 1)]
+    assert engine.resolve_entry("binary", 1, 1, "cuda")[1] == (
+        "binary", 1, 1, "cuda")
+    assert engine.launch_counts() == {k: 0 for k in engine.KERNELS}
 
 
 def _attn_inputs(kv_bits, b=3, kv=2, g=2, dh=32, s=64):
