@@ -15,14 +15,17 @@ Phases (each prints its own lines; any failed check exits non-zero):
      peak rate, whichever is larger): the matmuls (the ternary one also at
      two CNN conv shapes), the XNOR-popcount binary matmul on random bits
      (the 1x1 LM's decode and chunk shapes, a ragged shape, a CNN conv
-     shape), the dense decode attention, the paged attention at kv 8/4/16
-     and the fused decode at kv8;
+     shape), the dense decode attention, the paged attention at kv 8/4/16,
+     the fused decode at kv8, the three activation quantizers (f32 and bf16
+     rows, ``torch.equal``) and the full-sequence flash attention (prefill,
+     forward, window + softcap; f32 and bf16);
   4. the dense serving path at full width: smollm-135m, 2xT
      weights/activations, int8 KV cache, bf16, random weights from seed 0,
      served by the continuous batcher (8 requests over 4 slots); the kernel
-     launch counts of that run; one prefill chunk and one decode step
-     through the kernels against the same calls through the plain versions;
-     a shorter 4x4 run for the packed kernel;
+     launch counts of that run (the per-row activation quantizer and the
+     ternary matmul once per projection); one prefill chunk and one decode
+     step through the kernels against the same calls through the plain
+     versions; a shorter 4x4 run for the packed kernel;
   4c. the paged serving path at full width (2xT, kv8 blocks of 16
      positions, the same 8 requests, which share a 32-token prefix): prefix
      hits, ``paged_attention`` launches per decode step, one paged prefill
@@ -45,6 +48,14 @@ Phases (each prints its own lines; any failed check exits non-zero):
      card, at fp32 finite logits; images/s at 2xT and 1x1 (AlexNet batch
      64, ResNet-34 batch 32) and each forward's device time by kernel under
      ``torch.profiler``;
+  4g. whole-prompt admission (chunk size 0) on the dense phase's requests:
+     ``flash_attention`` launches per prefill, the streams against the
+     chunked run's (reported);
+  4h. ``Model.forward`` / ``Model.loss`` at B=2, S=2048: fp32 weights in
+     float32 through the kernels against the plain versions (bounded), 2xT
+     bf16 (reported), launches and time per forward;
+  4i. the integer-code quantizers of ``core`` (``act_quant`` and
+     ``act_quant_signed`` launches) against their plain versions;
   5. decode steps of the dense and the paged 2xT paths and of the dense
      1x1 path under ``torch.profiler``: device operations per step, device
      busy time and idle share.
@@ -67,10 +78,11 @@ from pathlib import Path
 
 ROOT = Path(__file__).resolve().parent
 
-# H100 SXM published peaks (dense): HBM3 bytes/s, int8 tensor ops/s, and
-# f32 outside the tensor cores.
+# H100 SXM published peaks (dense): HBM3 bytes/s, int8 and bf16 tensor
+# ops/s, and f32 outside the tensor cores.
 MEM_BW = 3.35e12
 PEAK_INT8 = 1979e12
+PEAK_BF16 = 989e12
 PEAK_F32 = 67e12
 # The binary matmul's +/-1 products are counted at the int8 peak, the
 # narrowest type in the published table (the 1-bit tensor rate is not in it).
@@ -79,6 +91,7 @@ PEAK_BINARY = PEAK_INT8
 SMOLLM_DECODE_PROJ = (            # (N, K) of one layer's seven projections
     (576, 576), (192, 576), (192, 576), (576, 576),      # wq wk wv wo
     (1536, 576), (1536, 576), (576, 1536))               # w_gate w_up w_down
+N_PROJ = len(SMOLLM_DECODE_PROJ)
 MAIN_SHAPES = sorted(set(SMOLLM_DECODE_PROJ))
 N_SLOTS, CHUNK, PROMPT, GEN, N_REQ = 4, 32, 64, 16, 8
 S_MAX = PROMPT + GEN
@@ -556,6 +569,168 @@ def _fused_decode_record(gen, device):
                      f"bs={BLOCK} pos={PAGED_POS} wo=({k_in}, {D_MODEL}) f32"}
 
 
+# the activation quantizers' callers: one layer's seven decode projections
+# quantize their (4, K) bf16 rows (K = 576 six times, 1536 once); ResNet-34
+# stage-1 im2col rows; post-ReLU CNN rows (ResNet-34 stage 1, 64 channels)
+QUANT_DECODE_ROWS = [(4, k) for _, k in SMOLLM_DECODE_PROJ]
+QUANT_SHAPES = {
+    "act_quant_signed_grouped": [(4, 576), (4, 1536), (8 * 56 * 56, 576)],
+    "act_quant": [(8 * 56 * 56, 64), (4, 576)],
+    "act_quant_signed": [(8 * 56 * 56, 64), (4, 576)],
+}
+
+
+def _quant_call(name, x, bits):
+    """(kernel call, plain call) of one quantizer on rows ``x``, computed
+    in x's dtype, with the scale its caller gives it: the engine's per-row
+    absmax (B7c), the tensor absmax (B7b); B7a takes post-ReLU rows."""
+    from repro_torch.kernels import act_quant as aq
+    from repro_torch.kernels import ref
+    qmax = (1 << (bits - 1)) - 1
+    cd = x.dtype
+    if name == "act_quant":
+        return (lambda: aq.act_quant(x, bits=bits, compute_dtype=cd),
+                lambda: ref.act_quant_ref(x, bits, compute_dtype=cd))
+    if name == "act_quant_signed":
+        s = (x.abs().amax().clamp_min(1e-8) / qmax).reshape(1)
+        return (lambda: aq.act_quant_signed(x, s, bits=bits, compute_dtype=cd),
+                lambda: ref.act_quant_signed_ref(x, bits, s, compute_dtype=cd))
+    s = x.abs().amax(dim=1, keepdim=True).clamp_min(1e-8) / qmax
+    return (lambda: aq.act_quant_signed_grouped(x, s, bits=bits,
+                                                compute_dtype=cd),
+            lambda: ref.act_quant_signed_grouped_ref(x, bits, s,
+                                                     compute_dtype=cd))
+
+
+def _quant_rows(gen, device, name, m, f, dtype):
+    import torch
+    x = torch.randn((m, f), generator=gen) * 2
+    if name == "act_quant":
+        x = torch.relu(x) / 2                       # post-ReLU, some above 1
+    return x.to(device, dtype)
+
+
+def _quant_records(gen, device):
+    """B7a/b/c against their plain versions, ``torch.equal``, at their
+    callers' shapes in f32 and bf16 (compute in the rows' dtype) and at 2, 4
+    and 8 bits; timed in bf16 at 2 bits (the 2xT decode): B7c summed over
+    one layer's seven decode projections (the record) and at the CNN im2col
+    shape, B7a/B7b at the post-ReLU CNN shape (the record) and LM rows."""
+    import torch
+    records = []
+    for name, shapes in QUANT_SHAPES.items():
+        for (m, f) in shapes:
+            for dtype in (torch.float32, torch.bfloat16):
+                x = _quant_rows(gen, device, name, m, f, dtype)
+                for bits in (2, 4, 8):
+                    kern, plain = _quant_call(name, x, bits)
+                    got, want = kern(), plain()
+                    torch.cuda.synchronize()
+                    check(torch.equal(got, want),
+                          f"{name} ({m}, {f}) {dtype} bits={bits}: not equal "
+                          f"to the plain version ({int((got != want).sum())} "
+                          "codes differ)")
+        print(f"{name}: torch.equal to the plain version at {shapes} x "
+              "(f32, bf16) x bits (2, 4, 8)")
+
+        def times(m, f):
+            x = _quant_rows(gen, device, name, m, f, torch.bfloat16)
+            kern, plain = _quant_call(name, x, 2)
+            tk, tk_eager = time_ms(kern)
+            tp, _ = time_ms(plain)
+            scale_bytes = {"act_quant": 0, "act_quant_signed": 2}.get(name, 2 * m)
+            bt, by = bound(2 * m * f + scale_bytes + m * f, 3 * m * f, PEAK_F32)
+            return tk, tk_eager, tp, bt, by
+
+        if name == "act_quant_signed_grouped":
+            rows, label = QUANT_DECODE_ROWS, "one layer's 7 decode projections, bf16"
+        else:
+            rows, label = shapes[:1], f"post-ReLU CNN rows {shapes[0]}, bf16"
+        t_k = t_p = b_ms = 0.0
+        for (m, f) in rows:
+            tk, tk_eager, tp, bt, by = times(m, f)
+            t_k, t_p, b_ms = t_k + tk, t_p + tp, b_ms + bt
+        print(f"  {label}: kernel {t_k:.5f} ms (last eager call "
+              f"{tk_eager:.4f} ms), plain {t_p:.5f} ms, bound {b_ms:.6f} ms "
+              f"({by}); no single PyTorch call computes it")
+        for (m, f) in shapes:
+            if (m, f) in rows:
+                continue
+            tk, tk_eager, tp, bt, by = times(m, f)
+            print(f"  ({m}, {f}) bf16: kernel {tk:.5f} ms, plain {tp:.5f} ms, "
+                  f"bound {bt:.6f} ms ({by}), {(3 * m * f) / tk / 1e6:.1f} GB/s")
+        records.append({"name": name, "ms": t_k, "plain_ms": t_p,
+                        "bound_ms": b_ms, "bound_by": by, "library_ms": None,
+                        "max_abs_err": 0.0, "shape": label})
+    return records
+
+
+# flash attention: (label, B, S, KV, G, Dh, window, softcap, timed)
+FLASH_CASES = (("prefill", 1, PROMPT, KV_HEADS, GROUP, DH, 0, 0.0, True),
+               ("forward", 2, 2048, KV_HEADS, GROUP, DH, 0, 0.0, True),
+               ("window 256 + softcap 50", 1, 1024, 2, 2, 128, 256, 50.0, False))
+
+
+def _flash_cost(b, s, kv, g, dh, window, in_bytes):
+    """(bytes, operations) of causal attention over these inputs: q, k, v
+    read once, the f32 output written once; 4 * Dh operations (q.k and
+    p.v) per visible (query head, key) pair."""
+    pairs = sum(min(i + 1, window) if window > 0 else i + 1 for i in range(s))
+    nbytes = b * s * kv * (g + 2) * dh * in_bytes + 4 * b * s * kv * g * dh
+    return nbytes, 4 * dh * b * kv * g * pairs
+
+
+def _flash_record(gen, device):
+    """``flash_attention`` against its f32 plain version at the prefill,
+    forward and a window + softcap shape, in f32 and bf16, within 1e-5 of
+    max|out|; timed in bf16 beside ``scaled_dot_product_attention``
+    (is_causal, K/V expanded to KV * G heads), the forward shape being the
+    record."""
+    import torch
+    import torch.nn.functional as F
+    from repro_torch.kernels.flash_attention import flash_attention
+    from repro_torch.kernels.ref import flash_attention_ref
+    rec, err_max = None, 0.0
+    for label, b, s, kv, g, dh, window, softcap, timed in FLASH_CASES:
+        kw = dict(causal=True, window=window, softcap=softcap)
+        for dtype in (torch.float32, torch.bfloat16):
+            q = torch.randn((b, s, kv, g, dh), generator=gen).to(device, dtype)
+            k, v = (torch.randn((b, s, kv, dh), generator=gen).to(device, dtype)
+                    for _ in range(2))
+            out = flash_attention(q, k, v, **kw)
+            ref = flash_attention_ref(q, k, v, **kw)
+            torch.cuda.synchronize()
+            err = (out - ref).abs().max().item()
+            tol = 1e-5 * ref.abs().max().item()
+            check(err <= tol, f"flash_attention {label} {dtype}: max |diff| "
+                              f"{err} > {tol}")
+            err_max = max(err_max, err)
+            print(f"flash_attention {label} B={b} S={s} KV={kv} G={g} Dh={dh} "
+                  f"{dtype}: max |diff| vs f32 plain version {err:.3e} "
+                  f"(tolerance {tol:.3e} = 1e-5 of max|out|)")
+        if not timed:
+            continue
+        # q, k, v are the bf16 ones
+        qh = q.reshape(b, s, kv * g, dh).transpose(1, 2).contiguous()
+        kh, vh = (t.repeat_interleave(g, dim=2).transpose(1, 2).contiguous()
+                  for t in (k, v))
+        tk, tk_eager = time_ms(lambda: flash_attention(q, k, v, **kw), reps=5)
+        tp, _ = time_ms(lambda: flash_attention_ref(q, k, v, **kw), reps=5)
+        tl, _ = time_ms(lambda: F.scaled_dot_product_attention(
+            qh, kh, vh, is_causal=True), reps=5)
+        nbytes, ops = _flash_cost(b, s, kv, g, dh, window, 2)
+        bt, by = bound(nbytes, ops, PEAK_BF16)
+        print(f"  {label} bf16: kernel {tk:.4f} ms (eager call {tk_eager:.4f} "
+              f"ms), plain {tp:.4f} ms, sdpa bf16 is_causal {tl:.4f} ms, bound "
+              f"{bt:.5f} ms ({by}), {ops / tk / 1e9:.1f} TFLOP/s")
+        if label == "forward":
+            rec = {"name": "flash_attention", "ms": tk, "plain_ms": tp,
+                   "bound_ms": bt, "bound_by": by, "library_ms": tl,
+                   "shape": f"bf16 B={b} S={s} KV={kv} G={g} Dh={dh} causal"}
+    rec["max_abs_err"] = err_max
+    return rec
+
+
 def phase_kernels(device):
     import torch
     print("== 3. kernels against their plain versions", flush=True)
@@ -566,7 +741,9 @@ def phase_kernels(device):
                _binary_record(gen, device),
                _attention_record(gen, device),
                _paged_attention_record(gen, device),
-               _fused_decode_record(gen, device)]
+               _fused_decode_record(gen, device),
+               *_quant_records(gen, device),
+               _flash_record(gen, device)]
     _ternary_cnn_times(gen, device)
     return records
 
@@ -669,9 +846,16 @@ def phase_serve(device, card):
     from repro_torch.models import build_model
     print("== 4. serving path: smollm-135m 2xT kv8 bf16 (full width)",
           flush=True)
-    model, params, sc, reqs, streams, launches, _ = _serve(device, card,
+    model, params, sc, reqs, streams, launches, m = _serve(device, card,
                                                            "2xT", N_REQ, GEN)
-    check(launches["ternary_matmul"] > 0, "ternary_matmul never launched")
+    calls, n_proj = _model_calls(m), N_PROJ * model.cfg.n_layers
+    print(f"act_quant_signed_grouped launches {launches['act_quant_signed_grouped']}"
+          f" over {m.decode_steps} decode steps + {m.prefill_chunks} prefill "
+          f"chunks; ternary_matmul {launches['ternary_matmul']}")
+    for name in ("act_quant_signed_grouped", "ternary_matmul"):
+        check(launches[name] == n_proj * calls,
+              f"2xT: {name} launched {launches[name]} times in {calls} model "
+              f"calls, not {n_proj} per call")
     check(launches["decode_attention"] > 0, "decode_attention never launched")
 
     # whole model, kernels vs plain versions.  A prefill chunk differs only
@@ -689,7 +873,14 @@ def phase_serve(device, card):
     cmp = _compare_backends(model, params, sc, reqs[0].tokens, device)
     per_call = cmp["launches"]
     print(f"launches per prefill chunk (C={CHUNK}): {per_call['chunk']}; "
-          f"per decode step (B={N_SLOTS}): {per_call['decode']}")
+          f"per decode step (B={N_SLOTS}): {per_call['decode']}; activation "
+          f"quantizer dispatches traced per chunk / step: "
+          f"{cmp['quant_dispatches']}")
+    for c in ("chunk", "decode"):
+        check(per_call[c]["act_quant_signed_grouped"] == n_proj
+              and cmp["quant_dispatches"][c] == n_proj,
+              f"2xT {c}: {per_call[c]['act_quant_signed_grouped']} quantizer "
+              f"launches ({cmp['quant_dispatches'][c]} traced), not {n_proj}")
     check(cmp["chunk"] == 0.0, f"2xT prefill_chunk logits differ by "
                                f"{cmp['chunk']}")
     check(cmp["q0_equal"], "2xT decode step: layer 0 attention inputs "
@@ -731,6 +922,161 @@ def phase_serve(device, card):
     check(launches4["packed_matmul"] > 0, "packed_matmul never launched")
     launches = dict(launches, packed_matmul=launches4["packed_matmul"])
     return launches, (model, params, sc, streams)
+
+
+def phase_whole_prompt(device, card, dense):
+    """4g: whole-prompt admission (chunk_size 0) on the dense phase's
+    params and requests: each prompt prefilled in one call, its attention
+    through ``flash_attention``; ``dense`` is that phase's (model, params,
+    sc, streams)."""
+    from repro_torch.runtime.serving import ContinuousBatcher
+    print("== 4g. whole-prompt serving: smollm-135m 2xT kv8 bf16, "
+          "chunk_size 0 (full width)", flush=True)
+    model, params, sc, chunked = dense
+    cfg = model.cfg
+    whole = dataclasses.replace(sc, chunk_size=0)
+    _warm(ContinuousBatcher(model, params, whole), cfg)
+    batcher = ContinuousBatcher(model, params, whole)
+    streams, launches = _run(batcher, _requests(cfg, N_REQ, GEN), card,
+                             "2xT whole-prompt")
+    m = batcher.metrics
+    calls, n_proj = m.decode_steps + m.prefill_full, N_PROJ * cfg.n_layers
+    print(f"flash_attention launches {launches['flash_attention']} over "
+          f"{m.prefill_full} whole prefills ({cfg.n_layers} layers); "
+          f"act_quant_signed_grouped {launches['act_quant_signed_grouped']} and "
+          f"ternary_matmul {launches['ternary_matmul']} over {calls} model "
+          f"calls; decode_attention {launches['decode_attention']} over "
+          f"{m.decode_steps} decode steps")
+    check(m.prefill_full == N_REQ and m.prefill_chunks == 0,
+          f"whole-prompt run: {m.prefill_full} whole prefills, "
+          f"{m.prefill_chunks} chunks")
+    check(launches["flash_attention"] == cfg.n_layers * m.prefill_full,
+          f"flash_attention launched {launches['flash_attention']} times for "
+          f"{m.prefill_full} prefills, not {cfg.n_layers} per prefill")
+    for name in ("act_quant_signed_grouped", "ternary_matmul"):
+        check(launches[name] == n_proj * calls,
+              f"whole-prompt: {name} launched {launches[name]} times in "
+              f"{calls} model calls, not {n_proj} per call")
+    check(launches["decode_attention"] == cfg.n_layers * m.decode_steps,
+          "whole-prompt: not one decode_attention launch per layer and step")
+    agree = sum(streams[r] == chunked[r] for r in streams)
+    print(f"2xT whole-prompt streams equal to the chunked run's: "
+          f"{agree}/{N_REQ} (not required: whole-prompt and chunked prefill "
+          "are not bit-identical in the reference either)")
+    return launches
+
+
+FWD_B, FWD_S = 2, 2048
+
+
+def _forward_pair(model, params, batch):
+    """Model.forward and Model.loss through the kernels and through the
+    plain versions on the card; the kernels' launches of one forward and
+    its time (CUDA events, after a warm-up)."""
+    import torch
+    from repro_torch.kernels import engine
+    model.forward(params, batch)
+    torch.cuda.synchronize()
+    engine.reset_launch_counts()
+    lk, aux = model.forward(params, batch)
+    torch.cuda.synchronize()
+    launches = engine.launch_counts()
+    ms = _event_ms(lambda: model.forward(params, batch), 3)
+    lp, _ = model.forward(params, batch, backend="torch")
+    loss_k = model.loss(params, batch).item()
+    loss_p = model.loss(params, batch, backend="torch").item()
+    check(bool(torch.isfinite(lk).all()) and lk.shape == (
+        FWD_B, FWD_S, model.cfg.padded_vocab) and float(aux) == 0.0,
+          f"forward: logits {tuple(lk.shape)} not finite or aux {float(aux)}")
+    return {"launches": launches, "ms": ms,
+            "gap": (lk - lp).abs().max().item(),
+            "scale": lp.abs().max().item(),
+            "argmax": (lk.argmax(-1) == lp.argmax(-1)).float().mean().item(),
+            "loss_k": loss_k, "loss_p": loss_p}
+
+
+def phase_forward(device, card):
+    """4h: Model.forward / Model.loss at full width, B=2, S=2048: fp32
+    weights in float32 (bounded against the plain versions), 2xT bf16
+    (reported)."""
+    import torch
+    from repro_torch.models import build_model, to_serving
+    print(f"== 4h. Model.forward / loss: smollm-135m, B={FWD_B}, S={FWD_S} "
+          "(full width)", flush=True)
+    gen = torch.Generator().manual_seed(3)
+    for precision, dtype in (("fp32", "float32"), ("2xT", "bfloat16")):
+        cfg = model_config(precision=precision, kv_bits=8, dtype=dtype)
+        model = build_model(cfg)
+        params = to_serving(model.init(torch.Generator().manual_seed(0),
+                                       device), cfg, tp=1)
+        batch = {k: torch.randint(0, cfg.vocab, (FWD_B, FWD_S),
+                                  generator=gen).to(device)
+                 for k in ("tokens", "labels")}
+        r = _forward_pair(model, params, batch)
+        got = {k: v for k, v in r["launches"].items() if v}
+        rel = abs(r["loss_k"] - r["loss_p"]) / abs(r["loss_p"])
+        print(f"[{card}] {precision} {dtype}: forward {r['ms']:.2f} ms "
+              f"({FWD_B * FWD_S / r['ms'] * 1e3:.0f} tokens/s), launches per "
+              f"forward {got}; logits kernels vs plain versions max |diff| "
+              f"{r['gap']:.3e} of max|logit| {r['scale']:.3e}, argmax equal "
+              f"on {r['argmax']:.4f} of positions; loss {r['loss_k']:.6f} vs "
+              f"{r['loss_p']:.6f} (relative {rel:.2e})")
+        check(r["launches"]["flash_attention"] == cfg.n_layers,
+              f"{precision} forward: {r['launches']['flash_attention']} "
+              f"flash_attention launches, not {cfg.n_layers}")
+        if precision == "fp32":
+            check(r["gap"] <= 1e-4 * r["scale"],
+                  f"fp32 forward logits differ by {r['gap']} > "
+                  f"{1e-4 * r['scale']}")
+            check(rel <= 1e-5, f"fp32 loss differs by {rel} relative")
+        else:
+            n_proj = N_PROJ * cfg.n_layers
+            check(r["launches"]["act_quant_signed_grouped"] == n_proj
+                  and r["launches"]["ternary_matmul"] == n_proj,
+                  f"2xT forward: launches {got}, not {n_proj} quantizer and "
+                  "matmul launches")
+            print("  2xT bf16: not bounded (one bf16 rounding of an attention "
+                  "output flips 2-bit codes downstream)")
+        del model, params
+        torch.cuda.empty_cache()
+
+
+def phase_core_quant(device, card):
+    """4i: the port's integer-code quantizers, ``core.act_quant_codes_unsigned``
+    on post-ReLU CNN activations (batch 8, ResNet-34 stage 1: 56x56x64) and
+    ``core.act_quant_codes_signed`` on LM rows (4 tokens' embeddings of the
+    served model, bf16), each against its plain version."""
+    import torch
+    from repro_torch.core import act_quant_codes_signed, act_quant_codes_unsigned
+    from repro_torch.kernels import engine, ref
+    print("== 4i. core activation quantizers (act_quant_codes_unsigned / "
+          "_signed)", flush=True)
+    gen = torch.Generator(device=device).manual_seed(4)
+    relu = torch.relu(torch.randn((8, 56, 56, 64), generator=gen,
+                                  device=device)) / 2
+    cfg = model_config(precision="2xT", kv_bits=8)
+    emb = torch.randn((cfg.padded_vocab, cfg.d_model), generator=gen,
+                      device=device).to(torch.bfloat16)
+    rows = emb[torch.arange(4, device=device) * 97 + 1]
+    engine.reset_launch_counts()
+    codes_u = act_quant_codes_unsigned(relu, 2)
+    codes_s, scale = act_quant_codes_signed(rows, 8)
+    torch.cuda.synchronize()
+    launches = engine.launch_counts()
+    print(f"launches: {{'act_quant': {launches['act_quant']}, "
+          f"'act_quant_signed': {launches['act_quant_signed']}}}")
+    check(launches["act_quant"] == 1 and launches["act_quant_signed"] == 1
+          and sum(launches.values()) == 2, f"core quantizers: {launches}")
+    want_u = ref.act_quant_ref(relu.reshape(-1, 64), 2).reshape(relu.shape)
+    want_s = ref.act_quant_signed_ref(rows, 8, scale.to(torch.bfloat16),
+                                      compute_dtype=torch.bfloat16)
+    check(torch.equal(codes_u, want_u) and torch.equal(codes_s, want_s),
+          "core quantizers differ from the plain versions")
+    print(f"unsigned 2-bit codes of {tuple(relu.shape)} f32 (histogram "
+          f"{torch.bincount(codes_u.flatten().long(), minlength=4).tolist()}) "
+          f"and signed 8-bit codes of {tuple(rows.shape)} bf16 (scale "
+          f"{scale.item():.4e}): torch.equal to the plain versions")
+    return launches
 
 
 def _paged_config(**kw):
@@ -1014,8 +1360,14 @@ def phase_cnn(device, card):
                 # before the head, and this comparison checks nothing
                 print(f"  {name} {prec}: every logit is 0 (activations die "
                       "out; see ROADMAP.md, reference caveats)")
-            check(got[kern] == n_packed and sum(got.values()) == n_packed,
-                  f"{name} {prec}: launches {got}, not {n_packed} {kern}")
+            # at 2xT every quantized conv (the int8-codes first layer too)
+            # quantizes its im2col rows per row through B7c first
+            n_quant = n_packed + 1 if prec == "2xT" else 0
+            check(got[kern] == n_packed
+                  and got["act_quant_signed_grouped"] == n_quant
+                  and sum(got.values()) == n_packed + n_quant,
+                  f"{name} {prec}: launches {got}, not {n_packed} {kern} and "
+                  f"{n_quant} act_quant_signed_grouped")
             check(bool(torch.isfinite(lk).all()), f"{name} {prec}: non-finite")
             check(gap <= 1e-5 * scale and top1 == CNN_BATCH,
                   f"{name} {prec}: kernel logits differ by {gap} (top-1 "
@@ -1167,23 +1519,30 @@ def _compare_backends(model, params, sc, prompt, device):
     cfg = model.cfg
     tokens = torch.as_tensor(prompt[:, :CHUNK], device=device)
     pos = torch.tensor([CHUNK, CHUNK - 3, CHUNK - 7, 5], device=device)
-    launches, runs = {}, {}
+    launches, runs, quant = {}, {}, {}
+
+    def n_quant(events):
+        return sum(e.op == "act_quant_signed_grouped" for e in events)
     for run, backend, f32 in (("cuda", "cuda", True), ("plain", "torch", True),
                               ("serving", "torch", False)):
         engine.reset_launch_counts()
         cache = tfm.make_cache(cfg, 1, sc.s_max, device)
-        lc, cache = model.prefill_chunk(params, tokens, cache, 0,
-                                        backend=backend)
+        with engine.dispatch_trace() as ev:
+            lc, cache = model.prefill_chunk(params, tokens, cache, 0,
+                                            backend=backend)
         torch.cuda.synchronize()
+        quant[f"chunk_{run}"] = n_quant(ev)
         launches[f"chunk_{run}"] = engine.launch_counts()
         slots = tfm.make_cache(cfg, N_SLOTS, sc.s_max, device)
         for i in range(N_SLOTS):
             write_slot(slots, cache, i)
         tok = lc[:, -1:].argmax(-1).expand(N_SLOTS, 1).contiguous()
         engine.reset_launch_counts()
-        with _attention_probe(plain_f32=f32) as attn:
+        with _attention_probe(plain_f32=f32) as attn, \
+                engine.dispatch_trace() as ev:
             ld, _ = model.decode_step(params, tok, slots, pos, backend=backend)
         torch.cuda.synchronize()
+        quant[f"decode_{run}"] = n_quant(ev)
         launches[f"decode_{run}"] = engine.launch_counts()
         check(len(attn) == cfg.n_layers,
               f"{len(attn)} decode attention calls for {cfg.n_layers} layers")
@@ -1197,9 +1556,14 @@ def _compare_backends(model, params, sc, prompt, device):
     dtype = getattr(torch, cfg.dtype)           # the model dtype
     (cc, cd, ca), (pc, pd, pa), (_, sd, sa) = (runs["cuda"], runs["plain"],
                                                runs["serving"])
+    check(not any(quant[f"{c}_{run}"] for run in ("plain", "serving")
+                  for c in ("chunk", "decode")),
+          "backend='torch' traced a quantizer launch")
     return {
         "launches": {"chunk": launches["chunk_cuda"],
                      "decode": launches["decode_cuda"]},
+        "quant_dispatches": {"chunk": quant["chunk_cuda"],
+                             "decode": quant["decode_cuda"]},
         "chunk": (cc - pc).abs().max().item(),
         "q0_equal": torch.equal(ca[0][0], pa[0][0]),
         "attn0": (ca[0][1] - pa[0][1]).abs().max().item(),
@@ -1341,9 +1705,15 @@ def main() -> None:
     fused_launches = phase_fused(device, card)
     xnor_launches, xnor_served = phase_serve_1x1(device, card)
     phase_cnn(device, card)
+    whole_launches = phase_whole_prompt(device, card, served)
+    phase_forward(device, card)
+    core_launches = phase_core_quant(device, card)
     launches.update(paged_attention=paged_launches["paged_attention"],
                     fused_decode=fused_launches["fused_decode"],
-                    binary_matmul=xnor_launches["binary_matmul"])
+                    binary_matmul=xnor_launches["binary_matmul"],
+                    flash_attention=whole_launches["flash_attention"],
+                    act_quant=core_launches["act_quant"],
+                    act_quant_signed=core_launches["act_quant_signed"])
     model, params, sc, _ = served
     phase_profile(card, "2xT dense", ContinuousBatcher(model, params, sc))
     phase_profile(card, "2xT paged kv8",
@@ -1364,6 +1734,14 @@ def main() -> None:
                             "src/repro/kernels/paged_attention.py:99"),
         "fused_decode": ("src/repro_torch/csrc/decode_fused.cu",
                          "src/repro/kernels/decode_fused.py:117"),
+        "act_quant": ("src/repro_torch/csrc/act_quant.cu",
+                      "src/repro/kernels/act_quant.py:60"),
+        "act_quant_signed": ("src/repro_torch/csrc/act_quant.cu",
+                             "src/repro/kernels/act_quant.py:77"),
+        "act_quant_signed_grouped": ("src/repro_torch/csrc/act_quant.cu",
+                                     "src/repro/kernels/act_quant.py:98"),
+        "flash_attention": ("src/repro_torch/csrc/flash_attention.cu",
+                            "src/repro/kernels/flash_attention.py:77"),
     }
     kernels = [{"name": r["name"], "route": "cuda",
                 "source": replaces[r["name"]][0],

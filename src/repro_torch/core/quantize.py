@@ -8,7 +8,9 @@ Weights:
 
 Activations (paper eq. 4, k bits): post-ReLU values clip to [0, 1] and round
 to 2^k - 1 uniform levels; signed k-bit values round to a symmetric grid
-with a per-tensor scale; 1-bit signed values are sign(x).
+with a per-tensor scale; 1-bit signed values are sign(x).  The integer-code
+quantizers (:func:`act_quant_codes_unsigned`, :func:`act_quant_codes_signed`)
+run the activation-quantizer kernels (``kernels/act_quant.py``) on the card.
 
 The fake-quant (quantize -> dequantize) functions are the FORWARD of the
 reference's straight-through estimators, value for value: the reference
@@ -23,6 +25,35 @@ import torch
 
 from .precision import (A_FLOAT, A_SIGNED, A_UNSIGNED, PrecisionConfig,
                         W_BINARY, W_FLOAT, W_INT, W_TERNARY)
+
+
+def _rows(x: torch.Tensor) -> torch.Tensor:
+    """x as contiguous (rows, last dim) for the elementwise kernels."""
+    return x.reshape(-1, x.shape[-1] if x.dim() else 1).contiguous()
+
+
+def act_quant_codes_unsigned(x: torch.Tensor, bits: int) -> torch.Tensor:
+    """Paper eq. (4): integer codes 0..2^k-1 for post-ReLU activations,
+    ``floor(min(1, x) * (2^k - 1) + 0.5)`` with x clamped below at 0, as
+    int8 of x's shape, computed in x's dtype (float32 or bfloat16).  Codes
+    saturate at 127, as the reference's int8 conversion does."""
+    from repro_torch.kernels.act_quant import act_quant  # kernels import core
+    codes = act_quant(_rows(x), bits=bits, compute_dtype=x.dtype)
+    return codes.reshape(x.shape)
+
+
+def act_quant_codes_signed(x: torch.Tensor, bits: int
+                           ) -> tuple[torch.Tensor, torch.Tensor]:
+    """Symmetric signed k-bit codes with a per-tensor scale: returns (codes
+    in [-(2^(k-1)-1), 2^(k-1)-1] as int8 of x's shape, scale as a float32
+    scalar) with dequant = codes * scale.  The scale is max|x| / qmax
+    (floored at 1e-8) in x's dtype, which the codes are computed in."""
+    from repro_torch.kernels.act_quant import act_quant_signed
+    qmax = (1 << (bits - 1)) - 1
+    scale = x.abs().amax().clamp_min(1e-8) / qmax
+    codes = act_quant_signed(_rows(x), scale, bits=bits,
+                             compute_dtype=x.dtype)
+    return codes.reshape(x.shape), scale.to(torch.float32)
 
 
 def _round_ste(x: torch.Tensor) -> torch.Tensor:

@@ -48,6 +48,14 @@ P, I, F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 # C signatures of every extern "C" launcher, by source; each returns a
 # cudaError_t (0 = success).  The last argument is the CUDA stream.
 SIGNATURES = {
+    "act_quant": {
+        # (x, x_kind, out, M, F, bits, bf16, aligned, stream)
+        "act_quant_unsigned": (P, I, P, I, I, I, I, I, P),
+        # (x, x_kind, scale, s_kind, out, M, F, bits, bf16, aligned, stream)
+        "act_quant_signed": (P, I, P, I, P, I, I, I, I, I, P),
+        # (x, x_kind, scale, s_kind, out, M, F, G, bits, bf16, aligned, stream)
+        "act_quant_signed_grouped": (P, I, P, I, P, I, I, I, I, I, I, P),
+    },
     "binary_matmul": {
         # (a, w, alpha, bias, out, M, N, K, stream)
         "binary_matmul": (P, P, P, P, P, I, I, I, P),
@@ -69,6 +77,11 @@ SIGNATURES = {
         #  B, NB, bs, n_blocks, KV, G, Dh, stream)
         "paged_attention": (P, I, P, P, P, P, I, P, P, P,
                             I, I, I, I, I, I, I, P),
+    },
+    "flash_attention": {
+        # (q, k, v, kind, out, B, Sq, Sk, KV, G, Dh, causal, window,
+        #  softcap, sm_scale, stream)
+        "flash_attention": (P, P, P, I, P, I, I, I, I, I, I, I, I, F, F, P),
     },
     "decode_fused": {
         # (q, q_kind, k, k_scale, v, v_scale, kv_kind, page_table, pos,

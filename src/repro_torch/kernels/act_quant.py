@@ -1,0 +1,127 @@
+"""Activation quantizers — float rows to int8 codes in one elementwise pass.
+
+Three functions, each the counterpart of a TPU kernel of
+``repro/kernels/act_quant.py``:
+
+  * :func:`act_quant` — unsigned eq. (4), ``floor(clip(x,0,1)*(2^k-1)+0.5)``
+    (half up), for post-ReLU activations;
+  * :func:`act_quant_signed` — ``clip(round(x/s), +-(2^(k-1)-1))`` (half to
+    even) with one scale ``s``;
+  * :func:`act_quant_signed_grouped` — the same with ``s`` (M, G), G | F,
+    each scale covering F/G columns; G = 1 is the engine's per-row
+    quantizer (``engine._prep_activations``).
+
+x is (M, F) f32 or bf16; the codes are (M, F) int8.  ``compute_dtype``
+float32 is the TPU kernels' arithmetic; bfloat16 rounds every intermediate
+to bf16, as the same PyTorch expression on bf16 rows does (the engine
+passes the rows' dtype).  The kernel takes these two; the plain versions
+compute in any float dtype.  On a CUDA tensor each wrapper launches its
+hand-written kernel in ``csrc/act_quant.cu``; on a CPU tensor it runs the
+plain version in :mod:`repro_torch.kernels.ref`.  The kernel is
+``torch.equal`` to the plain version.
+"""
+from __future__ import annotations
+
+import torch
+
+from . import _build
+from .ref import (act_quant_ref, act_quant_signed_grouped_ref,
+                  act_quant_signed_ref)
+
+_KINDS = {torch.float32: 1, torch.bfloat16: 2}      # x and scale dtypes
+COMPUTE_DTYPES = (torch.float32, torch.bfloat16)
+
+
+def _check_x(x, bits: int, compute_dtype) -> tuple[int, int]:
+    """Validate x and the options for the CUDA launcher; returns (M, F)."""
+    if compute_dtype not in COMPUTE_DTYPES:
+        raise ValueError(f"compute_dtype {compute_dtype} not in "
+                         f"{COMPUTE_DTYPES}")
+    if x.dim() != 2:
+        raise ValueError(f"x must be (M, F), got {tuple(x.shape)}")
+    if x.dtype not in _KINDS:
+        raise TypeError(f"x dtype {x.dtype} not in {list(_KINDS)}")
+    if not x.is_contiguous():
+        raise ValueError("x must be contiguous")
+    if not 1 <= bits <= 8:
+        raise ValueError(f"bits={bits} outside [1, 8]")
+    return x.shape
+
+
+def _check_scale(scale, x, shape) -> None:
+    if scale.dtype not in _KINDS:
+        raise TypeError(f"scale dtype {scale.dtype} not in {list(_KINDS)}")
+    if tuple(scale.shape) != tuple(shape):
+        raise ValueError(f"scale must be {tuple(shape)}, got "
+                         f"{tuple(scale.shape)}")
+    if scale.device != x.device or not scale.is_contiguous():
+        raise ValueError(f"scale must be contiguous on {x.device}")
+
+
+def _aligned(x, out) -> int:
+    """1 when the kernel may use 16-byte loads and 8-byte stores."""
+    return int(x.shape[1] % 8 == 0 and x.data_ptr() % 16 == 0
+               and out.data_ptr() % 8 == 0)
+
+
+def _launch(name: str, fn: str, x, args) -> torch.Tensor:
+    """Allocate the codes and launch ``fn`` with (x, x_kind, *args(out))."""
+    out = torch.empty(x.shape, dtype=torch.int8, device=x.device)
+    if x.numel() == 0:
+        return out
+    lib = _build.library("act_quant")
+    err = getattr(lib, fn)(x.data_ptr(), _KINDS[x.dtype], *args(out))
+    _build.check(err, name)
+    _build.LAUNCHES[name] += 1
+    return out
+
+
+def act_quant(x: torch.Tensor, *, bits: int,
+              compute_dtype=torch.float32) -> torch.Tensor:
+    """Unsigned eq. (4) codes 0..min(2^k - 1, 127) of x (M, F)."""
+    if not x.is_cuda:
+        return act_quant_ref(x, bits, compute_dtype=compute_dtype)
+    m, f = _check_x(x, bits, compute_dtype)
+    bf16 = int(compute_dtype == torch.bfloat16)
+    return _launch("act_quant", "act_quant_unsigned", x, lambda out: (
+        out.data_ptr(), m, f, bits, bf16, _aligned(x, out),
+        _build.stream_ptr(x)))
+
+
+def act_quant_signed(x: torch.Tensor, scale: torch.Tensor, *, bits: int,
+                     compute_dtype=torch.float32) -> torch.Tensor:
+    """Signed symmetric codes of x (M, F) under one scale (a one-element
+    f32/bf16 tensor on x's device: no host round trip)."""
+    if not x.is_cuda:
+        return act_quant_signed_ref(x, bits, scale,
+                                    compute_dtype=compute_dtype)
+    m, f = _check_x(x, bits, compute_dtype)
+    if scale.numel() != 1:
+        raise ValueError(f"scale must hold one value, got {tuple(scale.shape)}")
+    scale = scale.reshape(1)
+    _check_scale(scale, x, (1,))
+    bf16 = int(compute_dtype == torch.bfloat16)
+    return _launch("act_quant_signed", "act_quant_signed", x, lambda out: (
+        scale.data_ptr(), _KINDS[scale.dtype], out.data_ptr(), m, f, bits,
+        bf16, _aligned(x, out), _build.stream_ptr(x)))
+
+
+def act_quant_signed_grouped(x: torch.Tensor, scale: torch.Tensor, *,
+                             bits: int,
+                             compute_dtype=torch.float32) -> torch.Tensor:
+    """Signed symmetric codes of x (M, F) under scale (M, G), G | F:
+    column c of row i divides by scale[i, c // (F // G)]."""
+    if not x.is_cuda:
+        return act_quant_signed_grouped_ref(x, bits, scale,
+                                            compute_dtype=compute_dtype)
+    m, f = _check_x(x, bits, compute_dtype)
+    if scale.dim() != 2 or scale.shape[1] == 0 or f % scale.shape[1]:
+        raise ValueError(f"scale {tuple(scale.shape)} does not group x "
+                         f"{tuple(x.shape)}")
+    g = scale.shape[1]
+    _check_scale(scale, x, (m, g))
+    bf16 = int(compute_dtype == torch.bfloat16)
+    return _launch("act_quant_signed_grouped", "act_quant_signed_grouped", x,
+                   lambda out: (scale.data_ptr(), _KINDS[scale.dtype],
+                                out.data_ptr(), m, f, g, bits, bf16,
+                                _aligned(x, out), _build.stream_ptr(x)))

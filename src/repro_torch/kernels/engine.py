@@ -12,6 +12,9 @@ backend)`` behind one entry point, :func:`qmatmul`, which
      int8-codes storage, are registered for ``torch`` only),
   3. applies the epilogue ``acc * w_scale * a_scale + bias`` in that order.
 
+On the card, step 1's per-row codes come from the activation-quantizer
+kernel (``act_quant_signed_grouped`` with one group per row).
+
 Backends: ``"cuda"`` (the hand-written kernels of ``csrc/``) and
 ``"torch"`` (their plain versions).  With ``backend=None`` a CUDA tensor
 goes to the kernel and a CPU tensor to the plain version; ``"cuda"`` with a
@@ -19,9 +22,10 @@ CPU tensor raises; nothing switches to the plain path while a card is
 present unless the caller passes ``backend="torch"``.
 
 A second registry keyed on ``(attn_kind, kv_bits, backend)`` serves the
-decode attention: the dense cache (:func:`decode_attention`), the paged
-block pool (:func:`paged_attention`) and the fused paged decode with the
-``wo`` projection folded in (:func:`fused_paged_decode`).
+attention kernels: the dense-cache decode (:func:`decode_attention`), the
+paged block pool (:func:`paged_attention`), the fused paged decode with the
+``wo`` projection folded in (:func:`fused_paged_decode`) and full-sequence
+causal attention (:func:`flash_attention`, prefill and forward).
 
 ``weight_kind`` is the *storage* kind: "int" / "ternary" / "binary" for
 bit-packed int32 words, "codes" for the unpacked int8 fallback (3-bit,
@@ -41,11 +45,13 @@ from repro_torch.core.precision import (A_FLOAT, PrecisionConfig, W_BINARY,
 from repro_torch.core.quantize import weight_fake_quant, weight_quant
 
 from . import _build, ref
+from .act_quant import act_quant_signed_grouped
 from .binary_matmul import binary_matmul
 from .decode_attention import (_pos_vector,
                                decode_attention as _decode_attention_kernel,
                                decode_attention_serving_ref)
 from .decode_fused import fused_decode as _fused_decode_kernel
+from .flash_attention import flash_attention as _flash_attention_kernel
 from .paged_attention import paged_attention as _paged_attention_kernel
 from .paged_attention import paged_attention_ref
 from .packed_matmul import packed_matmul
@@ -60,7 +66,9 @@ K_CODES = "codes"
 
 # the hand-written kernels, by launch-counter name
 KERNELS = ("ternary_matmul", "packed_matmul", "binary_matmul",
-           "decode_attention", "paged_attention", "fused_decode")
+           "decode_attention", "paged_attention", "fused_decode",
+           "act_quant", "act_quant_signed", "act_quant_signed_grouped",
+           "flash_attention")
 
 
 # ---------------------------------------------------------------------------
@@ -191,8 +199,9 @@ class DispatchEvent(NamedTuple):
     matched (``torch`` when the kind has no CUDA kernel); ``a_scale_shape``
     is the per-row activation scale's shape (None for float/pre-quantized
     inputs)."""
-    op: str                     # "qmatmul" | "decode_attention" |
-                                # "paged_attention" | "fused_paged_decode"
+    op: str                     # "qmatmul" | "act_quant_signed_grouped" |
+                                # "decode_attention" | "paged_attention" |
+                                # "fused_paged_decode" | "flash_attention"
     kind: str                   # storage kind / attn kind
     requested_backend: str
     impl_backend: str
@@ -334,11 +343,15 @@ def _codes_torch(x, pw, scale, bias, *, out_dtype, a_scale=None):
 # ---------------------------------------------------------------------------
 # activation preparation
 # ---------------------------------------------------------------------------
-def _prep_activations(x2: torch.Tensor, pw: PackedWeight, a_bits: int):
+def _prep_activations(x2: torch.Tensor, pw: PackedWeight, a_bits: int,
+                      backend: str):
     """Returns (x_prepped, a_scale or None).  Integer inputs are taken as
     ready-made codes (the caller owns their scale); float inputs are
     quantized symmetric PER ROW: each row's codes and scale depend only on
     that row, so any batch shape gives the same values.  a_scale is (M, 1).
+    The codes are ``clip(round(x / a_scale), +-qmax)`` in the rows' dtype:
+    the ``act_quant_signed_grouped`` kernel (one group per row) for the
+    ``cuda`` backend, its plain version for ``torch``.
 
     At 1 bit the codes are the signs (x >= 0 -> +1) with a_scale = mean|x|
     of the row; they are bit-packed for the XNOR kernel only when the
@@ -355,9 +368,18 @@ def _prep_activations(x2: torch.Tensor, pw: PackedWeight, a_bits: int):
         a_scale = x2.abs().mean(dim=1, keepdim=True).clamp_min(1e-8)
         xq = torch.where(x2 >= 0, 1, -1).to(torch.int8)
         return (packing.pack_binary_pm1(xq) if xnor else xq), a_scale
-    qmax = (1 << (min(a_bits, 8) - 1)) - 1
+    bits = min(a_bits, 8)
+    qmax = (1 << (bits - 1)) - 1
     a_scale = x2.abs().amax(dim=1, keepdim=True).clamp_min(1e-8) / qmax
-    xq = torch.clamp(torch.round(x2 / a_scale), -qmax, qmax).to(torch.int8)
+    if backend == BACKEND_TORCH:
+        return ref.act_quant_signed_grouped_ref(
+            x2, bits, a_scale, compute_dtype=x2.dtype), a_scale
+    xq = act_quant_signed_grouped(x2.contiguous(), a_scale, bits=bits,
+                                  compute_dtype=x2.dtype)
+    _record_dispatch(op="act_quant_signed_grouped", kind="signed_grouped",
+                     requested_backend=backend, impl_backend=backend,
+                     a_bits=bits, w_bits=0, m_rows=int(x2.shape[0]),
+                     a_scale_shape=tuple(a_scale.shape))
     return xq, a_scale
 
 
@@ -381,7 +403,7 @@ def qmatmul(x: torch.Tensor, pw: PackedWeight, cfg: PrecisionConfig, *,
     a_bits = 0 if (cfg.a_mode == A_FLOAT or cfg.a_bits > 8) else cfg.a_bits
     lead = x.shape[:-1]
     x2 = x.reshape(-1, x.shape[-1])
-    xq, a_scale = _prep_activations(x2, pw, a_bits)
+    xq, a_scale = _prep_activations(x2, pw, a_bits, backend)
     # weight scale (N,) and per-row act scale (M, 1) stay separate: folding
     # them would couple the epilogue to the batch
     scale = pw.scale.reshape(-1).to(torch.float32)
@@ -499,6 +521,42 @@ def paged_attention(q, k_pool, k_scale, v_pool, v_scale, page_table, pos, *,
                      a_scale_shape=None)
     return fn(q, k_pool, k_scale, v_pool, v_scale, (page_table, pos),
               kv_bits=kv_bits, dtype=dtype)
+
+
+# ---------------------------------------------------------------------------
+# full-sequence causal attention (whole-prompt prefill, forward)
+# ---------------------------------------------------------------------------
+ATTN_FLASH = "flash"
+
+
+@register_attention(ATTN_FLASH, 16, BACKEND_TORCH)
+def _flash_attn_torch(q, k, v, *, causal, window, softcap):
+    return ref.flash_attention_ref(q, k, v, causal=causal, window=window,
+                                   softcap=softcap)
+
+
+@register_attention(ATTN_FLASH, 16, BACKEND_CUDA)
+def _flash_attn_cuda(q, k, v, *, causal, window, softcap):
+    return _flash_attention_kernel(q.contiguous(), k.contiguous(),
+                                   v.contiguous(), causal=causal,
+                                   window=window, softcap=softcap)
+
+
+def flash_attention(q, k, v, *, causal: bool = True, window: int = 0,
+                    softcap: float = 0.0,
+                    backend: str | None = None) -> torch.Tensor:
+    """Full-sequence attention via the registry, query and key positions
+    both counted from 0 (prefill and forward, never a chunk at an offset):
+    q (B, Sq, KV, G, Dh), k/v (B, Sk, KV, Dh) in the model dtype, causal,
+    sliding-window (``window`` > 0) and tanh-softcap (``softcap`` > 0)
+    masks, f32 softmax.  Returns (B, Sq, KV, G, Dh) float32."""
+    backend = _check_backend(backend, q)
+    fn, matched = resolve_attention_entry(ATTN_FLASH, 16, backend)
+    _record_dispatch(op="flash_attention", kind=ATTN_FLASH,
+                     requested_backend=backend, impl_backend=matched[2],
+                     a_bits=16, w_bits=16,
+                     m_rows=int(q.shape[0] * q.shape[1]), a_scale_shape=None)
+    return fn(q, k, v, causal=causal, window=window, softcap=softcap)
 
 
 # ---------------------------------------------------------------------------

@@ -1,7 +1,9 @@
-"""Plain PyTorch versions of the packed and binary matmul kernels — the
-semantics of ``repro.kernels.ref`` (integer paths match exactly, float paths
-to a tolerance).  They run on any device: the CPU path of every wrapper, and the
-yardstick the CUDA kernels are held against on the card.
+"""Plain PyTorch versions of the kernels — the semantics of
+``repro.kernels.ref`` (integer paths match exactly, float paths to a
+tolerance): the packed and binary matmuls, the activation quantizers and
+full-sequence flash attention.  They run on any device: the CPU path of
+every wrapper, and the yardstick the CUDA kernels are held against on the
+card.
 
 Integer products accumulate in float64, which holds every int8 x int8 sum
 these shapes produce exactly (|acc| < 2^53), so the result equals an int32
@@ -73,3 +75,82 @@ def binary_matmul_ref(x_packed, wt_packed, k: int, alpha=None,
     if row_scale is not None:
         acc = acc * row_scale
     return acc.to(out_dtype)
+
+
+# ---------------------------------------------------------------------------
+# activation quantizers (paper eq. 4 and the signed symmetric grid)
+# ---------------------------------------------------------------------------
+def _saturate_int8(v: torch.Tensor) -> torch.Tensor:
+    """Integral floats -> int8, saturating at [-128, 127] as the reference's
+    float -> int8 conversion does (a bare torch cast wraps): 8-bit unsigned
+    codes above 127 come out as 127."""
+    return torch.clamp(v, -128, 127).to(torch.int8)
+
+
+def act_quant_ref(x, bits: int, *, compute_dtype=torch.float32):
+    """Paper eq. (4): ``floor(clip(x, 0, 1) * (2^k - 1) + 0.5)`` as int8
+    codes, half rounded up.  ``compute_dtype`` float32 is the TPU kernel's
+    arithmetic; bfloat16 rounds the product and the sum to bf16 each, as the
+    same expression on bf16 rows does."""
+    levels = (1 << bits) - 1
+    v = torch.clamp(x.to(compute_dtype), 0.0, 1.0) * levels
+    return _saturate_int8(torch.floor(v + 0.5))
+
+
+def act_quant_signed_ref(x, bits: int, scale, *, compute_dtype=torch.float32):
+    """Symmetric signed k-bit codes ``clip(round(x / scale), +-qmax)``, half
+    to even, with ``scale`` broadcasting against x (a scalar: per-tensor).
+    A quotient, never a product with 1/scale; in bfloat16 the quotient is
+    rounded to bf16 before ``round``."""
+    qmax = (1 << (bits - 1)) - 1
+    s = torch.as_tensor(scale, device=x.device).to(compute_dtype)
+    q = x.to(compute_dtype) / s
+    return _saturate_int8(torch.clamp(torch.round(q), -qmax, qmax))
+
+
+def act_quant_signed_grouped_ref(x, bits: int, scale, *,
+                                 compute_dtype=torch.float32):
+    """Fine-grained signed codes: x (M, F), scale (M, G) with G | F,
+    scale[i, g] covering columns [g*F/G, (g+1)*F/G).  G = 1 is the engine's
+    per-row quantizer."""
+    m, f = x.shape
+    g = scale.shape[1]
+    if scale.shape[0] != m or f % g:
+        raise ValueError(f"scale {tuple(scale.shape)} does not group x "
+                         f"{tuple(x.shape)}")
+    qmax = (1 << (bits - 1)) - 1
+    q = x.to(compute_dtype).reshape(m, g, f // g) / \
+        scale.to(compute_dtype)[:, :, None]
+    return _saturate_int8(torch.clamp(torch.round(q), -qmax, qmax)
+                          ).reshape(m, f)
+
+
+# ---------------------------------------------------------------------------
+# full-sequence flash attention
+# ---------------------------------------------------------------------------
+def flash_attention_ref(q, k, v, *, causal: bool = True, window: int = 0,
+                        softcap: float = 0.0):
+    """Full-materialization softmax, in f32, with the flash kernel's
+    semantics: q (B, Sq, KV, G, Dh), k/v (B, Sk, KV, Dh), query and key
+    positions both counted from 0; ``k_pos <= q_pos`` when causal,
+    ``k_pos > q_pos - window`` when window > 0, scores
+    ``softcap * tanh(s / softcap)`` when softcap > 0; a row with no key
+    left is 0.  Returns (B, Sq, KV, G, Dh) float32."""
+    dh = q.shape[-1]
+    sq, sk = q.shape[1], k.shape[1]
+    s = torch.einsum("bqkgd,bskd->bkgqs", q.to(torch.float32),
+                     k.to(torch.float32)) * (dh ** -0.5)
+    if softcap > 0:
+        s = softcap * torch.tanh(s / softcap)
+    q_pos = torch.arange(sq, device=q.device)[:, None]
+    k_pos = torch.arange(sk, device=q.device)[None, :]
+    mask = torch.ones((sq, sk), dtype=torch.bool, device=q.device)
+    if causal:
+        mask &= k_pos <= q_pos
+    if window > 0:
+        mask &= k_pos > q_pos - window
+    s = torch.where(mask, s, torch.full_like(s, -1e30))
+    p = torch.softmax(s, dim=-1)
+    p = torch.where(mask.any(-1)[:, None], p, torch.zeros_like(p))
+    out = torch.einsum("bkgqs,bskd->bkgqd", p, v.to(torch.float32))
+    return out.permute(0, 3, 1, 2, 4)

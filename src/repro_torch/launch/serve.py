@@ -93,7 +93,10 @@ def serve(args) -> list:
     if batcher.chunk_size:
         print(f"chunked prefill: chunk={batcher.chunk_size}")
     else:
-        print("whole-prompt admission")
+        print("whole-prompt admission (--chunk-size 0): each prompt is "
+              "prefilled in one call, its full-sequence attention through "
+              + ("the flash_attention kernel" if device.type == "cuda"
+                 else "the reference's plain attention"))
 
     rng = np.random.default_rng(1)
     for rid in range(args.requests):

@@ -2,6 +2,8 @@
 serving API of ``repro.models.Model`` for dense token LMs:
 
     model.init(generator, device)                      -> params
+    model.forward(params, batch)                       -> (logits, aux)
+    model.loss(params, batch)                          -> scalar
     model.prefill(params, batch, s_max)                -> (logits, cache)
     model.prefill_chunk(params, tokens, cache, pos)    -> (logits, cache)
     model.decode_step(params, token, cache, pos)       -> (logits, cache)
@@ -9,13 +11,17 @@ serving API of ``repro.models.Model`` for dense token LMs:
     model.decode_step_paged(params, token, pool, page_table, pos, kv_bits,
                             slot_map=None, fused=True)  -> (logits, pool)
 
-``batch`` is {"tokens": (B, S)}.  Every step takes an optional ``backend``
-("cuda" | "torch"); None picks by the device of the inputs.
+``batch`` is {"tokens": (B, S)}, plus {"labels": (B, S)} for ``loss``.
+Every call takes an optional ``backend`` ("cuda" | "torch"); None picks by
+the device of the inputs.  ``forward`` and ``loss`` are forward values
+only: training and its gradients come in a later slice.
 """
 from __future__ import annotations
 
 import dataclasses
 from collections.abc import Callable
+
+import torch
 
 from . import transformer
 from .config import ModelConfig, reduce_for_smoke  # noqa: F401
@@ -32,6 +38,16 @@ class Model:
     # paged-KV serving (runtime.kvcache): block pool + page table
     prefill_chunk_paged: Callable
     decode_step_paged: Callable
+    forward: Callable
+
+    def loss(self, params, batch, backend=None):
+        """Next-token NLL of ``batch["labels"]`` under the forward's logits,
+        averaged over (B, S-1), plus 0.01 * aux."""
+        logits, aux = self.forward(params, batch, backend=backend)
+        logp = torch.log_softmax(logits[:, :-1].to(torch.float32), dim=-1)
+        tgt = batch["labels"][:, 1:].to(torch.int64)
+        nll = -torch.gather(logp, -1, tgt[..., None])[..., 0]
+        return nll.mean() + 0.01 * aux
 
 
 def build_model(cfg: ModelConfig) -> Model:
@@ -43,6 +59,8 @@ def build_model(cfg: ModelConfig) -> Model:
         cfg=cfg,
         init=lambda generator, device: transformer.init_params(
             cfg, generator, device),
+        forward=lambda p, b, backend=None: transformer.forward(
+            p, b["tokens"], cfg, backend=backend),
         prefill=lambda p, b, s_max, backend=None: transformer.prefill(
             p, b["tokens"], cfg, s_max, backend=backend),
         decode_step=lambda p, tok, cache, pos, backend=None:

@@ -10,7 +10,9 @@ has two forms:
 
 Serving matmuls go through the precision-dispatch engine; the dense KV
 cache is int8/int4 codes with per-(position, head) scales, or the model
-dtype when ``kv_bits`` is 0.
+dtype when ``kv_bits`` is 0.  Full-sequence attention (a whole-prompt
+prefill, the forward) goes through ``engine.flash_attention`` on the card
+and through the reference's ``_attend`` / ``_attend_flash`` on the CPU.
 
 Unlike the JAX package, the cached attention paths update the cache (and
 the paged block pool) IN PLACE and return the same dict: a serving step
@@ -158,10 +160,93 @@ def _attend(q, k, v, mask, cfg: ModelConfig):
     return out.reshape(b, sq, h * dh).to(q.dtype)
 
 
+ATTN_KV_CHUNK = 1024      # flash-style blocking threshold & block size
+
+
+def _attend_flash(q, k, v, pos_q, pos_k, cfg: ModelConfig, *, causal: bool,
+                  local: bool, kv_chunk: int = ATTN_KV_CHUNK):
+    """Blockwise (FlashAttention-semantics) attention in plain PyTorch: KV
+    in chunks of ``kv_chunk`` with a running (max, denominator, weighted
+    sum), so (Sq, Sk) scores never exist at once; the same f32 softmax as
+    :func:`_attend`.  q: (B,Sq,H,Dh); k/v: (B,Sk,KV,Dh); pos_q: (B,Sq);
+    pos_k: (B,Sk); Sk a multiple of ``kv_chunk``."""
+    b, sq, h, dh = q.shape
+    kv, sk = k.shape[2], k.shape[1]
+    g = h // kv
+    n_chunks = sk // kv_chunk
+    if n_chunks * kv_chunk != sk:
+        raise ValueError(f"Sk={sk} is not a multiple of kv_chunk={kv_chunk}")
+    qg = q.reshape(b, sq, kv, g, dh).to(torch.float32)
+    scale = dh ** -0.5
+    m = torch.full((b, kv, g, sq), -1e30, dtype=torch.float32, device=q.device)
+    l = torch.zeros((b, kv, g, sq), dtype=torch.float32, device=q.device)
+    acc = torch.zeros((b, kv, g, sq, dh), dtype=torch.float32, device=q.device)
+    pq = pos_q[:, None, None, :, None]
+    for c in range(n_chunks):
+        lo, hi = c * kv_chunk, (c + 1) * kv_chunk
+        k_c, v_c = k[:, lo:hi], v[:, lo:hi]
+        p_c = pos_k[:, lo:hi][:, None, None, None, :]
+        s = torch.einsum("bqkgd,bskd->bkgqs", qg, k_c.to(torch.float32)) * scale
+        s = _softcap(s, cfg.attn_softcap)
+        mask = torch.ones((b, 1, 1, sq, kv_chunk), dtype=torch.bool,
+                          device=q.device)
+        if causal:
+            mask = mask & (p_c <= pq)
+        if local:
+            mask = mask & (p_c > pq - cfg.window)
+        s_for_max = torch.where(mask, s, torch.full_like(s, -1e30))
+        m_new = torch.maximum(m, s_for_max.amax(dim=-1))
+        p = torch.where(mask, torch.exp(s - m_new[..., None]),
+                        torch.zeros_like(s))
+        corr = torch.exp(m - m_new)
+        l = l * corr + p.sum(dim=-1)
+        if cfg.attn_probs_bf16:
+            pv = torch.einsum("bkgqs,bskd->bkgqd", p.to(torch.bfloat16),
+                              v_c.to(torch.bfloat16)).to(torch.float32)
+        else:
+            pv = torch.einsum("bkgqs,bskd->bkgqd", p, v_c.to(torch.float32))
+        acc = acc * corr[..., None] + pv
+        m = m_new
+    out = acc / torch.clamp_min(l[..., None], 1e-30)
+    return out.permute(0, 3, 1, 2, 4).reshape(b, sq, h * dh).to(q.dtype)
+
+
+def _attend_full(q, k, v, positions, cfg: ModelConfig, local: bool,
+                 backend: str | None):
+    """Causal attention of a whole sequence over itself (no cache): a
+    whole-prompt prefill or the forward, whose positions are
+    ``arange(S)``.  On the card: ``engine.flash_attention`` (the kernel, or
+    its plain version for ``backend="torch"``), whose positions count from
+    0.  On the CPU: the reference's choice, ``_attend_flash`` for
+    Sq > ATTN_KV_CHUNK in whole chunks, else ``_attend``."""
+    b, sq, h, dh = q.shape
+    kvh = k.shape[2]
+    if q.is_cuda:
+        if cfg.attn_probs_bf16:
+            raise NotImplementedError(
+                "attn_probs_bf16: no kernel computes bf16 probabilities; the "
+                "flash-attention kernel's softmax and P.V are f32")
+        out = engine.flash_attention(
+            q.reshape(b, sq, kvh, h // kvh, dh), k, v, causal=True,
+            window=cfg.window if local else 0, softcap=cfg.attn_softcap,
+            backend=backend)
+        return out.reshape(b, sq, h * dh).to(q.dtype)
+    if sq > ATTN_KV_CHUNK and sq % ATTN_KV_CHUNK == 0:
+        return _attend_flash(q, k, v, positions, positions, cfg, causal=True,
+                             local=local)
+    i = positions[:, :, None]                   # (B,Sq,1) query pos
+    j = positions[:, None, :]                   # (B,1,Sk) key pos
+    mask = j <= i
+    if local:
+        mask &= j > i - cfg.window
+    return _attend(q, k, v, mask[:, None], cfg)
+
+
 def attn_apply(p, x, cfg: ModelConfig, positions, *, local: bool,
                cache=None, cache_pos=None, return_kv: bool = False,
                backend: str | None = None):
-    """Full-sequence prefill when cache is None, else cached.
+    """Full-sequence prefill or forward when cache is None (positions
+    ``arange(S)``), else cached.
 
     cache: dict {"k","v"[, "ks","vs"]} with k/v (B, S_max, KV, Dh') (int8
     codes + f32 scales when cfg.kv_bits); updated in place.  With a cache
@@ -181,12 +266,7 @@ def attn_apply(p, x, cfg: ModelConfig, positions, *, local: bool,
     bits = cfg.kv_bits
 
     if cache is None:
-        i = positions[:, :, None]                   # (B,Sq,1) query pos
-        j = positions[:, None, :]                   # (B,1,Sk) key pos
-        mask = j <= i
-        if local:
-            mask &= j > i - cfg.window
-        out = _attend(q, k, v, mask[:, None], cfg)
+        out = _attend_full(q, k, v, positions, cfg, local, backend)
         new = (k, v) if return_kv else None
     elif x.shape[1] > 1:
         s_max = cache["k"].shape[1]

@@ -7,6 +7,7 @@ period axis exactly as in the JAX package, so the param tree maps leaf for
 leaf.  Where JAX scans over the stack, the port loops over periods.
 
 Entry points (functions of (params, inputs)):
+  forward(params, tokens, cfg)                     -> logits, aux
   prefill(params, tokens, cfg, s_max)              -> logits, cache
   prefill_chunk(params, tokens, cache, pos, cfg)   -> logits, cache
   decode_step(params, token, cache, pos, cfg)      -> logits, cache
@@ -110,6 +111,20 @@ def make_cache(cfg: ModelConfig, b: int, s_max: int, device):
     return {f"layer_{i}": L.make_kv_cache(cfg, b, s_max, device,
                                           stacked=cfg.n_periods)
             for i in range(cfg.period)}
+
+
+def forward(params, tokens, cfg: ModelConfig, backend=None):
+    """The forward of a whole sequence (B, S), no cache: logits (B, S, V)
+    f32 and the auxiliary loss (a 0.0 f32 scalar: a dense stack has none).
+    Forward value only; gradients come with the training slice."""
+    b, s = tokens.shape
+    x = _embed(params, tokens, cfg)
+    positions = torch.arange(s, device=tokens.device)[None].expand(b, s)
+    for per in range(cfg.n_periods):
+        x = _apply_period(_period(params["blocks"], per), x, cfg, positions,
+                          backend=backend)
+    return _logits(params, x, cfg), torch.zeros((), dtype=torch.float32,
+                                                device=tokens.device)
 
 
 def prefill(params, tokens, cfg: ModelConfig, s_max: int, backend=None):

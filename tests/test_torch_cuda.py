@@ -15,6 +15,9 @@ from repro_torch.kernels import decode_attention as tattn  # noqa: E402
 from repro_torch.kernels import decode_fused as tfused  # noqa: E402
 from repro_torch.kernels import engine  # noqa: E402
 from repro_torch.kernels import paged_attention as tpaged  # noqa: E402
+from repro_torch.kernels import act_quant as taq  # noqa: E402
+from repro_torch.kernels import flash_attention as tflash  # noqa: E402
+from repro_torch.kernels import ref  # noqa: E402
 
 pytestmark = pytest.mark.cuda
 
@@ -50,7 +53,10 @@ def test_qmatmul_kernel_equals_plain(gpu, name, m):
         for b in (None, bias):
             engine.reset_launch_counts()
             got = engine.qmatmul(x, pw, pcfg, bias=b, backend="cuda")
-            assert sum(engine.launch_counts().values()) == 1
+            # the per-row quantizer, then the matmul
+            counts = engine.launch_counts()
+            assert counts["act_quant_signed_grouped"] == 1
+            assert sum(counts.values()) == 2
             want = engine.qmatmul(x, pw, pcfg, bias=b, backend="torch")
             torch.cuda.synchronize()
             assert torch.equal(got, want), (name, m, n, k)
@@ -237,3 +243,179 @@ def test_paged_wrappers_refuse_what_the_kernels_do_not_take(gpu):
         tfused.fused_decode(q, k, ks, v, vs, pt, pos, sm.long(), wo,
                             kv_bits=8)
     assert sum(engine.launch_counts().values()) == 0
+
+
+def _bf16_grid(lo, hi):
+    """Every bf16 value in [lo, hi], as float32 (exact ties: x * levels and
+    x / 2^-j are exact in f32, so k + 0.5 occurs)."""
+    u = torch.arange(0, 1 << 16, dtype=torch.int32) << 16
+    v = u.view(torch.float32)
+    return v[torch.isfinite(v) & (v >= lo) & (v <= hi)]
+
+
+# (M, F): decode rows, a ragged F (scalar path), a CNN im2col shape
+AQ_SHAPES = [(4, 576), (4, 1536), (37, 100), (25088, 576)]
+
+
+def _aq_inputs(gen, gpu, x_dtype):
+    """Random rows at AQ_SHAPES, every bf16 value of [-2, 2] as (M, 64)
+    rows (ties), and a contiguous view 4 bytes off its allocation (no
+    vector loads)."""
+    xs = [(torch.randn((m, f), generator=gen) * 2) for m, f in AQ_SHAPES]
+    grid = _bf16_grid(-2.0, 2.0)
+    xs.append(grid[:grid.numel() // 64 * 64].reshape(-1, 64))
+    xs = [x.to(gpu, x_dtype) for x in xs]
+    flat = torch.randn(1 + 33 * 576, generator=gen).to(gpu, x_dtype)
+    xs.append(flat[1:].view(33, 576))
+    return xs
+
+
+def _launch_once(name, fn):
+    engine.reset_launch_counts()
+    out = fn()
+    assert engine.launch_counts()[name] == 1
+    return out
+
+
+@pytest.mark.parametrize("compute", [torch.float32, torch.bfloat16],
+                         ids=["f32", "bf16"])
+@pytest.mark.parametrize("x_dtype", [torch.float32, torch.bfloat16],
+                         ids=["x_f32", "x_bf16"])
+@pytest.mark.parametrize("bits", [2, 3, 4, 8])
+def test_act_quant_kernels_equal_plain(gpu, bits, x_dtype, compute):
+    """All three quantizers, torch.equal to their plain versions, one
+    launch each: unsigned on |x| / 2 (the bf16 grid gives every bf16 value
+    of [0, 1]: ties), signed with a power-of-two scale (ties) and an absmax
+    scale, grouped with G = 1 and G = 4 (F allowing)."""
+    gen = torch.Generator().manual_seed(bits)
+    qmax = (1 << (bits - 1)) - 1
+    kw = dict(bits=bits, compute_dtype=compute)
+    for x in _aq_inputs(gen, gpu, x_dtype):
+        xu = (x.abs() / 2).contiguous()
+        got = _launch_once("act_quant", lambda: taq.act_quant(xu, **kw))
+        assert torch.equal(got, ref.act_quant_ref(xu, bits,
+                                                  compute_dtype=compute))
+        for s in (torch.tensor([0.25], device=gpu),
+                  (x.abs().amax().clamp_min(1e-8) / qmax).reshape(1)):
+            got = _launch_once("act_quant_signed",
+                               lambda: taq.act_quant_signed(x, s, **kw))
+            assert torch.equal(got, ref.act_quant_signed_ref(
+                x, bits, s, compute_dtype=compute))
+        for g in (1, 4):
+            if x.shape[1] % g:
+                continue
+            s = (x.reshape(x.shape[0], g, -1).abs().amax(-1)
+                 .clamp_min(1e-8) / qmax).contiguous()
+            got = _launch_once("act_quant_signed_grouped",
+                               lambda: taq.act_quant_signed_grouped(x, s, **kw))
+            assert torch.equal(got, ref.act_quant_signed_grouped_ref(
+                x, bits, s, compute_dtype=compute))
+        torch.cuda.synchronize()
+
+
+def test_act_quant_wrappers_refuse_what_the_kernel_does_not_take(gpu):
+    """float16 rows or compute, 9 bits, a scale that does not group x, or a
+    scale on the host raise before any launch."""
+    x = torch.randn((4, 64), device=gpu)
+    engine.reset_launch_counts()
+    with pytest.raises(TypeError):
+        taq.act_quant(x.half(), bits=2)
+    with pytest.raises(ValueError):
+        taq.act_quant(x, bits=2, compute_dtype=torch.float16)
+    with pytest.raises(ValueError):
+        taq.act_quant(x, bits=9)
+    with pytest.raises(ValueError):
+        taq.act_quant_signed_grouped(x, torch.ones((4, 3), device=gpu), bits=2)
+    with pytest.raises(ValueError):
+        taq.act_quant_signed(x, torch.ones(1), bits=2)
+    assert sum(engine.launch_counts().values()) == 0
+
+
+# (B, S, KV, G, Dh, causal, window, softcap): prefill, ragged lengths, the
+# gemma2-style window + softcap at Dh 128, Dh 96, no mask
+FLASH_CASES = [(1, 64, 3, 3, 64, True, 0, 0.0), (2, 100, 3, 3, 64, True, 0, 0.0),
+               (1, 300, 2, 2, 128, True, 64, 50.0), (2, 77, 1, 4, 96, True, 16, 5.0),
+               (1, 45, 2, 1, 32, False, 0, 0.0)]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=["f32", "bf16"])
+@pytest.mark.parametrize("case", FLASH_CASES, ids=lambda c: "-".join(map(str, c)))
+def test_flash_attention_kernel(gpu, case, dtype):
+    """Against the f32 plain version: online against one-shot softmax, max
+    |diff| <= 1e-5 * max|out|; one launch counted per call."""
+    b, s, kv, g, dh, causal, window, softcap = case
+    gen = torch.Generator().manual_seed(s)
+    q = torch.randn((b, s, kv, g, dh), generator=gen).to(gpu, dtype)
+    k, v = (torch.randn((b, s, kv, dh), generator=gen).to(gpu, dtype)
+            for _ in range(2))
+    kw = dict(causal=causal, window=window, softcap=softcap)
+    got = _launch_once("flash_attention",
+                       lambda: tflash.flash_attention(q, k, v, **kw))
+    want = ref.flash_attention_ref(q, k, v, **kw)
+    torch.cuda.synchronize()
+    assert got.dtype == torch.float32 and got.shape == want.shape
+    assert (got - want).abs().max() <= 1e-5 * want.abs().max()
+
+
+def test_flash_attention_wrapper_refuses(gpu):
+    """Dh 48, mixed dtypes, and inputs that require a gradient (the kernel
+    has no backward) raise before any launch."""
+    q = torch.randn((1, 8, 1, 2, 48), device=gpu)
+    k = torch.randn((1, 8, 1, 48), device=gpu)
+    engine.reset_launch_counts()
+    with pytest.raises(ValueError):
+        tflash.flash_attention(q, k, k)
+    q, k = q[..., :32].contiguous(), k[..., :32].contiguous()
+    with pytest.raises(TypeError):
+        tflash.flash_attention(q, k.bfloat16(), k)
+    with pytest.raises(RuntimeError, match="no backward"):
+        tflash.flash_attention(q.requires_grad_(True), k, k)
+    assert sum(engine.launch_counts().values()) == 0
+
+
+def test_forward_through_the_kernels(gpu):
+    """The reduced smollm, float32, B=2, S=40: at 2xT ``Model.forward``
+    launches one flash_attention per layer and one quantizer and one
+    matmul per projection; at fp32 its logits are within 1e-4 * max|logit|
+    of the plain versions' (backend="torch") and its loss within 1e-5
+    relative (at 2xT one rounding of an attention output can flip a 2-bit
+    code downstream, so no bound is held there)."""
+    from repro_torch.configs import get_config
+    from repro_torch.models import build_model, reduce_for_smoke, to_serving
+    gen = torch.Generator().manual_seed(1)
+    for precision in ("2xT", "fp32"):
+        cfg = reduce_for_smoke(get_config("smollm-135m", precision=precision))
+        model = build_model(cfg)
+        params = to_serving(model.init(torch.Generator().manual_seed(0), gpu),
+                            cfg, tp=1)
+        batch = {k: torch.randint(0, cfg.vocab, (2, 40), generator=gen).to(gpu)
+                 for k in ("tokens", "labels")}
+        engine.reset_launch_counts()
+        logits, _ = model.forward(params, batch)
+        counts = engine.launch_counts()
+        assert counts["flash_attention"] == cfg.n_layers
+        if precision == "2xT":
+            assert counts["act_quant_signed_grouped"] == 7 * cfg.n_layers
+            assert counts["ternary_matmul"] == 7 * cfg.n_layers
+            continue
+        plain, _ = model.forward(params, batch, backend="torch")
+        assert (logits - plain).abs().max() <= 1e-4 * plain.abs().max()
+        lk = float(model.loss(params, batch))
+        lp = float(model.loss(params, batch, backend="torch"))
+        assert abs(lk - lp) <= 1e-5 * abs(lp)
+
+
+def test_bf16_probabilities_refused_on_the_card(gpu):
+    """``attn_probs_bf16`` (set by no config) has no kernel: a forward on
+    the card raises rather than compute f32 probabilities."""
+    import dataclasses
+    from repro_torch.configs import get_config
+    from repro_torch.models import build_model, reduce_for_smoke
+    cfg = dataclasses.replace(reduce_for_smoke(get_config("smollm-135m")),
+                              attn_probs_bf16=True)
+    model = build_model(cfg)
+    params = model.init(torch.Generator().manual_seed(0), gpu)
+    tokens = torch.zeros((1, 8), dtype=torch.int64, device=gpu)
+    with pytest.raises(NotImplementedError, match="attn_probs_bf16"):
+        model.forward(params, {"tokens": tokens})

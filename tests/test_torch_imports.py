@@ -43,6 +43,28 @@ def test_port_imports_build_nothing():
     assert "triton" not in sys.modules
 
 
+def test_every_module_imports_first():
+    """Each module of the port imports in a fresh interpreter state of the
+    package, whichever is imported first (no import cycle depends on the
+    order)."""
+    code = (
+        "import importlib, pkgutil, sys\n"
+        "import repro_torch\n"
+        "names = [i.name for i in pkgutil.walk_packages(repro_torch.__path__, "
+        "'repro_torch.')]\n"
+        "for name in names:\n"
+        "    for k in [k for k in sys.modules if k.startswith('repro_torch')]:\n"
+        "        del sys.modules[k]\n"
+        "    importlib.import_module(name)\n"
+        "print(len(names))\n")
+    proc = subprocess.run([sys.executable, "-c", code], cwd=REPO,
+                          env={**__import__("os").environ,
+                               "PYTHONPATH": str(REPO / "src")},
+                          capture_output=True, text=True, timeout=300)
+    assert proc.returncode == 0, proc.stderr
+    assert int(proc.stdout.split()[-1]) > 30
+
+
 def test_chip_smoke_fails_outside_a_checkout(tmp_path):
     (tmp_path / "chip_smoke.py").write_text(
         (REPO / "chip_smoke.py").read_text(encoding="utf-8"))
