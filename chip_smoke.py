@@ -18,7 +18,7 @@ Phases (each prints its own lines; any failed check exits non-zero):
      shape), the dense decode attention, the paged attention at kv 8/4/16,
      the fused decode at kv8, the three activation quantizers (f32 and bf16
      rows, ``torch.equal``) and the full-sequence flash attention (prefill,
-     forward, window + softcap; f32 and bf16);
+     forward, window + softcap; f32 and bf16, each timed beside SDPA);
   4. the dense serving path at full width: smollm-135m, 2xT
      weights/activations, int8 KV cache, bf16, random weights from seed 0,
      served by the continuous batcher (8 requests over 4 slots); the kernel
@@ -683,9 +683,10 @@ def _flash_cost(b, s, kv, g, dh, window, in_bytes):
 def _flash_record(gen, device):
     """``flash_attention`` against its f32 plain version at the prefill,
     forward and a window + softcap shape, in f32 and bf16, within 1e-5 of
-    max|out|; timed in bf16 beside ``scaled_dot_product_attention``
-    (is_causal, K/V expanded to KV * G heads), the forward shape being the
-    record."""
+    max|out|; timed in both dtypes (bf16: the tensor-core kernel, f32: the
+    CUDA-core one) beside ``scaled_dot_product_attention`` in the same dtype
+    (is_causal, K/V expanded to KV * G heads), the bf16 forward shape being
+    the record."""
     import torch
     import torch.nn.functional as F
     from repro_torch.kernels.flash_attention import flash_attention
@@ -708,25 +709,28 @@ def _flash_record(gen, device):
             print(f"flash_attention {label} B={b} S={s} KV={kv} G={g} Dh={dh} "
                   f"{dtype}: max |diff| vs f32 plain version {err:.3e} "
                   f"(tolerance {tol:.3e} = 1e-5 of max|out|)")
-        if not timed:
-            continue
-        # q, k, v are the bf16 ones
-        qh = q.reshape(b, s, kv * g, dh).transpose(1, 2).contiguous()
-        kh, vh = (t.repeat_interleave(g, dim=2).transpose(1, 2).contiguous()
-                  for t in (k, v))
-        tk, tk_eager = time_ms(lambda: flash_attention(q, k, v, **kw), reps=5)
-        tp, _ = time_ms(lambda: flash_attention_ref(q, k, v, **kw), reps=5)
-        tl, _ = time_ms(lambda: F.scaled_dot_product_attention(
-            qh, kh, vh, is_causal=True), reps=5)
-        nbytes, ops = _flash_cost(b, s, kv, g, dh, window, 2)
-        bt, by = bound(nbytes, ops, PEAK_BF16)
-        print(f"  {label} bf16: kernel {tk:.4f} ms (eager call {tk_eager:.4f} "
-              f"ms), plain {tp:.4f} ms, sdpa bf16 is_causal {tl:.4f} ms, bound "
-              f"{bt:.5f} ms ({by}), {ops / tk / 1e9:.1f} TFLOP/s")
-        if label == "forward":
-            rec = {"name": "flash_attention", "ms": tk, "plain_ms": tp,
-                   "bound_ms": bt, "bound_by": by, "library_ms": tl,
-                   "shape": f"bf16 B={b} S={s} KV={kv} G={g} Dh={dh} causal"}
+            if not timed:
+                continue
+            bf16 = dtype == torch.bfloat16
+            qh = q.reshape(b, s, kv * g, dh).transpose(1, 2).contiguous()
+            kh, vh = (t.repeat_interleave(g, dim=2).transpose(1, 2).contiguous()
+                      for t in (k, v))
+            tk, tk_eager = time_ms(lambda: flash_attention(q, k, v, **kw), reps=5)
+            tp, _ = time_ms(lambda: flash_attention_ref(q, k, v, **kw), reps=5)
+            tl, _ = time_ms(lambda: F.scaled_dot_product_attention(
+                qh, kh, vh, is_causal=True), reps=5)
+            nbytes, ops = _flash_cost(b, s, kv, g, dh, window, 2 if bf16 else 4)
+            bt, by = bound(nbytes, ops, PEAK_BF16 if bf16 else PEAK_F32)
+            name = "bf16 (tensor cores)" if bf16 else "f32 (CUDA cores)"
+            print(f"  {label} {name}: kernel {tk:.4f} ms (eager call "
+                  f"{tk_eager:.4f} ms), plain {tp:.4f} ms, sdpa "
+                  f"{str(dtype)[6:]} is_causal {tl:.4f} ms, kernel / sdpa "
+                  f"{tk / tl:.2f}, bound {bt:.5f} ms ({by}), "
+                  f"{ops / tk / 1e9:.1f} TFLOP/s")
+            if label == "forward" and bf16:
+                rec = {"name": "flash_attention", "ms": tk, "plain_ms": tp,
+                       "bound_ms": bt, "bound_by": by, "library_ms": tl,
+                       "shape": f"bf16 B={b} S={s} KV={kv} G={g} Dh={dh} causal"}
     rec["max_abs_err"] = err_max
     return rec
 

@@ -332,10 +332,15 @@ def test_act_quant_wrappers_refuse_what_the_kernel_does_not_take(gpu):
 
 
 # (B, S, KV, G, Dh, causal, window, softcap): prefill, ragged lengths, the
-# gemma2-style window + softcap at Dh 128, Dh 96, no mask
+# gemma2-style window + softcap at Dh 128, Dh 96, no mask; then the bf16
+# kernel's tiling (16 rows a warp, 64 a block, 64 keys a tile): Sq*G = 111
+# rows (no multiple of 16 or 64), Sk = 20 < one key tile, G = 1 at Dh 128
+# with a window, and the forward's S = 2048 at Dh 64
 FLASH_CASES = [(1, 64, 3, 3, 64, True, 0, 0.0), (2, 100, 3, 3, 64, True, 0, 0.0),
                (1, 300, 2, 2, 128, True, 64, 50.0), (2, 77, 1, 4, 96, True, 16, 5.0),
-               (1, 45, 2, 1, 32, False, 0, 0.0)]
+               (1, 45, 2, 1, 32, False, 0, 0.0),
+               (1, 37, 2, 3, 64, True, 0, 0.0), (2, 20, 1, 2, 32, True, 0, 0.0),
+               (1, 200, 2, 1, 128, True, 100, 0.0), (1, 2048, 3, 3, 64, True, 0, 0.0)]
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
@@ -356,6 +361,23 @@ def test_flash_attention_kernel(gpu, case, dtype):
     torch.cuda.synchronize()
     assert got.dtype == torch.float32 and got.shape == want.shape
     assert (got - want).abs().max() <= 1e-5 * want.abs().max()
+
+
+def test_flash_attention_refuses_misaligned(gpu):
+    """A contiguous view 2 bytes into a flat bf16 buffer (``x[1:]``,
+    reshaped) is not 16-byte aligned: the wrapper raises, no launch."""
+    shape = (1, 64, 1, 2, 64)
+    flat = torch.randn(1 + 64 * 2 * 64, device=gpu).bfloat16()
+    q = flat[1:].reshape(shape)
+    k = torch.randn((1, 64, 1, 64), device=gpu).bfloat16()
+    assert q.is_contiguous() and q.data_ptr() % 16
+    engine.reset_launch_counts()
+    with pytest.raises(ValueError, match="16-byte"):
+        tflash.flash_attention(q, k, k)
+    with pytest.raises(ValueError, match="16-byte"):
+        tflash.flash_attention(k[:, :, :, None].expand(shape).contiguous(),
+                               flat[1:1 + k.numel()].reshape(k.shape), k)
+    assert sum(engine.launch_counts().values()) == 0
 
 
 def test_flash_attention_wrapper_refuses(gpu):

@@ -7,6 +7,11 @@ against the reference's, on the same numpy inputs.
 
 Tolerance: max |diff| <= 1e-5 * max|out| (f32 softmax and sums in another
 order: one-shot against online softmax, einsum against blockwise dots).
+
+The card's bf16 kernel computes P.V on bf16 tensor cores with P split into
+two bf16 terms; a plain emulation of that arithmetic, held here against the
+plain version, pins why the split is there (a single bf16 P misses the
+bound).
 """
 import dataclasses
 import importlib
@@ -140,3 +145,82 @@ def test_host_path_is_the_plain_version():
     assert engine.launch_counts()["flash_attention"] == 0
     with pytest.raises(ValueError, match="needs CUDA tensors"):
         engine.flash_attention(q, k, v, backend="cuda")
+
+
+# the first five of test_torch_cuda.FLASH_CASES (B, S, KV, G, Dh, causal,
+# window, softcap), and the forward's G = 3 at S = 1024
+SPLIT_CASES = [(1, 64, 3, 3, 64, True, 0, 0.0), (2, 100, 3, 3, 64, True, 0, 0.0),
+               (1, 300, 2, 2, 128, True, 64, 50.0), (2, 77, 1, 4, 96, True, 16, 5.0),
+               (1, 45, 2, 1, 32, False, 0, 0.0), (1, 1024, 3, 3, 64, True, 0, 0.0)]
+
+
+def _tensor_core_emulation(q, k, v, *, causal, window, softcap, split,
+                           bk=64):
+    """The arithmetic of the bf16 tensor-core kernel of
+    ``csrc/flash_attention.cu``: bf16 q, k, v; Q.K^T summed in f32 from
+    exact bf16 products; online softmax over tiles of ``bk`` keys in f32;
+    P.V from bf16 P, as ``p_hi + p_lo`` (two bf16 terms) when ``split``,
+    into an f32 acc (bf16 x bf16 products are exact in f32)."""
+    dh, sq, sk = q.shape[-1], q.shape[1], k.shape[1]
+    qf, kf, vf = (t.to(torch.bfloat16).to(torch.float32) for t in (q, k, v))
+    s = torch.einsum("bqkgd,bskd->bkgqs", qf, kf) * dh ** -0.5
+    if softcap > 0:
+        s = softcap * torch.tanh(s / softcap)
+    q_pos = torch.arange(sq)[:, None]
+    k_pos = torch.arange(sk)[None, :]
+    mask = torch.ones((sq, sk), dtype=torch.bool)
+    if causal:
+        mask &= k_pos <= q_pos
+    if window > 0:
+        mask &= k_pos > q_pos - window
+    m = torch.full(s.shape[:-1], -1e30)
+    l = torch.zeros(s.shape[:-1])
+    acc = torch.zeros(s.shape[:-1] + (dh,))
+    for k0 in range(0, sk, bk):
+        st, mt, vt = s[..., k0:k0 + bk], mask[:, k0:k0 + bk], vf[:, k0:k0 + bk]
+        m_new = torch.maximum(m, torch.where(mt, st, -1e30).amax(-1))
+        p = torch.where(mt, torch.exp(st - m_new[..., None]), 0.0)
+        corr = torch.exp(m - m_new)
+        l = l * corr + p.sum(-1)
+        p_hi = p.to(torch.bfloat16).to(torch.float32)
+        acc = acc * corr[..., None] + torch.einsum("bkgqs,bskd->bkgqd", p_hi, vt)
+        if split:
+            p_lo = (p - p_hi).to(torch.bfloat16).to(torch.float32)
+            acc = acc + torch.einsum("bkgqs,bskd->bkgqd", p_lo, vt)
+        m = m_new
+    return (acc / torch.clamp_min(l[..., None], 1e-30)).permute(0, 3, 1, 2, 4)
+
+
+def _bf16_qkv(case, seed):
+    b, s, kv, g, dh = case[:5]
+    return (torch.from_numpy(a).to(torch.bfloat16)
+            for a in _qkv(b, s, kv, g, dh, seed))
+
+
+@pytest.mark.parametrize("case", SPLIT_CASES,
+                         ids=lambda c: "-".join(map(str, c)))
+def test_split_p_tensor_core_arithmetic_holds_the_bound(case):
+    """The kernel's arithmetic with P as two bf16 terms is within 1e-5 *
+    max|out| of the f32 plain version on the same bf16 inputs."""
+    causal, window, softcap = case[5:]
+    kw = dict(causal=causal, window=window, softcap=softcap)
+    q, k, v = _bf16_qkv(case, seed=case[1])
+    want = ref.flash_attention_ref(q, k, v, **kw)
+    got = _tensor_core_emulation(q, k, v, split=True, **kw)
+    _close(got.numpy(), want.numpy())
+
+
+@pytest.mark.parametrize("s", [64, 1024])
+def test_single_bf16_p_misses_the_bound(s):
+    """Why P is split: with one bf16 term the same arithmetic misses the
+    bound by far (the rounding of P, 2^-9 relative, survives the sum),
+    while two terms hold it."""
+    case = (1, s, 3, 3, 64, True, 0, 0.0)
+    kw = dict(causal=True, window=0, softcap=0.0)
+    q, k, v = _bf16_qkv(case, seed=s)
+    want = ref.flash_attention_ref(q, k, v, **kw)
+    tol = RTOL * want.abs().max()
+    one = (_tensor_core_emulation(q, k, v, split=False, **kw) - want).abs().max()
+    two = (_tensor_core_emulation(q, k, v, split=True, **kw) - want).abs().max()
+    assert one > 10 * tol
+    assert two <= tol
