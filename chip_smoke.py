@@ -13,7 +13,11 @@ Phases (each prints its own lines; any failed check exits non-zero):
      library call's time (a yardstick the port never calls) and the least
      time the card could take (bytes over memory rate, or operations over
      peak rate, whichever is larger): the matmuls (the ternary one also at
-     two CNN conv shapes), the XNOR-popcount binary matmul on random bits
+     two CNN conv shapes and over K at a decode shape; both kernels of
+     ``csrc/qmatmul.cu`` at bits 2/4/8 over the whole field range, M across
+     M_SMALL, an unaligned K, with and without a bias, each timed at
+     M = 4..128 and at Model.forward's w_gate shape), the XNOR-popcount
+     binary matmul on random bits
      (the 1x1 LM's decode and chunk shapes, a ragged shape, a CNN conv
      shape), the dense decode attention, the paged attention at kv 8/4/16,
      the fused decode at kv8, the three activation quantizers (f32 and bf16
@@ -70,6 +74,7 @@ from __future__ import annotations
 import contextlib
 import dataclasses
 import json
+import re
 import statistics
 import subprocess
 import sys
@@ -182,16 +187,33 @@ def phase_build():
     print(f"built {sorted(libs)} in {time.time() - t0:.1f} s "
           f"(nvcc {' '.join(_build.NVCC_FLAGS)})")
     for name, log in sorted(_build.BUILD_LOG.items()):
+        fn = spill = ""
         for line in log.splitlines():
-            if "registers" in line or "error" in line.lower():
-                print(f"  [{name}] {line.strip()}")
+            if "Function properties for" in line:      # ptxas -v, per kernel
+                fn = _kernel_name(line.split()[-1])
+            elif "spill" in line:
+                spill = line.strip()
+            elif "registers" in line or "error" in line.lower():
+                print(f"  [{name}] {fn}: {line.split(':', 1)[-1].strip()}; {spill}")
+
+
+def _kernel_name(sym: str) -> str:
+    """A kernel's mangled symbol as ``name<integer template arguments>``."""
+    for m in re.finditer(r"(?=(\d+)([A-Za-z_]\w*?kernel))", sym):
+        if int(m.group(1)) == len(m.group(2)):
+            end = m.start() + len(m.group(1)) + len(m.group(2))
+            args = re.findall(r"Li(\d+)E", sym[end:end + 40])
+            return f"{m.group(2)}<{','.join(args)}>"
+    return sym[:48]
 
 
 def _rand_packed(gen, n, k, bits, device):
+    """Random codes over the whole signed field range (the most negative
+    field, -2 / -8 / -128, included: the kernels sign-extend every bit
+    pattern) and their packed words."""
     import torch
     from repro_torch.core import packing
-    lo = -1 if bits == 2 else -(1 << (bits - 1))
-    hi = 1 if bits == 2 else (1 << (bits - 1)) - 1
+    lo, hi = -(1 << (bits - 1)), (1 << (bits - 1)) - 1
     codes = torch.randint(lo, hi + 1, (n, k), generator=gen, dtype=torch.int8)
     return packing.pack(codes, bits).to(device), codes.to(device)
 
@@ -294,6 +316,157 @@ def _ternary_cnn_times(gen, device):
               f"to the plain version; kernel {tk:.4f} ms, plain {tp:.4f} ms, "
               f"torch.matmul bf16 {tl:.4f} ms, bound {bt:.5f} ms ({by}), "
               f"{2 * m * n * k / tk / 1e9:.1f} TOP/s")
+
+
+def _ternary_k_steps(gen, device):
+    """``ternary_matmul`` at M = 4, N = 576 over K in (64, 576, 1536): how
+    its time grows with the reduction length at a decode shape."""
+    import torch
+    from repro_torch.kernels.ternary_matmul import ternary_matmul
+    line = []
+    for k in (64, 576, 1536):
+        w, _ = _rand_packed(gen, 576, k, 2, device)
+        scale = (torch.rand(576, generator=gen) + 0.5).to(device)
+        x = torch.randint(-1, 2, (4, k), generator=gen, dtype=torch.int8).to(device)
+        tk, _ = time_ms(lambda: ternary_matmul(x, w, scale))
+        line.append(f"K={k} {tk:.5f} ms")
+    print(f"ternary_matmul M=4 N=576 by K: {', '.join(line)}")
+
+
+# B1 / B3 (csrc/qmatmul.cu) beyond the records: a K per width whose packed
+# W^T rows are not a multiple of 16 bytes (the word-wise loads), and
+# Model.forward's w_gate / w_up at B=2, S=2048
+QMM_UNALIGNED_K = {2: 592, 4: 584, 8: 588}
+FORWARD_PROJ = (4096, 1536, 576)
+# AlexNet's fc6 / fc7 at batch 8 and 64 (the CNN phase's two batches)
+ALEXNET_FC = ((8, 4096, 9216), (8, 4096, 4096), (64, 4096, 9216),
+              (64, 4096, 4096))
+
+
+def _qmm_variant(lib, x, w, scale, bias, bits, variant):
+    """int8 codes through one named kernel of csrc/qmatmul.cu (0 = rows, 1
+    = tensor cores) whatever M is: a comparison launch, not counted."""
+    import torch
+    from repro_torch.kernels import _build
+    out = torch.empty((x.shape[0], w.shape[0]), dtype=torch.float32,
+                      device=x.device)
+    _build.check(lib.qmatmul_int8_variant(
+        x.data_ptr(), w.data_ptr(), scale.data_ptr(),
+        None if bias is None else bias.data_ptr(), out.data_ptr(),
+        x.shape[0], w.shape[0], x.shape[1], bits, variant,
+        _build.stream_ptr(x)), "qmatmul_int8_variant")
+    return out
+
+
+def _qmatmul_variants(gen, device):
+    """B1 / B3 int8 paths, ``torch.equal`` to the plain versions: through
+    the wrappers at M across M_SMALL (decode rows / tensor cores), at the
+    CNN shapes and Model.forward's, every field width, the whole field
+    range, with and without a bias, an unaligned K; each kernel by name at
+    every width at M = 4 and 128.  Timed: each kernel at AlexNet's fc
+    shapes, and over one layer's seven decode projections at M in (4, 8,
+    16, 32, 64, 128) and at Model.forward's w_gate shape beside
+    ``torch.matmul`` bf16 and the bound."""
+    import torch
+    from repro_torch.kernels import _build, ref
+    from repro_torch.kernels.packed_matmul import packed_matmul
+    from repro_torch.kernels.ternary_matmul import ternary_matmul
+    lib = _build.library("qmatmul")
+    m_small = lib.qmatmul_m_small()
+    print(f"qmatmul: M_SMALL = {m_small} (rows kernel at M <= M_SMALL and "
+          "M * N <= M_SMALL * 1536, tensor cores otherwise)")
+
+    def operands(m, n, k, bits):
+        w, codes = _rand_packed(gen, n, k, bits, device)
+        x = torch.randint(-128, 128, (m, k), generator=gen,
+                          dtype=torch.int8).to(device)
+        scale = (torch.rand(n, generator=gen) + 0.5).to(device)
+        bias = torch.randn(n, generator=gen).to(device)
+        return x, w, codes, scale, bias
+
+    def plain(x, w, scale, b, bits):
+        return ref.packed_matmul_ref(x, w, scale, bits, bias=b)
+
+    kinds = (("ternary_matmul", 2), ("packed_matmul", 2), ("packed_matmul", 4),
+             ("packed_matmul", 8))
+    ms = sorted({1, 4, 17, 32, 33, m_small, m_small + 1, 128})
+    n_checked = 0
+    for name, bits in kinds:
+        if name == "ternary_matmul":
+            wrap = lambda x, w, s, b: ternary_matmul(x, w, s, b)
+        else:
+            wrap = lambda x, w, s, b, bits=bits: packed_matmul(x, w, s, b, bits=bits)
+        cases = ([(m, n, k) for m in ms for n, k in
+                  ((576, 576), (1536, 576), (576, 1536),
+                   (200, QMM_UNALIGNED_K[bits]))]
+                 + [(m, n, k) for _, m, n, k in CNN_SHAPES] + [FORWARD_PROJ]
+                 + list(ALEXNET_FC))
+        for m, n, k in cases:
+            x, w, _, scale, bias = operands(m, n, k, bits)
+            for b in (None, bias):
+                y, y_ref = wrap(x, w, scale, b), plain(x, w, scale, b, bits)
+                torch.cuda.synchronize()
+                check(torch.equal(y, y_ref),
+                      f"{name} bits={bits} M={m} N={n} K={k} bias="
+                      f"{b is not None}: not equal to the plain version "
+                      f"(max |diff| {(y - y_ref).abs().max().item()})")
+                n_checked += 1
+        for m in (4, 128):
+            for n, k in ((1536, 576), (200, QMM_UNALIGNED_K[bits])):
+                x, w, _, scale, bias = operands(m, n, k, bits)
+                y_ref = plain(x, w, scale, bias, bits)
+                for v in (0, 1):
+                    y = _qmm_variant(lib, x, w, scale, bias, bits, v)
+                    torch.cuda.synchronize()
+                    check(torch.equal(y, y_ref),
+                          f"qmatmul kernel {v} bits={bits} M={m} N={n} K={k}: "
+                          "not equal to the plain version")
+                    n_checked += 1
+    print(f"qmatmul int8 paths: {n_checked} calls torch.equal to the plain "
+          f"versions (B1 and B3 bits 2/4/8, fields over their whole range, "
+          f"x over all of int8, M in {ms} at (N, K) in (576, 576), "
+          f"(1536, 576), (576, 1536) and an unaligned K "
+          f"{QMM_UNALIGNED_K}, the CNN shapes, M, N, K = {FORWARD_PROJ}, "
+          f"AlexNet's fc {ALEXNET_FC}; "
+          "with and without a bias; both kernels by name at M = 4 and 128)")
+
+    def seven(m, bits, v):
+        t_k = t_l = b_ms = 0.0
+        for n, k in SMOLLM_DECODE_PROJ:
+            x, w, codes, scale, _ = operands(m, n, k, bits)
+            xb = x.to(torch.bfloat16)
+            wdq = (codes.to(torch.float32) * scale[:, None]).T.to(torch.bfloat16)
+            t_k += time_ms(lambda: _qmm_variant(lib, x, w, scale, None, bits, v))[0]
+            t_l += time_ms(lambda: torch.matmul(xb, wdq))[0]
+            b_ms += bound(m * k + n * k * bits / 8 + 4 * n + 4 * m * n,
+                          2 * m * n * k, PEAK_INT8)[0]
+        return t_k, t_l, b_ms
+
+    for m, n, k in ALEXNET_FC:
+        x, w, _, scale, _ = operands(m, n, k, 2)
+        t = [time_ms(lambda v=v: _qmm_variant(lib, x, w, scale, None, 2, v),
+                     reps=5)[0] for v in (0, 1)]
+        print(f"  bits=2 AlexNet fc M={m} N={n} K={k}: rows kernel {t[0]:.4f} "
+              f"ms, tensor-core kernel {t[1]:.4f} ms")
+    for bits in (2, 4):
+        for m in (4, 8, 16, 32, 64, 128):
+            (t0, tl, bt), (t1, _, _) = seven(m, bits, 0), seven(m, bits, 1)
+            print(f"  bits={bits} seven decode projections M={m:3d}: rows "
+                  f"kernel {t0:.5f} ms, tensor-core kernel {t1:.5f} ms, "
+                  f"torch.matmul bf16 {tl:.5f} ms, bound {bt:.6f} ms")
+        m, n, k = FORWARD_PROJ
+        x, w, codes, scale, _ = operands(m, n, k, bits)
+        xb = x.to(torch.bfloat16)
+        wdq = (codes.to(torch.float32) * scale[:, None]).T.to(torch.bfloat16)
+        t = [time_ms(lambda v=v: _qmm_variant(lib, x, w, scale, None, bits, v),
+                     reps=5)[0] for v in (0, 1)]
+        tl = time_ms(lambda: torch.matmul(xb, wdq), reps=5)[0]
+        bt, by = bound(m * k + n * k * bits / 8 + 4 * n + 4 * m * n,
+                       2 * m * n * k, PEAK_INT8)
+        print(f"  bits={bits} M={m} N={n} K={k} (Model.forward w_gate): rows "
+              f"kernel {t[0]:.4f} ms, tensor-core kernel {t[1]:.4f} ms, "
+              f"torch.matmul bf16 {tl:.4f} ms, bound {bt:.5f} ms ({by}), "
+              f"tensor cores {2 * m * n * k / t[1] / 1e9:.1f} TOP/s")
 
 
 def _binary_record(gen, device):
@@ -742,6 +915,7 @@ def phase_kernels(device):
     records = [_matmul_record("ternary_matmul", gen, device, 2),
                _matmul_record("packed_matmul", gen, device, 2, timed=False),
                _matmul_record("packed_matmul", gen, device, 4),
+               _matmul_record("packed_matmul", gen, device, 8, timed=False),
                _binary_record(gen, device),
                _attention_record(gen, device),
                _paged_attention_record(gen, device),
@@ -749,6 +923,8 @@ def phase_kernels(device):
                *_quant_records(gen, device),
                _flash_record(gen, device)]
     _ternary_cnn_times(gen, device)
+    _ternary_k_steps(gen, device)
+    _qmatmul_variants(gen, device)
     return records
 
 

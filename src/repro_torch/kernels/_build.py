@@ -65,6 +65,11 @@ SIGNATURES = {
         "ternary_matmul": (P, I, P, P, P, P, I, I, I, P),
         # (x, x_kind, w, scale, bias, out, M, N, K, bits, stream)
         "packed_matmul": (P, I, P, P, P, P, I, I, I, I, P),
+        # measurement only: int8 codes through one named kernel
+        # (x, w, scale, bias, out, M, N, K, bits, variant, stream)
+        "qmatmul_int8_variant": (P, P, P, P, P, I, I, I, I, I, P),
+        # () -> the largest M of the decode-rows kernel
+        "qmatmul_m_small": (),
     },
     "decode_attention": {
         # (q, q_kind, k, k_scale, v, v_scale, pos, out,

@@ -62,6 +62,49 @@ def test_qmatmul_kernel_equals_plain(gpu, name, m):
             assert torch.equal(got, want), (name, m, n, k)
 
 
+# (weight kind, field bits) of every int8-codes path of B1 / B3
+QMM_KINDS = [("ternary", 2), ("int", 2), ("int", 4), ("int", 8)]
+# a K per width whose packed W^T rows are not a multiple of 16 bytes
+# (592 * 2 / 8 = 148, 584 * 4 / 8 = 292, 588 bytes): the word-wise loads
+UNALIGNED_K = {2: 592, 4: 584, 8: 588}
+QMM_M = [1, 4, 17, 32, 33, 64, 65, 128, 1568]
+
+
+@pytest.mark.parametrize("m", QMM_M)
+@pytest.mark.parametrize("kind,bits", QMM_KINDS,
+                         ids=["ternary", "int2", "int4", "int8"])
+def test_qmatmul_full_field_range(gpu, kind, bits, m):
+    """int8 codes straight into B1 / B3: weight fields over their whole
+    signed range, the most negative one (-2, -8, -128) in every row, x
+    over all of int8, at the decode and CNN shapes, an N = 2048 that moves
+    M = 64 onto the tensor cores, a ragged N with an unaligned K, with and
+    without a bias: bit-equal to the plain version, one launch per call."""
+    fn, key = engine.resolve_entry(kind, 8, bits, "cuda")
+    plain, _ = engine.resolve_entry(kind, 8, bits, "torch")
+    assert key[3] == "cuda"
+    name = "ternary_matmul" if kind == "ternary" else "packed_matmul"
+    gen = torch.Generator().manual_seed(1000 * bits + m)
+    lo, hi = -(1 << (bits - 1)), (1 << (bits - 1)) - 1
+    for n, k in SHAPES[:4] + [(256, 2304), (2048, 576), (200, UNALIGNED_K[bits])]:
+        codes = torch.randint(lo, hi + 1, (n, k), generator=gen,
+                              dtype=torch.int8)
+        codes[:, k // 2] = lo
+        scale = (torch.rand(n, generator=gen) + 0.5).to(gpu)
+        pw = engine.PackedWeight(packing.pack(codes, bits).to(gpu), scale,
+                                 bits, kind, k)
+        x = torch.randint(-128, 128, (m, k), generator=gen,
+                          dtype=torch.int8).to(gpu)
+        bias = torch.randn(n, generator=gen).to(gpu)
+        for b in (None, bias):
+            engine.reset_launch_counts()
+            got = fn(x, pw, scale, b, out_dtype=torch.float32)
+            counts = engine.launch_counts()
+            assert counts[name] == 1 and sum(counts.values()) == 1
+            want = plain(x, pw, scale, b, out_dtype=torch.float32)
+            torch.cuda.synchronize()
+            assert torch.equal(got, want), (kind, bits, m, n, k, b is not None)
+
+
 BINARY_SHAPES = SHAPES + [(200, 320), (256, 2304)]
 
 
