@@ -19,9 +19,13 @@ Phases (each prints its own lines; any failed check exits non-zero):
      M = 4..128 and at Model.forward's w_gate shape), the XNOR-popcount
      binary matmul on random bits
      (the 1x1 LM's decode and chunk shapes, a ragged shape, a CNN conv
-     shape), the dense decode attention, the paged attention at kv 8/4/16,
+     shape; both of its kernels by name across their switch, timed at
+     M = 4..128 and at AlexNet's fc shapes), the dense decode attention,
+     the paged attention at kv 8/4/16,
      the fused decode at kv8, the three activation quantizers (f32 and bf16
-     rows, ``torch.equal``) and the full-sequence flash attention (prefill,
+     rows, ``torch.equal``) and B7c's row form (scale and codes in one
+     launch, timed beside the former abs/amax/clamp_min/div chain) and the
+     full-sequence flash attention (prefill,
      forward, window + softcap; f32 and bf16, each timed beside SDPA);
   4. the dense serving path at full width: smollm-135m, 2xT
      weights/activations, int8 KV cache, bf16, random weights from seed 0,
@@ -469,46 +473,93 @@ def _qmatmul_variants(gen, device):
               f"tensor cores {2 * m * n * k / t[1] / 1e9:.1f} TOP/s")
 
 
+def _binary_variant(lib, a, w, alpha, bias, k, variant):
+    """+/-1 bits through one named kernel of csrc/binary_matmul.cu (0 =
+    decode rows, 1 = tensor cores) whatever M is: a comparison launch, not
+    counted."""
+    import torch
+    from repro_torch.kernels import _build
+    out = torch.empty((a.shape[0], w.shape[0]), dtype=torch.float32,
+                      device=a.device)
+    _build.check(lib.binary_matmul_variant(
+        a.data_ptr(), w.data_ptr(), alpha.data_ptr(),
+        None if bias is None else bias.data_ptr(), out.data_ptr(),
+        a.shape[0], w.shape[0], k, variant, _build.stream_ptr(a)),
+        "binary_matmul_variant")
+    return out
+
+
 def _binary_record(gen, device):
     """``binary_matmul`` on random bits against its plain version,
-    ``torch.equal`` (exact integer path): the 1x1 LM's seven decode
-    projections at M = 4 and its (N, K) at M = 32 (a prefill chunk), with
-    and without a bias; a ragged M/N; a CNN conv shape.  Timed: one layer's
-    seven decode projections at M = 4, summed (the record), and the CNN
-    shape (printed)."""
+    ``torch.equal`` (exact integer path): through the wrapper at the 1x1
+    LM's seven decode projections at M = 4 and its (N, K) at M = 32 (a
+    prefill chunk), a ragged M/N and a CNN conv shape, with and without a
+    bias; each kernel by name at M across the switch, ragged N and an odd
+    word count.  Timed: one layer's seven decode projections at M = 4,
+    summed (the record), both kernels over M in (4, 8, 16, 32, 64, 128) and
+    at AlexNet's fc shapes, and the CNN shape, each beside ``torch.matmul``
+    bf16 on the +/-1 operands."""
     import torch
     from repro_torch.core import packing
+    from repro_torch.kernels import _build
     from repro_torch.kernels.binary_matmul import binary_matmul
     from repro_torch.kernels.ref import binary_matmul_ref
+    lib = _build.library("binary_matmul")
+    m_small = lib.binary_matmul_m_small()
+    print(f"binary_matmul: M_SMALL = {m_small} (decode-rows kernel at M <= "
+          "M_SMALL and M * N <= M_SMALL * 1536, 1-bit tensor cores otherwise)")
 
     def bits(rows, k):
         pm1 = torch.randint(0, 2, (rows, k), generator=gen, dtype=torch.int8) * 2 - 1
         return packing.pack_binary_pm1(pm1).to(device), pm1.to(device)
 
-    ops, err = {}, 0.0
-    cases = ([(4, n, k) for n, k in MAIN_SHAPES] + [(32, n, k) for n, k in MAIN_SHAPES]
-             + [(37, 200, 320)] + [(m, n, k) for _, m, n, k in CNN_SHAPES[1:]])
-    for m, n, k in cases:
+    def plain(a, w, alpha, b, k):
+        y = binary_matmul_ref(a, w, k, alpha=alpha)
+        return y if b is None else y + b[None, :]
+
+    def operands(m, n, k):
         a, a_pm1 = bits(m, k)
         w, w_pm1 = bits(n, k)
         alpha = (torch.rand(n, generator=gen) + 0.5).to(device)
         bias = torch.randn(n, generator=gen).to(device)
+        wdq = (w_pm1.to(torch.float32) * alpha[:, None]).T.to(torch.bfloat16)
+        return a, w, alpha, bias, a_pm1.to(torch.bfloat16), wdq
+
+    ops, err = {}, 0.0
+    cases = ([(4, n, k) for n, k in MAIN_SHAPES] + [(32, n, k) for n, k in MAIN_SHAPES]
+             + [(37, 200, 320)] + [(m, n, k) for _, m, n, k in CNN_SHAPES[1:]])
+    for m, n, k in cases:
+        a, w, alpha, bias, xb, wdq = operands(m, n, k)
         for b in (None, bias):
-            y = binary_matmul(a, w, alpha, b, k=k)
-            y_ref = binary_matmul_ref(a, w, k, alpha=alpha)
-            if b is not None:
-                y_ref = y_ref + b[None, :]
+            y, y_ref = binary_matmul(a, w, alpha, b, k=k), plain(a, w, alpha, b, k)
             torch.cuda.synchronize()
             err = max(err, (y - y_ref).abs().max().item())
             check(torch.equal(y, y_ref),
                   f"binary_matmul M={m} N={n} K={k} bias={b is not None}: not "
                   f"equal to the plain version (max |diff| "
                   f"{(y - y_ref).abs().max().item()})")
-        wdq = (w_pm1.to(torch.float32) * alpha[:, None]).T.to(torch.bfloat16)
-        ops[(m, n, k)] = (a, w, alpha, a_pm1.to(torch.bfloat16), wdq)
+        ops[(m, n, k)] = (a, w, alpha, xb, wdq)
+    ms = sorted({1, 4, 32, m_small, m_small + 1, 128, 1568})
+    n_named = 0
+    for m in ms:
+        for n, k in ((576, 576), (1536, 576), (576, 1536), (200, 32 * 37),
+                     (4096, 9216)):
+            a, w, alpha, bias, _, _ = operands(m, n, k)
+            for b in (None, bias):
+                y_ref = plain(a, w, alpha, b, k)
+                for v in (0, 1):
+                    y = _binary_variant(lib, a, w, alpha, b, k, v)
+                    torch.cuda.synchronize()
+                    check(torch.equal(y, y_ref),
+                          f"binary_matmul kernel {v} M={m} N={n} K={k} bias="
+                          f"{b is not None}: not equal to the plain version")
+                    n_named += 1
     print(f"binary_matmul: torch.equal to the plain version (with and without "
           f"bias) at M in (4, 32) x (N, K) in {MAIN_SHAPES}, M=37 N=200 K=320, "
-          f"and M={CNN_SHAPES[1][1]} N={CNN_SHAPES[1][2]} K={CNN_SHAPES[1][3]}")
+          f"and M={CNN_SHAPES[1][1]} N={CNN_SHAPES[1][2]} K={CNN_SHAPES[1][3]}; "
+          f"both kernels by name at M in {ms} x (N, K) in (576, 576), "
+          f"(1536, 576), (576, 1536), (200, 1184), (4096, 9216): {n_named} "
+          "calls")
 
     def times(m, n, k):
         a, w, alpha, xb, wdq = ops[(m, n, k)]
@@ -528,11 +579,32 @@ def _binary_record(gen, device):
               f"{tl:.5f} ms, bound {bt:.6f} ms ({by})")
         t_k, t_p, t_l, b_ms = t_k + tk, t_p + tp, t_l + tl, b_ms + bt
         b_by[by] += 1
+    print(f"  seven decode projections M=4: kernel {t_k:.5f} ms, torch.matmul "
+          f"bf16 {t_l:.5f} ms, kernel / torch.matmul {t_k / t_l:.3f}")
     _, m, n, k = CNN_SHAPES[1]
     tk, _, tp, tl, bt, by = times(m, n, k)
     print(f"  {CNN_SHAPES[1][0]} M={m} N={n} K={k}: kernel {tk:.5f} ms, plain "
           f"{tp:.5f} ms, torch.matmul bf16 {tl:.5f} ms, bound {bt:.6f} ms "
           f"({by}), {2 * m * n * k / tk / 1e9:.1f} TOP/s")
+
+    def seven(m, v):
+        t_v, t_l = 0.0, 0.0
+        for n, k in SMOLLM_DECODE_PROJ:
+            a, w, alpha, _, xb, wdq = operands(m, n, k)
+            t_v += time_ms(lambda: _binary_variant(lib, a, w, alpha, None, k, v))[0]
+            t_l += time_ms(lambda: torch.matmul(xb, wdq))[0]
+        return t_v, t_l
+
+    for m in (4, 8, 16, 32, 64, 128):
+        (t0, tl), (t1, _) = seven(m, 0), seven(m, 1)
+        print(f"  seven decode projections M={m:3d}: rows kernel {t0:.5f} ms, "
+              f"tensor-core kernel {t1:.5f} ms, torch.matmul bf16 {tl:.5f} ms")
+    for m, n, k in ALEXNET_FC:
+        a, w, alpha, _, _, _ = operands(m, n, k)
+        t = [time_ms(lambda v=v: _binary_variant(lib, a, w, alpha, None, k, v),
+                     reps=5)[0] for v in (0, 1)]
+        print(f"  AlexNet fc M={m} N={n} K={k}: rows kernel {t[0]:.4f} ms, "
+              f"tensor-core kernel {t[1]:.4f} ms")
     return {"name": "binary_matmul", "ms": t_k, "plain_ms": t_p,
             "bound_ms": b_ms, "bound_by": max(b_by, key=b_by.get),
             "library_ms": t_l, "max_abs_err": err,
@@ -786,9 +858,9 @@ def _quant_rows(gen, device, name, m, f, dtype):
 def _quant_records(gen, device):
     """B7a/b/c against their plain versions, ``torch.equal``, at their
     callers' shapes in f32 and bf16 (compute in the rows' dtype) and at 2, 4
-    and 8 bits; timed in bf16 at 2 bits (the 2xT decode): B7c summed over
-    one layer's seven decode projections (the record) and at the CNN im2col
-    shape, B7a/B7b at the post-ReLU CNN shape (the record) and LM rows."""
+    and 8 bits; timed in bf16 at 2 bits: B7a/B7b at the post-ReLU CNN shape
+    (the record) and LM rows, B7c's scale-taking form at its shapes (its
+    record comes from its row form, :func:`_quant_rows_record`)."""
     import torch
     records = []
     for name, shapes in QUANT_SHAPES.items():
@@ -832,10 +904,101 @@ def _quant_records(gen, device):
             tk, tk_eager, tp, bt, by = times(m, f)
             print(f"  ({m}, {f}) bf16: kernel {tk:.5f} ms, plain {tp:.5f} ms, "
                   f"bound {bt:.6f} ms ({by}), {(3 * m * f) / tk / 1e6:.1f} GB/s")
-        records.append({"name": name, "ms": t_k, "plain_ms": t_p,
-                        "bound_ms": b_ms, "bound_by": by, "library_ms": None,
-                        "max_abs_err": 0.0, "shape": label})
+        if name == "act_quant_signed_grouped":
+            records.append(_quant_rows_record(gen, device))
+        else:
+            records.append({"name": name, "ms": t_k, "plain_ms": t_p,
+                            "bound_ms": b_ms, "bound_by": by,
+                            "library_ms": None, "max_abs_err": 0.0,
+                            "shape": label})
     return records
+
+
+# the row form of B7c (scale and codes in one launch): the engine's rows at
+# decode and in a prefill chunk, the CNNs' im2col rows (ResNet-34 stage 1
+# and stage 3 at batch 8), AlexNet's fc inputs at batch 8 and 64, a ragged F
+QUANT_ROW_SHAPES = [(4, 576), (4, 1536), (32, 576), (32, 1536),
+                    (8 * 56 * 56, 576), (8 * 14 * 14, 2304), (8, 9216),
+                    (64, 9216), (37, 100)]
+
+
+def _quant_rows_record(gen, device):
+    """B7c's row form (``act_quant_signed_rows``: the scale ``max(amax|x|,
+    1e-8) / qmax`` and the codes in one launch) against its plain version,
+    ``torch.equal`` for codes and scales, at QUANT_ROW_SHAPES plus all-zero
+    rows, f32 and bf16, 2/4/8 bits, one launch each; and against the
+    engine's former chain (abs, amax, clamp_min, ``/ qmax`` by a Python
+    number, then the scale-taking kernel), whose scale PyTorch's CUDA
+    division computes as a product with 1/qmax (the scales that differ are
+    counted).  Timed in bf16 at 2 bits beside that chain: one layer's seven
+    decode quantizations (the record) and the CNN rows in f32 and bf16."""
+    import torch
+    from repro_torch.kernels import _build, ref
+    from repro_torch.kernels import act_quant as aq
+
+    def chain(x, bits):
+        s = x.abs().amax(dim=1, keepdim=True).clamp_min(1e-8) / ((1 << (bits - 1)) - 1)
+        return aq.act_quant_signed_grouped(x, s, bits=bits, compute_dtype=x.dtype), s
+
+    n_calls, recip = 0, {}
+    for (m, f) in QUANT_ROW_SHAPES + [(3, 576)]:
+        for dtype in (torch.float32, torch.bfloat16):
+            x = _quant_rows(gen, device, "act_quant_signed_rows", m, f, dtype)
+            if m == 3:
+                x = torch.zeros_like(x)
+            for bits in (2, 4, 8):
+                before = _build.LAUNCHES["act_quant_signed_grouped"]
+                q, s = aq.act_quant_signed_rows(x, bits=bits)
+                check(_build.LAUNCHES["act_quant_signed_grouped"] == before + 1,
+                      "act_quant_signed_rows: not one launch")
+                q_ref, s_ref = ref.act_quant_signed_rows_ref(x, bits)
+                _, s_chain = chain(x, bits)
+                torch.cuda.synchronize()
+                check(torch.equal(s, s_ref) and torch.equal(q, q_ref),
+                      f"act_quant_signed_rows ({m}, {f}) {dtype} bits={bits}: "
+                      f"{int((s != s_ref).sum())} scales and "
+                      f"{int((q != q_ref).sum())} codes differ from the plain "
+                      "version")
+                key = (str(dtype)[6:], bits)
+                recip[key] = recip.get(key, 0) + int((s != s_chain).sum())
+                n_calls += 1
+    print(f"act_quant_signed_rows: {n_calls} calls torch.equal to the plain "
+          f"version (codes and scales) at {QUANT_ROW_SHAPES} and all-zero rows "
+          "x (f32, bf16) x bits (2, 4, 8), one launch each; scales that the "
+          f"former chain's reciprocal product rounds otherwise: {recip}")
+
+    def cost(m, f, in_bytes):
+        return bound(in_bytes * m * f + m * f + in_bytes * m, 3 * m * f, PEAK_F32)
+
+    t_k = t_p = t_c = t_g = b_ms = 0.0
+    for (m, f) in QUANT_DECODE_ROWS:
+        x = _quant_rows(gen, device, "act_quant_signed_rows", m, f, torch.bfloat16)
+        s = chain(x, 2)[1]
+        t_k += time_ms(lambda: aq.act_quant_signed_rows(x, bits=2))[0]
+        t_p += time_ms(lambda: ref.act_quant_signed_rows_ref(x, 2))[0]
+        t_c += time_ms(lambda: chain(x, 2))[0]
+        t_g += time_ms(lambda: aq.act_quant_signed_grouped(
+            x, s, bits=2, compute_dtype=x.dtype))[0]
+        b_ms += cost(m, f, 2)[0]
+    print(f"  one layer's 7 decode quantizations, bf16: row form {t_k:.5f} ms, "
+          f"former chain (abs, amax, clamp_min, div, kernel) {t_c:.5f} ms, of "
+          f"which the scale-taking kernel {t_g:.5f} ms; plain row form "
+          f"{t_p:.5f} ms, bound {b_ms:.6f} ms (bytes); no single PyTorch call "
+          "computes it")
+    for (m, f) in ((8 * 56 * 56, 576), (8 * 14 * 14, 2304), (64, 9216)):
+        for dtype in (torch.float32, torch.bfloat16):
+            x = _quant_rows(gen, device, "act_quant_signed_rows", m, f, dtype)
+            tk = time_ms(lambda: aq.act_quant_signed_rows(x, bits=2), reps=5)[0]
+            tc = time_ms(lambda: chain(x, 2), reps=5)[0]
+            ib = x.element_size()
+            bt, by = cost(m, f, ib)
+            print(f"  ({m}, {f}) {str(dtype)[6:]}: row form {tk:.5f} ms, former "
+                  f"chain {tc:.5f} ms, bound {bt:.6f} ms ({by}), row form / "
+                  f"bound {tk / bt:.2f}, {(ib + 1) * m * f / tk / 1e6:.1f} GB/s")
+    return {"name": "act_quant_signed_grouped", "ms": t_k, "plain_ms": t_p,
+            "bound_ms": b_ms, "bound_by": "bytes", "library_ms": None,
+            "max_abs_err": 0.0,
+            "shape": "row form, one layer's 7 decode quantizations, bf16"}
 
 
 # flash attention: (label, B, S, KV, G, Dh, window, softcap, timed)
@@ -1565,7 +1728,7 @@ def phase_cnn(device, card):
                 torch.cuda.synchronize()
             dev, busy, by_name = _profile_device(prof)
             kern_us = sum(t for n_, (c, t) in by_name.items()
-                          if "qmm_int8" in n_ or "xnor_popc" in n_)
+                          if "qmm_int8" in n_ or "xnor_" in n_)
             print(f"[{card}] {name} {prec} batch {b}: forward {ms:.2f} ms "
                   f"(median of 5, CUDA events), {b / ms * 1e3:.1f} images/s; "
                   f"profiled forward: {len(dev)} device operations, busy "

@@ -55,10 +55,17 @@ SIGNATURES = {
         "act_quant_signed": (P, I, P, I, P, I, I, I, I, I, P),
         # (x, x_kind, scale, s_kind, out, M, F, G, bits, bf16, aligned, stream)
         "act_quant_signed_grouped": (P, I, P, I, P, I, I, I, I, I, I, P),
+        # (x, x_kind, out, scale, M, F, bits, aligned, stream)
+        "act_quant_signed_rows": (P, I, P, P, I, I, I, I, P),
     },
     "binary_matmul": {
         # (a, w, alpha, bias, out, M, N, K, stream)
         "binary_matmul": (P, P, P, P, P, I, I, I, P),
+        # measurement only: one named kernel
+        # (a, w, alpha, bias, out, M, N, K, variant, stream)
+        "binary_matmul_variant": (P, P, P, P, P, I, I, I, I, P),
+        # () -> the largest M of the decode-rows kernel
+        "binary_matmul_m_small": (),
     },
     "qmatmul": {
         # (x, x_kind, w, alpha, bias, out, M, N, K, stream)

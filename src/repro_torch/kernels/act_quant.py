@@ -8,8 +8,12 @@ Three functions, each the counterpart of a TPU kernel of
   * :func:`act_quant_signed` — ``clip(round(x/s), +-(2^(k-1)-1))`` (half to
     even) with one scale ``s``;
   * :func:`act_quant_signed_grouped` — the same with ``s`` (M, G), G | F,
-    each scale covering F/G columns; G = 1 is the engine's per-row
-    quantizer (``engine._prep_activations``).
+    each scale covering F/G columns;
+  * :func:`act_quant_signed_rows` — its row form, the engine's per-row
+    quantizer (``engine._prep_activations``): G = 1 with the scale
+    ``max(amax|x[row]|, 1e-8) / qmax`` computed in the same launch, and
+    returned beside the codes.  Its launches count as
+    ``act_quant_signed_grouped``'s: it is the same TPU kernel's work.
 
 x is (M, F) f32 or bf16; the codes are (M, F) int8.  ``compute_dtype``
 float32 is the TPU kernels' arithmetic; bfloat16 rounds every intermediate
@@ -26,7 +30,7 @@ import torch
 
 from . import _build
 from .ref import (act_quant_ref, act_quant_signed_grouped_ref,
-                  act_quant_signed_ref)
+                  act_quant_signed_ref, act_quant_signed_rows_ref)
 
 _KINDS = {torch.float32: 1, torch.bfloat16: 2}      # x and scale dtypes
 COMPUTE_DTYPES = (torch.float32, torch.bfloat16)
@@ -125,3 +129,21 @@ def act_quant_signed_grouped(x: torch.Tensor, scale: torch.Tensor, *,
                    lambda out: (scale.data_ptr(), _KINDS[scale.dtype],
                                 out.data_ptr(), m, f, g, bits, bf16,
                                 _aligned(x, out), _build.stream_ptr(x)))
+
+
+def act_quant_signed_rows(x: torch.Tensor, *, bits: int
+                          ) -> tuple[torch.Tensor, torch.Tensor]:
+    """Per-row signed codes of x (M, F) f32/bf16 and their scales (M, 1) in
+    x's dtype, computed in x's dtype: ``a_scale = max(amax|x[row]|, 1e-8)
+    / qmax``, codes ``clip(round(x / a_scale), +-qmax)``; 2 <= bits <= 8."""
+    if not x.is_cuda:
+        return act_quant_signed_rows_ref(x, bits)
+    m, f = _check_x(x, bits, x.dtype)
+    if bits < 2 or f == 0:
+        raise ValueError(f"bits={bits}, F={f}: the row form needs qmax >= 1 "
+                         "and a row to take the max of")
+    scale = torch.empty((m, 1), dtype=x.dtype, device=x.device)
+    codes = _launch("act_quant_signed_grouped", "act_quant_signed_rows", x,
+                    lambda out: (out.data_ptr(), scale.data_ptr(), m, f, bits,
+                                 _aligned(x, out), _build.stream_ptr(x)))
+    return codes, scale

@@ -5,13 +5,14 @@ Both operands are +/-1 vectors stored as {1, 0} bits, 32 per int32 word:
     out[m, n] = sum_k a[m, k] * w[n, k]   (a, w in {-1, +1})
               = K - 2 * popcount(a_bits XOR w_bits)
 
-On a CUDA tensor this launches the hand-written kernel in
-``csrc/binary_matmul.cu`` (it replaces the TPU kernel
-``repro/kernels/binary_matmul.py:binary_matmul``); on a CPU tensor it runs
+On a CUDA tensor this launches one of the two hand-written kernels in
+``csrc/binary_matmul.cu``, chosen there by M and N (decode rows on the CUDA
+cores, or the 1-bit tensor cores); together they replace the TPU kernel
+``repro/kernels/binary_matmul.py:binary_matmul``.  On a CPU tensor it runs
 the plain version, :func:`repro_torch.kernels.ref.binary_matmul_ref`.
 
 Epilogue: per-feature alpha (the XNOR-net scale) plus an optional bias, in
-f32; the kernel is bit-equal to the plain version.
+f32; both kernels are bit-equal to the plain version.
 """
 from __future__ import annotations
 

@@ -12,8 +12,9 @@ backend)`` behind one entry point, :func:`qmatmul`, which
      int8-codes storage, are registered for ``torch`` only),
   3. applies the epilogue ``acc * w_scale * a_scale + bias`` in that order.
 
-On the card, step 1's per-row codes come from the activation-quantizer
-kernel (``act_quant_signed_grouped`` with one group per row).
+On the card, step 1's per-row scales and codes come from one launch of
+the activation-quantizer kernel's row form (``act_quant_signed_rows``,
+counted as ``act_quant_signed_grouped``).
 
 Backends: ``"cuda"`` (the hand-written kernels of ``csrc/``) and
 ``"torch"`` (their plain versions).  With ``backend=None`` a CUDA tensor
@@ -45,7 +46,7 @@ from repro_torch.core.precision import (A_FLOAT, PrecisionConfig, W_BINARY,
 from repro_torch.core.quantize import weight_fake_quant, weight_quant
 
 from . import _build, ref
-from .act_quant import act_quant_signed_grouped
+from .act_quant import act_quant_signed_rows
 from .binary_matmul import binary_matmul
 from .decode_attention import (_pos_vector,
                                decode_attention as _decode_attention_kernel,
@@ -349,9 +350,11 @@ def _prep_activations(x2: torch.Tensor, pw: PackedWeight, a_bits: int,
     ready-made codes (the caller owns their scale); float inputs are
     quantized symmetric PER ROW: each row's codes and scale depend only on
     that row, so any batch shape gives the same values.  a_scale is (M, 1).
-    The codes are ``clip(round(x / a_scale), +-qmax)`` in the rows' dtype:
-    the ``act_quant_signed_grouped`` kernel (one group per row) for the
-    ``cuda`` backend, its plain version for ``torch``.
+    a_scale is ``max(amax|x[row]|, 1e-8) / qmax`` and the codes are
+    ``clip(round(x / a_scale), +-qmax)``, both in the rows' dtype: one
+    launch of the row form of the ``act_quant_signed_grouped`` kernel
+    (scale and codes together) for the ``cuda`` backend, its plain version
+    for ``torch``.
 
     At 1 bit the codes are the signs (x >= 0 -> +1) with a_scale = mean|x|
     of the row; they are bit-packed for the XNOR kernel only when the
@@ -369,13 +372,9 @@ def _prep_activations(x2: torch.Tensor, pw: PackedWeight, a_bits: int,
         xq = torch.where(x2 >= 0, 1, -1).to(torch.int8)
         return (packing.pack_binary_pm1(xq) if xnor else xq), a_scale
     bits = min(a_bits, 8)
-    qmax = (1 << (bits - 1)) - 1
-    a_scale = x2.abs().amax(dim=1, keepdim=True).clamp_min(1e-8) / qmax
     if backend == BACKEND_TORCH:
-        return ref.act_quant_signed_grouped_ref(
-            x2, bits, a_scale, compute_dtype=x2.dtype), a_scale
-    xq = act_quant_signed_grouped(x2.contiguous(), a_scale, bits=bits,
-                                  compute_dtype=x2.dtype)
+        return ref.act_quant_signed_rows_ref(x2, bits)
+    xq, a_scale = act_quant_signed_rows(x2.contiguous(), bits=bits)
     _record_dispatch(op="act_quant_signed_grouped", kind="signed_grouped",
                      requested_backend=backend, impl_backend=backend,
                      a_bits=bits, w_bits=0, m_rows=int(x2.shape[0]),

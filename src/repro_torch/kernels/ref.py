@@ -125,6 +125,20 @@ def act_quant_signed_grouped_ref(x, bits: int, scale, *,
                           ).reshape(m, f)
 
 
+def act_quant_signed_rows_ref(x, bits: int):
+    """The engine's per-row quantizer in x's dtype: ``a_scale = max(amax
+    |x[row]|, 1e-8) / qmax`` (M, 1), then
+    :func:`act_quant_signed_grouped_ref` with that scale.  Returns (codes,
+    a_scale).  The quotient divides by a tensor on x's device: PyTorch's
+    CUDA division by a Python number multiplies by its reciprocal instead,
+    which can round differently (on the CPU the two are the same)."""
+    qmax = (1 << (bits - 1)) - 1
+    amax = x.abs().amax(dim=1, keepdim=True).clamp_min(1e-8)
+    a_scale = amax / amax.new_full((), qmax)
+    return act_quant_signed_grouped_ref(x, bits, a_scale,
+                                        compute_dtype=x.dtype), a_scale
+
+
 # ---------------------------------------------------------------------------
 # full-sequence flash attention
 # ---------------------------------------------------------------------------

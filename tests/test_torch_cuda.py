@@ -132,6 +132,116 @@ def test_binary_matmul_kernel_equals_plain(gpu, m):
             assert torch.equal(got, want), (m, n, k)
 
 
+def _binary_named(lib, a, w, alpha, bias, k, variant):
+    """+/-1 bits through one named kernel of csrc/binary_matmul.cu (0 =
+    decode rows, 1 = tensor cores), whatever M is; not a counted launch."""
+    from repro_torch.kernels import _build
+    out = torch.empty((a.shape[0], w.shape[0]), dtype=torch.float32,
+                      device=a.device)
+    _build.check(lib.binary_matmul_variant(
+        a.data_ptr(), w.data_ptr(), alpha.data_ptr(),
+        None if bias is None else bias.data_ptr(), out.data_ptr(),
+        a.shape[0], w.shape[0], k, variant, _build.stream_ptr(a)), "variant")
+    return out
+
+
+# M across the decode-rows / tensor-core switch (M_SMALL = 64 in C)
+BINARY_M = [1, 4, 32, 63, 64, 65, 128, 1568]
+
+
+@pytest.mark.parametrize("m", BINARY_M)
+def test_binary_both_kernels_equal_plain(gpu, m):
+    """Both kernels of B6 by name at every M, and the wrapper's own choice
+    (one launch a call): the decode projections' (N, K), a ragged N with an
+    odd word count (4-byte chunks), N = 2048 (past the M * N bound at M =
+    64), a CNN and an AlexNet fc shape; with and without a bias; bit-equal
+    to the plain version."""
+    from repro_torch.kernels import _build
+    lib = _build.library("binary_matmul")
+    kernel, _ = engine.resolve_entry("binary", 1, 1, "cuda")
+    plain, _ = engine.resolve_entry("binary", 1, 1, "torch")
+    gen = torch.Generator().manual_seed(7000 + m)
+    for n, k in [(576, 576), (192, 576), (1536, 576), (576, 1536),
+                 (129, 32 * 37), (2048, 576), (256, 2304), (4096, 9216)]:
+        a, w = (torch.randint(-2 ** 31, 2 ** 31 - 1, shape, generator=gen,
+                              dtype=torch.int64).to(torch.int32).to(gpu)
+                for shape in ((m, k // 32), (n, k // 32)))
+        alpha = (torch.rand(n, generator=gen) + 0.5).to(gpu)
+        bias = torch.randn(n, generator=gen).to(gpu)
+        pw = engine.PackedWeight(w, alpha, 1, "binary", k)
+        for b in (None, bias):
+            want = plain(a, pw, alpha, b, out_dtype=torch.float32)
+            engine.reset_launch_counts()
+            got = kernel(a, pw, alpha, b, out_dtype=torch.float32)
+            assert engine.launch_counts()["binary_matmul"] == 1
+            torch.cuda.synchronize()
+            assert torch.equal(got, want), (m, n, k, b is not None)
+            for v in (0, 1):
+                got = _binary_named(lib, a, w, alpha, b, k, v)
+                torch.cuda.synchronize()
+                assert torch.equal(got, want), (v, m, n, k, b is not None)
+
+
+# the row form's callers: decode and prefill-chunk rows, the CNNs' im2col
+# rows (ResNet-34 stage 1 and 3 at batch 8), AlexNet's fc input, ragged F
+AQ_ROW_SHAPES = [(4, 576), (4, 1536), (32, 576), (32, 1536), (25088, 576),
+                 (1568, 2304), (8, 9216), (37, 100)]
+
+
+@pytest.mark.parametrize("x_dtype", [torch.float32, torch.bfloat16],
+                         ids=["f32", "bf16"])
+@pytest.mark.parametrize("bits", [2, 4, 8])
+def test_act_quant_rows_kernel_equals_plain(gpu, bits, x_dtype):
+    """B7c's row form: codes and scales torch.equal to the plain version,
+    one launch each, at its callers' shapes, on all-zero rows, on a view 4
+    bytes off its allocation (no vector loads), and on every bf16 value of
+    [-2, 2] (ties)."""
+    gen = torch.Generator().manual_seed(bits)
+    xs = [torch.randn((m, f), generator=gen) * 2 for m, f in AQ_ROW_SHAPES]
+    xs.append(torch.zeros((3, 576)))
+    grid = _bf16_grid(-2.0, 2.0)
+    xs.append(grid[:grid.numel() // 64 * 64].reshape(-1, 64))
+    xs = [x.to(gpu, x_dtype) for x in xs]
+    flat = torch.randn(1 + 33 * 576, generator=gen).to(gpu, x_dtype)
+    xs.append(flat[1:].view(33, 576))
+    for x in xs:
+        engine.reset_launch_counts()
+        q, s = taq.act_quant_signed_rows(x, bits=bits)
+        assert engine.launch_counts()["act_quant_signed_grouped"] == 1
+        assert sum(engine.launch_counts().values()) == 1
+        q_ref, s_ref = ref.act_quant_signed_rows_ref(x, bits)
+        torch.cuda.synchronize()
+        assert s.dtype == x_dtype and s.shape == (x.shape[0], 1)
+        assert torch.equal(s, s_ref), (tuple(x.shape), bits)
+        assert torch.equal(q, q_ref), (tuple(x.shape), bits)
+
+
+def test_projection_quantizes_in_one_launch(gpu):
+    """The engine's 2xT projection on the card: one act_quant_signed_grouped
+    launch (the row form) and one matmul, and no separate scale operations
+    (no abs, no reduction) among the device operations torch.profiler sees
+    around one ``qmatmul`` call."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    pcfg = signed(get_precision("2xT"))
+    gen = torch.Generator().manual_seed(0)
+    pw = _weight(gen, 576, 576, 2, pcfg.w_mode, gpu)
+    x = torch.randn((4, 576), generator=gen).to(gpu, torch.bfloat16)
+    engine.qmatmul(x, pw, pcfg, backend="cuda")
+    torch.cuda.synchronize()
+    engine.reset_launch_counts()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        engine.qmatmul(x, pw, pcfg, backend="cuda")
+        torch.cuda.synchronize()
+    counts = engine.launch_counts()
+    assert counts["act_quant_signed_grouped"] == 1
+    assert counts["ternary_matmul"] == 1 and sum(counts.values()) == 2
+    names = [e.name for e in prof.events() if e.device_type == DeviceType.CUDA]
+    assert sum("act_quant_rows_kernel" in n for n in names) == 1, names
+    assert not any("reduce_kernel" in n or "abs" in n.lower() for n in names), names
+
+
 @pytest.mark.parametrize("m", [1, 4, 33])
 def test_qmatmul_1x1_kernel_equals_plain(gpu, m):
     """1x1 through the engine: bf16 activations -> signs and row scale ->
