@@ -21,8 +21,9 @@ Phases (each prints its own lines; any failed check exits non-zero):
      (the 1x1 LM's decode and chunk shapes, a ragged shape, a CNN conv
      shape; both of its kernels by name across their switch, timed at
      M = 4..128 and at AlexNet's fc shapes), the dense decode attention,
-     the paged attention at kv 8/4/16,
-     the fused decode at kv8, the three activation quantizers (f32 and bf16
+     the paged attention at kv 8/4/16 (kv8 / kv16; kv8 at a 2048-position
+     context; a sweep of cluster sizes and span limits over context
+     lengths), the fused decode at kv8 (also at 2048 positions), the three activation quantizers (f32 and bf16
      rows, ``torch.equal``) and B7c's row form (scale and codes in one
      launch, timed beside the former abs/amax/clamp_min/div chain) and the
      full-sequence flash attention (prefill,
@@ -64,9 +65,10 @@ Phases (each prints its own lines; any failed check exits non-zero):
      bf16 (reported), launches and time per forward;
   4i. the integer-code quantizers of ``core`` (``act_quant`` and
      ``act_quant_signed`` launches) against their plain versions;
-  5. decode steps of the dense and the paged 2xT paths and of the dense
-     1x1 path under ``torch.profiler``: device operations per step, device
-     busy time and idle share.
+  5. decode steps of the dense and the paged 2xT paths, of the dense 1x1
+     path and of the paged fp32-weight path (phase 4d's) under
+     ``torch.profiler``: device operations per step, device busy time and
+     idle share, and the paged kernels' share of it.
 The last lines are the per-kernel JSON record, the card's name and power
 limit, and ``{"ok": true, "device": {...}}``.
 
@@ -663,14 +665,25 @@ def _attention_record(gen, device):
 PAGED_POS = [S_MAX - 1, 0, 40, 63]
 
 
-def _paged_operands(gen, device, kv_bits: int, pos_list=PAGED_POS):
+# the long-context shape: 2048 positions a sequence (128 blocks), ragged
+PAGED_LONG_POS = [2047, 1023, 511, 0]
+PAGED_LONG_CTX = 2048
+# the cluster sweep: context lengths (all four sequences full) x cluster
+# sizes x span limits of csrc/paged_attention.cu
+SWEEP_CTX = (80, 256, 512, 1024, 2048, 4096)
+SWEEP_CLUSTER = (1, 2, 4, 8)
+SWEEP_SPAN = (8, 16, 32)
+
+
+def _paged_operands(gen, device, kv_bits: int, pos_list=PAGED_POS,
+                    n_ctx: int = S_MAX):
     """(q, k_pool, k_scale, v_pool, v_scale, page_table, pos) of one paged
-    decode step: q (B, KV, G, Dh) bf16; a pool of 1 + B*5 random blocks
-    (kv8 int8 codes, kv4 nibble pairs, both with f32 scales; kv16 bf16); a
-    random permuted page table whose entries past each sequence's last live
-    block are the null block 0."""
+    decode step: q (B, KV, G, Dh) bf16; a pool of 1 + B*n_ctx/BLOCK random
+    blocks (kv8 int8 codes, kv4 nibble pairs, both with f32 scales; kv16
+    bf16); a random permuted page table whose entries past each sequence's
+    last live block are the null block 0."""
     import torch
-    b, nb = len(pos_list), S_MAX // BLOCK
+    b, nb = len(pos_list), n_ctx // BLOCK
     nb_pool = 1 + b * nb
     q = torch.randn((b, KV_HEADS, GROUP, DH), generator=gen).to(
         device, torch.bfloat16)
@@ -734,7 +747,7 @@ def _paged_attention_record(gen, device):
     import torch
     from repro_torch.kernels.paged_attention import (paged_attention,
                                                      paged_attention_ref)
-    rec, err_max = None, 0.0
+    rec, err_max, times = None, 0.0, {}
     for kv_bits in (8, 4, 16):
         args = _paged_operands(gen, device, kv_bits)
         out = paged_attention(*args, kv_bits=kv_bits)
@@ -758,13 +771,100 @@ def _paged_attention_record(gen, device):
               f"f32 plain version {err:.3e} (tolerance {tol:.3e}); kernel "
               f"{tk:.5f} ms (eager call {tk_eager:.4f} ms), plain {tp:.5f} ms, "
               f"gather + sdpa f32 {tl:.5f} ms, bound {bt:.6f} ms ({by})")
+        times[kv_bits] = tk
         if kv_bits == 8:
             rec = {"name": "paged_attention", "ms": tk, "plain_ms": tp,
                    "bound_ms": bt, "bound_by": by, "library_ms": tl,
                    "shape": f"kv8 B={N_SLOTS} KV={KV_HEADS} G={GROUP} Dh={DH} "
                             f"bs={BLOCK} pos={PAGED_POS}"}
-    rec["max_abs_err"] = err_max
+    print(f"  kv8 / kv16 (bf16 pool) kernel time: {times[8] / times[16]:.3f}; "
+          f"kv4 / kv16: {times[4] / times[16]:.3f}")
+    rec["max_abs_err"] = max(err_max, _paged_long(gen, device))
+    _cluster_sweep(gen, device)
     return rec
+
+
+def _paged_check(out, ref, what: str) -> float:
+    import torch
+    torch.cuda.synchronize()
+    err = (out - ref).abs().max().item()
+    tol = 1e-5 + 1e-4 * ref.abs().max().item()
+    check(err <= tol, f"{what}: max |diff| {err} > {tol}")
+    return err
+
+
+def _paged_long(gen, device) -> float:
+    """``paged_attention`` at the long-context shape against its f32 plain
+    version at kv 4, 16 and 8; kv8 timed beside it, with the launch plan
+    it takes."""
+    import torch
+    from repro_torch.kernels.paged_attention import (launch_plan,
+                                                     paged_attention,
+                                                     paged_attention_ref)
+    err = 0.0
+    for kv_bits in (4, 16, 8):
+        args = _paged_operands(gen, device, kv_bits, PAGED_LONG_POS,
+                               PAGED_LONG_CTX)
+        err = max(err, _paged_check(
+            paged_attention(*args, kv_bits=kv_bits),
+            paged_attention_ref(*args, kv_bits=kv_bits,
+                                out_dtype=torch.float32),
+            f"paged_attention kv{kv_bits} long context"))
+    plan = launch_plan(0, N_SLOTS, KV_HEADS, GROUP, DH, BLOCK,
+                       PAGED_LONG_CTX // BLOCK, args[1], args[3])
+    tk, tk_eager = time_ms(lambda: paged_attention(*args, kv_bits=8))
+    tp, _ = time_ms(lambda: paged_attention_ref(
+        *args, kv_bits=8, out_dtype=torch.float32), reps=5)
+    tl, _ = time_ms(lambda: _sdpa_paged(*args, 8), reps=5)
+    nbytes, ops = _paged_cost(args[0], args[1], args[2], args[5], N_SLOTS,
+                              PAGED_LONG_POS)
+    bt, by = bound(nbytes, ops, PEAK_F32)
+    print(f"paged_attention long context pos={PAGED_LONG_POS} "
+          f"(n_blocks {PAGED_LONG_CTX // BLOCK}, kv8 plan {plan}): max |diff| "
+          f"at kv 4/16/8 {err:.3e}; kv8 kernel {tk:.5f} ms (eager call "
+          f"{tk_eager:.4f} ms), plain {tp:.5f} ms, gather + sdpa f32 "
+          f"{tl:.5f} ms, bound {bt:.6f} ms ({by})")
+    return err
+
+
+def _cluster_sweep(gen, device) -> None:
+    """B2 kv8 with every sequence at the context length, through
+    ``paged_attention_config`` at each cluster size and span limit, checked
+    against the plain version and timed; the automatic plan beside it."""
+    import torch
+    from repro_torch.kernels import _build
+    from repro_torch.kernels.paged_attention import (launch_plan,
+                                                     paged_attention_ref)
+    lib = _build.library("paged_attention")
+    print("  cluster sweep (kv8, B=4, every pos = n_ctx - 1; kernel ms at "
+          "cluster size C x span limit):")
+    for n_ctx in SWEEP_CTX:
+        pos_list = [n_ctx - 1] * N_SLOTS
+        n_ctx_pool = -(-n_ctx // BLOCK) * BLOCK
+        q, k, ks, v, vs, pt, pos = _paged_operands(gen, device, 8, pos_list,
+                                                   n_ctx_pool)
+        ref = paged_attention_ref(q, k, ks, v, vs, pt, pos, kv_bits=8,
+                                  out_dtype=torch.float32)
+        out = torch.empty_like(ref)
+
+        def run(c, span):
+            _build.check(lib.paged_attention_config(
+                q.data_ptr(), 2, k.data_ptr(), ks.data_ptr(), v.data_ptr(),
+                vs.data_ptr(), 0, pt.data_ptr(), pos.data_ptr(),
+                out.data_ptr(), N_SLOTS, k.shape[0], BLOCK, pt.shape[1],
+                KV_HEADS, GROUP, DH, c, span, _build.stream_ptr(q)),
+                "paged_attention_config")
+        cells = []
+        for c in SWEEP_CLUSTER:
+            for span in SWEEP_SPAN:
+                run(c, span)
+                _paged_check(out, ref, f"paged_attention cluster {c} span "
+                                       f"{span} n_ctx {n_ctx}")
+                cells.append(f"C{c}/s{span} {time_ms(lambda: run(c, span))[0]:.5f}")
+        plan = launch_plan(0, N_SLOTS, KV_HEADS, GROUP, DH, BLOCK, pt.shape[1],
+                           k, v)
+        print(f"    n_ctx {n_ctx:5d}: " + ", ".join(cells) +
+              f"; automatic plan C={plan['cluster']} span {plan['span']}")
 
 
 def _fused_decode_record(gen, device):
@@ -808,6 +908,27 @@ def _fused_decode_record(gen, device):
     print(f"  L={N_SLOTS}: kernel {tk:.5f} ms (eager call {tk_eager:.4f} ms), "
           f"plain {tp:.5f} ms, gather + sdpa f32 + torch.matmul {tl:.5f} ms, "
           f"bound {bt:.6f} ms ({by})")
+
+    # the long-context shape, all four slots live
+    largs = _paged_operands(gen, device, 8, PAGED_LONG_POS, PAGED_LONG_CTX)
+    err_max = max(err_max, _paged_check(
+        fused_decode(*largs, sm, wo, kv_bits=8),
+        fused_decode_ref(*largs, sm, wo, kv_bits=8),
+        "fused_decode long context"))
+    lk, lk_eager = time_ms(lambda: fused_decode(*largs, sm, wo, kv_bits=8))
+    lp, _ = time_ms(lambda: fused_decode_ref(*largs, sm, wo, kv_bits=8),
+                    reps=5)
+    ll, _ = time_ms(lambda: torch.matmul(
+        _sdpa_paged(*largs, 8).reshape(N_SLOTS, -1), wo), reps=5)
+    nbytes, ops = _paged_cost(q, largs[1], largs[2], largs[5], N_SLOTS,
+                              PAGED_LONG_POS)
+    lbt, lby = bound(nbytes + 4 * k_in * D_MODEL + 4 * N_SLOTS
+                     + 4 * N_SLOTS * (D_MODEL - k_in),
+                     ops + 2 * N_SLOTS * k_in * D_MODEL, PEAK_F32)
+    print(f"fused_decode kv8 long context pos={PAGED_LONG_POS} L={N_SLOTS}: "
+          f"max |diff| within 1e-5 + 1e-4 max|ref|; kernel {lk:.5f} ms (eager "
+          f"call {lk_eager:.4f} ms), plain {lp:.5f} ms, gather + sdpa f32 + "
+          f"torch.matmul {ll:.5f} ms, bound {lbt:.6f} ms ({lby})")
     return {"name": "fused_decode", "ms": tk, "plain_ms": tp, "bound_ms": bt,
             "bound_by": by, "library_ms": tl, "max_abs_err": err_max,
             "shape": f"kv8 L={N_SLOTS} KV={KV_HEADS} G={GROUP} Dh={DH} "
@@ -1527,7 +1648,8 @@ def phase_fused(device, card):
           f"fused_decode launched {launches['fused_decode']} times in "
           f"{steps} decode steps, not {cfg.n_layers} per step")
     prompt = _requests(cfg, 1, GEN)[0].tokens
-    del model, params, batcher
+    served = (model, params)
+    del batcher
 
     cfg32 = model_config(precision="fp32", kv_bits=0, dtype="float32")
     model32 = build_model(cfg32)
@@ -1544,7 +1666,7 @@ def phase_fused(device, card):
           "float32 paged decode step: not one fused_decode launch per layer")
     check(c32["decode"] <= tol, f"float32 decode_step_paged logits differ by "
                                 f"{c32['decode']} > {tol}")
-    return launches
+    return launches, served
 
 
 GEN_1X1 = 8
@@ -1741,6 +1863,10 @@ def phase_cnn(device, card):
     return launches
 
 
+# device kernels of B2 and B4 whose share of a profiled step is printed
+PAGED_KERNELS = ("paged_attn_kernel", "fused_decode_kernel")
+
+
 def phase_profile(card, label, batcher, steps: int = 5):
     """Decode steps of a batcher with all slots live under
     ``torch.profiler``: the device operations (kernels, copies, fills) per
@@ -1796,6 +1922,13 @@ def phase_profile(card, label, batcher, steps: int = 5):
     for name, (n, t) in top:
         print(f"  {t / 1e3 / steps:8.3f} ms/step  {n / steps:5.0f}/step  "
               f"{name[:90]}")
+    for kernel in PAGED_KERNELS:
+        n = sum(c for name, (c, _) in by_name.items() if kernel in name)
+        t = sum(u for name, (_, u) in by_name.items() if kernel in name)
+        if n:
+            print(f"  {kernel}: {t / 1e3 / steps:.4f} ms/step over "
+                  f"{n / steps:.0f} launches/step "
+                  f"({t / 1e3 / steps / busy_ms:.4f} of busy time)")
 
 
 @contextlib.contextmanager
@@ -2045,7 +2178,7 @@ def main() -> None:
     records = [r for r in phase_kernels(device) if r is not None]
     launches, served = phase_serve(device, card)
     paged_launches, paged_model = phase_paged(device, card, served)
-    fused_launches = phase_fused(device, card)
+    fused_launches, fused_served = phase_fused(device, card)
     xnor_launches, xnor_served = phase_serve_1x1(device, card)
     phase_cnn(device, card)
     whole_launches = phase_whole_prompt(device, card, served)
@@ -2062,6 +2195,8 @@ def main() -> None:
     phase_profile(card, "2xT paged kv8",
                   PagedBatcher(paged_model, params, _paged_config()))
     phase_profile(card, "1x1 dense", ContinuousBatcher(*xnor_served))
+    phase_profile(card, "fp32 paged kv8",
+                  PagedBatcher(*fused_served, _paged_config()))
     for rec in records:
         rec["launches"] = launches[rec["name"]]
     replaces = {

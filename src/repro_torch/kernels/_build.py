@@ -89,6 +89,16 @@ SIGNATURES = {
         #  B, NB, bs, n_blocks, KV, G, Dh, stream)
         "paged_attention": (P, I, P, P, P, P, I, P, P, P,
                             I, I, I, I, I, I, I, P),
+        # measurement only: an explicit cluster size and span limit
+        # (..., B, NB, bs, n_blocks, KV, G, Dh, cluster, span, stream)
+        "paged_attention_config": (P, I, P, P, P, P, I, P, P, P,
+                                   I, I, I, I, I, I, I, I, I, P),
+        # (kv_kind, B, KV, G, Dh, bs, n_blocks, k, v, plan[3]) -> 0; plan =
+        # (vector loads, cluster size, span)
+        "paged_attention_plan": (I, I, I, I, I, I, I, P, P, P),
+        # (kv_kind, B, KV, G, Dh, bs, n_blocks, k, v) -> shared-memory bytes
+        # of one block
+        "paged_attention_smem_bytes": (I, I, I, I, I, I, I, P, P),
     },
     "flash_attention": {
         # (q, k, v, kind, out, B, Sq, Sk, KV, G, Dh, causal, window,
@@ -100,6 +110,15 @@ SIGNATURES = {
         #  slot_map, wo, out, B, L, NB, bs, n_blocks, KV, G, Dh, D, stream)
         "fused_decode": (P, I, P, P, P, P, I, P, P, P, P, P,
                          I, I, I, I, I, I, I, I, I, P),
+        # measurement only: (..., B, L, NB, bs, n_blocks, KV, G, Dh, D,
+        #  variant, span, stream); variant bits: 1 skips the projection, 2
+        #  the attention, 4 reads wo unstaged, 8 writes phase cycles, not
+        #  results; span: the span limit (0: automatic)
+        "fused_decode_variant": (P, I, P, P, P, P, I, P, P, P, P, P,
+                                 I, I, I, I, I, I, I, I, I, I, I, P),
+        # (kv_kind, KV, G, Dh, D, bs, n_blocks, k, v, wo) -> shared-memory
+        # bytes of one block
+        "fused_decode_smem_bytes": (I, I, I, I, I, I, I, P, P, P),
     },
 }
 

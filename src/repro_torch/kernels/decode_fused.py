@@ -14,15 +14,21 @@ On a CUDA tensor :func:`fused_decode` launches the hand-written kernel in
 ``csrc/decode_fused.cu`` (it replaces the TPU kernel
 ``repro/kernels/decode_fused.py:fused_decode``); on a CPU tensor it runs
 :func:`fused_decode_ref` with ``out_dtype=float32``.  Callers scatter the
-compact rows back to the padded batch.
+compact rows back to the padded batch.  The kernel runs one cluster of
+eight blocks per live slot: each (slot, KV head) attention is computed once
+(the paged core of ``csrc/paged_common.cuh``) and shared through
+distributed shared memory; each block projects one eighth of ``wo``'s rows
+(copied into its shared memory while the attention runs) onto all columns,
+and the blocks' sums of a column add in a fixed order.
 """
 from __future__ import annotations
 
 import torch
 
 from . import _build
-from .decode_attention import _Q_KINDS, _SMEM_LIMIT, _pos_vector, smem_bytes
-from .paged_attention import _ptr, paged_attention_ref, pool_operands
+from .decode_attention import _Q_KINDS, _pos_vector
+from .paged_attention import (_ptr, check_smem, paged_attention_ref,
+                              pool_operands)
 
 
 def fused_decode_ref(q, k_pool, k_scale, v_pool, v_scale, page_table, pos,
@@ -59,16 +65,16 @@ def fused_decode(q, k_pool, k_scale, v_pool, v_scale, page_table, pos,
             slot_map.numel() == 0:
         raise ValueError(f"slot_map must be a non-empty (L,) int32 tensor, got "
                          f"{slot_map.dtype} {tuple(slot_map.shape)}")
-    smem = smem_bytes(g, dh) + 4 * kv * g * dh      # + the (KV*G*Dh) attention row
-    if smem > _SMEM_LIMIT:
-        raise ValueError(f"KV={kv}, G={g}, Dh={dh} needs {smem} B of shared "
-                         f"memory per block (limit {_SMEM_LIMIT})")
     for t in (wo, slot_map):
         if t.device != q.device or not t.is_contiguous():
             raise ValueError(f"all operands must be contiguous on {q.device}")
     n_live, d = slot_map.shape[0], wo.shape[1]
-    out = torch.empty((n_live, d), dtype=torch.float32, device=q.device)
     lib = _build.library("decode_fused")
+    check_smem(lib.fused_decode_smem_bytes(kind, kv, g, dh, d, bs, n_blocks,
+                                           k_pool.data_ptr(), v_pool.data_ptr(),
+                                           wo.data_ptr()),
+               f"KV={kv}, G={g}, Dh={dh}, D={d}, bs={bs}")
+    out = torch.empty((n_live, d), dtype=torch.float32, device=q.device)
     err = lib.fused_decode(
         q.data_ptr(), _Q_KINDS[q.dtype], k_pool.data_ptr(), _ptr(k_scale),
         v_pool.data_ptr(), _ptr(v_scale), kind, page_table.data_ptr(),

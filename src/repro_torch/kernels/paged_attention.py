@@ -19,7 +19,13 @@ blocks.
 On a CUDA tensor :func:`paged_attention` launches the hand-written kernel
 in ``csrc/paged_attention.cu`` (it replaces the TPU kernel
 ``repro/kernels/paged_attention.py:paged_attention``); on a CPU tensor it
-runs :func:`paged_attention_ref` with ``out_dtype=float32``.
+runs :func:`paged_attention_ref` with ``out_dtype=float32``.  The kernel
+runs one thread-block cluster per (sequence, KV head): one block of eight
+warps while spans of 16 positions give each warp at most one (``n_blocks *
+bs`` <= 128 at bs 16), eight blocks above that; the warps take spans of
+whole pool blocks with 16-byte loads and their partials merge in a fixed
+order (``csrc/paged_common.cuh``).  :func:`launch_plan` reports the choice
+for a set of operands.
 
 :func:`paged_attention_ref` has two roles, as in the reference: with
 ``out_dtype=float32`` it has the kernel's semantics (K/V dequantized in
@@ -30,12 +36,15 @@ from __future__ import annotations
 import torch
 
 from . import _build
-from .decode_attention import (_Q_KINDS, _SMEM_LIMIT, _pos_vector,
-                               decode_attention_serving_ref, smem_bytes)
+from .decode_attention import (_Q_KINDS, _pos_vector,
+                               decode_attention_serving_ref)
 
 KV_BITS = (16, 8, 4)
 _CODE_KINDS = {8: 0, 4: 1}                    # int codes + f32 scales
 _RAW_KINDS = {torch.float32: 2, torch.bfloat16: 3}
+# dynamic shared memory a block of the paged kernels may take: an H100's
+# 227 KB (PA_SMEM_LIMIT of csrc/paged_common.cuh)
+SMEM_LIMIT = 227 * 1024
 
 
 def gather_pool(pool_leaf, page_table):
@@ -97,9 +106,6 @@ def pool_operands(q, k_pool, k_scale, v_pool, v_scale, page_table, pos,
         if tuple(t.shape) != shape or t.dtype != dt:
             raise ValueError(f"{name}: expected {dt} {shape}, got {t.dtype} "
                              f"{tuple(t.shape)}")
-    if smem_bytes(g, dh) > _SMEM_LIMIT:
-        raise ValueError(f"G={g}, Dh={dh} needs {smem_bytes(g, dh)} B of "
-                         f"shared memory per block (limit {_SMEM_LIMIT})")
     pos_v = _pos_vector(pos, b, q.device)
     for t in (q, pos_v) + tuple(t for _, t, _, _ in expect):
         if t.device != q.device or not t.is_contiguous():
@@ -109,6 +115,25 @@ def pool_operands(q, k_pool, k_scale, v_pool, v_scale, page_table, pos,
 
 def _ptr(t) -> int | None:
     return None if t is None else t.data_ptr()
+
+
+def check_smem(nbytes: int, what: str) -> None:
+    """Refuse a block that needs more shared memory than the kernels take."""
+    if nbytes > SMEM_LIMIT:
+        raise ValueError(f"{what} needs {nbytes} B of shared memory per block "
+                         f"(limit {SMEM_LIMIT})")
+
+
+def launch_plan(kv_kind: int, b: int, kv: int, g: int, dh: int, bs: int,
+                n_blocks: int, k_pool, v_pool) -> dict:
+    """The paged kernels' launch plan for these operands: ``vector`` (16-byte
+    loads; else scalar loads), ``cluster`` (blocks a (sequence, KV head))
+    and ``span`` (positions a warp's span)."""
+    import ctypes
+    plan = (ctypes.c_int * 3)()
+    _build.library("paged_attention").paged_attention_plan(
+        kv_kind, b, kv, g, dh, bs, n_blocks, _ptr(k_pool), _ptr(v_pool), plan)
+    return {"vector": bool(plan[0]), "cluster": plan[1], "span": plan[2]}
 
 
 def paged_attention(q, k_pool, k_scale, v_pool, v_scale, page_table, pos, *,
@@ -121,8 +146,11 @@ def paged_attention(q, k_pool, k_scale, v_pool, v_scale, page_table, pos, *,
     kind, nb_pool, bs, n_blocks, pos_v = pool_operands(
         q, k_pool, k_scale, v_pool, v_scale, page_table, pos, kv_bits)
     b, kv, g, dh = q.shape
-    out = torch.empty((b, kv, g, dh), dtype=torch.float32, device=q.device)
     lib = _build.library("paged_attention")
+    check_smem(lib.paged_attention_smem_bytes(kind, b, kv, g, dh, bs, n_blocks,
+                                              k_pool.data_ptr(), v_pool.data_ptr()),
+               f"G={g}, Dh={dh}, bs={bs}")
+    out = torch.empty((b, kv, g, dh), dtype=torch.float32, device=q.device)
     err = lib.paged_attention(
         q.data_ptr(), _Q_KINDS[q.dtype], k_pool.data_ptr(), _ptr(k_scale),
         v_pool.data_ptr(), _ptr(v_scale), kind, page_table.data_ptr(),

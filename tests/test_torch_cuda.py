@@ -594,3 +594,146 @@ def test_bf16_probabilities_refused_on_the_card(gpu):
     tokens = torch.zeros((1, 8), dtype=torch.int64, device=gpu)
     with pytest.raises(NotImplementedError, match="attn_probs_bf16"):
         model.forward(params, {"tokens": tokens})
+
+
+# ---------------------------------------------------------------------------
+# The paged flash-decode core (csrc/paged_common.cuh) at the shapes its
+# plan changes on: the cluster path, pool block sizes, head layouts, the
+# scalar-load path; launch-to-launch equality.  Tolerances as above.
+def _paged_case(gpu, kv_bits, pool_dtype, *, kv=3, g=3, dh=64, bs=16,
+                pos=(79, 0, 40, 63), n_ctx=80, seed=5, misalign=False):
+    """One paged decode step with len(pos) sequences of n_ctx positions
+    (rounded up to whole blocks) in a permuted pool; ``misalign`` puts the
+    pools 4 bytes off a 16-byte boundary (still contiguous)."""
+    gen = torch.Generator().manual_seed(seed)
+    b, nb = len(pos), -(-n_ctx // bs)
+    nb_pool = 1 + b * nb
+    q = torch.randn((b, kv, g, dh), generator=gen).to(gpu, torch.bfloat16)
+    shape = (nb_pool, bs, kv, dh // 2 if kv_bits == 4 else dh)
+
+    def pool(t):
+        if not misalign:
+            return t.to(gpu)
+        flat = torch.empty(t.numel() + 16, dtype=t.dtype, device=gpu)
+        off = 4 // t.element_size()
+        view = flat[off:off + t.numel()].view(shape)
+        view.copy_(t)
+        return view
+    if kv_bits == 16:
+        k, v = (pool(torch.randn(shape, generator=gen).to(pool_dtype))
+                for _ in range(2))
+        ks = vs = None
+    else:
+        k, v = (pool(torch.randint(-128 if kv_bits == 4 else -127, 128, shape,
+                                   generator=gen, dtype=torch.int8))
+                for _ in range(2))
+        ks, vs = ((torch.rand((nb_pool, bs, kv, 1), generator=gen) * 0.02
+                   + 1e-3).to(gpu) for _ in range(2))
+    pt = (torch.randperm(nb_pool - 1, generator=gen) + 1).reshape(b, nb)
+    for i, p in enumerate(pos):
+        pt[i, p // bs + 1:] = 0
+    return (q, k, ks, v, vs, pt.to(gpu, torch.int32),
+            torch.tensor(pos, dtype=torch.int32, device=gpu))
+
+
+def _plan(args, kv_bits):
+    q, k, _, v, _, pt, _ = args
+    kind = {16: 2 if k.dtype == torch.float32 else 3, 8: 0, 4: 1}[kv_bits]
+    return tpaged.launch_plan(kind, q.shape[0], q.shape[1], q.shape[2],
+                              q.shape[3], k.shape[1], pt.shape[1], k, v)
+
+
+def _check_paged(args, kv_bits):
+    """B2 against its f32 plain version, twice: the two launches equal."""
+    engine.reset_launch_counts()
+    got = tpaged.paged_attention(*args, kv_bits=kv_bits)
+    again = tpaged.paged_attention(*args, kv_bits=kv_bits)
+    assert engine.launch_counts()["paged_attention"] == 2
+    want = tpaged.paged_attention_ref(*args, kv_bits=kv_bits,
+                                      out_dtype=torch.float32)
+    torch.cuda.synchronize()
+    assert torch.equal(got, again)
+    assert (got - want).abs().max() <= 1e-5 + 1e-4 * want.abs().max()
+
+
+def _check_fused(args, kv_bits, slot_map, d=576, seed=6):
+    """B4 against its f32 plain version, twice (equal); the rows of a
+    repeated slot equal."""
+    q = args[0]
+    gen = torch.Generator().manual_seed(seed)
+    wo = (torch.randn((q[0].numel(), d), generator=gen) / 24).to(q.device)
+    sm = torch.tensor(slot_map, dtype=torch.int32, device=q.device)
+    engine.reset_launch_counts()
+    got = tfused.fused_decode(*args, sm, wo, kv_bits=kv_bits)
+    again = tfused.fused_decode(*args, sm, wo, kv_bits=kv_bits)
+    assert engine.launch_counts()["fused_decode"] == 2
+    want = tfused.fused_decode_ref(*args, sm, wo, kv_bits=kv_bits)
+    torch.cuda.synchronize()
+    assert got.shape == (len(slot_map), d) and torch.equal(got, again)
+    for i, s in enumerate(slot_map):
+        assert torch.equal(got[i], got[slot_map.index(s)])
+    assert (got - want).abs().max() <= 1e-5 + 1e-4 * want.abs().max()
+
+
+LONG = dict(pos=(2047, 1023, 511, 0), n_ctx=2048)
+
+
+def test_paged_attention_long_context_takes_a_cluster(gpu):
+    args = _paged_case(gpu, 8, torch.int8, **LONG)
+    assert _plan(args, 8)["cluster"] > 1
+    _check_paged(args, 8)
+
+
+def test_fused_decode_long_context(gpu):
+    _check_fused(_paged_case(gpu, 8, torch.int8, **LONG), 8, [0, 1, 2, 3])
+
+
+@pytest.mark.parametrize("bs", [5, 16])
+@pytest.mark.parametrize("kv_bits,pool_dtype", POOLS, ids=POOL_IDS)
+def test_paged_kernels_block_sizes(gpu, kv_bits, pool_dtype, bs):
+    args = _paged_case(gpu, kv_bits, pool_dtype, bs=bs, pos=(79, 0, 40, 64))
+    assert _plan(args, kv_bits)["vector"]
+    _check_paged(args, kv_bits)
+    _check_fused(args, kv_bits, [3, 0, 2, 3])
+
+
+@pytest.mark.parametrize("kv,g", [(1, 8), (4, 1)])
+@pytest.mark.parametrize("kv_bits,pool_dtype", POOLS, ids=POOL_IDS)
+def test_paged_kernels_head_layouts(gpu, kv_bits, pool_dtype, kv, g):
+    args = _paged_case(gpu, kv_bits, pool_dtype, kv=kv, g=g)
+    _check_paged(args, kv_bits)
+    _check_fused(args, kv_bits, [1, 3, 3])
+
+
+@pytest.mark.parametrize("kv_bits,pool_dtype,dh,misalign", [
+    (8, torch.int8, 40, False), (4, torch.int8, 40, False),
+    (16, torch.bfloat16, 36, False), (8, torch.int8, 64, True),
+    (16, torch.float32, 64, True)],
+    ids=["kv8-dh40", "kv4-dh40", "kv16-bf16-dh36", "kv8-unaligned",
+         "kv16-f32-unaligned"])
+def test_paged_kernels_scalar_loads(gpu, kv_bits, pool_dtype, dh, misalign):
+    """Rows that are not a whole number of 16-byte vectors, or pools off a
+    16-byte boundary, take the scalar-load path of the same kernels; a wo
+    width that is not a multiple of 4 takes scalar columns."""
+    args = _paged_case(gpu, kv_bits, pool_dtype, dh=dh, misalign=misalign)
+    assert not _plan(args, kv_bits)["vector"]
+    _check_paged(args, kv_bits)
+    _check_fused(args, kv_bits, [0, 2, 2], d=3 * 3 * dh + 2)
+
+
+def test_paged_kernels_wide_f32_rows(gpu):
+    """An f32 pool with Dh 128 at a 2048-position context: the plans
+    shorten the span until a block fits in shared memory, and B4's wo rows
+    (144 x 576 f32 a rank) are too many to stage, so it reads them from
+    global memory."""
+    args = _paged_case(gpu, 16, torch.float32, dh=128, **LONG)
+    plan = _plan(args, 16)
+    assert plan["cluster"] == 8 and plan["span"] < 32
+    _check_paged(args, 16)
+    _check_fused(args, 16, [0, 3, 3])
+
+
+@pytest.mark.parametrize("slot_map", [[3], [3, 3, 0], [3, 3, 0, 3]],
+                         ids=["L1", "L3", "L4"])
+def test_fused_decode_repeated_slot_rows_equal(gpu, slot_map):
+    _check_fused(_paged_case(gpu, 8, torch.int8), 8, slot_map)
