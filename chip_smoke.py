@@ -20,14 +20,16 @@ Phases (each prints its own lines; any failed check exits non-zero):
      binary matmul on random bits
      (the 1x1 LM's decode and chunk shapes, a ragged shape, a CNN conv
      shape; both of its kernels by name across their switch, timed at
-     M = 4..128 and at AlexNet's fc shapes), the dense decode attention,
+     M = 4..128 and at AlexNet's fc shapes), the dense decode attention
+     (the serving step and a 2048-position cache, each with its plan),
      the paged attention at kv 8/4/16 (kv8 / kv16; kv8 at a 2048-position
      context; a sweep of cluster sizes and span limits over context
      lengths), the fused decode at kv8 (also at 2048 positions), the three activation quantizers (f32 and bf16
      rows, ``torch.equal``) and B7c's row form (scale and codes in one
      launch, timed beside the former abs/amax/clamp_min/div chain) and the
      full-sequence flash attention (prefill,
-     forward, window + softcap; f32 and bf16, each timed beside SDPA);
+     forward, window + softcap; bf16 and f32 (TF32 tensor cores, three
+     products), each timed beside SDPA);
   4. the dense serving path at full width: smollm-135m, 2xT
      weights/activations, int8 KV cache, bf16, random weights from seed 0,
      served by the continuous batcher (8 requests over 4 slots); the kernel
@@ -62,13 +64,15 @@ Phases (each prints its own lines; any failed check exits non-zero):
      chunked run's (reported);
   4h. ``Model.forward`` / ``Model.loss`` at B=2, S=2048: fp32 weights in
      float32 through the kernels against the plain versions (bounded), 2xT
-     bf16 (reported), launches and time per forward;
+     bf16 (reported), launches and time per forward, and one forward under
+     ``torch.profiler`` (device busy time, flash attention's share);
   4i. the integer-code quantizers of ``core`` (``act_quant`` and
      ``act_quant_signed`` launches) against their plain versions;
   5. decode steps of the dense and the paged 2xT paths, of the dense 1x1
      path and of the paged fp32-weight path (phase 4d's) under
      ``torch.profiler``: device operations per step, device busy time and
-     idle share, and the paged kernels' share of it.
+     idle share, and the decode-attention kernels' share of it (B5 dense,
+     B2 paged, B4 fused).
 The last lines are the per-kernel JSON record, the card's name and power
 limit, and ``{"ok": true, "device": {...}}``.
 
@@ -90,11 +94,12 @@ from pathlib import Path
 ROOT = Path(__file__).resolve().parent
 
 # H100 SXM published peaks (dense): HBM3 bytes/s, int8 and bf16 tensor
-# ops/s, and f32 outside the tensor cores.
+# ops/s, f32 outside the tensor cores, and TF32 tensor ops/s.
 MEM_BW = 3.35e12
 PEAK_INT8 = 1979e12
 PEAK_BF16 = 989e12
 PEAK_F32 = 67e12
+PEAK_TF32 = 495e12
 # The binary matmul's +/-1 products are counted at the int8 peak, the
 # narrowest type in the published table (the 1-bit tensor rate is not in it).
 PEAK_BINARY = PEAK_INT8
@@ -613,51 +618,67 @@ def _binary_record(gen, device):
             "shape": "one layer's 7 decode projections, M=4"}
 
 
+# B5's cases: the dense serving step (S = S_MAX, ragged slot positions;
+# the record) and a 2048-position cache (an 8-block cluster a head)
+DECODE_CASES = ((S_MAX, [S_MAX - 1, 40, 5, 63]), (2048, [2047, 1023, 511, 0]))
+
+
 def _attention_record(gen, device):
+    """``decode_attention`` (B5) against its f32 plain version at the dense
+    serving step and at a 2048-position cache, each with its launch plan,
+    timed beside the plain version and SDPA f32; the serving step is the
+    record."""
     import torch
     import torch.nn.functional as F
     from repro_torch.kernels.decode_attention import (decode_attention,
-                                                      decode_attention_ref)
-    b, kv, g, dh, s = N_SLOTS, KV_HEADS, GROUP, DH, S_MAX
-    q = torch.randn((b, kv, g, dh), generator=gen).to(device, torch.bfloat16)
-    kc = torch.randint(-127, 128, (b, s, kv, dh), generator=gen,
-                       dtype=torch.int8).to(device)
-    vc = torch.randint(-127, 128, (b, s, kv, dh), generator=gen,
-                       dtype=torch.int8).to(device)
-    ks = (torch.rand((b, s, kv, 1), generator=gen) * 0.02 + 1e-3).to(device)
-    vs = (torch.rand((b, s, kv, 1), generator=gen) * 0.02 + 1e-3).to(device)
-    pos_list = [s - 1, 40, 5, 63]                     # ragged slot positions
-    pos = torch.tensor(pos_list, dtype=torch.int32, device=device)
-    args = (q, kc, ks, vc, vs, pos)
-    out, out_ref = decode_attention(*args), decode_attention_ref(*args)
-    torch.cuda.synchronize()
-    err = (out - out_ref).abs().max().item()
-    # f32 online softmax vs one-shot softmax: rounding only
-    tol = 1e-5 + 1e-4 * out_ref.abs().max().item()
-    check(err <= tol, f"decode_attention: max |diff| {err} > {tol}")
-    print(f"decode_attention B={b} KV={kv} G={g} Dh={dh} S={s} pos={pos_list}: "
-          f"max |diff| vs f32 plain version {err:.3e} (tolerance {tol:.3e})")
+                                                      decode_attention_ref,
+                                                      launch_plan)
+    b, kv, g, dh = N_SLOTS, KV_HEADS, GROUP, DH
+    rec, err_max = None, 0.0
+    for s, pos_list in DECODE_CASES:
+        q = torch.randn((b, kv, g, dh), generator=gen).to(device, torch.bfloat16)
+        kc = torch.randint(-127, 128, (b, s, kv, dh), generator=gen,
+                           dtype=torch.int8).to(device)
+        vc = torch.randint(-127, 128, (b, s, kv, dh), generator=gen,
+                           dtype=torch.int8).to(device)
+        ks = (torch.rand((b, s, kv, 1), generator=gen) * 0.02 + 1e-3).to(device)
+        vs = (torch.rand((b, s, kv, 1), generator=gen) * 0.02 + 1e-3).to(device)
+        pos = torch.tensor(pos_list, dtype=torch.int32, device=device)
+        args = (q, kc, ks, vc, vs, pos)
+        out, out_ref = decode_attention(*args), decode_attention_ref(*args)
+        torch.cuda.synchronize()
+        err = (out - out_ref).abs().max().item()
+        # f32 online softmax vs one-shot softmax: rounding only
+        tol = 1e-5 + 1e-4 * out_ref.abs().max().item()
+        check(err <= tol, f"decode_attention S={s}: max |diff| {err} > {tol}")
+        err_max = max(err_max, err)
+        plan = launch_plan(q, kc, vc)
+        print(f"decode_attention B={b} KV={kv} G={g} Dh={dh} S={s} "
+              f"pos={pos_list} (plan {plan}): max |diff| vs f32 plain version "
+              f"{err:.3e} (tolerance {tol:.3e})")
 
-    kf = (kc.float() * ks).permute(0, 2, 1, 3)            # (B, KV, S, Dh)
-    vf = (vc.float() * vs).permute(0, 2, 1, 3)
-    qf = q.float().reshape(b, kv * g, 1, dh)
-    kf, vf = kf.repeat_interleave(g, 1), vf.repeat_interleave(g, 1)
-    mask = (torch.arange(s, device=device)[None, :] <= pos[:, None].long()
-            )[:, None, None, :]
-    tk, tk_eager = time_ms(lambda: decode_attention(*args))
-    tp, _ = time_ms(lambda: decode_attention_ref(*args))
-    tl, _ = time_ms(lambda: F.scaled_dot_product_attention(qf, kf, vf,
-                                                           attn_mask=mask))
-    valid = sum(min(p + 1, s) for p in pos_list)
-    nbytes = (q.numel() * 2 + valid * kv * (2 * dh + 2 * 4) + 4 * b
-              + 4 * b * kv * g * dh)
-    bt, by = bound(nbytes, valid * kv * g * 4 * dh, PEAK_F32)
-    print(f"  kernel {tk:.5f} ms (eager call {tk_eager:.4f} ms), plain "
-          f"{tp:.5f} ms, sdpa f32 {tl:.5f} ms, bound {bt:.6f} ms ({by})")
-    return {"name": "decode_attention", "ms": tk, "plain_ms": tp,
-            "bound_ms": bt, "bound_by": by, "library_ms": tl,
-            "max_abs_err": err,
-            "shape": f"B={b} KV={kv} G={g} Dh={dh} S={s} pos={pos_list}"}
+        kf = (kc.float() * ks).permute(0, 2, 1, 3)            # (B, KV, S, Dh)
+        vf = (vc.float() * vs).permute(0, 2, 1, 3)
+        qf = q.float().reshape(b, kv * g, 1, dh)
+        kf, vf = kf.repeat_interleave(g, 1), vf.repeat_interleave(g, 1)
+        mask = (torch.arange(s, device=device)[None, :] <= pos[:, None].long()
+                )[:, None, None, :]
+        tk, tk_eager = time_ms(lambda: decode_attention(*args))
+        tp, _ = time_ms(lambda: decode_attention_ref(*args), reps=5)
+        tl, _ = time_ms(lambda: F.scaled_dot_product_attention(
+            qf, kf, vf, attn_mask=mask), reps=5)
+        valid = sum(min(p + 1, s) for p in pos_list)
+        nbytes = (q.numel() * 2 + valid * kv * (2 * dh + 2 * 4) + 4 * b
+                  + 4 * b * kv * g * dh)
+        bt, by = bound(nbytes, valid * kv * g * 4 * dh, PEAK_F32)
+        print(f"  kernel {tk:.5f} ms (eager call {tk_eager:.4f} ms), plain "
+              f"{tp:.5f} ms, sdpa f32 {tl:.5f} ms, bound {bt:.6f} ms ({by})")
+        if rec is None:
+            rec = {"name": "decode_attention", "ms": tk, "plain_ms": tp,
+                   "bound_ms": bt, "bound_by": by, "library_ms": tl,
+                   "shape": f"B={b} KV={kv} G={g} Dh={dh} S={s} pos={pos_list}"}
+    rec["max_abs_err"] = err_max
+    return rec
 
 
 # the paged kernels' serving shapes: one decode step of 4 slots at ragged
@@ -1140,10 +1161,12 @@ def _flash_cost(b, s, kv, g, dh, window, in_bytes):
 def _flash_record(gen, device):
     """``flash_attention`` against its f32 plain version at the prefill,
     forward and a window + softcap shape, in f32 and bf16, within 1e-5 of
-    max|out|; timed in both dtypes (bf16: the tensor-core kernel, f32: the
-    CUDA-core one) beside ``scaled_dot_product_attention`` in the same dtype
-    (is_causal, K/V expanded to KV * G heads), the bf16 forward shape being
-    the record."""
+    max|out|; timed in both dtypes (bf16: the bf16 tensor-core kernel, f32:
+    the TF32 one, three products a pair) beside
+    ``scaled_dot_product_attention`` in the same dtype (is_causal, K/V
+    expanded to KV * G heads), the bf16 forward shape being the record.
+    The f32 bound counts the three TF32 products at the TF32 peak; the f32
+    CUDA-core figure is printed beside it."""
     import torch
     import torch.nn.functional as F
     from repro_torch.kernels.flash_attention import flash_attention
@@ -1177,12 +1200,18 @@ def _flash_record(gen, device):
             tl, _ = time_ms(lambda: F.scaled_dot_product_attention(
                 qh, kh, vh, is_causal=True), reps=5)
             nbytes, ops = _flash_cost(b, s, kv, g, dh, window, 2 if bf16 else 4)
-            bt, by = bound(nbytes, ops, PEAK_BF16 if bf16 else PEAK_F32)
-            name = "bf16 (tensor cores)" if bf16 else "f32 (CUDA cores)"
+            if bf16:
+                bt, by = bound(nbytes, ops, PEAK_BF16)
+                name, extra = "bf16 (bf16 tensor cores)", ""
+            else:
+                bt, by = bound(nbytes, 3 * ops, PEAK_TF32)
+                name = "f32 (TF32 tensor cores, three products)"
+                extra = (f"; f32 CUDA-core bound "
+                         f"{bound(nbytes, ops, PEAK_F32)[0]:.5f} ms")
             print(f"  {label} {name}: kernel {tk:.4f} ms (eager call "
                   f"{tk_eager:.4f} ms), plain {tp:.4f} ms, sdpa "
                   f"{str(dtype)[6:]} is_causal {tl:.4f} ms, kernel / sdpa "
-                  f"{tk / tl:.2f}, bound {bt:.5f} ms ({by}), "
+                  f"{tk / tl:.2f}, bound {bt:.5f} ms ({by}){extra}, "
                   f"{ops / tk / 1e9:.1f} TFLOP/s")
             if label == "forward" and bf16:
                 rec = {"name": "flash_attention", "ms": tk, "plain_ms": tp,
@@ -1435,9 +1464,12 @@ FWD_B, FWD_S = 2, 2048
 
 def _forward_pair(model, params, batch):
     """Model.forward and Model.loss through the kernels and through the
-    plain versions on the card; the kernels' launches of one forward and
-    its time (CUDA events, after a warm-up)."""
+    plain versions on the card; the kernels' launches of one forward, its
+    time (CUDA events, after a warm-up) and one forward under
+    ``torch.profiler``: wall time, device busy time and the flash-attention
+    kernels' share of it."""
     import torch
+    from torch.profiler import ProfilerActivity, profile
     from repro_torch.kernels import engine
     model.forward(params, batch)
     torch.cuda.synchronize()
@@ -1446,13 +1478,24 @@ def _forward_pair(model, params, batch):
     torch.cuda.synchronize()
     launches = engine.launch_counts()
     ms = _event_ms(lambda: model.forward(params, batch), 3)
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        model.forward(params, batch)
+        torch.cuda.synchronize()
+        prof_ms = (time.perf_counter() - t0) * 1e3
+    dev, busy, by_name = _profile_device(prof)
+    flash = [v for name, v in by_name.items() if "flash_attn" in name]
     lp, _ = model.forward(params, batch, backend="torch")
     loss_k = model.loss(params, batch).item()
     loss_p = model.loss(params, batch, backend="torch").item()
     check(bool(torch.isfinite(lk).all()) and lk.shape == (
         FWD_B, FWD_S, model.cfg.padded_vocab) and float(aux) == 0.0,
           f"forward: logits {tuple(lk.shape)} not finite or aux {float(aux)}")
-    return {"launches": launches, "ms": ms,
+    return {"launches": launches, "ms": ms, "prof_ms": prof_ms,
+            "busy_ms": busy / 1e3, "device_ops": len(dev),
+            "flash_ms": sum(t for _, t in flash) / 1e3,
+            "flash_n": sum(n for n, _ in flash),
             "gap": (lk - lp).abs().max().item(),
             "scale": lp.abs().max().item(),
             "argmax": (lk.argmax(-1) == lp.argmax(-1)).float().mean().item(),
@@ -1485,6 +1528,12 @@ def phase_forward(device, card):
               f"{r['gap']:.3e} of max|logit| {r['scale']:.3e}, argmax equal "
               f"on {r['argmax']:.4f} of positions; loss {r['loss_k']:.6f} vs "
               f"{r['loss_p']:.6f} (relative {rel:.2e})")
+        print(f"  profiled forward: wall {r['prof_ms']:.2f} ms, device "
+              f"operations {r['device_ops']}, device busy {r['busy_ms']:.3f} "
+              f"ms (idle share {1 - r['busy_ms'] / r['prof_ms']:.4f}); "
+              f"flash_attention kernels {r['flash_ms']:.3f} ms over "
+              f"{r['flash_n']} launches ({r['flash_ms'] / r['busy_ms']:.4f} "
+              f"of busy time)")
         check(r["launches"]["flash_attention"] == cfg.n_layers,
               f"{precision} forward: {r['launches']['flash_attention']} "
               f"flash_attention launches, not {cfg.n_layers}")
@@ -1863,8 +1912,9 @@ def phase_cnn(device, card):
     return launches
 
 
-# device kernels of B2 and B4 whose share of a profiled step is printed
-PAGED_KERNELS = ("paged_attn_kernel", "fused_decode_kernel")
+# device kernels of B5, B2 and B4 whose share of a profiled step is printed
+DECODE_KERNELS = ("decode_attn_kernel", "paged_attn_kernel",
+                  "fused_decode_kernel")
 
 
 def phase_profile(card, label, batcher, steps: int = 5):
@@ -1922,7 +1972,7 @@ def phase_profile(card, label, batcher, steps: int = 5):
     for name, (n, t) in top:
         print(f"  {t / 1e3 / steps:8.3f} ms/step  {n / steps:5.0f}/step  "
               f"{name[:90]}")
-    for kernel in PAGED_KERNELS:
+    for kernel in DECODE_KERNELS:
         n = sum(c for name, (c, _) in by_name.items() if kernel in name)
         t = sum(u for name, (_, u) in by_name.items() if kernel in name)
         if n:

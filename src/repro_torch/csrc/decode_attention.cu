@@ -1,4 +1,5 @@
-// Flash-decode attention of one query token over a dense int8 KV cache.
+// Flash-decode attention of one query token over a dense int8 KV cache
+// (B5).
 //
 // Replaces the TPU kernel repro/kernels/decode_attention.py:decode_attention.
 //
@@ -8,145 +9,94 @@
 //   pos      (B,)            int32; position s attends iff s <= pos[b]
 //   out      (B, KV, G, Dh)  f32
 //
-// Semantics as the Pallas kernel: K/V are dequantized in f32 (code * scale),
-// scores are q.k * Dh^-0.5, and an online softmax (m starting at -1e30, l
-// floored at 1e-30 at the end) accumulates over tiles of positions.  Tiles
-// wholly past pos[b] are skipped: their contribution is exactly zero.
+// Semantics as the Pallas kernel: K/V are dequantized in f32 (code *
+// scale; K's scale multiplies the row's code dot product, V's is folded
+// into the probability), scores are q.k / sqrt(Dh) (the plain version
+// scales each code and multiplies by Dh^-0.5: rounding only), and an
+// online softmax (m starting at -1e30, l
+// floored at 1e-30 at the end) accumulates over the positions up to pos[b].
 //
-// What bounds it on an H100: the cache bytes (int8 codes plus f32 scales of
-// the positions up to pos[b]); the arithmetic is ~4*G*Dh flops per position.
-// Design: one 128-thread block per (b, kv head) computes all G query rows of
-// that head, so each cache row is read from device memory once.  Each tile of
-// 32 positions is dequantized into shared memory; one warp per query row
-// computes the 32 scores (one lane per position) and the tile's max and sum
-// with warp shuffles; then every thread updates its (g, d) accumulators.
-// Exact expf, no fast-math.  Splitting S across blocks (split-K decode) is
-// later work.
-#include "common.cuh"
+// What bounds it on an H100: the cache bytes of the positions up to pos[b]
+// (int8 codes plus f32 scales, ~27 KB at the serving shapes: B = 4, KV 3,
+// G 3, Dh 64, 80 positions at most); the arithmetic is ~4*G*Dh flops a
+// position.  At those sizes the time is latency (paged_common.cuh).
+//
+// Design: the paged flash-decode core of B2 (paged_common.cuh) over the
+// dense cache viewed as a pool of NB = B blocks of bs = S positions, with
+// the identity page table taken at compile time (DENSE: sequence b reads
+// block b; no table, no dependent load).  B2's launch plan (pa_plan): one
+// block of eight warps per (sequence, KV head) with spans of 16 positions
+// while S <= 128, an 8-block cluster with the automatic span above that.
+// Warps take spans with 16-byte cp.async loads (a scalar-load path for
+// rows that are not 16-byte vectors or caches off a 16-byte boundary), and
+// the partials merge in a fixed order, so two launches give equal bits.
+#include "paged_common.cuh"
 
 namespace {
 
-constexpr int TS = 32;           // positions per tile: one per lane
-constexpr int THREADS = 128;
-constexpr int NWARPS = THREADS / 32;
-
-template <typename QT>
-__global__ void __launch_bounds__(THREADS)
-decode_attn_int8_kernel(const QT* __restrict__ q, const int8_t* __restrict__ kc,
-                        const float* __restrict__ ks, const int8_t* __restrict__ vc,
-                        const float* __restrict__ vs, const int32_t* __restrict__ pos,
-                        float* __restrict__ out, int S, int KV, int G, int Dh,
-                        float sm_scale) {
-  extern __shared__ float smem[];
-  float* k_s = smem;                    // TS x (Dh + 1): padded, lanes read rows
-  float* v_s = k_s + TS * (Dh + 1);     // TS x Dh
-  float* q_s = v_s + TS * Dh;           // G x Dh
-  float* acc_s = q_s + G * Dh;          // G x Dh
-  float* p_s = acc_s + G * Dh;          // G x TS
-  float* m_s = p_s + G * TS;            // G running max
-  float* l_s = m_s + G;                 // G running sum
-  float* c_s = l_s + G;                 // G this tile's rescale factor
-
-  const int b = blockIdx.x / KV, kh = blockIdx.x % KV;
-  const int lane = threadIdx.x % 32, warp = threadIdx.x / 32;
-  const int n_valid = min(pos[b] + 1, S);
-  const size_t head = static_cast<size_t>(b * KV + kh) * G * Dh;
-
-  for (int i = threadIdx.x; i < G * Dh; i += THREADS) {
-    q_s[i] = to_float(q[head + i]);
-    acc_s[i] = 0.f;
-  }
-  for (int g = threadIdx.x; g < G; g += THREADS) {
-    m_s[g] = -1e30f;
-    l_s[g] = 0.f;
-  }
-  __syncthreads();
-
-  for (int s0 = 0; s0 < n_valid; s0 += TS) {
-    const int nt = min(TS, n_valid - s0);
-    for (int i = threadIdx.x; i < nt * Dh; i += THREADS) {
-      const int t = i / Dh, d = i % Dh;
-      const size_t row = (static_cast<size_t>(b) * S + s0 + t) * KV + kh;
-      k_s[t * (Dh + 1) + d] = static_cast<float>(kc[row * Dh + d]) * ks[row];
-      v_s[t * Dh + d] = static_cast<float>(vc[row * Dh + d]) * vs[row];
-    }
-    __syncthreads();
-
-    for (int g = warp; g < G; g += NWARPS) {
-      float sc = -1e30f;
-      if (lane < nt) {
-        float dot = 0.f;
-        for (int d = 0; d < Dh; ++d) dot += q_s[g * Dh + d] * k_s[lane * (Dh + 1) + d];
-        sc = dot * sm_scale;
-      }
-      float mx = sc;
-#pragma unroll
-      for (int o = 16; o > 0; o >>= 1) mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, o));
-      const float m_prev = m_s[g];
-      const float m_new = fmaxf(m_prev, mx);
-      const float p = lane < nt ? expf(sc - m_new) : 0.f;
-      float sum = p;
-#pragma unroll
-      for (int o = 16; o > 0; o >>= 1) sum += __shfl_xor_sync(0xffffffffu, sum, o);
-      p_s[g * TS + lane] = p;
-      if (lane == 0) {
-        const float corr = expf(m_prev - m_new);
-        c_s[g] = corr;
-        l_s[g] = l_s[g] * corr + sum;
-        m_s[g] = m_new;
-      }
-    }
-    __syncthreads();
-
-    for (int i = threadIdx.x; i < G * Dh; i += THREADS) {
-      const int g = i / Dh, d = i % Dh;
-      float a = acc_s[i] * c_s[g];
-      for (int t = 0; t < nt; ++t) a += p_s[g * TS + t] * v_s[t * Dh + d];
-      acc_s[i] = a;
-    }
-    __syncthreads();
-  }
-
-  for (int i = threadIdx.x; i < G * Dh; i += THREADS)
-    out[head + i] = acc_s[i] / fmaxf(l_s[i / Dh], 1e-30f);
+template <typename QT, bool VEC>
+__global__ void __launch_bounds__(PA_THREADS, 1)
+decode_attn_kernel(const QT* __restrict__ q, const int8_t* __restrict__ kc,
+                   const float* __restrict__ ks, const int8_t* __restrict__ vc,
+                   const float* __restrict__ vs, const int32_t* __restrict__ pos,
+                   float* __restrict__ out, int B, int S, int KV, int G, int Dh, int span) {
+  extern __shared__ __align__(16) float smem[];
+  pa_attend<QT, KV_INT8, VEC, true>(smem, q, kc, ks, vc, vs, nullptr, pos, out, B, S, 1, KV, G,
+                                    Dh, span);
 }
 
-// Dynamic shared memory the kernel needs, in bytes (the wrapper checks the
-// same formula against the 48 KB default limit).
-int smem_bytes(int G, int Dh) {
-  return static_cast<int>(sizeof(float)) *
-         (TS * (Dh + 1) + TS * Dh + 2 * G * Dh + G * TS + 3 * G);
+template <typename QT, bool VEC>
+cudaError_t launch(int C, int span, int smem, cudaStream_t stream, const void* q,
+                   const void* k, const void* k_scale, const void* v, const void* v_scale,
+                   const void* pos, void* out, int B, int S, int KV, int G, int Dh) {
+  return pa_launch(decode_attn_kernel<QT, VEC>, B * KV * C, C, smem, stream,
+                   static_cast<const QT*>(q), static_cast<const int8_t*>(k),
+                   static_cast<const float*>(k_scale), static_cast<const int8_t*>(v),
+                   static_cast<const float*>(v_scale), static_cast<const int32_t*>(pos),
+                   static_cast<float*>(out), B, S, KV, G, Dh, span);
 }
 
 }  // namespace
+
+// The launch plan: plan[0] = 1 for 16-byte vector loads (0: scalar loads),
+// plan[1] = the cluster size, plan[2] = the span, plan[3] = the shared
+// memory bytes of one block.
+extern "C" int decode_attention_plan(int B, int S, int KV, int G, int Dh, const void* k,
+                                     const void* v, int* plan) {
+  const bool vec = pa_vector_ok(KV_INT8, Dh, k, v);
+  plan[0] = vec ? 1 : 0;
+  pa_plan(KV_INT8, vec, B, KV, G, Dh, S, S, &plan[1], &plan[2]);
+  plan[3] = static_cast<int>(sizeof(float)) *
+            pa_smem_floats(KV_INT8, vec, G, Dh, plan[2], plan[1]);
+  return 0;
+}
 
 extern "C" cudaError_t decode_attention_int8(const void* q, int q_kind, const void* k,
                                              const void* k_scale, const void* v,
                                              const void* v_scale, const void* pos, void* out,
                                              int B, int S, int KV, int G, int Dh,
-                                             float sm_scale, cudaStream_t stream) {
-  if (B <= 0 || S <= 0 || KV <= 0 || G <= 0 || Dh <= 0) return cudaErrorInvalidValue;
-  const int smem = smem_bytes(G, Dh);
-  if (smem > 48 * 1024) return cudaErrorInvalidValue;
-  const dim3 grid(B * KV);
-  const auto* kp = static_cast<const int8_t*>(k);
-  const auto* vp = static_cast<const int8_t*>(v);
-  const auto* ksp = static_cast<const float*>(k_scale);
-  const auto* vsp = static_cast<const float*>(v_scale);
-  const auto* pp = static_cast<const int32_t*>(pos);
-  auto* op = static_cast<float*>(out);
+                                             cudaStream_t stream) {
+  // cudaErrorInvalidValue: bad shapes; cudaErrorLaunchOutOfResources: the
+  // plan's block needs more than PA_SMEM_LIMIT bytes of shared memory
+  if (B <= 0 || !pa_shapes_ok(KV_INT8, B, S, 1, KV, G, Dh)) return cudaErrorInvalidValue;
+  if (k_scale == nullptr || v_scale == nullptr) return cudaErrorInvalidValue;
+  int plan[4];
+  decode_attention_plan(B, S, KV, G, Dh, k, v, plan);
+  const int C = plan[1], span = plan[2], smem = plan[3];
+  if (smem > PA_SMEM_LIMIT) return cudaErrorLaunchOutOfResources;
+  const bool vec = plan[0] != 0;
   switch (q_kind) {
     case KIND_F32:
-      decode_attn_int8_kernel<float><<<grid, THREADS, smem, stream>>>(
-          static_cast<const float*>(q), kp, ksp, vp, vsp, pp, op, S, KV, G, Dh, sm_scale);
-      break;
+      return vec ? launch<float, true>(C, span, smem, stream, q, k, k_scale, v, v_scale, pos, out,
+                                       B, S, KV, G, Dh)
+                 : launch<float, false>(C, span, smem, stream, q, k, k_scale, v, v_scale, pos,
+                                        out, B, S, KV, G, Dh);
     case KIND_BF16:
-      decode_attn_int8_kernel<__nv_bfloat16><<<grid, THREADS, smem, stream>>>(
-          static_cast<const __nv_bfloat16*>(q), kp, ksp, vp, vsp, pp, op, S, KV, G, Dh,
-          sm_scale);
-      break;
+      return vec ? launch<__nv_bfloat16, true>(C, span, smem, stream, q, k, k_scale, v, v_scale,
+                                               pos, out, B, S, KV, G, Dh)
+                 : launch<__nv_bfloat16, false>(C, span, smem, stream, q, k, k_scale, v,
+                                                v_scale, pos, out, B, S, KV, G, Dh);
     default:
       return cudaErrorInvalidValue;
   }
-  return cudaGetLastError();
 }

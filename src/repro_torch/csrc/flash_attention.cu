@@ -17,8 +17,9 @@
 //
 // What bounds it on an H100: the arithmetic, 4 * Dh operations per (query
 // head, visible key) pair: 9.67 GFLOP at the forward shape (B=2, S=2048,
-// KV=3, G=3, Dh=64, causal), 0.0098 ms at the bf16 tensor peak; the bytes
-// (q, k, v read once, the f32 output written once) are ~0.01 of that.
+// KV=3, G=3, Dh=64, causal), 0.0098 ms at the bf16 tensor peak; in f32,
+// three TF32 products a pair, 0.0586 ms at the TF32 peak (495 TFLOP/s); the
+// bytes (q, k, v read once, the f32 output written once) are ~0.01 of that.
 //
 // Both kernels: the TPU kernel carries m/l/acc across a sequential K grid
 // axis in VMEM; CUDA blocks run in no order, so a block owns BR = 64
@@ -49,161 +50,42 @@
 // runs between its two MMA phases; hiding it under the next tile's MMAs
 // (wgmma, TMA, warp specialisation) is later work.
 //
-// f32 inputs (the fp32 Model.forward and the f32 checks) stay on the CUDA
-// cores, flash_attn_f32_kernel: a two-term bf16 split of f32 q, k, v comes
-// too close to the bound (0.7-0.85 of it in emulation), a three-term one (6
-// products) or 3xTF32 is a later choice.  One 256-thread block walks K/V tiles of
-// BK = 32: each warp owns 8 rows, each lane one key of the tile for the
-// scores (warp-shuffle max and sum) and Dh/32 output columns for P.V; the
-// block's Q rows and each K/V tile are staged in shared memory as f32 (rows
-// padded by 4 floats: float4 reads without bank conflicts).
+// f32 inputs (the fp32 Model.forward and the f32 checks) run on the TF32
+// tensor cores in three products, flash_attn_tf32_kernel: the same
+// structure as the bf16 kernel (4 warps x 16 rows, K/V tiles of 32 keys
+// double-buffered by 16-byte cp.async, each row's key range, tiles outside
+// the causal or window range skipped, longest rows first, the f32 online
+// softmax in registers) with mma.sync.m16n8k8 tf32 -> f32.  Every f32
+// operand x is split into hi = cvt.rna.tf32(x) and lo = cvt.rna.tf32(x - hi),
+// and each product a.b is a_lo.b_hi + a_hi.b_lo + a_hi.b_hi, three MMAs into
+// the f32 accumulator (the dropped a_lo.b_lo is ~2^-22 relative): for Q.K^T
+// (Q split once, when its tile is staged) and for P.V (P split in registers
+// after the softmax).  K and V are split once a tile, by the whole block
+// after the tile lands: hi in place, lo into a plane of its own, so the
+// four warps that share a tile read plain fragments.  A two-term bf16
+// split of f32 q, k, v comes too close to the 1e-5 bound (0.7-0.85 of it
+// in emulation) and a single TF32 product misses it by far; the three
+// products hold it (tests/test_torch_flash_attention.py emulates both).
+// The 32-bit fragments are read with plain shared loads (ldmatrix moves
+// 16-bit elements) from rows padded by 4 floats, a stride of 4 banks mod
+// 32, so the Q, K (row gid, column tig) and V (row 2 tig, column gid)
+// fragment loads are free of bank conflicts.  The m16n8k8 score fragment
+// holds keys (2 tig, 2 tig + 1) where P.V's A fragment wants columns
+// (tig, tig + 4): the k-step's keys are taken in that order for both P
+// and V, so P never leaves the registers.  Shared memory: Q hi and lo, two
+// K and two V tiles, K lo and V lo, (2 * 64 + 6 * 32) x (Dh + 4) floats:
+// 85 KB at Dh 64 (two blocks an SM), 165 KB at Dh 128.  On an H100 at the
+// forward shape (tools/bench_attention.py), splitting K and V once a tile
+// instead of in each warp's fragment loads took the kernel from 0.28 to
+// 0.26 ms; with the split in the fragment loads, tiles of 32 keys had run
+// 4% faster than 64 and 16 keys 32% slower.
 //
 // The flattened (batch, KV head, row tile) index runs along grid.x.
 #include "common.cuh"
 
 namespace {
 
-// --------------------------------------------------------------------------
-// f32: CUDA cores
-// --------------------------------------------------------------------------
-constexpr int THREADS = 256, NWARPS = THREADS / 32, RPW = 8;  // rows per warp
-constexpr int BR = NWARPS * RPW;                               // 64 rows a block
-constexpr int BK = 32;                                         // keys a tile
-
-template <int DH>
-constexpr int smem_bytes() {
-  return static_cast<int>(sizeof(float)) * (BR * (DH + 4) + BK * (DH + 4) + BK * DH);
-}
-
-template <int DH>
-__global__ void __launch_bounds__(THREADS)
-flash_attn_f32_kernel(const float* __restrict__ q, const float* __restrict__ k,
-                      const float* __restrict__ v, float* __restrict__ out, int Sq,
-                      int Sk, int KV, int G, int n_tiles, int causal, int window,
-                      float softcap, float sm_scale) {
-  constexpr int DPL = DH / 32;          // output columns per lane
-  constexpr int QS = DH + 4;            // padded row of q_s / k_s
-  extern __shared__ __align__(16) float smem[];
-  float* q_s = smem;                    // BR x QS
-  float* k_s = q_s + BR * QS;           // BK x QS
-  float* v_s = k_s + BK * QS;           // BK x DH
-
-  const int tile = blockIdx.x % n_tiles;
-  const int bh = blockIdx.x / n_tiles;
-  const int b = bh / KV, kh = bh % KV;
-  const int rows = Sq * G;
-  const int r0 = tile * BR;
-  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
-
-  for (int i = threadIdx.x; i < BR * DH; i += THREADS) {
-    const int r = i / DH, d = i % DH, row = r0 + r;
-    float val = 0.f;
-    if (row < rows) {
-      const int qp = row / G, g = row % G;
-      val = q[((static_cast<size_t>(b) * Sq + qp) * KV + kh) * G * DH +
-              static_cast<size_t>(g) * DH + d];
-    }
-    q_s[r * QS + d] = val;
-  }
-
-  int qpos[RPW];
-  float m[RPW], l[RPW], acc[RPW][DPL];
-#pragma unroll
-  for (int i = 0; i < RPW; ++i) {
-    const int row = r0 + warp * RPW + i;
-    qpos[i] = row < rows ? row / G : -1;   // -1: a padding row, every key masked
-    m[i] = -1e30f;
-    l[i] = 0.f;
-#pragma unroll
-    for (int j = 0; j < DPL; ++j) acc[i][j] = 0.f;
-  }
-
-  // keys any row of the block may see
-  const int qp_lo = r0 / G, qp_hi = (min(r0 + BR, rows) - 1) / G;
-  const int k_end = causal ? min(Sk, qp_hi + 1) : Sk;
-  const int k_begin = window > 0 ? max(0, qp_lo - window + 1) / BK * BK : 0;
-  __syncthreads();
-
-  for (int k0 = k_begin; k0 < k_end; k0 += BK) {
-    for (int i = threadIdx.x; i < BK * DH; i += THREADS) {
-      const int t = i / DH, d = i % DH, kp = k0 + t;
-      float kv_ = 0.f, vv = 0.f;
-      if (kp < Sk) {
-        const size_t off = ((static_cast<size_t>(b) * Sk + kp) * KV + kh) * DH + d;
-        kv_ = k[off];
-        vv = v[off];
-      }
-      k_s[t * QS + d] = kv_;
-      v_s[t * DH + d] = vv;
-    }
-    __syncthreads();
-
-    // scores: lane = key k0 + lane, one dot per row of this warp
-    float s[RPW];
-#pragma unroll
-    for (int i = 0; i < RPW; ++i) s[i] = 0.f;
-#pragma unroll 4
-    for (int d = 0; d < DH; d += 4) {
-      const float4 kk = *reinterpret_cast<const float4*>(&k_s[lane * QS + d]);
-#pragma unroll
-      for (int i = 0; i < RPW; ++i) {
-        const float4 qq = *reinterpret_cast<const float4*>(&q_s[(warp * RPW + i) * QS + d]);
-        s[i] += qq.x * kk.x + qq.y * kk.y + qq.z * kk.z + qq.w * kk.w;
-      }
-    }
-
-    const int kp = k0 + lane;
-    float p[RPW];
-#pragma unroll
-    for (int i = 0; i < RPW; ++i) {
-      float sc = s[i] * sm_scale;
-      if (softcap > 0.f) sc = softcap * tanhf(sc / softcap);
-      bool ok = kp < Sk && qpos[i] >= 0;
-      if (causal) ok = ok && kp <= qpos[i];
-      if (window > 0) ok = ok && kp > qpos[i] - window;
-      float mx = ok ? sc : -1e30f;
-#pragma unroll
-      for (int o = 16; o > 0; o >>= 1) mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, o));
-      const float m_new = fmaxf(m[i], mx);
-      p[i] = ok ? expf(sc - m_new) : 0.f;
-      float sum = p[i];
-#pragma unroll
-      for (int o = 16; o > 0; o >>= 1) sum += __shfl_xor_sync(0xffffffffu, sum, o);
-      const float corr = expf(m[i] - m_new);
-      l[i] = l[i] * corr + sum;
-      m[i] = m_new;
-#pragma unroll
-      for (int j = 0; j < DPL; ++j) acc[i][j] *= corr;
-    }
-
-    // P.V: lane owns columns lane, lane + 32, ...; p of key t from lane t
-#pragma unroll 4
-    for (int t = 0; t < BK; ++t) {
-      float vv[DPL];
-#pragma unroll
-      for (int j = 0; j < DPL; ++j) vv[j] = v_s[t * DH + lane + 32 * j];
-#pragma unroll
-      for (int i = 0; i < RPW; ++i) {
-        const float pt = __shfl_sync(0xffffffffu, p[i], t);
-#pragma unroll
-        for (int j = 0; j < DPL; ++j) acc[i][j] += pt * vv[j];
-      }
-    }
-    __syncthreads();
-  }
-
-#pragma unroll
-  for (int i = 0; i < RPW; ++i) {
-    const int row = r0 + warp * RPW + i;
-    if (row >= rows) continue;
-    const int qp = row / G, g = row % G;
-    float* o = out + ((static_cast<size_t>(b) * Sq + qp) * KV + kh) * G * DH +
-               static_cast<size_t>(g) * DH;
-    const float denom = fmaxf(l[i], 1e-30f);
-#pragma unroll
-    for (int j = 0; j < DPL; ++j) o[lane + 32 * j] = acc[i][j] / denom;
-  }
-}
+constexpr int BR = 64;                 // rows a block: 4 warps x 16
 
 // --------------------------------------------------------------------------
 // bf16: tensor cores (mma.sync m16n8k16, f32 accumulate)
@@ -456,6 +338,286 @@ flash_attn_tc_kernel(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* _
   }
 }
 
+// --------------------------------------------------------------------------
+// f32: TF32 tensor cores, three products (mma.sync m16n8k8 tf32, f32 acc)
+// --------------------------------------------------------------------------
+constexpr int TF_THREADS = 128;        // 4 warps x 16 rows = BR
+constexpr int TF_BK = 32;              // keys a tile
+constexpr int TF_PAD = 4;              // floats per smem row: stride = 4 banks mod 32
+
+template <int DH>
+constexpr int tf_smem_bytes() {        // Q hi and lo, two K and two V tiles, K and V lo
+  return static_cast<int>(sizeof(float)) * (2 * BR + 6 * TF_BK) * (DH + TF_PAD);
+}
+
+// x -> (hi, lo) as tf32 bit patterns: hi = rna(x), lo = rna(x - hi)
+__device__ __forceinline__ void split_tf32(float x, uint32_t& hi, uint32_t& lo) {
+  asm("cvt.rna.tf32.f32 %0, %1;\n" : "=r"(hi) : "f"(x));
+  asm("cvt.rna.tf32.f32 %0, %1;\n" : "=r"(lo) : "f"(x - __uint_as_float(hi)));
+}
+
+// four floats in shared memory split in place: x -> hi, lo into lo[0..3]
+__device__ __forceinline__ void split_tf32x4(float* x, float* lo) {
+  float4 v = *reinterpret_cast<float4*>(x), l;
+  uint32_t h[4], w[4];
+  split_tf32(v.x, h[0], w[0]);
+  split_tf32(v.y, h[1], w[1]);
+  split_tf32(v.z, h[2], w[2]);
+  split_tf32(v.w, h[3], w[3]);
+  v = make_float4(__uint_as_float(h[0]), __uint_as_float(h[1]), __uint_as_float(h[2]),
+                  __uint_as_float(h[3]));
+  l = make_float4(__uint_as_float(w[0]), __uint_as_float(w[1]), __uint_as_float(w[2]),
+                  __uint_as_float(w[3]));
+  *reinterpret_cast<float4*>(x) = v;
+  *reinterpret_cast<float4*>(lo) = l;
+}
+
+// d += a (16x8 tf32, row) . b (8x8 tf32, col), f32
+__device__ __forceinline__ void mma_tf32(float (&d)[4], const uint32_t (&a)[4], uint32_t b0,
+                                         uint32_t b1) {
+  asm("mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 "
+      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+// d += a . b in three products, the small terms first: a_lo.b_hi, a_hi.b_lo,
+// a_hi.b_hi (a_lo.b_lo, ~2^-22 relative, is dropped)
+__device__ __forceinline__ void mma_3xtf32(float (&d)[4], const uint32_t (&ah)[4],
+                                           const uint32_t (&al)[4], uint32_t bh0, uint32_t bh1,
+                                           uint32_t bl0, uint32_t bl1) {
+  mma_tf32(d, al, bh0, bh1);
+  mma_tf32(d, ah, bl0, bl1);
+  mma_tf32(d, ah, bh0, bh1);
+}
+
+template <int DH>
+__global__ void __launch_bounds__(TF_THREADS)
+flash_attn_tf32_kernel(const float* __restrict__ q, const float* __restrict__ k,
+                       const float* __restrict__ v, float* __restrict__ out, int Sq, int Sk,
+                       int KV, int G, int n_bh, int causal, int window, float softcap,
+                       float sm_scale) {
+  constexpr int LD = DH + TF_PAD;       // smem row, in floats
+  constexpr int CH = DH / 4;            // 16-byte chunks a row
+  constexpr int KS = DH / 8;            // k-steps of Q.K^T
+  constexpr int NT = DH / 8;            // 8-column tiles of the output
+  constexpr int ST = TF_BK / 8;         // 8-key tiles of the scores (k-steps of P.V)
+  extern __shared__ __align__(16) float tf_smem[];
+  float* qh_s = tf_smem;                // BR x LD: Q, then its tf32 hi
+  float* ql_s = qh_s + BR * LD;         // BR x LD: Q's tf32 lo
+  float* k_s = ql_s + BR * LD;          // 2 x TF_BK x LD: K, then its tf32 hi
+  float* v_s = k_s + 2 * TF_BK * LD;    // 2 x TF_BK x LD: V, then its tf32 hi
+  float* kl_s = v_s + 2 * TF_BK * LD;   // TF_BK x LD: this tile's K lo
+  float* vl_s = kl_s + TF_BK * LD;      // TF_BK x LD: this tile's V lo
+
+  const int n_tiles = gridDim.x / n_bh;
+  const int tile = n_tiles - 1 - static_cast<int>(blockIdx.x) / n_bh;  // longest first
+  const int bh = blockIdx.x % n_bh;
+  const int b = bh / KV, kh = bh % KV;
+  const int rows = Sq * G, r0 = tile * BR;
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const int gid = lane >> 2, tig = lane & 3;   // fragment row / column
+
+  for (int i = threadIdx.x; i < BR * CH; i += TF_THREADS) {
+    const int r = i / CH, c = i % CH, row = r0 + r;
+    const bool ok = row < rows;
+    const size_t off = ok ? ((static_cast<size_t>(b) * Sq + row / G) * KV + kh) * G * DH +
+                                static_cast<size_t>(row % G) * DH + c * 4
+                          : 0;
+    cp_async16(smem_addr(qh_s + r * LD + c * 4), q + off, ok);
+  }
+  cp_async_commit();
+
+  auto load_kv = [&](int k0, int buf) {
+    for (int i = threadIdx.x; i < TF_BK * CH; i += TF_THREADS) {
+      const int t = i / CH, c = i % CH, kp = k0 + t;
+      const bool ok = kp < Sk;
+      const size_t off = ok ? ((static_cast<size_t>(b) * Sk + kp) * KV + kh) * DH + c * 4 : 0;
+      const int at = (buf * TF_BK + t) * LD + c * 4;
+      cp_async16(smem_addr(k_s + at), k + off, ok);
+      cp_async16(smem_addr(v_s + at), v + off, ok);
+    }
+  };
+
+  // keys any row of the block may see; those of this warp's rows
+  const int qp_lo = r0 / G, qp_hi = (min(r0 + BR, rows) - 1) / G;
+  const int k_end = causal ? min(Sk, qp_hi + 1) : Sk;
+  const int k_begin = window > 0 ? max(0, qp_lo - window + 1) / TF_BK * TF_BK : 0;
+  const int wr0 = r0 + warp * 16;
+  const bool warp_live = wr0 < rows;
+  const int wq_lo = min(wr0, rows - 1) / G, wq_hi = (min(wr0 + 16, rows) - 1) / G;
+
+  if (k_begin < k_end) load_kv(k_begin, 0);
+  cp_async_commit();
+
+  // this thread's two rows: gid and gid + 8 of the warp's 16
+  int k_lo[2], k_hi[2];                 // row h sees keys k_lo[h] .. k_hi[h]
+  float m[2], l[2], o[NT][4];
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    const int row = wr0 + gid + 8 * h, qp = row / G;
+    k_lo[h] = window > 0 ? qp - window + 1 : 0;
+    k_hi[h] = row >= rows ? -1 : causal ? min(qp, Sk - 1) : Sk - 1;  // padding: none
+    m[h] = -1e30f;
+    l[h] = 0.f;
+  }
+#pragma unroll
+  for (int n = 0; n < NT; ++n)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) o[n][e] = 0.f;
+
+  cp_async_wait<1>();                      // the Q tile
+  __syncthreads();
+  for (int i = threadIdx.x; i < BR * DH; i += TF_THREADS) {   // split Q once
+    float* x = qh_s + (i / DH) * LD + i % DH;
+    uint32_t hi, lo;
+    split_tf32(*x, hi, lo);
+    *x = __uint_as_float(hi);
+    ql_s[x - qh_s] = __uint_as_float(lo);
+  }
+
+  int buf = 0;
+  for (int k0 = k_begin; k0 < k_end; k0 += TF_BK, buf ^= 1) {
+    if (k0 + TF_BK < k_end) {
+      load_kv(k0 + TF_BK, buf ^ 1);
+      cp_async_commit();
+      cp_async_wait<1>();
+    } else {
+      cp_async_wait<0>();
+    }
+    __syncthreads();                       // this tile (and the split Q) visible
+    for (int i = threadIdx.x; i < TF_BK * CH; i += TF_THREADS) {   // split K and V once
+      const int at = buf * TF_BK * LD + (i / CH) * LD + (i % CH) * 4;
+      const int lat = (i / CH) * LD + (i % CH) * 4;
+      split_tf32x4(k_s + at, kl_s + lat);
+      split_tf32x4(v_s + at, vl_s + lat);
+    }
+    __syncthreads();                       // the split tile visible
+
+    // a warp none of whose rows sees a key of this tile would add p = 0
+    // with corr = 1: skip it (exact)
+    const bool skip = !warp_live || (causal && k0 > wq_hi) ||
+                      (window > 0 && k0 + TF_BK - 1 <= wq_lo - window);
+    if (!skip) {
+      const float* kb = k_s + buf * TF_BK * LD;
+      const float* vb = v_s + buf * TF_BK * LD;
+
+      // S = Q.K^T: s[j] holds keys k0 + 8j .. 8j + 7 (columns 2*tig, 2*tig + 1);
+      // A = Q rows (gid, gid + 8) x dims (tig, tig + 4) of the k-step, B = K
+      // row gid of the key tile x the same dims
+      float s[ST][4];
+#pragma unroll
+      for (int j = 0; j < ST; ++j)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) s[j][e] = 0.f;
+#pragma unroll
+      for (int ks = 0; ks < KS; ++ks) {
+        const int qa = (warp * 16 + gid) * LD + ks * 8 + tig;
+        const uint32_t ah[4] = {__float_as_uint(qh_s[qa]), __float_as_uint(qh_s[qa + 8 * LD]),
+                                __float_as_uint(qh_s[qa + 4]),
+                                __float_as_uint(qh_s[qa + 8 * LD + 4])};
+        const uint32_t al[4] = {__float_as_uint(ql_s[qa]), __float_as_uint(ql_s[qa + 8 * LD]),
+                                __float_as_uint(ql_s[qa + 4]),
+                                __float_as_uint(ql_s[qa + 8 * LD + 4])};
+#pragma unroll
+        for (int j = 0; j < ST; ++j) {
+          const int kb_at = (j * 8 + gid) * LD + ks * 8 + tig;
+          mma_3xtf32(s[j], ah, al, __float_as_uint(kb[kb_at]), __float_as_uint(kb[kb_at + 4]),
+                     __float_as_uint(kl_s[kb_at]), __float_as_uint(kl_s[kb_at + 4]));
+        }
+      }
+
+      // online softmax in f32; element e of s[j] is row gid + 8 * (e >> 1).
+      // The softcap test stays outside the unrolled loops.
+      if (softcap > 0.f) {
+#pragma unroll
+        for (int j = 0; j < ST; ++j)
+#pragma unroll
+          for (int e = 0; e < 4; ++e) s[j][e] = softcap * tanhf(s[j][e] * sm_scale / softcap);
+      } else {
+#pragma unroll
+        for (int j = 0; j < ST; ++j)
+#pragma unroll
+          for (int e = 0; e < 4; ++e) s[j][e] *= sm_scale;
+      }
+      float mx[2] = {-1e30f, -1e30f};
+#pragma unroll
+      for (int j = 0; j < ST; ++j)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const int h = e >> 1, kp = k0 + j * 8 + tig * 2 + (e & 1);
+          if (kp < k_lo[h] || kp > k_hi[h]) s[j][e] = __int_as_float(0xff800000);  // -inf: exp gives 0
+          mx[h] = fmaxf(mx[h], s[j][e]);
+        }
+      float sum[2] = {0.f, 0.f}, corr[2];
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        mx[h] = fmaxf(mx[h], __shfl_xor_sync(0xffffffffu, mx[h], 1));
+        mx[h] = fmaxf(mx[h], __shfl_xor_sync(0xffffffffu, mx[h], 2));
+        const float m_new = fmaxf(m[h], mx[h]);
+        corr[h] = expf(m[h] - m_new);
+        m[h] = m_new;
+      }
+#pragma unroll
+      for (int j = 0; j < ST; ++j)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          s[j][e] = expf(s[j][e] - m[e >> 1]);
+          sum[e >> 1] += s[j][e];
+        }
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        sum[h] += __shfl_xor_sync(0xffffffffu, sum[h], 1);
+        sum[h] += __shfl_xor_sync(0xffffffffu, sum[h], 2);
+        l[h] = l[h] * corr[h] + sum[h];
+      }
+#pragma unroll
+      for (int n = 0; n < NT; ++n) {
+        o[n][0] *= corr[0];
+        o[n][1] *= corr[0];
+        o[n][2] *= corr[1];
+        o[n][3] *= corr[1];
+      }
+
+      // acc += P.V over the k-steps of 8 keys.  The A fragment's columns
+      // (tig, tig + 4) take keys (2 tig, 2 tig + 1) of the step, the keys the
+      // score fragment s[kk] holds, so P stays in registers; V's B fragment
+      // takes the same two keys (rows 2 tig, 2 tig + 1) at column gid.
+#pragma unroll
+      for (int kk = 0; kk < ST; ++kk) {
+        uint32_t ph[4], pl[4];
+        split_tf32(s[kk][0], ph[0], pl[0]);
+        split_tf32(s[kk][2], ph[1], pl[1]);
+        split_tf32(s[kk][1], ph[2], pl[2]);
+        split_tf32(s[kk][3], ph[3], pl[3]);
+        const int vb_at = (kk * 8 + 2 * tig) * LD + gid;
+#pragma unroll
+        for (int n = 0; n < NT; ++n) {
+          const int at = vb_at + n * 8;
+          mma_3xtf32(o[n], ph, pl, __float_as_uint(vb[at]), __float_as_uint(vb[at + LD]),
+                     __float_as_uint(vl_s[at]), __float_as_uint(vl_s[at + LD]));
+        }
+      }
+    }
+    __syncthreads();                       // before tile i+2 overwrites buf
+  }
+  cp_async_wait<0>();
+
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    const int row = wr0 + gid + 8 * h;
+    if (row >= rows) continue;
+    const int qp = row / G, g = row % G;
+    float* op = out + ((static_cast<size_t>(b) * Sq + qp) * KV + kh) * G * DH +
+                static_cast<size_t>(g) * DH + tig * 2;
+    const float denom = fmaxf(l[h], 1e-30f);
+#pragma unroll
+    for (int n = 0; n < NT; ++n)
+      *reinterpret_cast<float2*>(op + n * 8) =
+          make_float2(o[n][2 * h] / denom, o[n][2 * h + 1] / denom);
+  }
+}
+
 // above 48 KB of dynamic shared memory only after opting in, once a kernel
 template <typename K>
 cudaError_t allow_smem(K kernel, int bytes, bool& done) {
@@ -485,13 +647,13 @@ cudaError_t launch_dh(int kind, const void* q, const void* k, const void* v, voi
         B * KV, causal, window, softcap, sm_scale);
   } else {
     static bool smem_set = false;
-    constexpr int smem = smem_bytes<DH>();
-    const cudaError_t e = allow_smem(flash_attn_f32_kernel<DH>, smem, smem_set);
+    constexpr int smem = tf_smem_bytes<DH>();
+    const cudaError_t e = allow_smem(flash_attn_tf32_kernel<DH>, smem, smem_set);
     if (e != cudaSuccess) return e;
-    flash_attn_f32_kernel<DH><<<grid, THREADS, smem, stream>>>(
+    flash_attn_tf32_kernel<DH><<<grid, TF_THREADS, smem, stream>>>(
         static_cast<const float*>(q), static_cast<const float*>(k),
-        static_cast<const float*>(v), static_cast<float*>(out), Sq, Sk, KV, G, n_tiles,
-        causal, window, softcap, sm_scale);
+        static_cast<const float*>(v), static_cast<float*>(out), Sq, Sk, KV, G, B * KV, causal,
+        window, softcap, sm_scale);
   }
   return cudaGetLastError();
 }
@@ -499,7 +661,7 @@ cudaError_t launch_dh(int kind, const void* q, const void* k, const void* v, voi
 }  // namespace
 
 // q: (B, Sq, KV, G, Dh), k/v: (B, Sk, KV, Dh), all f32 or all bf16 (kind),
-// bf16 pointers 16-byte aligned (cp.async); out: (B, Sq, KV, G, Dh) f32.
+// 16-byte aligned (cp.async); out: (B, Sq, KV, G, Dh) f32.
 // Dh in {32, 64, 96, 128}.  causal: 0/1; window <= 0 and softcap <= 0
 // switch those masks off.
 extern "C" cudaError_t flash_attention(const void* q, const void* k, const void* v,

@@ -27,38 +27,10 @@
 // span of 8, 16 or 32 that still gives each warp about one: the choice of
 // the cluster sweep in chip_smoke.py (PERF.md).  Each block pushes its
 // merged partial to every rank; rank r writes its slice of the output,
-// merged in ascending rank order.
+// merged in ascending rank order (pa_attend and pa_plan, shared with B5).
 #include "paged_common.cuh"
 
 namespace {
-
-// q (G4 x Dh), the warps, this block's merged partial, and with a cluster
-// the inbox of every rank's partial (C x pa_part_floats).
-int smem_floats(int kv_kind, bool vec, int G, int Dh, int span, int C) {
-  return pa_round4(G) * Dh + PA_NW * pa_warp_floats(kv_kind, vec, G, Dh, span) +
-         (C > 1 ? C + 1 : 1) * pa_part_floats(G, Dh);
-}
-
-// The launch plan over n_ctx = n_blocks * bs positions (see the note
-// above); the span limit halves while the block's shared memory would pass
-// PA_SMEM_LIMIT (wide f32 rows).
-constexpr int PA_SPAN = 16;       // the span limit without a cluster
-constexpr int PA_SM_COUNT = 132;
-
-void plan(int kv_kind, bool vec, int B, int KV, int G, int Dh, int n_ctx, int bs, int* C,
-          int* span) {
-  *C = 1;
-  int limit = PA_SPAN;
-  if ((n_ctx + pa_span(bs, PA_SPAN) - 1) / pa_span(bs, PA_SPAN) > PA_NW) {
-    *C = PA_CLUSTER_MAX;
-    while (*C > 1 && B * KV * *C > 2 * PA_SM_COUNT) *C /= 2;
-    limit = PA_SPAN_MAX;
-  }
-  for (;; limit /= 2) {
-    *span = *C == 1 ? pa_span(bs, limit) : pa_auto_span(bs, n_ctx, PA_NW * *C, limit);
-    if (limit == 1 || 4 * smem_floats(kv_kind, vec, G, Dh, *span, *C) <= PA_SMEM_LIMIT) return;
-  }
-}
 
 template <typename QT, int KIND, bool VEC>
 __global__ void __launch_bounds__(PA_THREADS, 1)
@@ -68,45 +40,8 @@ paged_attn_kernel(const QT* __restrict__ q, const typename KvStore<KIND>::T* __r
                   const int32_t* __restrict__ pos, float* __restrict__ out, int NB, int bs,
                   int n_blocks, int KV, int G, int Dh, int span) {
   extern __shared__ __align__(16) float smem[];
-  cg::cluster_group cl = cg::this_cluster();
-  const int C = static_cast<int>(cl.num_blocks());
-  const int rank = static_cast<int>(cl.block_rank());
-  const int unit = blockIdx.x / C;               // (sequence, KV head)
-  const int b = unit / KV, kh = unit % KV;
-  const int gd = G * Dh, pf = pa_part_floats(G, Dh);
-  const int wf = pa_warp_floats(KIND, VEC, G, Dh, span);
-  float* q_s = smem;
-  float* warps = q_s + pa_round4(G) * Dh;
-  float* part = warps + PA_NW * wf;
-  float* inbox = part + pf;                      // C partials, by rank
-
-  if (C > 1) pa_cluster_arrive();
-  const int warp = threadIdx.x / 32, worker = rank * PA_NW + warp;
-  const int32_t* pt_row = pt + static_cast<size_t>(b) * n_blocks;
-  const int blk0 = pa_first_block(pt_row, n_blocks, bs, span, worker);
-  const size_t head = static_cast<size_t>(unit) * gd;
-  pa_load_q(q_s, q + head, G, Dh);
-  const int n_valid = max(0, min(pos[b] + 1, n_blocks * bs));
-  __syncthreads();
-
-  pa_warp_attend<KIND, VEC>(warps + warp * wf, q_s, kp, ks, vp, vs, pt_row, n_valid, NB, bs, KV,
-                            kh, G, Dh, span, worker, C * PA_NW, blk0);
-  __syncthreads();
-  pa_cta_merge(warps, KIND, VEC, G, Dh, span, PaPart(part, G, Dh));
-  __syncthreads();
-  if (C == 1) {
-    for (int i = threadIdx.x; i < gd; i += PA_THREADS) out[head + i] = pa_merge(part, pf, 1, G, Dh, i);
-    return;
-  }
-  // every rank's partial into every rank's inbox; rank r then writes
-  // elements [r * ch, (r + 1) * ch) merged in ascending rank order
-  pa_cluster_wait();
-  pa_push(cl, part, inbox + rank * pf, pf);
-  cl.sync();
-  const int ch = (gd + C - 1) / C;
-  const int hi = min(gd, (rank + 1) * ch);
-  for (int i = rank * ch + threadIdx.x; i < hi; i += PA_THREADS)
-    out[head + i] = pa_merge(inbox, pf, C, G, Dh, i);
+  pa_attend<QT, KIND, VEC, false>(smem, q, kp, ks, vp, vs, pt, pos, out, NB, bs, n_blocks, KV, G,
+                                  Dh, span);
 }
 
 template <typename QT, int KIND, bool VEC>
@@ -163,8 +98,8 @@ extern "C" int paged_attention_smem_bytes(int kv_kind, int B, int KV, int G, int
                                           int n_blocks, const void* k, const void* v) {
   const bool vec = pa_vector_ok(kv_kind, Dh, k, v);
   int C, span;
-  plan(kv_kind, vec, B, KV, G, Dh, n_blocks * bs, bs, &C, &span);
-  return static_cast<int>(sizeof(float)) * smem_floats(kv_kind, vec, G, Dh, span, C);
+  pa_plan(kv_kind, vec, B, KV, G, Dh, n_blocks * bs, bs, &C, &span);
+  return static_cast<int>(sizeof(float)) * pa_smem_floats(kv_kind, vec, G, Dh, span, C);
 }
 
 // The launch plan the automatic choice makes: plan[0] = 1 for 16-byte
@@ -174,7 +109,7 @@ extern "C" int paged_attention_plan(int kv_kind, int B, int KV, int G, int Dh, i
                                     int n_blocks, const void* k, const void* v, int* out) {
   const bool vec = pa_vector_ok(kv_kind, Dh, k, v);
   out[0] = vec ? 1 : 0;
-  plan(kv_kind, vec, B, KV, G, Dh, n_blocks * bs, bs, &out[1], &out[2]);
+  pa_plan(kv_kind, vec, B, KV, G, Dh, n_blocks * bs, bs, &out[1], &out[2]);
   return 0;
 }
 
@@ -194,10 +129,10 @@ extern "C" cudaError_t paged_attention_config(const void* q, int q_kind, const v
   if (quant && (k_scale == nullptr || v_scale == nullptr)) return cudaErrorInvalidValue;
   const bool vec = pa_vector_ok(kv_kind, Dh, k, v);
   int C, span;
-  plan(kv_kind, vec, B, KV, G, Dh, n_blocks * bs, bs, &C, &span);
+  pa_plan(kv_kind, vec, B, KV, G, Dh, n_blocks * bs, bs, &C, &span);
   if (cluster > 0) C = cluster;
   if (span_max > 0) span = pa_span(bs, span_max);
-  const int smem = static_cast<int>(sizeof(float)) * smem_floats(kv_kind, vec, G, Dh, span, C);
+  const int smem = static_cast<int>(sizeof(float)) * pa_smem_floats(kv_kind, vec, G, Dh, span, C);
   if (smem > PA_SMEM_LIMIT) return cudaErrorInvalidValue;
   const int grid = B * KV * C;
   const auto* ks = static_cast<const float*>(k_scale);

@@ -1,9 +1,15 @@
-// The paged flash-decode core shared by paged_attention.cu (B2) and
-// decode_fused.cu (B4): the G query heads of one KV head of one sequence
-// attend over positions that live in pool blocks named by a page-table row.
-// Both replace TPU kernels that walk a sequence's blocks in order on one
-// core: repro/kernels/paged_attention.py:paged_attention and
-// repro/kernels/decode_fused.py:fused_decode.
+// The paged flash-decode core shared by paged_attention.cu (B2),
+// decode_fused.cu (B4) and decode_attention.cu (B5): the G query heads of
+// one KV head of one sequence attend over positions that live in pool
+// blocks named by a page-table row.  All three replace TPU kernels that walk
+// a sequence's positions in order on one core:
+// repro/kernels/paged_attention.py:paged_attention,
+// repro/kernels/decode_fused.py:fused_decode and
+// repro/kernels/decode_attention.py:decode_attention.  B5's dense cache
+// (B, S, KV, Dh) is a pool of NB = B blocks of bs = S positions whose page
+// table is the identity (sequence b's one block is block b): the DENSE
+// instances take block b at compile time, with no table in memory and no
+// dependent load.
 //
 //   pool      (NB, bs, KV, Dh')  int8 codes (kv8), nibble pairs with
 //                                Dh' = Dh/2 (kv4), or raw f32/bf16 (kv16)
@@ -232,8 +238,9 @@ __device__ __forceinline__ int pa_first_block(const int32_t* __restrict__ pt_row
 // lane groups take the rows' q.k for four query heads at a time (four
 // independent shuffle chains); one lane a position takes the softmax, V's
 // scale folded into the stored probability; each lane accumulates P.V for
-// d = lane, lane + 32, ... and four heads at a time.
-template <int KIND, bool VEC>
+// d = lane, lane + 32, ... and four heads at a time.  DENSE: every position
+// lives in block blk0 (pt_row is not read).
+template <int KIND, bool VEC, bool DENSE = false>
 __device__ void pa_warp_attend(float* wbase, const float* __restrict__ q_s,
                                const typename KvStore<KIND>::T* __restrict__ kp,
                                const float* __restrict__ ks,
@@ -315,7 +322,8 @@ __device__ void pa_warp_attend(float* wbase, const float* __restrict__ q_s,
   trace.stamp(0, j, worker);
   for (int stage = 0; len > 0; stage ^= 1) {
     const int jn = j + n_workers, len_n = span_len(jn);
-    const int blk_n = lane < len_n ? pt_row[(jn * span + lane) / bs] : 0;   // in flight
+    int blk_n = blk0;
+    if constexpr (!DENSE) blk_n = lane < len_n ? pt_row[(jn * span + lane) / bs] : 0;  // in flight
     if constexpr (VEC) cp_async_wait<0>();
     __syncwarp();                         // this span's rows are staged
     const char* kb = stage_base + stage * stage_bytes;
@@ -534,6 +542,96 @@ template <typename QT>
 __device__ inline void pa_load_q(float* q_s, const QT* __restrict__ q, int G, int Dh) {
   for (int i = threadIdx.x; i < pa_round4(G) * Dh; i += PA_THREADS)
     q_s[i] = i < G * Dh ? to_float(q[i]) : 0.f;
+}
+
+// Shared memory of one block of B2 / B5 in floats: q (G4 x Dh), the warps,
+// this block's merged partial, and with a cluster the inbox of every
+// rank's partial (C x pa_part_floats).
+__host__ __device__ inline int pa_smem_floats(int kv_kind, bool vec, int G, int Dh, int span,
+                                              int C) {
+  return pa_round4(G) * Dh + PA_NW * pa_warp_floats(kv_kind, vec, G, Dh, span) +
+         (C > 1 ? C + 1 : 1) * pa_part_floats(G, Dh);
+}
+
+constexpr int PA_SPAN = 16;       // B2 / B5's span limit without a cluster
+constexpr int PA_SM_COUNT = 132;
+
+// B2 / B5's launch plan over n_ctx = n_blocks * bs positions: one block
+// while spans of 16 give each warp at most one, else a cluster of 8 (fewer
+// when B * KV * C would pass two blocks an SM) with the shortest span of 8,
+// 16 or 32 that still gives each warp about one (the cluster sweep of
+// chip_smoke.py); the span limit halves while the block's shared memory
+// would pass PA_SMEM_LIMIT (wide f32 rows).
+inline void pa_plan(int kv_kind, bool vec, int B, int KV, int G, int Dh, int n_ctx, int bs,
+                    int* C, int* span) {
+  *C = 1;
+  int limit = PA_SPAN;
+  if ((n_ctx + pa_span(bs, PA_SPAN) - 1) / pa_span(bs, PA_SPAN) > PA_NW) {
+    *C = PA_CLUSTER_MAX;
+    while (*C > 1 && B * KV * *C > 2 * PA_SM_COUNT) *C /= 2;
+    limit = PA_SPAN_MAX;
+  }
+  for (;; limit /= 2) {
+    *span = *C == 1 ? pa_span(bs, limit) : pa_auto_span(bs, n_ctx, PA_NW * *C, limit);
+    if (limit == 1 || 4 * pa_smem_floats(kv_kind, vec, G, Dh, *span, *C) <= PA_SMEM_LIMIT) return;
+  }
+}
+
+// The body of B2's and B5's kernels: one (sequence, KV head) per cluster of
+// C blocks along x, blockIdx.x / C = b * KV + kh.  The warps' partials
+// merge in the block; with a cluster each block pushes its merged partial
+// to every rank, and rank r writes its slice of the output, merged in
+// ascending rank order.  DENSE (B5): sequence b's positions are block b of
+// the pool and pt is not read.
+template <typename QT, int KIND, bool VEC, bool DENSE>
+__device__ __forceinline__ void pa_attend(float* smem, const QT* __restrict__ q,
+                                          const typename KvStore<KIND>::T* __restrict__ kp,
+                                          const float* __restrict__ ks,
+                                          const typename KvStore<KIND>::T* __restrict__ vp,
+                                          const float* __restrict__ vs,
+                                          const int32_t* __restrict__ pt,
+                                          const int32_t* __restrict__ pos, float* __restrict__ out,
+                                          int NB, int bs, int n_blocks, int KV, int G, int Dh,
+                                          int span) {
+  cg::cluster_group cl = cg::this_cluster();
+  const int C = static_cast<int>(cl.num_blocks());
+  const int rank = static_cast<int>(cl.block_rank());
+  const int unit = blockIdx.x / C;               // (sequence, KV head)
+  const int b = unit / KV, kh = unit % KV;
+  const int gd = G * Dh, pf = pa_part_floats(G, Dh);
+  const int wf = pa_warp_floats(KIND, VEC, G, Dh, span);
+  float* q_s = smem;
+  float* warps = q_s + pa_round4(G) * Dh;
+  float* part = warps + PA_NW * wf;
+  float* inbox = part + pf;                      // C partials, by rank
+
+  if (C > 1) pa_cluster_arrive();
+  const int warp = threadIdx.x / 32, worker = rank * PA_NW + warp;
+  const int32_t* pt_row = DENSE ? nullptr : pt + static_cast<size_t>(b) * n_blocks;
+  const int blk0 = DENSE ? b : pa_first_block(pt_row, n_blocks, bs, span, worker);
+  const size_t head = static_cast<size_t>(unit) * gd;
+  pa_load_q(q_s, q + head, G, Dh);
+  const int n_valid = max(0, min(pos[b] + 1, n_blocks * bs));
+  __syncthreads();
+
+  pa_warp_attend<KIND, VEC, DENSE>(warps + warp * wf, q_s, kp, ks, vp, vs, pt_row, n_valid, NB,
+                                   bs, KV, kh, G, Dh, span, worker, C * PA_NW, blk0);
+  __syncthreads();
+  pa_cta_merge(warps, KIND, VEC, G, Dh, span, PaPart(part, G, Dh));
+  __syncthreads();
+  if (C == 1) {
+    for (int i = threadIdx.x; i < gd; i += PA_THREADS) out[head + i] = pa_merge(part, pf, 1, G, Dh, i);
+    return;
+  }
+  // every rank's partial into every rank's inbox; rank r then writes
+  // elements [r * ch, (r + 1) * ch) merged in ascending rank order
+  pa_cluster_wait();
+  pa_push(cl, part, inbox + rank * pf, pf);
+  cl.sync();
+  const int ch = (gd + C - 1) / C;
+  const int hi = min(gd, (rank + 1) * ch);
+  for (int i = rank * ch + threadIdx.x; i < hi; i += PA_THREADS)
+    out[head + i] = pa_merge(inbox, pf, C, G, Dh, i);
 }
 
 // Shape checks shared by the launchers.

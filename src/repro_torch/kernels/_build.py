@@ -80,9 +80,12 @@ SIGNATURES = {
     },
     "decode_attention": {
         # (q, q_kind, k, k_scale, v, v_scale, pos, out,
-        #  B, S, KV, G, Dh, sm_scale, stream)
+        #  B, S, KV, G, Dh, stream)
         "decode_attention_int8": (P, I, P, P, P, P, P, P,
-                                  I, I, I, I, I, F, P),
+                                  I, I, I, I, I, P),
+        # (B, S, KV, G, Dh, k, v, plan[4]) -> 0; plan = (vector loads,
+        # cluster size, span, shared-memory bytes of one block)
+        "decode_attention_plan": (I, I, I, I, I, P, P, P),
     },
     "paged_attention": {
         # (q, q_kind, k, k_scale, v, v_scale, kv_kind, page_table, pos, out,

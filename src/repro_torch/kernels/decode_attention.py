@@ -15,7 +15,12 @@ per-(position, head) f32 scales; G = H/KV query heads share each KV head.
 On a CUDA tensor :func:`decode_attention` launches the hand-written kernel
 in ``csrc/decode_attention.cu`` (it replaces the TPU kernel
 ``repro/kernels/decode_attention.py:decode_attention``); on a CPU tensor it
-runs the plain version :func:`decode_attention_ref`.
+runs the plain version :func:`decode_attention_ref`.  The kernel is the
+paged flash-decode core of ``paged_attention`` over the dense cache viewed
+as a pool of B blocks of S positions (sequence b's one block is block b):
+one block of eight warps per (sequence, KV head) while S <= 128, an 8-block
+cluster above that (``csrc/paged_common.cuh``).  :func:`launch_plan`
+reports the choice for a set of operands.
 """
 from __future__ import annotations
 
@@ -26,8 +31,11 @@ from repro_torch.core.packing import unpack_nibbles
 from . import _build
 
 _Q_KINDS = {torch.float32: 1, torch.bfloat16: 2}
-_TS = 32                  # positions per tile in the kernel
-_SMEM_LIMIT = 48 * 1024   # default dynamic shared memory per block
+# dynamic shared memory a block of the flash-decode kernels (B5, B2, B4)
+# may take: an H100's 227 KB (PA_SMEM_LIMIT of csrc/paged_common.cuh)
+SMEM_LIMIT = 227 * 1024
+# the C entry's answer to a plan above SMEM_LIMIT (cudaErrorLaunchOutOfResources)
+_OUT_OF_SMEM = 701
 
 
 def _pos_vector(pos, b: int, device) -> torch.Tensor:
@@ -35,9 +43,29 @@ def _pos_vector(pos, b: int, device) -> torch.Tensor:
                            ).reshape(-1).expand(b).contiguous()
 
 
-def smem_bytes(g: int, dh: int) -> int:
-    """Dynamic shared memory of one kernel block (mirrors the .cu)."""
-    return 4 * (_TS * (dh + 1) + _TS * dh + 2 * g * dh + g * _TS + 3 * g)
+def check_smem(nbytes: int, what: str) -> None:
+    """Refuse a block that needs more shared memory than the kernels take."""
+    if nbytes > SMEM_LIMIT:
+        raise ValueError(f"{what} needs {nbytes} B of shared memory per block "
+                         f"(limit {SMEM_LIMIT})")
+
+
+def _plan(b: int, s: int, kv: int, g: int, dh: int, k_codes, v_codes):
+    import ctypes
+    plan = (ctypes.c_int * 4)()
+    _build.library("decode_attention").decode_attention_plan(
+        b, s, kv, g, dh, k_codes.data_ptr(), v_codes.data_ptr(), plan)
+    return plan
+
+
+def launch_plan(q, k_codes, v_codes) -> dict:
+    """The kernel's launch plan for these operands: ``vector`` (16-byte
+    loads; else scalar loads), ``cluster`` (blocks a (sequence, KV head)),
+    ``span`` (positions a warp's span) and ``smem`` (bytes of one block)."""
+    b, kv, g, dh = q.shape
+    plan = _plan(b, k_codes.shape[1], kv, g, dh, k_codes, v_codes)
+    return {"vector": bool(plan[0]), "cluster": plan[1], "span": plan[2],
+            "smem": plan[3]}
 
 
 def decode_attention(q, k_codes, k_scale, v_codes, v_scale, pos
@@ -56,19 +84,18 @@ def decode_attention(q, k_codes, k_scale, v_codes, v_scale, pos
         if tuple(t.shape) != shape or t.dtype != dt:
             raise ValueError(f"{name}: expected {dt} {shape}, got {t.dtype} "
                              f"{tuple(t.shape)}")
-    if smem_bytes(g, dh) > _SMEM_LIMIT:
-        raise ValueError(f"G={g}, Dh={dh} needs {smem_bytes(g, dh)} B of shared "
-                         f"memory per block (limit {_SMEM_LIMIT})")
     pos_v = _pos_vector(pos, b, q.device)
     for t in (q, k_codes, k_scale, v_codes, v_scale, pos_v):
         if t.device != q.device or not t.is_contiguous():
             raise ValueError(f"all operands must be contiguous on {q.device}")
     out = torch.empty((b, kv, g, dh), dtype=torch.float32, device=q.device)
-    lib = _build.library("decode_attention")
-    err = lib.decode_attention_int8(
+    err = _build.library("decode_attention").decode_attention_int8(
         q.data_ptr(), _Q_KINDS[q.dtype], k_codes.data_ptr(), k_scale.data_ptr(),
         v_codes.data_ptr(), v_scale.data_ptr(), pos_v.data_ptr(), out.data_ptr(),
-        b, s, kv, g, dh, dh ** -0.5, _build.stream_ptr(q))
+        b, s, kv, g, dh, _build.stream_ptr(q))
+    if err == _OUT_OF_SMEM:
+        check_smem(_plan(b, s, kv, g, dh, k_codes, v_codes)[3],
+                   f"G={g}, Dh={dh}, S={s}")
     _build.check(err, "decode_attention")
     _build.LAUNCHES["decode_attention"] += 1
     return out

@@ -26,9 +26,8 @@ from __future__ import annotations
 import torch
 
 from . import _build
-from .decode_attention import _Q_KINDS, _pos_vector
-from .paged_attention import (_ptr, check_smem, paged_attention_ref,
-                              pool_operands)
+from .decode_attention import _Q_KINDS, _pos_vector, check_smem
+from .paged_attention import _ptr, paged_attention_ref, pool_operands
 
 
 def fused_decode_ref(q, k_pool, k_scale, v_pool, v_scale, page_table, pos,

@@ -10,11 +10,12 @@ softmax.  On a CUDA tensor :func:`flash_attention` launches the
 hand-written kernel in ``csrc/flash_attention.cu`` (it replaces the TPU
 kernel ``repro/kernels/flash_attention.py:flash_attention``); on a CPU
 tensor it runs the plain version, :func:`repro_torch.kernels.ref.flash_attention_ref`.
-The kernel is chosen by dtype: bf16 inputs run on the tensor cores
-(``mma.sync`` bf16, P split into two bf16 terms), f32 inputs on the CUDA
-cores; neither falls back to the other.  q, k and v must start on a
-16-byte boundary (the bf16 kernel copies rows with 16-byte ``cp.async``);
-fresh allocations do.
+The kernel is chosen by dtype: bf16 inputs run on the bf16 tensor cores
+(``mma.sync`` bf16, P split into two bf16 terms), f32 inputs on the TF32
+tensor cores in three products (every operand split into two TF32 terms,
+hi.hi + hi.lo + lo.hi); neither falls back to the other.  q, k and v must
+start on a 16-byte boundary (both kernels copy rows with 16-byte
+``cp.async``); fresh allocations do.
 
 The TPU kernel has no backward, so neither has this one: the wrapper
 refuses CUDA inputs that require a gradient rather than return a result
@@ -56,7 +57,7 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
             raise ValueError(f"q, k, v must be contiguous on {q.device}")
         if t.data_ptr() % 16:
             raise ValueError("q, k, v must start on a 16-byte boundary (the "
-                             "bf16 kernel copies rows with 16-byte cp.async)")
+                             "kernels copy rows with 16-byte cp.async)")
     if torch.is_grad_enabled() and any(t.requires_grad for t in (q, k, v)):
         raise RuntimeError("flash_attention has no backward (neither has the "
                            "TPU kernel it ports); call it under "

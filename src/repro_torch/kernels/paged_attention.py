@@ -36,15 +36,12 @@ from __future__ import annotations
 import torch
 
 from . import _build
-from .decode_attention import (_Q_KINDS, _pos_vector,
+from .decode_attention import (_Q_KINDS, _pos_vector, check_smem,
                                decode_attention_serving_ref)
 
 KV_BITS = (16, 8, 4)
 _CODE_KINDS = {8: 0, 4: 1}                    # int codes + f32 scales
 _RAW_KINDS = {torch.float32: 2, torch.bfloat16: 3}
-# dynamic shared memory a block of the paged kernels may take: an H100's
-# 227 KB (PA_SMEM_LIMIT of csrc/paged_common.cuh)
-SMEM_LIMIT = 227 * 1024
 
 
 def gather_pool(pool_leaf, page_table):
@@ -115,13 +112,6 @@ def pool_operands(q, k_pool, k_scale, v_pool, v_scale, page_table, pos,
 
 def _ptr(t) -> int | None:
     return None if t is None else t.data_ptr()
-
-
-def check_smem(nbytes: int, what: str) -> None:
-    """Refuse a block that needs more shared memory than the kernels take."""
-    if nbytes > SMEM_LIMIT:
-        raise ValueError(f"{what} needs {nbytes} B of shared memory per block "
-                         f"(limit {SMEM_LIMIT})")
 
 
 def launch_plan(kv_kind: int, b: int, kv: int, g: int, dh: int, bs: int,

@@ -312,6 +312,74 @@ def test_decode_attention_kernel(gpu, q_dtype):
     assert (got - want).abs().max() <= 1e-5 + 1e-4 * want.abs().max()
 
 
+def _decode_case(gpu, s, pos, *, q_dtype=torch.bfloat16, kv=3, g=3, dh=64,
+                 misalign=False, seed=3):
+    """B5's operands: a dense int8 cache of S positions; ``misalign`` puts
+    the code caches 4 bytes off a 16-byte boundary (still contiguous)."""
+    gen = torch.Generator().manual_seed(seed)
+    b = len(pos)
+    shape = (b, s, kv, dh)
+
+    def codes():
+        c = torch.randint(-127, 128, shape, generator=gen, dtype=torch.int8)
+        if not misalign:
+            return c.to(gpu)
+        flat = torch.empty(c.numel() + 16, dtype=torch.int8, device=gpu)
+        view = flat[4:4 + c.numel()].view(shape)
+        view.copy_(c)
+        return view
+    scales = lambda: (torch.rand((b, s, kv, 1), generator=gen) * 0.02
+                      + 1e-3).to(gpu)
+    q = torch.randn((b, kv, g, dh), generator=gen).to(gpu, q_dtype)
+    return (q, codes(), scales(), codes(), scales(),
+            torch.tensor(pos, dtype=torch.int32, device=gpu))
+
+
+def _check_decode(args):
+    """B5 against its f32 plain version, twice: the two launches equal."""
+    engine.reset_launch_counts()
+    got = tattn.decode_attention(*args)
+    again = tattn.decode_attention(*args)
+    assert engine.launch_counts()["decode_attention"] == 2
+    want = tattn.decode_attention_ref(*args)
+    torch.cuda.synchronize()
+    assert torch.equal(got, again)
+    assert (got - want).abs().max() <= 1e-5 + 1e-4 * want.abs().max()
+
+
+@pytest.mark.parametrize("q_dtype", [torch.float32, torch.bfloat16])
+def test_decode_attention_long_context_takes_a_cluster(gpu, q_dtype):
+    """S = 2048, pos [2047, 1023, 511, 0]: an 8-block cluster per
+    (sequence, KV head) with 16-byte loads."""
+    args = _decode_case(gpu, 2048, [2047, 1023, 511, 0], q_dtype=q_dtype)
+    plan = tattn.launch_plan(args[0], args[1], args[3])
+    assert plan["vector"] and plan["cluster"] == 8
+    _check_decode(args)
+
+
+@pytest.mark.parametrize("s,dh,g", [(80, 64, 3), (300, 64, 3), (80, 40, 4)],
+                         ids=["s80", "s300-cluster", "dh40"])
+def test_decode_attention_scalar_loads(gpu, s, dh, g):
+    """A cache 4 bytes off a 16-byte boundary, or rows that are not a
+    whole number of 16-byte vectors (Dh 40), take the scalar-load path."""
+    args = _decode_case(gpu, s, [s - 1, 0, s // 2, 17], g=g, dh=dh,
+                        misalign=dh == 64)
+    plan = tattn.launch_plan(args[0], args[1], args[3])
+    assert not plan["vector"] and plan["cluster"] == (8 if s > 128 else 1)
+    _check_decode(args)
+
+
+@pytest.mark.parametrize("s,pos", [(16, [15, 0, 7, 3]), (5, [4, 0, 2, 9]),
+                                   (128, [127, 64, 0, 100])],
+                         ids=["s16", "s5-pos-past-s", "s128"])
+def test_decode_attention_short_caches(gpu, s, pos):
+    """Caches of one span or less, a position past S (all S positions
+    attend), and the largest S of the one-block plan."""
+    args = _decode_case(gpu, s, pos)
+    assert tattn.launch_plan(args[0], args[1], args[3])["cluster"] == 1
+    _check_decode(args)
+
+
 def _paged_args(gpu, kv_bits, q_dtype, pool_dtype, seed=2):
     """One paged decode step at the serving shapes: B=4, KV=3, G=3, Dh=64,
     blocks of 16, 5 blocks per sequence, positions 79 (last block), 0, 40
@@ -513,6 +581,28 @@ def test_flash_attention_kernel(gpu, case, dtype):
     want = ref.flash_attention_ref(q, k, v, **kw)
     torch.cuda.synchronize()
     assert got.dtype == torch.float32 and got.shape == want.shape
+    assert (got - want).abs().max() <= 1e-5 * want.abs().max()
+
+
+@pytest.mark.parametrize("dh", tflash.HEAD_DIMS)
+def test_flash_attention_f32_every_head_dim(gpu, dh):
+    """The TF32 kernel at every Dh it is built for, causal with a window
+    of 40 and a softcap of 30, S = 173 (no multiple of a tile), G = 3:
+    within 1e-5 * max|out| of the f32 plain version, and two launches give
+    equal bits."""
+    gen = torch.Generator().manual_seed(dh)
+    b, s, kv, g = 2, 173, 2, 3
+    q = torch.randn((b, s, kv, g, dh), generator=gen).to(gpu)
+    k, v = (torch.randn((b, s, kv, dh), generator=gen).to(gpu)
+            for _ in range(2))
+    kw = dict(causal=True, window=40, softcap=30.0)
+    engine.reset_launch_counts()
+    got = tflash.flash_attention(q, k, v, **kw)
+    again = tflash.flash_attention(q, k, v, **kw)
+    assert engine.launch_counts()["flash_attention"] == 2
+    want = ref.flash_attention_ref(q, k, v, **kw)
+    torch.cuda.synchronize()
+    assert torch.equal(got, again)
     assert (got - want).abs().max() <= 1e-5 * want.abs().max()
 
 

@@ -11,7 +11,10 @@ order: one-shot against online softmax, einsum against blockwise dots).
 The card's bf16 kernel computes P.V on bf16 tensor cores with P split into
 two bf16 terms; a plain emulation of that arithmetic, held here against the
 plain version, pins why the split is there (a single bf16 P misses the
-bound).
+bound).  Its f32 kernel runs Q.K^T and P.V on TF32 tensor cores in three
+products (every operand split into two TF32 terms, hi.hi + hi.lo + lo.hi);
+an emulation of that arithmetic is held to the same bound, and one product
+(hi.hi) shown to miss it.
 """
 import dataclasses
 import importlib
@@ -224,3 +227,96 @@ def test_single_bf16_p_misses_the_bound(s):
     two = (_tensor_core_emulation(q, k, v, split=True, **kw) - want).abs().max()
     assert one > 10 * tol
     assert two <= tol
+
+
+def _tf32(x):
+    """``cvt.rna.tf32.f32``: keep 10 mantissa bits, round half away from
+    zero (add half of the dropped 13 bits' unit to the magnitude, then
+    clear them)."""
+    bits = x.contiguous().view(torch.int32)
+    return ((bits + 0x1000) & -0x2000).view(torch.float32)
+
+
+def _tf32_split(x):
+    hi = _tf32(x)
+    return hi, _tf32(x - hi)
+
+
+def _tf32_dot(eq, a, b, terms):
+    """sum a.b through the TF32 tensor cores: products of TF32 terms (exact
+    in f32) summed in f32; three terms a_lo.b_hi + a_hi.b_lo + a_hi.b_hi,
+    or one, a_hi.b_hi."""
+    (ah, al), (bh, bl) = _tf32_split(a), _tf32_split(b)
+    out = torch.einsum(eq, ah, bh)
+    if terms == 3:
+        out = torch.einsum(eq, al, bh) + torch.einsum(eq, ah, bl) + out
+    return out
+
+
+def _tf32_split_emulation(q, k, v, *, causal, window, softcap, terms=3,
+                          bk=32):
+    """The arithmetic of the f32 kernel of ``csrc/flash_attention.cu``:
+    S = Q.K^T and P.V each as ``terms`` TF32 products summed in f32, the
+    online softmax over tiles of ``bk`` keys in f32, P split after it."""
+    dh, sq, sk = q.shape[-1], q.shape[1], k.shape[1]
+    s = _tf32_dot("bqkgd,bskd->bkgqs", q, k, terms) * dh ** -0.5
+    if softcap > 0:
+        s = softcap * torch.tanh(s / softcap)
+    q_pos = torch.arange(sq)[:, None]
+    k_pos = torch.arange(sk)[None, :]
+    mask = torch.ones((sq, sk), dtype=torch.bool)
+    if causal:
+        mask &= k_pos <= q_pos
+    if window > 0:
+        mask &= k_pos > q_pos - window
+    m = torch.full(s.shape[:-1], -1e30)
+    l = torch.zeros(s.shape[:-1])
+    acc = torch.zeros(s.shape[:-1] + (dh,))
+    for k0 in range(0, sk, bk):
+        st, mt, vt = s[..., k0:k0 + bk], mask[:, k0:k0 + bk], v[:, k0:k0 + bk]
+        m_new = torch.maximum(m, torch.where(mt, st, -1e30).amax(-1))
+        p = torch.where(mt, torch.exp(st - m_new[..., None]), 0.0)
+        corr = torch.exp(m - m_new)
+        l = l * corr + p.sum(-1)
+        acc = acc * corr[..., None] + _tf32_dot("bkgqs,bskd->bkgqd", p, vt,
+                                                terms)
+        m = m_new
+    return (acc / torch.clamp_min(l[..., None], 1e-30)).permute(0, 3, 1, 2, 4)
+
+
+def test_tf32_rounding_is_round_half_away():
+    """The emulated ``cvt.rna``: ties (half of the 13 dropped bits' unit)
+    round away from zero in both signs; below a tie, toward the kept bits."""
+    one_ulp = 2.0 ** -10                         # tf32 spacing at 1.0
+    x = torch.tensor([1 + one_ulp / 2, -(1 + one_ulp / 2),
+                      1 + one_ulp / 2 - 2.0 ** -23, 3.0, 0.0])
+    want = torch.tensor([1 + one_ulp, -(1 + one_ulp), 1.0, 3.0, 0.0])
+    assert torch.equal(_tf32(x), want)
+
+
+@pytest.mark.parametrize("case", SPLIT_CASES,
+                         ids=lambda c: "-".join(map(str, c)))
+def test_tf32_split_arithmetic_holds_the_bound(case):
+    """The f32 kernel's arithmetic (three TF32 products for Q.K^T and P.V)
+    is within 1e-5 * max|out| of the f32 plain version on f32 inputs."""
+    b, s, kv, g, dh, causal, window, softcap = case
+    kw = dict(causal=causal, window=window, softcap=softcap)
+    q, k, v = (torch.from_numpy(a) for a in _qkv(b, s, kv, g, dh, seed=s))
+    want = ref.flash_attention_ref(q, k, v, **kw)
+    got = _tf32_split_emulation(q, k, v, **kw)
+    _close(got.numpy(), want.numpy())
+
+
+@pytest.mark.parametrize("s", [64, 1024])
+def test_single_tf32_misses_the_bound(s):
+    """Why three products: with one (hi.hi) the same arithmetic misses the
+    bound by far (TF32 keeps 10 mantissa bits: 2^-11 relative a rounding),
+    while three hold it."""
+    kw = dict(causal=True, window=0, softcap=0.0)
+    q, k, v = (torch.from_numpy(a) for a in _qkv(1, s, 3, 3, 64, seed=s))
+    want = ref.flash_attention_ref(q, k, v, **kw)
+    tol = RTOL * want.abs().max()
+    one = (_tf32_split_emulation(q, k, v, terms=1, **kw) - want).abs().max()
+    three = (_tf32_split_emulation(q, k, v, terms=3, **kw) - want).abs().max()
+    assert one > 10 * tol
+    assert three <= tol
