@@ -68,6 +68,17 @@ Phases (each prints its own lines; any failed check exits non-zero):
      ``torch.profiler`` (device busy time, flash attention's share);
   4i. the integer-code quantizers of ``core`` (``act_quant`` and
      ``act_quant_signed`` launches) against their plain versions;
+  4j. sampling and the flight recorder on the 2xT paths: phase 4's
+     requests with odd rids sampled (temperature 0.8, top-k 50, seed 11),
+     greedy rows against phase 4's streams, four sampled requests each
+     served alone against the mixed run, a second run against the first,
+     the paged batcher beside the dense run (reported); the dense and the
+     paged workloads traced and profiled (streams against the untraced
+     runs, the Perfetto document's consistency, step-span coverage,
+     distinct dispatch instants, ``StepProfiler`` summaries); the decode
+     step's wall time with every row sampled beside all-greedy and the
+     selection's own time, and the serving CLI's ITL with ``--profile`` and
+     without;
   5. decode steps of the dense and the paged 2xT paths, of the dense 1x1
      path and of the paged fp32-weight path (phase 4d's) under
      ``torch.profiler``: device operations per step, device busy time and
@@ -88,6 +99,7 @@ import re
 import statistics
 import subprocess
 import sys
+import tempfile
 import time
 from pathlib import Path
 
@@ -1673,7 +1685,7 @@ def phase_paged(device, card, dense):
           f"evicted blocks; check_pool() clean after each of {len(n_checked)} "
           f"steps; streams equal to the unpreempted run: {agree}/{N_REQ}")
     check(om.preemptions > 0, "the 10-block pool preempted nothing")
-    return launches, model
+    return launches, model, streams
 
 
 def phase_fused(device, card):
@@ -1910,6 +1922,221 @@ def phase_cnn(device, card):
         del params
         torch.cuda.empty_cache()
     return launches
+
+
+SAMPLING = dict(temperature=0.8, top_k=50, seed=11)
+
+
+def _sampled(reqs, rids=None):
+    """``reqs`` with SAMPLING set on the rids in ``rids`` (all when None)."""
+    for r in reqs:
+        if rids is None or r.rid in rids:
+            r.options = dataclasses.replace(r.options, **SAMPLING)
+    return reqs
+
+
+def _streams(batcher, reqs):
+    """Serve ``reqs`` quietly; check every request completed in-vocabulary;
+    returns {rid: tokens}."""
+    import torch
+    for r in reqs:
+        batcher.submit(r)
+    done = batcher.run()
+    torch.cuda.synchronize()
+    vocab = batcher.model.cfg.vocab
+    check(len(done) == len(reqs), f"served {len(done)} of {len(reqs)}")
+    check(all(len(r.output) == r.max_new and all(0 <= t < vocab
+                                                 for t in r.output)
+              for r in done), "a request's tokens are short or out of range")
+    return {r.rid: list(r.output) for r in done}
+
+
+def _select_ms(cfg, reqs, device) -> tuple[float, float]:
+    """Host ms of one next-token selection over N_SLOTS rows of logits of
+    the model's width on the card (median of 30, synced): the greedy argmax
+    alone, and every row sampled (a generator each, the sort, the mask)."""
+    import torch
+    from repro_torch.runtime.serving import select_tokens
+    lg = torch.randn((N_SLOTS, cfg.padded_vocab),
+                     generator=torch.Generator().manual_seed(3)).to(device)
+    rows = _sampled(reqs[:N_SLOTS])
+    out = []
+    for sampled in (False, True):
+        ts = []
+        for _ in range(30):
+            t0 = time.perf_counter()
+            greedy = lg.argmax(-1)
+            tok = select_tokens(lg, greedy, rows) if sampled else greedy
+            tok.cpu()
+            ts.append((time.perf_counter() - t0) * 1e3)
+        out.append(statistics.median(ts))
+    return out[0], out[1]
+
+
+def _check_trace(doc, label) -> None:
+    """Chrome-trace consistency of an exported document: B/E balance per
+    track, flow edges after their start, complete events with a duration;
+    step spans covering >= 95% of the window; each engine dispatch instant
+    distinct."""
+    from repro_torch.runtime.tracing import span_coverage
+    stacks, started = {}, set()
+    for e in doc["traceEvents"]:
+        ph = e["ph"]
+        if ph == "B":
+            stacks.setdefault(e["tid"], []).append(e["name"])
+        elif ph == "E":
+            check(bool(stacks.get(e["tid"])), f"{label}: E without B {e}")
+            stacks[e["tid"]].pop()
+        elif ph == "X":
+            check(e["dur"] >= 0.0, f"{label}: negative duration {e}")
+        elif ph == "s":
+            started.add(e["id"])
+        elif ph in ("t", "f"):
+            check(e["id"] in started, f"{label}: flow edge before start {e}")
+    check(all(not st for st in stacks.values()), f"{label}: unclosed spans")
+    cov = span_coverage(doc)
+    dispatch = [json.dumps([e["name"], e["args"]], sort_keys=True)
+                for e in doc["traceEvents"] if e.get("cat") == "engine"]
+    names = {e.get("name") for e in doc["traceEvents"]}
+    print(f"{label} trace: {len(doc['traceEvents'])} events "
+          f"({doc['otherData']['dropped_events']} dropped), step-span "
+          f"coverage {cov:.4f}, {len(dispatch)} dispatch instants "
+          f"({len(set(dispatch))} distinct)")
+    check(cov >= 0.95, f"{label}: step spans cover {cov:.4f} < 0.95")
+    check(len(dispatch) == len(set(dispatch)) > 0,
+          f"{label}: dispatch instants not distinct")
+    for name in ("step", "decode", "prefill_chunk", "admit", "first_token",
+                 "finish", "device:decode", "host_gap"):
+        check(name in names, f"{label}: no {name!r} event in the trace")
+
+
+def _traced(card, label, make, reqs, want):
+    """Serve ``reqs`` through ``make(trace_config)`` with the flight
+    recorder and the profiler on; the streams must equal ``want`` (the
+    untraced run's); the exported document is checked; prints the
+    profiler's summary."""
+    from repro_torch.runtime.tracing import TraceConfig
+    with tempfile.TemporaryDirectory() as tmp:
+        path = str(Path(tmp) / "trace.json")
+        batcher = make(TraceConfig(profile=True, path=path))
+        got = _streams(batcher, reqs)
+        batcher.tracer.detach_engine()
+        doc = batcher.tracer.to_perfetto(path)
+        check(json.loads(Path(path).read_text()) == doc,
+              f"{label}: the written trace differs from the document")
+    agree = sum(got[r] == want[r] for r in want)
+    print(f"{label}: traced + profiled streams equal to the untraced run's: "
+          f"{agree}/{len(want)}")
+    check(agree == len(want), f"{label}: tracing changed a stream")
+    _check_trace(doc, label)
+    summ = batcher.profiler.summary()
+    for step in ("decode", "prefill_chunk"):
+        s = summ[step]
+        print(f"[{card}] {label} profile[{step}]: {s['steps']} steps, device "
+              f"{s['device_ms']['p50']:.3f} ms p50 (p90 "
+              f"{s['device_ms']['p90']:.3f}), host gap "
+              f"{s['host_ms']['p50']:.3f} ms p50 (p90 "
+              f"{s['host_ms']['p90']:.3f}), host_frac {s['host_frac']:.4f}")
+    return summ
+
+
+def _cli_itl(args) -> float:
+    """The serving CLI's ITL p50 (ms) with ``args``, read from the metrics
+    summary it writes."""
+    from repro_torch.launch import serve as cli
+    with tempfile.TemporaryDirectory() as tmp:
+        path = str(Path(tmp) / "metrics.json")
+        cli.main(args + ["--metrics-json", path])
+        return json.loads(Path(path).read_text())["itl_ms"]["p50"]
+
+
+def phase_sampling(device, card, dense, paged):
+    """4j: sampling and the flight recorder at full width; ``dense`` is
+    phase 4's (model, params, sc, streams), ``paged`` phase 4c's (model,
+    streams)."""
+    from repro_torch.kernels import engine
+    from repro_torch.runtime.kvcache import PagedBatcher
+    from repro_torch.runtime.serving import ContinuousBatcher, ServingConfig
+    from repro_torch.runtime.tracing import TraceConfig
+    print("== 4j. sampling and the flight recorder: smollm-135m 2xT kv8 bf16 "
+          "(full width)", flush=True)
+    model, params, sc, greedy = dense
+    paged_model, paged_greedy = paged
+    cfg = model.cfg
+    odd = {r for r in range(N_REQ) if r % 2}
+    mixed, launches = _run(ContinuousBatcher(model, params, sc),
+                           _sampled(_requests(cfg, N_REQ, GEN), odd), card,
+                           "2xT dense, odd rids sampled (T 0.8, top-k 50, "
+                           "seed 11)")
+    check(launches["ternary_matmul"] > 0 and launches["decode_attention"] > 0,
+          "the sampled run launched no kernel")
+    same = sum(mixed[r] == greedy[r] for r in range(N_REQ) if r not in odd)
+    print(f"greedy rows of the mixed batch equal to phase 4's streams: "
+          f"{same}/{N_REQ - len(odd)}; sampled rows differing from phase 4's "
+          f"greedy streams: {sum(mixed[r] != greedy[r] for r in odd)}/"
+          f"{len(odd)}")
+    check(same == N_REQ - len(odd), "a greedy row of the mixed batch differs "
+                                    "from the all-greedy run")
+    check(any(mixed[r] != greedy[r] for r in odd), "sampling changed nothing")
+    solo_sc = ServingConfig(n_slots=1, s_max=S_MAX, chunk_size=CHUNK)
+    solo = {}
+    for r in _sampled(_requests(cfg, N_REQ, GEN // 2), odd):
+        if r.rid in odd:
+            solo.update(_streams(ContinuousBatcher(model, params, solo_sc),
+                                 [r]))
+    agree = sum(solo[r] == mixed[r][:GEN // 2] for r in odd)
+    print(f"sampled requests served alone (1 slot, {GEN // 2} tokens) equal "
+          f"to the mixed run's first {GEN // 2}: {agree}/{len(odd)}")
+    check(agree == len(odd), "a sampled stream depends on the batch")
+    again = _streams(ContinuousBatcher(model, params, sc),
+                     _sampled(_requests(cfg, N_REQ, GEN), odd))
+    print(f"second identical run equal to the first: "
+          f"{sum(again[r] == mixed[r] for r in mixed)}/{N_REQ}")
+    check(again == mixed, "a second identical run gave other streams")
+    paged_mixed = _streams(PagedBatcher(paged_model, params, _paged_config()),
+                           _sampled(_requests(cfg, N_REQ, GEN), odd))
+    n_eq = sum(paged_mixed[r] == mixed[r] for r in mixed)
+    n_greedy = sum(paged_mixed[r] == mixed[r] for r in mixed if r not in odd)
+    print(f"paged batcher, the same requests: streams equal to the dense "
+          f"run's {n_eq}/{N_REQ} (greedy rows {n_greedy}/{N_REQ - len(odd)}; "
+          "phase 4c requires no paged-dense equality)")
+
+    summ = {
+        "dense": _traced(card, "2xT dense", lambda t: ContinuousBatcher(
+            model, params, dataclasses.replace(sc, trace=t)),
+            _requests(cfg, N_REQ, GEN), greedy),
+        "paged": _traced(card, "2xT paged kv8", lambda t: PagedBatcher(
+            paged_model, params, _paged_config(trace=t)),
+            _requests(cfg, N_REQ, GEN), paged_greedy)}
+    check(engine._DISPATCH_LISTENER is None, "a tracer left its listener")
+
+    # the decode step with every row sampled beside the all-greedy traced
+    # run: the profiler's decode bracket is the step's wall time (the step
+    # ends in the host copy of the tokens), and the selection alone
+    prof = ContinuousBatcher(model, params, dataclasses.replace(
+        sc, trace=TraceConfig(enabled=False, profile=True)))
+    _streams(prof, _sampled(_requests(cfg, N_REQ, GEN)))
+    g = summ["dense"]["decode"]["device_ms"]["p50"]
+    smp = prof.profiler.summary()["decode"]["device_ms"]["p50"]
+    sel_g, sel_s = _select_ms(cfg, _requests(cfg, N_REQ, GEN), device)
+    print(f"[{card}] dense 2xT decode step wall time p50 (B={N_SLOTS}): all "
+          f"greedy {g:.3f} ms (the traced run), every row sampled {smp:.3f} "
+          f"ms ({smp - g:+.3f} ms, one run each: host spread); the "
+          f"selection alone over {N_SLOTS} rows of {cfg.padded_vocab}: greedy "
+          f"argmax {sel_g:.3f} ms, every row sampled {sel_s:.3f} ms "
+          f"({sel_s - sel_g:+.3f} ms a step)")
+
+    args = ["--requests", str(N_SLOTS), "--slots", str(N_SLOTS),
+            "--prompt-len", str(CHUNK), "--gen", str(GEN)]
+    itl = {False: [], True: []}
+    for profiled in (False, True, True, False):
+        itl[profiled].append(_cli_itl(args + ["--profile"] * profiled))
+    print(f"[{card}] serving CLI (dense 2xT kv8 bf16, {N_SLOTS} x {GEN} "
+          f"tokens, prompts of {CHUNK}; runs without, with, with, without "
+          f"--profile): ITL p50 without {itl[False][0]:.2f} / "
+          f"{itl[False][1]:.2f} ms, with {itl[True][0]:.2f} / "
+          f"{itl[True][1]:.2f} ms")
+    return summ
 
 
 # device kernels of B5, B2 and B4 whose share of a profiled step is printed
@@ -2227,13 +2454,15 @@ def main() -> None:
     phase_build()
     records = [r for r in phase_kernels(device) if r is not None]
     launches, served = phase_serve(device, card)
-    paged_launches, paged_model = phase_paged(device, card, served)
+    paged_launches, paged_model, paged_streams = phase_paged(device, card,
+                                                             served)
     fused_launches, fused_served = phase_fused(device, card)
     xnor_launches, xnor_served = phase_serve_1x1(device, card)
     phase_cnn(device, card)
     whole_launches = phase_whole_prompt(device, card, served)
     phase_forward(device, card)
     core_launches = phase_core_quant(device, card)
+    phase_sampling(device, card, served, (paged_model, paged_streams))
     launches.update(paged_attention=paged_launches["paged_attention"],
                     fused_decode=fused_launches["fused_decode"],
                     binary_matmul=xnor_launches["binary_matmul"],

@@ -213,6 +213,7 @@ class DispatchEvent(NamedTuple):
 
 
 _DISPATCH_SINK: list | None = None
+_DISPATCH_LISTENER: Callable | None = None
 
 
 @contextlib.contextmanager
@@ -227,9 +228,25 @@ def dispatch_trace():
         _DISPATCH_SINK = prev
 
 
+def set_dispatch_listener(cb) -> None:
+    """Install a persistent :class:`DispatchEvent` observer (or ``None`` to
+    remove it).  Unlike :func:`dispatch_trace`, the listener survives across
+    calls: the serving flight recorder (:mod:`repro_torch.runtime.tracing`)
+    uses it to put kernel dispatches on the serving timeline.  Eager
+    dispatches fire on every call, so the listener sees every one (the
+    tracer keeps only the first of each distinct event)."""
+    global _DISPATCH_LISTENER
+    _DISPATCH_LISTENER = cb
+
+
 def _record_dispatch(**kw) -> None:
+    if _DISPATCH_SINK is None and _DISPATCH_LISTENER is None:
+        return
+    ev = DispatchEvent(**kw)
     if _DISPATCH_SINK is not None:
-        _DISPATCH_SINK.append(DispatchEvent(**kw))
+        _DISPATCH_SINK.append(ev)
+    if _DISPATCH_LISTENER is not None:
+        _DISPATCH_LISTENER(ev)
 
 
 def launch_counts() -> dict[str, int]:

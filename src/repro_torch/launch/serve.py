@@ -6,14 +6,26 @@ on the GPU.
 
 Flow: seeded params -> ``to_serving(tp=1)`` packs the weights to k-bit words
 -> the continuous batcher admits prompts in prefill chunks while the
-batched greedy decode serves every active slot -> TTFT / ITL / tok/s and
-the per-kernel launch counts are printed.
+batched decode (greedy, or sampled) serves every active slot -> TTFT / ITL /
+tok/s and the per-kernel launch counts are printed.
 
 ``--paged`` serves through the paged KV cache instead (block pool, radix
 prefix sharing, lazy allocation and preemption; ``runtime.kvcache``):
 
     PYTHONPATH=src python -m repro_torch.launch.serve --paged --kv-bits 8 \
         --requests 8 --slots 4 --gen 16
+
+Sampling and observability, as the reference's launcher spells them:
+``--temperature``/``--top-k`` sample every request (seeded by ``--seed``,
+the request id and the token index; streams on the card differ from those
+on the CPU, see ``runtime.serving``), ``--stream`` prints tokens as they
+come, ``--trace OUT.json`` exports the flight recorder's Perfetto timeline
+(``--trace-buffer`` events in its ring), ``--profile`` prints each step
+kind's device time and host gap, and ``--metrics-interval N`` streams a
+metrics snapshot every N scheduler steps next to ``--metrics-json``:
+
+    PYTHONPATH=src python -m repro_torch.launch.serve --temperature 0.8 \
+        --top-k 50 --trace /tmp/serve.json --profile
 
 Runs on the card (``--device cuda``, the default) and refuses to start when
 no card is visible; ``--device cpu`` runs the plain PyTorch versions of the
@@ -34,6 +46,7 @@ from repro_torch.models.convert import serving_param_bytes
 from repro_torch.runtime.kvcache import PagedBatcher, paged_block_bytes
 from repro_torch.runtime.serving import (ContinuousBatcher, Request,
                                          RequestOptions, ServingConfig)
+from repro_torch.runtime.tracing import TraceConfig
 
 
 def resolve_device(name: str) -> torch.device:
@@ -43,6 +56,58 @@ def resolve_device(name: str) -> torch.device:
             "--device cuda: no CUDA device is visible (pass --device cpu to "
             "run the plain PyTorch versions on the host)")
     return torch.device(name)
+
+
+def _trace_config(args):
+    """``--trace/--profile/--metrics-interval`` -> a TraceConfig (or None).
+
+    The flight recorder is also armed when only profiling or snapshot
+    streaming is requested — both ride on the tracer — but the Perfetto
+    file is written only when --trace names one.
+    """
+    if not (args.trace or args.profile or args.metrics_interval):
+        return None
+    snapshot_path = None
+    if args.metrics_interval:
+        if not args.metrics_json:
+            raise SystemExit("--metrics-interval needs --metrics-json "
+                             "(snapshot stream path is derived from it)")
+        base = args.metrics_json
+        base = base[:-5] if base.endswith(".json") else base
+        snapshot_path = base + ".snapshots.jsonl"
+    return TraceConfig(
+        enabled=True, buffer=args.trace_buffer, path=args.trace,
+        snapshot_path=snapshot_path,
+        snapshot_interval=args.metrics_interval,
+        profile=args.profile)
+
+
+def _report_trace(batcher, args):
+    """Post-run flight-recorder export: Perfetto file, snapshot stream
+    tail, per-phase device/host profile summary."""
+    tracer = batcher.tracer
+    if not tracer.enabled:
+        return
+    if args.trace:
+        doc = tracer.to_perfetto(args.trace)
+        print(f"trace -> {args.trace} ({len(doc['traceEvents'])} events, "
+              f"{tracer.dropped} dropped)")
+    if tracer.snapshotter is not None:
+        tracer.snapshotter.final(batcher.metrics)
+        print(f"metrics snapshots -> {tracer.snapshotter.path} "
+              f"({tracer.snapshotter.lines_written} lines)")
+    if batcher.profiler is not None:
+        for label, s in sorted(batcher.profiler.summary().items()):
+            print(f"profile[{label}]: {s['steps']} steps, device "
+                  f"{s['device_ms']['p50']:.2f} ms p50, host gap "
+                  f"{s['host_ms']['p50']:.2f} ms p50 "
+                  f"(host_frac {s['host_frac']:.1%})")
+
+
+def stream_cb(req, tok, finished):
+    """``--stream``: print each token as it is emitted."""
+    mark = "<eos>" if finished else ""
+    print(f"  [rid {req.rid}] tok {tok}{mark}", flush=True)
 
 
 def serve(args) -> list:
@@ -79,7 +144,7 @@ def serve(args) -> list:
                        block_size=args.kv_block_size,
                        pool_bytes=args.pool_bytes or None,
                        prefix_cache=args.prefix_cache, reserve=args.reserve,
-                       preemption=args.preemption)
+                       preemption=args.preemption, trace=_trace_config(args))
     if args.paged:
         batcher = PagedBatcher(model, params, sc)
         print(f"paged KV cache: {batcher.num_blocks - 1} blocks x "
@@ -103,7 +168,10 @@ def serve(args) -> list:
         plen = max(1, args.prompt_len - (rid % 3))   # ragged prompts
         batcher.submit(Request(
             rid, rng.integers(0, cfg.vocab, (1, plen)).astype(np.int64),
-            options=RequestOptions(max_new=args.gen)))
+            options=RequestOptions(
+                max_new=args.gen, temperature=args.temperature,
+                top_k=args.top_k, seed=args.seed,
+                on_token=stream_cb if args.stream else None)))
     engine.reset_launch_counts()
     done = batcher.run()
     if device.type == "cuda":
@@ -120,6 +188,7 @@ def serve(args) -> list:
         with open(args.metrics_json, "w") as f:
             json.dump(batcher.metrics.summary(), f, indent=1)
         print(f"metrics -> {args.metrics_json}")
+    _report_trace(batcher, args)
     return done
 
 
@@ -162,9 +231,34 @@ def main(argv=None):
     ap.add_argument("--gen", type=int, default=16)
     ap.add_argument("--chunk-size", type=int, default=None,
                     help="prefill chunk (None -> auto; 0 -> whole-prompt)")
-    ap.add_argument("--seed", type=int, default=0)
+    ap.add_argument("--temperature", type=float, default=0.0,
+                    help="0 = greedy; > 0 samples with noise seeded by "
+                         "(--seed, request id, token index)")
+    ap.add_argument("--top-k", type=int, default=0)
+    ap.add_argument("--seed", type=int, default=0,
+                    help="weight seed, and the sampling seed of every "
+                         "request")
+    ap.add_argument("--stream", action="store_true",
+                    help="print tokens as they are generated")
     ap.add_argument("--metrics-json", default=None,
                     help="dump the serving metrics summary to this file")
+    ap.add_argument("--trace", default=None, metavar="OUT.json",
+                    help="record the serving flight recorder and export a "
+                         "Perfetto/chrome://tracing timeline to this file "
+                         "(scheduler steps, admissions, prefill chunks, "
+                         "decode dispatches, per-request flow arrows)")
+    ap.add_argument("--trace-buffer", type=int, default=65536,
+                    help="flight-recorder ring capacity in events "
+                         "(drop-oldest beyond this; drops are counted)")
+    ap.add_argument("--profile", action="store_true",
+                    help="bracket each step call with a device sync and "
+                         "measure device time vs host gap per step (adds "
+                         "sync overhead; implies the flight recorder)")
+    ap.add_argument("--metrics-interval", type=int, default=0,
+                    help="stream a Metrics.summary() snapshot (+numeric "
+                         "delta) every N scheduler steps to "
+                         "<metrics-json stem>.snapshots.jsonl "
+                         "(needs --metrics-json)")
     ap.add_argument("--reduced", action="store_true")
     ap.add_argument("--device", default="cuda",
                     help="cuda (default; the hand-written kernels) or cpu")

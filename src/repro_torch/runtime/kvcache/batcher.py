@@ -28,10 +28,15 @@ block pool + per-slot page tables instead of dense (n_slots, s_max) slabs:
 The loop is host-driven, like the port's dense batcher: each decode step
 gathers the live slots' tokens, positions and page-table rows on the host
 (``slot_map``: the live slots, padded to a power-of-two occupancy bucket by
-repeating the last one), makes one host->device copy of them, takes the
-greedy argmax on the device and makes one device->host copy of the next
-tokens.  Greedy only; speculative decoding, meshes, the cross-lane byte
-ledger and the tracer of the reference are not ported.
+repeating the last one), makes one host->device copy of them, selects the
+next tokens on the device from the compact (L, V) logits (the greedy
+argmax, or :func:`~repro_torch.runtime.serving.select_tokens` for sampled
+rows, whose noise depends on (seed, rid, n_out) only, so a padding row
+repeats its slot's draw) and makes one device->host copy of them.  The
+flight recorder adds the paged events of the reference (admission and
+re-admission flows, ``evict``, the ``kv_blocks`` counter, ``preempt`` and
+``stall``).  Speculative decoding, meshes and the cross-lane byte ledger of
+the reference are not ported.
 
 Progress: the earliest-admitted active request is never a preemption victim
 and a sole resident request never needs more than ``blocks_per_seq`` blocks,
@@ -49,7 +54,7 @@ import torch
 from repro_torch.runtime.errors import PoolFootprintError
 from repro_torch.runtime.serving import (ContinuousBatcher, Request,
                                          ServingConfig, _Admission,
-                                         bucket_length)
+                                         bucket_length, select_tokens)
 
 from .pool import BlockPool
 from .radix import RadixPrefixCache
@@ -243,6 +248,14 @@ class PagedBatcher(ContinuousBatcher):
             self.metrics.on_admit(req, n_prompt_tokens=length,
                                   resumed=readmission)
             start = len(shared) * self.block_size
+            if self.tracer.enabled:
+                self.tracer.instant(
+                    "admit", "scheduler", track=self.trace_track,
+                    rid=req.rid, slot=slot, prompt_tokens=length,
+                    resumed=readmission, prefix_hit_tokens=start)
+                # a re-admission continues the request's existing flow
+                self.tracer.flow("t" if readmission else "s", req.rid,
+                                 track=self.trace_track)
             if self.radix is not None:
                 n_sfx = sum(1 for _, sfx in matched if sfx)
                 self.metrics.on_prefix_lookup(
@@ -275,10 +288,15 @@ class PagedBatcher(ContinuousBatcher):
         chunk = torch.from_numpy(
             adm.tokens[:, adm.next_pos:adm.next_pos + c]).to(self.device)
         self.metrics.prefill_chunks += 1
-        logits, self.pool = self.model.prefill_chunk_paged(
-            self.params, chunk, self.pool,
-            torch.from_numpy(self._adm_row).to(self.device),
-            start + adm.next_pos, self.kv_bits)
+        with self._span("prefill_chunk", rid=adm.req.rid,
+                        pos=start + adm.next_pos):
+            if self.tracer.enabled:
+                self.tracer.flow("t", adm.req.rid, track=self.trace_track)
+            logits, self.pool = self._profiled(
+                "prefill_chunk", lambda: self.model.prefill_chunk_paged(
+                    self.params, chunk, self.pool,
+                    torch.from_numpy(self._adm_row).to(self.device),
+                    start + adm.next_pos, self.kv_bits))
         adm.next_pos += c
         if adm.next_pos >= adm.tokens.shape[1]:
             row = logits[0, (adm.length - 1 - start) % c]
@@ -306,6 +324,10 @@ class PagedBatcher(ContinuousBatcher):
                     max(n - self.pool_meta.free_blocks, 1),
                     freeable_only=True)
                 self.metrics.on_evictions(dropped)
+                if dropped and self.tracer.enabled:
+                    self.tracer.instant("evict", "kvcache",
+                                        track=self.trace_track,
+                                        blocks=dropped)
                 if dropped == 0:
                     break
                 blocks = self.pool_meta.alloc(n)
@@ -319,6 +341,11 @@ class PagedBatcher(ContinuousBatcher):
                                   self.num_blocks - 1)
         self.metrics.kv_blocks_peak = max(self.metrics.kv_blocks_peak,
                                           self.pool_meta.peak_used)
+        if self.tracer.enabled:
+            self.tracer.counter("kv_blocks", "kvcache",
+                                track=self.trace_track,
+                                in_use=self.pool_meta.used_blocks,
+                                total=self.num_blocks - 1)
 
     def _register_written(self, req: Request, slot: int, n_written: int):
         """Publish the full blocks of the first ``n_written`` positions of
@@ -374,6 +401,10 @@ class PagedBatcher(ContinuousBatcher):
                     moved = True
                 else:
                     self.stalled[i] = True
+                    if self.tracer.enabled:
+                        self.tracer.instant(
+                            "stall", "scheduler", track=self.trace_track,
+                            rid=self.slots[i].rid, slot=i)
                 continue
             self._slot_blocks[i].append(blk[0])
             self._pt[i, b_idx] = blk[0]
@@ -427,6 +458,11 @@ class PagedBatcher(ContinuousBatcher):
         self._pt[slot, :] = 0               # dead decode writes -> null block
         self._requeue(req, slot)
         self.metrics.on_preempt(req)
+        if self.tracer.enabled:
+            self.tracer.instant("preempt", "scheduler",
+                                track=self.trace_track, rid=req.rid,
+                                slot=slot, n_written=n_written)
+            self.tracer.flow("t", req.rid, track=self.trace_track)
         self._gauge()
 
     def _occupancy_bucket(self, n_live: int) -> int:
@@ -448,12 +484,13 @@ class PagedBatcher(ContinuousBatcher):
         sm += [sm[-1]] * (self._occupancy_bucket(len(sm)) - len(sm))
         return np.asarray(sm)
 
-    def _decode_call(self, live: list[int]) -> np.ndarray:
+    def _dispatch_decode(self, live: list[int]) -> np.ndarray:
         """One decode step over the rows of the slot map: tokens, positions
         and page-table rows gathered on the host and copied to the device
-        at once; the greedy argmax on the device; the next tokens copied
-        back.  Returns the (n_slots,) next-token vector (rows outside the
-        slot map keep their previous token)."""
+        at once; the next tokens selected on the device from the compact
+        logits (each row under its slot's request) and copied back.
+        Returns the (n_slots,) next-token vector (rows outside the slot map
+        keep their previous token)."""
         sm = self._slot_map(live)
         host = np.concatenate([self._pt[sm], self.tokens[sm],
                                self.pos[sm, None]], axis=1).astype(np.int32)
@@ -463,8 +500,10 @@ class PagedBatcher(ContinuousBatcher):
         logits, self.pool = self.model.decode_step_paged(
             self.params, tok, self.pool, pt, pos, self.kv_bits,
             fused=self._fused)
+        lg = logits[:, 0]
         nxt = self.tokens[:, 0].copy()
-        nxt[sm] = logits[:, 0].argmax(dim=-1).cpu().numpy()
+        rows = [self.slots[i] if i in live else None for i in sm]
+        nxt[sm] = select_tokens(lg, lg.argmax(dim=-1), rows).cpu().numpy()
         return nxt
 
     def _tick(self):

@@ -8,36 +8,65 @@
   * fixed-capacity decode slots over one (n_slots, s_max) cache, built once
     on the device and reused: an admitted request's cache is copied into its
     slot (:func:`write_slot`);
-  * greedy decoding, with the argmax fused into the decode step so that
-    only the (n_slots,) next-token vector crosses to the host each step;
+  * per-slot sampling: greedy by default (the argmax taken on the device,
+    so that only the (n_slots,) next-token vector crosses to the host each
+    step), temperature/top-k through :func:`sample_core` with noise drawn
+    per (seed, rid, token index);
+  * per-token streaming callbacks (``RequestOptions.on_token``) and
+    EOS/budget handling;
   * latency accounting per request (queue / TTFT / inter-token) by
-    :class:`repro_torch.runtime.metrics.Metrics`.
+    :class:`repro_torch.runtime.metrics.Metrics`, and the flight recorder
+    (``ServingConfig.trace``: :mod:`.tracing` spans, instants and flows,
+    :class:`.profile.StepProfiler` around each step call).
 
 Exactness contract: greedy generations equal isolated sequential runs for
 attention-only stacks, and the same schedule gives the same streams as the
-JAX package's batcher.  Sampling (temperature > 0) is not ported yet and is
-refused at submit.
+JAX package's batcher.
+
+Sampling contract.  The draw is split in two.  :func:`sample_core` is the
+deterministic part: given the logits and one (V,) Gumbel noise row per
+sampled row, it returns the reference's ``_sample_rows`` token bit for bit
+(``jax.random.categorical(key, z)`` is ``argmax(z + gumbel(key))``), so fed
+the reference's own ``jax.random.gumbel`` noise it reproduces the
+reference's streams.  The noise is the port's own (:func:`gumbel_noise`):
+torch cannot reproduce ``jax.random``'s bits, so each sampled row draws
+from a ``torch.Generator`` on the batcher's device seeded only by
+:func:`noise_seed` (seed, rid, n_out), a fixed 64-bit mix.  A stream
+therefore does not depend on batch shape, occupancy, slot, or dense against
+paged serving, and it reproduces from (seed, rid, n_out); it differs from
+the reference's stream, and a stream on the card differs from the same
+request's stream on the CPU (their generators differ).
 """
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import time
 from collections import deque
+from collections.abc import Callable
+from typing import Any
 
 import numpy as np
 import torch
 
 from .errors import EmptyPromptError, InvalidBudgetError, PromptTooLongError
 from .metrics import Metrics
+from .profile import StepProfiler, sync
+from .tracing import Tracer
 
 
 @dataclasses.dataclass
 class RequestOptions:
-    """Per-request options.  ``temperature`` > 0 (sampling) is not ported
-    yet: submit refuses it."""
+    """Per-request options, with the reference's names and defaults (its
+    ``slo`` tier belongs to the adaptive server, which is not ported)."""
     max_new: int = 16
     eos_id: int | None = None
+    # sampling: temperature <= 0 -> greedy; top_k 0 -> full distribution
     temperature: float = 0.0
+    top_k: int = 0
+    seed: int = 0
+    # per-token streaming: called as on_token(req, token, finished)
+    on_token: Callable[["Request", int, bool], None] | None = None
 
 
 @dataclasses.dataclass
@@ -63,6 +92,10 @@ class ServingConfig:
     # occupancy (ragged_decode=False pads to the full (n_slots, 1) batch)
     fused_decode: bool = True
     ragged_decode: bool = True
+    # ---- observability (runtime.tracing flight recorder) ----------------
+    # a tracing.TraceConfig (or None): structured event tracing, periodic
+    # metrics snapshots, and per-step device/host profiling
+    trace: Any = None
 
 
 class Request:
@@ -93,6 +126,18 @@ class Request:
     def temperature(self) -> float:
         return self.options.temperature
 
+    @property
+    def top_k(self) -> int:
+        return self.options.top_k
+
+    @property
+    def seed(self) -> int:
+        return self.options.seed
+
+    @property
+    def on_token(self):
+        return self.options.on_token
+
 
 @dataclasses.dataclass
 class _Admission:
@@ -111,6 +156,93 @@ def bucket_length(length: int, chunk: int) -> int:
     return -(-length // chunk) * chunk
 
 
+# ---------------------------------------------------------------------------
+# next-token selection: the deterministic core and the port's noise source
+# ---------------------------------------------------------------------------
+_M64 = (1 << 64) - 1
+
+
+def _splitmix64(x: int) -> int:
+    x = (x + 0x9E3779B97F4A7C15) & _M64
+    x = ((x ^ (x >> 30)) * 0xBF58476D1CE4E5B9) & _M64
+    x = ((x ^ (x >> 27)) * 0x94D049BB133111EB) & _M64
+    return x ^ (x >> 31)
+
+
+def noise_seed(seed: int, rid: int, n_out: int) -> int:
+    """The generator seed of one sampled token: (seed, rid, n_out) folded
+    through splitmix64's finalizer, one word at a time (a fixed function of
+    the three numbers alone, 0 <= result < 2**64)."""
+    h = 0
+    for word in (seed, rid, n_out):
+        h = _splitmix64(h ^ (int(word) & _M64))
+    return h
+
+
+def gumbel_noise(seed: int, rid: int, n_out: int, vocab: int,
+                 device: torch.device) -> torch.Tensor:
+    """(vocab,) f32 standard Gumbel noise for the token ``n_out`` of request
+    ``rid``, drawn on ``device`` from a generator seeded by
+    :func:`noise_seed`: ``-log(-log(u))`` with ``u`` uniform in
+    [tiny, 1), as ``jax.random.gumbel`` forms it.  The CPU's and the card's
+    generators give different bits for one seed."""
+    gen = torch.Generator(device=device)
+    gen.manual_seed(noise_seed(seed, rid, n_out))
+    u = torch.rand(vocab, generator=gen, device=device, dtype=torch.float32)
+    u = u.clamp_min(torch.finfo(torch.float32).tiny)
+    return -torch.log(-torch.log(u))
+
+
+def sample_core(logits: torch.Tensor, greedy: torch.Tensor,
+                temps: torch.Tensor, topks: torch.Tensor,
+                gumbel: torch.Tensor) -> torch.Tensor:
+    """Next token of every row of (R, V) ``logits`` — the deterministic part
+    of the reference's ``_sample_rows``, row for row:
+
+      1. ``z`` = f32 logits / T, with T <= 0 taken as 1;
+      2. where k > 0, every ``z`` below the k-th largest (index
+         ``clip(k, 1, V) - 1`` of a descending sort) becomes -inf;
+      3. ``argmax(z + gumbel)``, or the row's ``greedy`` token where T <= 0.
+
+    ``greedy`` (R,), ``temps`` (R,) f32, ``topks`` (R,) int and ``gumbel``
+    (R, V) f32 lie on the logits' device.  Both ``torch.argmax`` and
+    ``jnp.argmax`` return the first of equal maxima."""
+    z = logits.to(torch.float32) / torch.where(
+        temps <= 0.0, torch.ones_like(temps), temps)[:, None]
+    v = z.shape[-1]
+    idx = (topks.clamp(1, v) - 1).to(torch.int64)[:, None]
+    kth = torch.sort(z, dim=-1, descending=True).values.gather(-1, idx)
+    z = torch.where((topks > 0)[:, None] & (z < kth),
+                    torch.full_like(z, float("-inf")), z)
+    samp = torch.argmax(z + gumbel, dim=-1)
+    return torch.where(temps <= 0.0, greedy.to(samp.dtype), samp)
+
+
+def select_tokens(logits: torch.Tensor, greedy: torch.Tensor,
+                  reqs: list) -> torch.Tensor:
+    """Next token of every row of (R, V) ``logits``: ``reqs[r]`` is the
+    request row ``r`` decodes for (``None`` for a dead row).  Rows of greedy
+    requests (and dead rows) keep ``greedy``, the argmax taken on the
+    device; sampled rows go through :func:`sample_core` with their own
+    :func:`gumbel_noise`, drawn on the logits' device.  With no sampled row
+    nothing but ``greedy`` is touched."""
+    sampled = [r for r, req in enumerate(reqs)
+               if req is not None and req.temperature > 0.0]
+    if not sampled:
+        return greedy
+    dev, (n_rows, vocab) = logits.device, logits.shape
+    temps = np.zeros(n_rows, np.float32)
+    topks = np.zeros(n_rows, np.int64)
+    noise = torch.zeros((n_rows, vocab), dtype=torch.float32, device=dev)
+    for r in sampled:
+        req = reqs[r]
+        temps[r], topks[r] = req.temperature, req.top_k
+        noise[r] = gumbel_noise(req.seed, req.rid, len(req.output), vocab,
+                                dev)
+    return sample_core(logits, greedy, torch.from_numpy(temps).to(dev),
+                       torch.from_numpy(topks).to(dev), noise)
+
+
 def write_slot(cache, one, i: int) -> None:
     """Copy a batch-1 cache ``one`` into slot ``i`` of the slot cache, in
     place.  Leaves are (periods, B, S, ...); the admission cache may be
@@ -125,9 +257,8 @@ def write_slot(cache, one, i: int) -> None:
 
 class ContinuousBatcher:
     """Slot-based continuous batching: chunked (or whole-prompt) prefill
-    interleaved with batched greedy decode, on the device of the params
-    (the port serves attention-only token LMs, so chunk admission is always
-    exact)."""
+    interleaved with batched decode, on the device of the params (the port
+    serves attention-only token LMs, so chunk admission is always exact)."""
 
     def __init__(self, model, params, config: ServingConfig, *,
                  metrics: Metrics | None = None):
@@ -150,6 +281,11 @@ class ContinuousBatcher:
 
         self._adm_cache = None             # reused (1, s_adm) admission cache
         self.metrics = metrics if metrics is not None else Metrics(n_slots)
+        # flight recorder: host-side only, around the model's step calls
+        self.tracer = Tracer.from_config(config.trace)
+        self.trace_track = "scheduler"
+        self.profiler = StepProfiler(self.tracer) \
+            if getattr(config.trace, "profile", False) else None
         self.queue: deque[Request] = deque()
         self.slots: list[Request | None] = [None] * n_slots
         self.pos = np.zeros(n_slots, np.int64)
@@ -170,15 +306,50 @@ class ContinuousBatcher:
         self.cache = self._make_cache(self.n_slots, self.s_max)
 
     # ---------------------------------------------------------------- steps
-    def _decode_call(self, live: list[int]) -> np.ndarray:
-        """One batched decode step with the greedy argmax taken on the
-        device: returns the (n_slots,) next tokens — the step's only
+    @contextlib.contextmanager
+    def _span(self, name: str, **args):
+        """A ``name`` span on this batcher's track (nothing when the tracer
+        is off); an exception inside still closes it and propagates."""
+        tr = self.tracer
+        if not tr.enabled:
+            yield
+            return
+        tr.begin(name, "scheduler", track=self.trace_track, **args)
+        try:
+            yield
+        finally:
+            tr.end(name, "scheduler", track=self.trace_track)
+
+    def _profiled(self, label: str, call):
+        """``call()``, bracketed by the profiler when one is on, with the
+        device synced inside the bracket."""
+        if self.profiler is None:
+            return call()
+        with self.profiler.step(label):
+            out = call()
+            sync(self.device)
+        return out
+
+    def _dispatch_decode(self, live: list[int]) -> np.ndarray:
+        """One batched decode step and the next-token selection on the
+        device; returns the (n_slots,) next tokens through the step's only
         device->host copy."""
         tok = torch.from_numpy(self.tokens).to(self.device)
         pos_t = torch.from_numpy(self.pos).to(self.device)
         logits, self.cache = self.model.decode_step(
             self.params, tok, self.cache, pos_t)
-        return logits[:, 0].argmax(dim=-1).cpu().numpy()
+        lg = logits[:, 0]
+        rows = [self.slots[i] if i in live else None
+                for i in range(self.n_slots)]
+        return select_tokens(lg, lg.argmax(dim=-1), rows).cpu().numpy()
+
+    def _decode_call(self, live: list[int]) -> np.ndarray:
+        """The decode step of the live slots inside the ``decode`` span and
+        the profiler's bracket; returns the (n_slots,) next tokens (dead
+        and stalled rows carry no meaning)."""
+        with self._span("decode"):
+            return self._profiled("decode",
+                                  lambda: self._dispatch_decode(live))
 
     # ---------------------------------------------------------------- submit
     def _validate(self, req: Request):
@@ -201,11 +372,6 @@ class ContinuousBatcher:
                 f"prompts up to {self.s_max - 1} tokens, so this prompt is "
                 f"{length - (self.s_max - 1)} tokens over the remaining "
                 "budget", rid=req.rid, length=length, s_max=self.s_max)
-        if req.temperature > 0.0:
-            raise NotImplementedError(
-                f"request {req.rid}: temperature={req.temperature} — "
-                "sampling is not ported yet; the port decodes greedily "
-                "(temperature 0)")
 
     def submit(self, req: Request):
         self._validate(req)
@@ -214,7 +380,7 @@ class ContinuousBatcher:
         self.queue.append(req)
 
     # ---------------------------------------------------------- token stream
-    def _emit(self, req: Request, tok: int):
+    def _emit(self, req: Request, tok: int, finished: bool):
         req.output.append(tok)
         first = req.first_token_at == 0.0
         now = time.time()
@@ -222,10 +388,28 @@ class ContinuousBatcher:
             req.first_token_at = now
         self.metrics.on_token(req, first)
         req.last_token_at = now
+        if first and self.tracer.enabled:
+            self.tracer.instant("first_token", "scheduler",
+                                track=self.trace_track, rid=req.rid, tok=tok)
+            self.tracer.flow("t", req.rid, track=self.trace_track)
+        if req.on_token is not None:
+            req.on_token(req, tok, finished)
+
+    def _sample(self, req: Request, logits_row) -> int:
+        """Next token from one slot's (V,) logits row under the request's
+        sampling params: :func:`select_tokens` on one row (the first token
+        of an admission; the decode step selects all rows at once)."""
+        return int(select_tokens(logits_row[None], logits_row.argmax()[None],
+                                 [req])[0])
 
     def _finish(self, req: Request, slot: int):
         req.finished_at = time.time()
         self.metrics.on_finish(req)
+        if self.tracer.enabled:
+            self.tracer.instant("finish", "scheduler", track=self.trace_track,
+                                rid=req.rid, slot=slot,
+                                n_out=len(req.output))
+            self.tracer.flow("f", req.rid, track=self.trace_track)
         self._release_slot(req, slot)
         self.done[slot] = True
         self.slots[slot] = None
@@ -262,13 +446,13 @@ class ContinuousBatcher:
         mid-stream: ``length`` counts prompt + generated tokens, the budget
         check runs against the whole stream, and the cache-budget cap the
         decode loop would have applied fires here instead."""
-        tok = int(first_logits_row.argmax())
+        tok = self._sample(req, first_logits_row)
         resumed = bool(req.output)
         length = req.tokens.shape[1] + len(req.output)
         finished = (len(req.output) + 1 >= req.max_new
                     or (req.eos_id is not None and tok == req.eos_id)
                     or (resumed and length >= self.s_max - 1))
-        self._emit(req, tok)
+        self._emit(req, tok, finished)
         if finished:
             self._finish(req, slot)
             return
@@ -289,6 +473,11 @@ class ContinuousBatcher:
         req = self.queue.popleft()
         req.started_at = time.time()
         self.metrics.on_admit(req)
+        if self.tracer.enabled:
+            self.tracer.instant("admit", "scheduler", track=self.trace_track,
+                                rid=req.rid, slot=slot,
+                                prompt_tokens=req.tokens.shape[1])
+            self.tracer.flow("s", req.rid, track=self.trace_track)
         self.slots[slot] = req             # reserve (done stays True)
         return req, slot
 
@@ -312,8 +501,12 @@ class ContinuousBatcher:
         chunk = torch.from_numpy(
             adm.tokens[:, adm.next_pos:adm.next_pos + c]).to(self.device)
         self.metrics.prefill_chunks += 1
-        logits, self._adm_cache = self.model.prefill_chunk(
-            self.params, chunk, self._adm_cache, adm.next_pos)
+        with self._span("prefill_chunk", rid=adm.req.rid, pos=adm.next_pos):
+            if self.tracer.enabled:
+                self.tracer.flow("t", adm.req.rid, track=self.trace_track)
+            logits, self._adm_cache = self._profiled(
+                "prefill_chunk", lambda: self.model.prefill_chunk(
+                    self.params, chunk, self._adm_cache, adm.next_pos))
         adm.next_pos += c
         if adm.next_pos >= adm.tokens.shape[1]:
             # the final chunk always holds the last real position L-1
@@ -329,8 +522,10 @@ class ContinuousBatcher:
             self.metrics.prefill_full += 1
             tokens = torch.as_tensor(req.tokens, dtype=torch.int64,
                                      device=self.device)
-            logits, one_cache = self.model.prefill(
-                self.params, {"tokens": tokens}, self.s_adm)
+            with self._span("prefill", rid=req.rid):
+                logits, one_cache = self._profiled(
+                    "prefill", lambda: self.model.prefill(
+                        self.params, {"tokens": tokens}, self.s_adm))
             self._activate(req, slot, one_cache, logits[0, -1])
 
     # ----------------------------------------------------------------- step
@@ -356,7 +551,18 @@ class ContinuousBatcher:
     def step(self):
         """One scheduler iteration: a prefill chunk (if a request is being
         admitted) plus one decode step for every active slot.  Returns the
-        requests finished this step."""
+        requests finished this step.
+
+        This is the flight-recorder wrapper (the ``step`` span and the
+        metrics-snapshot cadence) around :meth:`_step_impl`."""
+        tr = self.tracer
+        with self._span("step", queue_depth=len(self.queue)):
+            finished = self._step_impl()
+        if tr.snapshotter is not None:
+            tr.tick_snapshot(self.metrics)
+        return finished
+
+    def _step_impl(self):
         self._tick()
         if self.chunk_size:
             self._advance_admission()
@@ -376,7 +582,7 @@ class ContinuousBatcher:
                 full = (len(req.output) + 1 >= req.max_new
                         or (req.eos_id is not None and tok == req.eos_id)
                         or self.pos[i] >= self.s_max - 1)
-                self._emit(req, tok)
+                self._emit(req, tok, full)
                 if full:
                     self._finish(req, i)
                 else:
@@ -389,10 +595,16 @@ class ContinuousBatcher:
         return not self.queue and self._adm is None and bool(all(self.done))
 
     def run(self, max_steps: int = 10_000):
-        """Drain the queue; returns all finished requests."""
+        """Drain the queue; returns all finished requests.  On any exception
+        the flight recorder dumps its ring next to the crash before
+        re-raising."""
         out = []
-        for _ in range(max_steps):
-            out.extend(self.step())
-            if self.idle:
-                break
+        try:
+            for _ in range(max_steps):
+                out.extend(self.step())
+                if self.idle:
+                    break
+        except BaseException:
+            self.tracer.on_crash()
+            raise
         return out

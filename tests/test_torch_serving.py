@@ -96,13 +96,17 @@ def test_admission_errors_match_reference(models, case):
 
 
 def test_sampling_is_refused(models):
+    """Sampling is ported: submit no longer refuses temperature > 0, and the
+    request is served (tests/test_torch_sampling.py holds the draws to the
+    reference's)."""
     _, _, tm, tp = models
     batcher = tserving.ContinuousBatcher(
         tm, tp, tserving.ServingConfig(n_slots=2, s_max=24))
-    with pytest.raises(NotImplementedError, match="sampling"):
-        batcher.submit(tserving.Request(
-            0, np.zeros((1, 4), np.int64),
-            options=tserving.RequestOptions(temperature=0.7)))
+    batcher.submit(tserving.Request(
+        0, np.zeros((1, 4), np.int64),
+        options=tserving.RequestOptions(max_new=3, temperature=0.7)))
+    (done,) = batcher.run()
+    assert len(done.output) == 3
 
 
 def test_write_slot_copies_one_slot(models):
