@@ -83,7 +83,21 @@ Phases (each prints its own lines; any failed check exits non-zero):
      path and of the paged fp32-weight path (phase 4d's) under
      ``torch.profiler``: device operations per step, device busy time and
      idle share, and the decode-attention kernels' share of it (B5 dense,
-     B2 paged, B4 fused).
+     B2 paged, B4 fused);
+  4k. the tuning cache (``kernels/tuning.py``), after phase 5: the matmul
+     shape classes of the 2xT, 4x4 and 1x1 serving paths swept
+     (``tune_serving_shapes``: each class's candidates, pick and default,
+     and the pick through ``engine.qmatmul`` ``torch.equal`` to the
+     automatic choice and the plain version); B5's launch plan swept at
+     the dense serving shape and at 2048 positions (the tuned plan within
+     B5's per-call bound); the serving CLI with ``--paged --kv-block-size 0
+     --autotune`` (s_max 128: the B2 and B4 block-size sweeps and the
+     pick); the dense 2xT batcher on the warm cache (no sweep, no miss;
+     streams against phase 4's, or with a tuned B5 plan one decode step at
+     phase 4's bound); the decode step's wall p50 warm beside cold, and one
+     memoised lookup's host time.
+Every phase before 4k runs on a fresh, empty tuning cache (the automatic
+kernel choices), whatever the user's cache holds.
 The last lines are the per-kernel JSON record, the card's name and power
 limit, and ``{"ok": true, "device": {...}}``.
 
@@ -94,6 +108,9 @@ from __future__ import annotations
 
 import contextlib
 import dataclasses
+import importlib
+import io
+import os
 import json
 import re
 import statistics
@@ -983,7 +1000,7 @@ def _quant_call(name, x, bits):
     """(kernel call, plain call) of one quantizer on rows ``x``, computed
     in x's dtype, with the scale its caller gives it: the engine's per-row
     absmax (B7c), the tensor absmax (B7b); B7a takes post-ReLU rows."""
-    from repro_torch.kernels import act_quant as aq
+    aq = importlib.import_module("repro_torch.kernels.act_quant")
     from repro_torch.kernels import ref
     qmax = (1 << (bits - 1)) - 1
     cd = x.dtype
@@ -1088,7 +1105,7 @@ def _quant_rows_record(gen, device):
     decode quantizations (the record) and the CNN rows in f32 and bf16."""
     import torch
     from repro_torch.kernels import _build, ref
-    from repro_torch.kernels import act_quant as aq
+    aq = importlib.import_module("repro_torch.kernels.act_quant")
 
     def chain(x, bits):
         s = x.abs().amax(dim=1, keepdim=True).clamp_min(1e-8) / ((1 << (bits - 1)) - 1)
@@ -1996,12 +2013,16 @@ def _check_trace(doc, label) -> None:
     check(all(not st for st in stacks.values()), f"{label}: unclosed spans")
     cov = span_coverage(doc)
     dispatch = [json.dumps([e["name"], e["args"]], sort_keys=True)
-                for e in doc["traceEvents"] if e.get("cat") == "engine"]
+                for e in doc["traceEvents"]
+                if e.get("cat") == "engine" and e["ph"] == "i"]
+    n_tuning = sum(e.get("name") == "tuning_cache" for e in doc["traceEvents"])
     names = {e.get("name") for e in doc["traceEvents"]}
     print(f"{label} trace: {len(doc['traceEvents'])} events "
           f"({doc['otherData']['dropped_events']} dropped), step-span "
           f"coverage {cov:.4f}, {len(dispatch)} dispatch instants "
-          f"({len(set(dispatch))} distinct)")
+          f"({len(set(dispatch))} distinct), {n_tuning} tuning_cache "
+          "counter samples")
+    check(n_tuning > 0, f"{label}: no tuning_cache counter in the trace")
     check(cov >= 0.95, f"{label}: step spans cover {cov:.4f} < 0.95")
     check(len(dispatch) == len(set(dispatch)) > 0,
           f"{label}: dispatch instants not distinct")
@@ -2139,6 +2160,217 @@ def phase_sampling(device, card, dense, paged):
     return summ
 
 
+# ---------------------------------------------------------------------------
+# 4k: the tuning cache
+# ---------------------------------------------------------------------------
+TUNE_PRECISIONS = ("2xT", "4x4", "1x1")
+TUNE_CLI_PROMPT, TUNE_CLI_GEN = 96, 32   # s_max 128: bs 16..128 all divide it
+
+
+def _tile_name(block) -> str:
+    return "rows" if tuple(block)[:2] == (8, 1) else "tensor cores"
+
+
+def _tune_matmuls(device, card) -> int:
+    """4k.1: ``tune_serving_shapes`` at each precision; every shape class's
+    candidates, pick and default, and the pick through ``engine.qmatmul``
+    against the automatic choice and the plain version (``torch.equal``).
+    Returns the number of picks that differ from the automatic choice."""
+    import torch
+    from repro_torch.core.precision import get_precision, signed
+    from repro_torch.kernels import engine, tuning
+    gen = torch.Generator().manual_seed(5)
+    changed = 0
+    for prec in TUNE_PRECISIONS:
+        mcfg = model_config(precision=prec, kv_bits=8)
+        pcfg = signed(get_precision(prec))
+        entries = engine.tune_serving_shapes(mcfg, pcfg, n_slots=N_SLOTS,
+                                             chunk_size=CHUNK, iters=5)
+        kind, bits = pcfg.w_mode, engine.weight_bits(pcfg)
+        a_bits = engine._act_bits(pcfg)
+        plan = [c for c in engine.serving_tune_plan(
+            mcfg, pcfg, n_slots=N_SLOTS, chunk_size=CHUNK)
+            if engine._tunable_k(pcfg, c[2])]
+        check(len(entries) == len(plan) > 0,
+              f"{prec}: {len(entries)} tuned classes of {len(plan)}")
+        for m, n, k in plan:
+            e = tuning.lookup(m, n, k, kind=kind, a_bits=a_bits, w_bits=bits,
+                              backend="cuda")
+            check(e is not None, f"{prec} ({m}, {n}, {k}): no cache entry")
+            pick, auto = tuple(e["block"]), tuning.fallback_block(m, n, k,
+                                                                  kind, bits)
+            changed += pick != auto
+            pw = engine.pack_weight(torch.randn((k, n), generator=gen)
+                                    .to(device), pcfg)
+            x = torch.randn((m, k), generator=gen).to(device, torch.bfloat16)
+            outs = [engine.qmatmul(x, pw, pcfg, block=b) for b in (pick, auto)]
+            plain = engine.qmatmul(x, pw, pcfg, backend="torch")
+            torch.cuda.synchronize()
+            print(f"[{card}] tune {prec} {kind} (M={m}, N={n}, K={k}): "
+                  + ", ".join(f"{_tile_name(c['block'])} {c['us']:.2f} us"
+                              for c in e["swept"])
+                  + f" -> {_tile_name(pick)} {e['us']:.2f} us (default "
+                  f"{_tile_name(auto)} {e['default_us']:.2f} us)")
+            check(torch.equal(outs[0], outs[1]),
+                  f"{prec} ({m}, {n}, {k}): the pick {pick} differs from "
+                  f"the automatic {auto}")
+            check(torch.equal(outs[0], plain),
+                  f"{prec} ({m}, {n}, {k}): the pick differs from the plain "
+                  "version")
+    return changed
+
+
+def _tune_decode_attention(device, card) -> bool:
+    """4k.2: B5's plan swept at the dense serving shape and at 2048
+    positions; the tuned plan (through the engine's lookup) within B5's
+    per-call bound of its plain version.  Returns whether the serving
+    shape's pick differs from the automatic plan."""
+    import torch
+    from repro_torch.kernels import engine
+    decode_attention = importlib.import_module(
+        "repro_torch.kernels.decode_attention")
+    gen = torch.Generator().manual_seed(6)
+    b, kv, g, dh = N_SLOTS, KV_HEADS, GROUP, DH
+    changed = False
+    for s, pos_list in DECODE_CASES:
+        e = engine.autotune_decode_attention(b=b, s=s, kv=kv, g=g, dh=dh,
+                                             iters=5)
+        q = torch.randn((b, kv, g, dh), generator=gen).to(device,
+                                                         torch.bfloat16)
+        kc, vc = (torch.randint(-127, 128, (b, s, kv, dh), generator=gen,
+                                dtype=torch.int8).to(device) for _ in "kv")
+        ks, vs = ((torch.rand((b, s, kv, 1), generator=gen) * 0.02 + 1e-3)
+                  .to(device) for _ in "kv")
+        pos = torch.tensor(pos_list, dtype=torch.int32, device=device)
+        auto = decode_attention.launch_plan(q, kc, vc)
+        auto = (auto["cluster"], dh, auto["span"])
+        with engine.dispatch_trace() as ev:
+            out = engine.decode_attention(q, kc, ks, vc, vs, pos, kv_bits=8)
+        ref = decode_attention.decode_attention_ref(q, kc, ks, vc, vs, pos)
+        torch.cuda.synchronize()
+        err = (out - ref).abs().max().item()
+        tol = 1e-5 + 1e-4 * ref.abs().max().item()
+        pick = tuple(e["block"])
+        print(f"[{card}] tune decode_attention B={b} S={s}: " + ", ".join(
+            f"({c['block'][0]}, {c['block'][2]}) {c['us']:.2f} us"
+            for c in e["swept"]) + f" -> plan (cluster, span) ({pick[0]}, "
+            f"{pick[2]}) {e['us']:.2f} us (automatic ({auto[0]}, {auto[2]}) "
+            f"{e['default_us']:.2f} us); max |diff| vs plain {err:.3e} "
+            f"(tolerance {tol:.3e})")
+        check(ev[0].block == pick, f"S={s}: the engine ran {ev[0].block}, "
+                                   f"not the tuned {pick}")
+        check(err <= tol, f"decode_attention tuned plan S={s}: max |diff| "
+                          f"{err} > {tol}")
+        if s == S_MAX:
+            changed = pick != auto
+    return changed
+
+
+def _tune_cli(card) -> None:
+    """4k.3: ``--paged --kv-block-size 0 --autotune`` through the serving
+    CLI at full width (2xT kv8, s_max 128)."""
+    from repro_torch.launch import serve as cli
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        done = cli.main(["--paged", "--kv-bits", "8", "--kv-block-size", "0",
+                         "--autotune", "--requests", str(N_SLOTS), "--slots",
+                         str(N_SLOTS), "--prompt-len", str(TUNE_CLI_PROMPT),
+                         "--gen", str(TUNE_CLI_GEN)])
+    out = buf.getvalue().splitlines()
+    keep = [ln for ln in out if "block size sweep" in ln or "->" in ln
+            or "autotune" in ln or ln.startswith("paged KV cache")
+            or "itl" in ln]
+    for ln in keep:
+        print(f"[{card}] cli: {ln.strip()}")
+    check(any("(tuned pick)" in ln for ln in out),
+          "the CLI printed no tuned block-size pick")
+    check(len(done) == N_SLOTS and all(
+        len(r.output) == TUNE_CLI_GEN and all(
+            0 <= t < model_config().vocab for t in r.output) for r in done),
+        "the CLI's tuned paged run returned short or out-of-range tokens")
+
+
+def _decode_wall_p50(model, params, sc, reqs) -> tuple[dict, float]:
+    """Serve ``reqs`` with the step profiler on; returns the streams and
+    the decode step's wall p50 (ms: dispatch to device sync)."""
+    from repro_torch.runtime.serving import ContinuousBatcher
+    from repro_torch.runtime.tracing import TraceConfig
+    b = ContinuousBatcher(model, params, dataclasses.replace(
+        sc, trace=TraceConfig(enabled=False, profile=True)))
+    streams = _streams(b, reqs)
+    return streams, b.profiler.summary()["decode"]["device_ms"]["p50"]
+
+
+def phase_tuning(device, card, dense, tmp: str):
+    """4k: the tuning cache at full width: matmul sweeps, B5's plan, the
+    CLI's tuned pool block size, then the dense 2xT batcher on the warm
+    cache (no sweep, no miss) beside a cold one; ``dense`` is phase 4's
+    (model, params, sc, streams); ``tmp`` a directory for cache files."""
+    from repro_torch.core.precision import get_precision, signed
+    from repro_torch.kernels import engine, tuning
+    print("== 4k. tuning cache: sweeps, tuned serving, --kv-block-size 0",
+          flush=True)
+    t0 = time.time()
+    tuning.reset()
+    os.environ["REPRO_TUNING_CACHE"] = warm = str(Path(tmp) / "tuned.json")
+    n_mm = _tune_matmuls(device, card)
+    b5 = _tune_decode_attention(device, card)
+    _tune_cli(card)
+
+    model, params, sc, streams = dense
+    cfg = model.cfg
+    # re-read the file: each class of the run resolves (and counts) afresh
+    tuning.reset(clear_stats=False)
+    n_classes = 1 + len(engine.serving_tune_plan(
+        cfg, signed(get_precision("2xT")), n_slots=N_SLOTS, chunk_size=CHUNK))
+    before = tuning.stats()
+    got, warm_ms = _decode_wall_p50(model, params, sc,
+                                    _requests(cfg, N_REQ, GEN))
+    d = {k: tuning.stats()[k] - before[k] for k in before}
+    agree = sum(got[r] == streams[r] for r in streams)
+    print(f"[{card}] 2xT dense on the warm cache: tuning-cache hits {d['hits']}"
+          f" ({n_classes} shape classes: {n_classes - 1} matmul, B5), misses "
+          f"{d['misses']}, sweeps {d['sweeps']}; {n_mm} matmul "
+          f"picks differ from the automatic choice, B5's plan "
+          f"{'differs' if b5 else 'does not differ'}; streams equal to "
+          f"phase 4's: {agree}/{len(streams)}")
+    check(d["sweeps"] == 0, "the warm-cache run swept")
+    check(d["misses"] == 0 and d["hits"] == n_classes,
+          f"the warm-cache run: {d['hits']} hits and {d['misses']} misses "
+          f"over {n_classes} tunable shape classes")
+    if not b5:
+        check(agree == len(streams), "tuned matmul picks changed a stream")
+    else:
+        # a tuned B5 plan sums in another f32 order; 2-bit codes amplify
+        # that past layer 0 (fault C2): hold one decode step at phase 4's
+        # bound instead
+        cmp = _compare_backends(model, params, sc, _requests(cfg, 1, 2)[0]
+                                .tokens, device)
+        tol0 = 1e-5 + 1e-4 * cmp["attn0_scale"]
+        print(f"2xT decode step on the warm cache, kernels vs plain versions:"
+              f" layer 0 attention max |diff| {cmp['attn0']:.3e} (tolerance "
+              f"{tol0:.3e}); prefill_chunk max |dlogit| {cmp['chunk']:.3e}")
+        check(cmp["q0_equal"] and cmp["attn0"] <= tol0 and cmp["chunk"] == 0,
+              "tuned B5 plan: the decode step leaves phase 4's bound")
+
+    os.environ["REPRO_TUNING_CACHE"] = str(Path(tmp) / "cold.json")
+    _, cold_ms = _decode_wall_p50(model, params, sc,
+                                  _requests(cfg, N_REQ, GEN))
+    os.environ["REPRO_TUNING_CACHE"] = warm
+    n = 20000
+    t1 = time.perf_counter()
+    for _ in range(n):
+        tuning.get_block_sizes(N_SLOTS, 576, 576, kind="ternary", a_bits=2,
+                               w_bits=2, backend="cuda")
+    lookup_us = (time.perf_counter() - t1) / n * 1e6
+    print(f"[{card}] 2xT dense decode step wall p50 (StepProfiler, {N_REQ} x "
+          f"{GEN} tokens, one run each): warm cache {warm_ms:.3f} ms, cold "
+          f"cache {cold_ms:.3f} ms; one memoised lookup {lookup_us:.3f} us "
+          f"(host, x210 a step: {lookup_us * 210 / 1e3:.4f} ms)")
+    print(f"phase 4k: {time.time() - t0:.1f} s")
+    check(engine._DISPATCH_LISTENER is None, "a tracer left its listener")
+
+
 # device kernels of B5, B2 and B4 whose share of a profiled step is printed
 DECODE_KERNELS = ("decode_attn_kernel", "paged_attn_kernel",
                   "fused_decode_kernel")
@@ -2224,12 +2456,13 @@ def _attention_probe(plain_f32: bool):
              for b in engine.BACKENDS}
     calls = []
 
-    def kernel(q, k, ks, v, vs, pos, *, kv_bits, dtype):
-        out = decode_attention(q.contiguous(), k, ks, v, vs, pos)
+    def kernel(q, k, ks, v, vs, pos, *, kv_bits, dtype, block=None):
+        plan = None if block is None else (block[0], block[2])
+        out = decode_attention(q.contiguous(), k, ks, v, vs, pos, plan=plan)
         calls.append((q.clone(), out))
         return out.to(dtype)
 
-    def plain(q, k, ks, v, vs, pos, *, kv_bits, dtype):
+    def plain(q, k, ks, v, vs, pos, *, kv_bits, dtype, block=None):
         if plain_f32:
             out = decode_attention_ref(q, k, ks, v, vs, pos)
         else:
@@ -2446,6 +2679,14 @@ def main() -> None:
     import torch
     if not torch.cuda.is_available():
         fail("torch.cuda.is_available() is false: this smoke test needs a GPU")
+    with tempfile.TemporaryDirectory() as tmp:
+        # every phase before 4k runs on a cold tuning cache (the automatic
+        # kernel choices): a user's cache never changes what they check
+        os.environ["REPRO_TUNING_CACHE"] = str(Path(tmp) / "cold.json")
+        _main(torch, tmp)
+
+
+def _main(torch, tmp: str) -> None:
     from repro_torch.runtime.kvcache import PagedBatcher
     from repro_torch.runtime.serving import ContinuousBatcher
     t_start = time.time()
@@ -2476,6 +2717,7 @@ def main() -> None:
     phase_profile(card, "1x1 dense", ContinuousBatcher(*xnor_served))
     phase_profile(card, "fp32 paged kv8",
                   PagedBatcher(*fused_served, _paged_config()))
+    phase_tuning(device, card, served, tmp)
     for rec in records:
         rec["launches"] = launches[rec["name"]]
     replaces = {

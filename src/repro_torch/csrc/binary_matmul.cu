@@ -356,8 +356,8 @@ extern "C" cudaError_t binary_matmul(const void* a, const void* w, const void* a
   return launch(a, w, alpha, bias, out, M, N, K, VARIANT_AUTO, stream);
 }
 
-// For measurement only (chip_smoke.py): one named kernel, 0 = rows, 1 =
-// wide, whatever M is.  The wrapper never calls it.
+// One named kernel, 0 = rows, 1 = wide, whatever M is: the tuning cache's
+// picks (kernels/tuning.py) and chip_smoke.py.
 extern "C" cudaError_t binary_matmul_variant(const void* a, const void* w, const void* alpha,
                                              const void* bias, void* out, int M, int N,
                                              int K, int variant, cudaStream_t stream) {

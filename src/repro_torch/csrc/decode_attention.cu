@@ -26,8 +26,9 @@
 // the identity page table taken at compile time (DENSE: sequence b reads
 // block b; no table, no dependent load).  B2's launch plan (pa_plan): one
 // block of eight warps per (sequence, KV head) with spans of 16 positions
-// while S <= 128, an 8-block cluster with the automatic span above that.
-// Warps take spans with 16-byte cp.async loads (a scalar-load path for
+// while S <= 128, an 8-block cluster with the automatic span above that;
+// a plan measured per shape class (kernels/tuning.py) launches through
+// decode_attention_config.  Warps take spans with 16-byte cp.async loads (a scalar-load path for
 // rows that are not 16-byte vectors or caches off a 16-byte boundary), and
 // the partials merge in a fixed order, so two launches give equal bits.
 #include "paged_common.cuh"
@@ -71,20 +72,30 @@ extern "C" int decode_attention_plan(int B, int S, int KV, int G, int Dh, const 
   return 0;
 }
 
-extern "C" cudaError_t decode_attention_int8(const void* q, int q_kind, const void* k,
-                                             const void* k_scale, const void* v,
-                                             const void* v_scale, const void* pos, void* out,
-                                             int B, int S, int KV, int G, int Dh,
-                                             cudaStream_t stream) {
-  // cudaErrorInvalidValue: bad shapes; cudaErrorLaunchOutOfResources: the
-  // plan's block needs more than PA_SMEM_LIMIT bytes of shared memory
+// The kernel with an explicit cluster size (1..8) and span limit (1..32);
+// 0 takes the automatic choice (decode_attention_plan).  The tuning cache's
+// B5 plans launch through here; decode_attention_int8() is this with 0, 0.
+extern "C" cudaError_t decode_attention_config(const void* q, int q_kind, const void* k,
+                                               const void* k_scale, const void* v,
+                                               const void* v_scale, const void* pos, void* out,
+                                               int B, int S, int KV, int G, int Dh, int cluster,
+                                               int span_max, cudaStream_t stream) {
+  // cudaErrorInvalidValue: bad shapes or plan; cudaErrorLaunchOutOfResources:
+  // the plan's block needs more than PA_SMEM_LIMIT bytes of shared memory
   if (B <= 0 || !pa_shapes_ok(KV_INT8, B, S, 1, KV, G, Dh)) return cudaErrorInvalidValue;
   if (k_scale == nullptr || v_scale == nullptr) return cudaErrorInvalidValue;
+  if (cluster < 0 || cluster > PA_CLUSTER_MAX || span_max < 0 || span_max > PA_SPAN_MAX)
+    return cudaErrorInvalidValue;
   int plan[4];
   decode_attention_plan(B, S, KV, G, Dh, k, v, plan);
-  const int C = plan[1], span = plan[2], smem = plan[3];
-  if (smem > PA_SMEM_LIMIT) return cudaErrorLaunchOutOfResources;
   const bool vec = plan[0] != 0;
+  int C = plan[1], span = plan[2], smem = plan[3];
+  if (cluster > 0 || span_max > 0) {
+    if (cluster > 0) C = cluster;
+    if (span_max > 0) span = pa_span(S, span_max);
+    smem = static_cast<int>(sizeof(float)) * pa_smem_floats(KV_INT8, vec, G, Dh, span, C);
+  }
+  if (smem > PA_SMEM_LIMIT) return cudaErrorLaunchOutOfResources;
   switch (q_kind) {
     case KIND_F32:
       return vec ? launch<float, true>(C, span, smem, stream, q, k, k_scale, v, v_scale, pos, out,
@@ -99,4 +110,13 @@ extern "C" cudaError_t decode_attention_int8(const void* q, int q_kind, const vo
     default:
       return cudaErrorInvalidValue;
   }
+}
+
+extern "C" cudaError_t decode_attention_int8(const void* q, int q_kind, const void* k,
+                                             const void* k_scale, const void* v,
+                                             const void* v_scale, const void* pos, void* out,
+                                             int B, int S, int KV, int G, int Dh,
+                                             cudaStream_t stream) {
+  return decode_attention_config(q, q_kind, k, k_scale, v, v_scale, pos, out, B, S, KV, G, Dh,
+                                 0, 0, stream);
 }

@@ -572,8 +572,8 @@ extern "C" cudaError_t packed_matmul(const void* x, int x_kind, const void* w,
   return launch_bits(x, x_kind, w, scale, bias, out, M, N, K, bits, VARIANT_AUTO, stream);
 }
 
-// For measurement only (chip_smoke.py): int8 codes through one named kernel,
-// 0 = rows, 1 = tensor cores, whatever M is.  The wrappers never call it.
+// int8 codes through one named kernel, 0 = rows, 1 = tensor cores, whatever
+// M is: the tuning cache's picks (kernels/tuning.py) and chip_smoke.py.
 extern "C" cudaError_t qmatmul_int8_variant(const void* x, const void* w, const void* scale,
                                             const void* bias, void* out, int M, int N,
                                             int K, int bits, int variant,

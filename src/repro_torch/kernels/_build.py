@@ -61,7 +61,7 @@ SIGNATURES = {
     "binary_matmul": {
         # (a, w, alpha, bias, out, M, N, K, stream)
         "binary_matmul": (P, P, P, P, P, I, I, I, P),
-        # measurement only: one named kernel
+        # one named kernel (the tuning cache's picks, chip_smoke.py)
         # (a, w, alpha, bias, out, M, N, K, variant, stream)
         "binary_matmul_variant": (P, P, P, P, P, I, I, I, I, P),
         # () -> the largest M of the decode-rows kernel
@@ -72,7 +72,7 @@ SIGNATURES = {
         "ternary_matmul": (P, I, P, P, P, P, I, I, I, P),
         # (x, x_kind, w, scale, bias, out, M, N, K, bits, stream)
         "packed_matmul": (P, I, P, P, P, P, I, I, I, I, P),
-        # measurement only: int8 codes through one named kernel
+        # int8 codes through one named kernel (the tuning cache's picks)
         # (x, w, scale, bias, out, M, N, K, bits, variant, stream)
         "qmatmul_int8_variant": (P, P, P, P, P, I, I, I, I, I, P),
         # () -> the largest M of the decode-rows kernel
@@ -83,6 +83,10 @@ SIGNATURES = {
         #  B, S, KV, G, Dh, stream)
         "decode_attention_int8": (P, I, P, P, P, P, P, P,
                                   I, I, I, I, I, P),
+        # the tuning cache's plans: (..., B, S, KV, G, Dh, cluster,
+        #  span_max, stream); 0 takes the automatic choice
+        "decode_attention_config": (P, I, P, P, P, P, P, P,
+                                    I, I, I, I, I, I, I, P),
         # (B, S, KV, G, Dh, k, v, plan[4]) -> 0; plan = (vector loads,
         # cluster size, span, shared-memory bytes of one block)
         "decode_attention_plan": (I, I, I, I, I, P, P, P),

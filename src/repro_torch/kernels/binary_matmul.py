@@ -12,13 +12,15 @@ cores, or the 1-bit tensor cores); together they replace the TPU kernel
 the plain version, :func:`repro_torch.kernels.ref.binary_matmul_ref`.
 
 Epilogue: per-feature alpha (the XNOR-net scale) plus an optional bias, in
-f32; both kernels are bit-equal to the plain version.
+f32; both kernels are bit-equal to the plain version.  ``block`` names one
+of the two kernels by its tile (:mod:`.tuning`) and launches it through
+``binary_matmul_variant``, which is how the tuning cache's picks run.
 """
 from __future__ import annotations
 
 import torch
 
-from . import _build
+from . import _build, tuning
 from .ref import binary_matmul_ref
 
 
@@ -49,11 +51,13 @@ def _check_args(a_packed, wt_packed, alpha, bias, k: int) -> tuple:
 
 def binary_matmul(a_packed: torch.Tensor, wt_packed: torch.Tensor,
                   alpha: torch.Tensor, bias: torch.Tensor | None = None, *,
-                  k: int) -> torch.Tensor:
+                  k: int, block=None) -> torch.Tensor:
     """``(K - 2 * popcount(a XOR w)) * alpha (+ bias)`` -> (M, N) float32.
 
     a_packed: (M, K/32) int32; wt_packed: (N, K/32) int32; alpha, bias:
-    (N,) float32; ``k`` the unpacked K (a multiple of 32)."""
+    (N,) float32; ``k`` the unpacked K (a multiple of 32); ``block`` the
+    tile of the kernel to run (None: the automatic choice; the plain
+    version ignores it)."""
     if not a_packed.is_cuda:
         out = binary_matmul_ref(a_packed, wt_packed, k, alpha=alpha)
         return out if bias is None else out + bias[None, :]
@@ -62,10 +66,17 @@ def binary_matmul(a_packed: torch.Tensor, wt_packed: torch.Tensor,
     if m == 0:
         return out
     lib = _build.library("binary_matmul")
-    err = lib.binary_matmul(
-        a_packed.data_ptr(), wt_packed.data_ptr(), alpha.data_ptr(),
-        None if bias is None else bias.data_ptr(), out.data_ptr(), m, n, k,
-        _build.stream_ptr(a_packed))
+    bias_ptr = None if bias is None else bias.data_ptr()
+    if block is not None:
+        err = lib.binary_matmul_variant(
+            a_packed.data_ptr(), wt_packed.data_ptr(), alpha.data_ptr(),
+            bias_ptr, out.data_ptr(), m, n, k,
+            tuning.matmul_variant("binary", k, block),
+            _build.stream_ptr(a_packed))
+    else:
+        err = lib.binary_matmul(
+            a_packed.data_ptr(), wt_packed.data_ptr(), alpha.data_ptr(),
+            bias_ptr, out.data_ptr(), m, n, k, _build.stream_ptr(a_packed))
     _build.check(err, "binary_matmul")
     _build.LAUNCHES["binary_matmul"] += 1
     return out

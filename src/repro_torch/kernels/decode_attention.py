@@ -20,7 +20,9 @@ paged flash-decode core of ``paged_attention`` over the dense cache viewed
 as a pool of B blocks of S positions (sequence b's one block is block b):
 one block of eight warps per (sequence, KV head) while S <= 128, an 8-block
 cluster above that (``csrc/paged_common.cuh``).  :func:`launch_plan`
-reports the choice for a set of operands.
+reports the choice for a set of operands; ``plan=(cluster, span_max)``
+launches another one through ``decode_attention_config`` (0 keeps the
+automatic value), which is how the tuning cache's B5 plans run.
 """
 from __future__ import annotations
 
@@ -68,9 +70,11 @@ def launch_plan(q, k_codes, v_codes) -> dict:
             "smem": plan[3]}
 
 
-def decode_attention(q, k_codes, k_scale, v_codes, v_scale, pos
-                     ) -> torch.Tensor:
-    """Kernel wrapper: (B, KV, G, Dh) float32 attention output."""
+def decode_attention(q, k_codes, k_scale, v_codes, v_scale, pos, *,
+                     plan: tuple[int, int] | None = None) -> torch.Tensor:
+    """Kernel wrapper: (B, KV, G, Dh) float32 attention output.  ``plan``
+    is (cluster size 0..8, span limit 0..32), 0 the automatic value (None:
+    both automatic); the plain version ignores it."""
     if not q.is_cuda:
         return decode_attention_ref(q, k_codes, k_scale, v_codes, v_scale, pos)
     b, kv, g, dh = q.shape
@@ -88,12 +92,18 @@ def decode_attention(q, k_codes, k_scale, v_codes, v_scale, pos
     for t in (q, k_codes, k_scale, v_codes, v_scale, pos_v):
         if t.device != q.device or not t.is_contiguous():
             raise ValueError(f"all operands must be contiguous on {q.device}")
+    cluster, span_max = plan if plan is not None else (0, 0)
+    if not (0 <= cluster <= 8 and 0 <= span_max <= 32):
+        raise ValueError(f"plan {plan}: cluster 0..8, span limit 0..32")
     out = torch.empty((b, kv, g, dh), dtype=torch.float32, device=q.device)
-    err = _build.library("decode_attention").decode_attention_int8(
+    err = _build.library("decode_attention").decode_attention_config(
         q.data_ptr(), _Q_KINDS[q.dtype], k_codes.data_ptr(), k_scale.data_ptr(),
         v_codes.data_ptr(), v_scale.data_ptr(), pos_v.data_ptr(), out.data_ptr(),
-        b, s, kv, g, dh, _build.stream_ptr(q))
+        b, s, kv, g, dh, cluster, span_max, _build.stream_ptr(q))
     if err == _OUT_OF_SMEM:
+        if cluster or span_max:
+            raise ValueError(f"plan {plan} needs more than {SMEM_LIMIT} B of "
+                             f"shared memory per block (G={g}, Dh={dh}, S={s})")
         check_smem(_plan(b, s, kv, g, dh, k_codes, v_codes)[3],
                    f"G={g}, Dh={dh}, S={s}")
     _build.check(err, "decode_attention")

@@ -10,7 +10,10 @@ backend)`` behind one entry point, :func:`qmatmul`, which
   2. resolves the implementation: the exact key first, then the plain
      ``torch`` backend (keys with no CUDA kernel, such as the unpacked
      int8-codes storage, are registered for ``torch`` only),
-  3. applies the epilogue ``acc * w_scale * a_scale + bias`` in that order.
+  3. on the card, resolves which compiled kernel an int-code matmul runs
+     from the tuning cache (:mod:`repro_torch.kernels.tuning`; serving
+     never re-tunes, it looks up; a miss is the C file's automatic choice),
+  4. applies the epilogue ``acc * w_scale * a_scale + bias`` in that order.
 
 On the card, step 1's per-row scales and codes come from one launch of
 the activation-quantizer kernel's row form (``act_quant_signed_rows``,
@@ -38,6 +41,7 @@ import contextlib
 from collections.abc import Callable
 from typing import NamedTuple
 
+import numpy as np
 import torch
 
 from repro_torch.core import packing
@@ -45,12 +49,13 @@ from repro_torch.core.precision import (A_FLOAT, PrecisionConfig, W_BINARY,
                                         W_FLOAT, W_INT, W_TERNARY)
 from repro_torch.core.quantize import weight_fake_quant, weight_quant
 
-from . import _build, ref
+from . import _build, ref, tuning
 from .act_quant import act_quant_signed_rows
 from .binary_matmul import binary_matmul
 from .decode_attention import (_pos_vector,
                                decode_attention as _decode_attention_kernel,
                                decode_attention_serving_ref)
+from .decode_attention import launch_plan as decode_launch_plan
 from .decode_fused import fused_decode as _fused_decode_kernel
 from .flash_attention import flash_attention as _flash_attention_kernel
 from .paged_attention import paged_attention as _paged_attention_kernel
@@ -174,6 +179,15 @@ def resolve_entry(weight_kind: str, act_bits: int, w_bits: int,
         f"{sorted(set((k[0], k[3]) for k in _REGISTRY))}")
 
 
+def resolve(weight_kind: str, act_bits: int, w_bits: int,
+            backend: str) -> Callable:
+    return resolve_entry(weight_kind, act_bits, w_bits, backend)[0]
+
+
+def available_kernels() -> dict[KernelKey, str]:
+    return {k: fn.__name__ for k, fn in sorted(_REGISTRY.items())}
+
+
 def default_backend(t: torch.Tensor) -> str:
     """The kernel for a CUDA tensor, the plain version for a CPU tensor."""
     return BACKEND_CUDA if t.is_cuda else BACKEND_TORCH
@@ -199,7 +213,9 @@ class DispatchEvent(NamedTuple):
     """One engine dispatch.  ``impl_backend`` is the registry key that
     matched (``torch`` when the kind has no CUDA kernel); ``a_scale_shape``
     is the per-row activation scale's shape (None for float/pre-quantized
-    inputs)."""
+    inputs); ``block`` the tuning cache's choice that ran (a packed kernel's
+    tile, or B5's plan; None for the automatic plan and for dispatches
+    that choose nothing)."""
     op: str                     # "qmatmul" | "act_quant_signed_grouped" |
                                 # "decode_attention" | "paged_attention" |
                                 # "fused_paged_decode" | "flash_attention"
@@ -210,6 +226,7 @@ class DispatchEvent(NamedTuple):
     w_bits: int
     m_rows: int
     a_scale_shape: tuple[int, ...] | None
+    block: tuple[int, int, int] | None = None
 
 
 _DISPATCH_SINK: list | None = None
@@ -261,11 +278,12 @@ def reset_launch_counts() -> None:
 
 # ---------------------------------------------------------------------------
 # implementations.  Signature:
-#     fn(x, pw, scale, bias, *, out_dtype, a_scale=None) -> (M, N)
+#     fn(x, pw, scale, bias, *, out_dtype, a_scale=None, block=None) -> (M, N)
 # ``x`` is prepared by qmatmul (int8 codes or float); ``scale`` is the (N,)
 # weight scale; ``a_scale`` the (M, 1) per-row activation scale (None for
-# float/pre-quantized inputs).  Epilogue order everywhere:
-# acc * w_scale * a_scale + bias -> out_dtype.
+# float/pre-quantized inputs); ``block`` the compiled kernel to run (a tile
+# of .tuning; None: the automatic choice; the plain versions ignore it).
+# Epilogue order everywhere: acc * w_scale * a_scale + bias -> out_dtype.
 # ---------------------------------------------------------------------------
 def _row_epilogue(out, a_scale, bias, out_dtype):
     """Per-row dequant applied after the kernel, with the bias held out of
@@ -276,33 +294,39 @@ def _row_epilogue(out, a_scale, bias, out_dtype):
     return out.to(out_dtype)
 
 
-def _kernel_call(kernel, x, pw, scale, bias, out_dtype, a_scale, **kw):
+def _kernel_call(kernel, x, pw, scale, bias, out_dtype, a_scale, block,
+                 **kw):
     out = kernel(x.contiguous(), pw.wt_packed, scale,
-                 bias if a_scale is None else None, **kw)
+                 bias if a_scale is None else None, block=block, **kw)
     if a_scale is not None:
         return _row_epilogue(out, a_scale, bias, out_dtype)
     return out.to(out_dtype)
 
 
 @register_kernel(W_INT, ACT_BITS_RANGE, (2, 4, 8), BACKEND_CUDA)
-def _int_packed_cuda(x, pw, scale, bias, *, out_dtype, a_scale=None):
+def _int_packed_cuda(x, pw, scale, bias, *, out_dtype, a_scale=None,
+                     block=None):
     return _kernel_call(packed_matmul, x, pw, scale, bias, out_dtype, a_scale,
-                        bits=pw.bits)
+                        block, bits=pw.bits)
 
 
 @register_kernel(W_INT, ACT_BITS_RANGE, tuple(range(1, 9)), BACKEND_TORCH)
-def _int_packed_torch(x, pw, scale, bias, *, out_dtype, a_scale=None):
+def _int_packed_torch(x, pw, scale, bias, *, out_dtype, a_scale=None,
+                      block=None):
     return ref.packed_matmul_ref(x, pw.wt_packed, scale, pw.bits, bias=bias,
                                  out_dtype=out_dtype, row_scale=a_scale)
 
 
 @register_kernel(W_TERNARY, ACT_BITS_RANGE, 2, BACKEND_CUDA)
-def _ternary_cuda(x, pw, scale, bias, *, out_dtype, a_scale=None):
-    return _kernel_call(ternary_matmul, x, pw, scale, bias, out_dtype, a_scale)
+def _ternary_cuda(x, pw, scale, bias, *, out_dtype, a_scale=None,
+                  block=None):
+    return _kernel_call(ternary_matmul, x, pw, scale, bias, out_dtype, a_scale,
+                        block)
 
 
 @register_kernel(W_TERNARY, ACT_BITS_RANGE, 2, BACKEND_TORCH)
-def _ternary_torch(x, pw, scale, bias, *, out_dtype, a_scale=None):
+def _ternary_torch(x, pw, scale, bias, *, out_dtype, a_scale=None,
+                   block=None):
     return ref.ternary_matmul_ref(x, pw.wt_packed, scale, bias=bias,
                                   out_dtype=out_dtype, row_scale=a_scale)
 
@@ -323,15 +347,17 @@ def _dequant_dot(x, codes, scale, bias, out_dtype, a_scale):
 
 
 @register_kernel(W_BINARY, 1, 1, BACKEND_CUDA)
-def _binary_xnor_cuda(x, pw, scale, bias, *, out_dtype, a_scale=None):
+def _binary_xnor_cuda(x, pw, scale, bias, *, out_dtype, a_scale=None,
+                      block=None):
     """x: (M, K/32) int32 +/-1 bits.  The XNOR + popcount kernel; the bias
     goes into the kernel only when no per-row scale follows."""
     return _kernel_call(binary_matmul, x, pw, scale, bias, out_dtype, a_scale,
-                        k=pw.k)
+                        block, k=pw.k)
 
 
 @register_kernel(W_BINARY, 1, 1, BACKEND_TORCH)
-def _binary_xnor_torch(x, pw, scale, bias, *, out_dtype, a_scale=None):
+def _binary_xnor_torch(x, pw, scale, bias, *, out_dtype, a_scale=None,
+                       block=None):
     out = ref.binary_matmul_ref(x, pw.wt_packed, pw.k, alpha=scale,
                                 row_scale=a_scale)
     if bias is not None:
@@ -341,7 +367,8 @@ def _binary_xnor_torch(x, pw, scale, bias, *, out_dtype, a_scale=None):
 
 @register_kernel(W_BINARY, tuple(a for a in ACT_BITS_RANGE if a != 1), 1,
                  BACKEND_TORCH)
-def _binary_dequant_torch(x, pw, scale, bias, *, out_dtype, a_scale=None):
+def _binary_dequant_torch(x, pw, scale, bias, *, out_dtype, a_scale=None,
+                          block=None):
     """Binary weights with multi-bit/float activations (8xB): decode the
     +/-1 codes and run the plain dot — no XNOR trick applies.  Activations
     that come pre-packed as int32 +/-1 bits take the XNOR semantics."""
@@ -353,7 +380,8 @@ def _binary_dequant_torch(x, pw, scale, bias, *, out_dtype, a_scale=None):
 
 
 @register_kernel(K_CODES, ACT_BITS_RANGE, tuple(range(1, 9)), BACKEND_TORCH)
-def _codes_torch(x, pw, scale, bias, *, out_dtype, a_scale=None):
+def _codes_torch(x, pw, scale, bias, *, out_dtype, a_scale=None,
+                 block=None):
     """Unpacked int8 codes storage (3-bit / misaligned K)."""
     return _dequant_dot(x, pw.wt_packed, scale, bias, out_dtype, a_scale)
 
@@ -404,13 +432,18 @@ def _prep_activations(x2: torch.Tensor, pw: PackedWeight, a_bits: int,
 # ---------------------------------------------------------------------------
 def qmatmul(x: torch.Tensor, pw: PackedWeight, cfg: PrecisionConfig, *,
             bias=None, out_dtype=torch.float32,
-            backend: str | None = None) -> torch.Tensor:
+            backend: str | None = None,
+            block: tuple[int, int, int] | None = None) -> torch.Tensor:
     """``x @ W`` with quantized/packed ``W`` under ``cfg``.
 
     x       : (..., K) float activations, int8 codes, or (binary) int32
               +/-1 bits; leading dims are flattened and restored.
     pw      : :func:`pack_weight` / :func:`as_packed_weight` output.
     backend : "cuda" | "torch"; None picks by the device of ``x``.
+    block   : the compiled kernel to run, by its tile (a sweep measures
+              this way); None consults the tuning cache where a CUDA kernel
+              runs integer codes or bits (a miss: the automatic choice,
+              never a sweep).  The plain versions ignore it.
     """
     if cfg.w_mode == W_FLOAT:
         raise ValueError("qmatmul needs a quantized-weight config; "
@@ -425,12 +458,19 @@ def qmatmul(x: torch.Tensor, pw: PackedWeight, cfg: PrecisionConfig, *,
     scale = pw.scale.reshape(-1).to(torch.float32)
     kind = storage_kind(pw)
     fn, matched = resolve_entry(kind, a_bits, pw.bits, backend)
+    if block is None and matched[3] == BACKEND_CUDA \
+            and not xq.is_floating_point():
+        block = tuning.get_block_sizes(
+            x2.shape[0], int(scale.shape[0]), pw.k, kind=kind, a_bits=a_bits,
+            w_bits=pw.bits, backend=backend)
     _record_dispatch(op="qmatmul", kind=kind, requested_backend=backend,
                      impl_backend=matched[3], a_bits=a_bits, w_bits=pw.bits,
                      m_rows=int(x2.shape[0]),
                      a_scale_shape=(None if a_scale is None
-                                    else tuple(a_scale.shape)))
-    out = fn(xq, pw, scale, bias, out_dtype=out_dtype, a_scale=a_scale)
+                                    else tuple(a_scale.shape)),
+                     block=None if block is None else tuple(block))
+    out = fn(xq, pw, scale, bias, out_dtype=out_dtype, a_scale=a_scale,
+             block=block)
     return out.reshape(*lead, out.shape[-1])
 
 
@@ -481,15 +521,16 @@ def resolve_attention_entry(kind: str, kv_bits: int,
 
 
 @register_attention(ATTN_DECODE, (8, 4), BACKEND_TORCH)
-def _decode_attn_torch(q, k, ks, v, vs, pos, *, kv_bits, dtype):
+def _decode_attn_torch(q, k, ks, v, vs, pos, *, kv_bits, dtype, block=None):
     return decode_attention_serving_ref(q, k, ks, v, vs, pos,
                                         kv_bits=kv_bits, dtype=dtype)
 
 
 @register_attention(ATTN_DECODE, 8, BACKEND_CUDA)
-def _decode_attn_cuda(q, k, ks, v, vs, pos, *, kv_bits, dtype):
-    return _decode_attention_kernel(q.contiguous(), k, ks, v, vs,
-                                    pos).to(dtype)
+def _decode_attn_cuda(q, k, ks, v, vs, pos, *, kv_bits, dtype, block=None):
+    plan = None if block is None else (block[0], block[2])
+    return _decode_attention_kernel(q.contiguous(), k, ks, v, vs, pos,
+                                    plan=plan).to(dtype)
 
 
 def decode_attention(q, k_codes, k_scale, v_codes, v_scale, pos, *,
@@ -498,15 +539,24 @@ def decode_attention(q, k_codes, k_scale, v_codes, v_scale, pos, *,
     """One-step dense-cache decode attention via the registry.
 
     q: (B, KV, G, Dh); codes (B, S, KV, Dh'); scales (B, S, KV, 1);
-    pos scalar or (B,).  Returns (B, KV, G, Dh) in ``dtype``."""
+    pos scalar or (B,).  Returns (B, KV, G, Dh) in ``dtype``.  The kernel
+    reads its launch plan from the tuning cache
+    (:func:`autotune_decode_attention` sweeps it offline; a miss runs the
+    automatic plan)."""
     backend = _check_backend(backend, q)
     fn, matched = resolve_attention_entry(ATTN_DECODE, kv_bits, backend)
+    block = None
+    if matched[2] == BACKEND_CUDA:
+        b, _, g, dh = q.shape
+        block = tuning.resolve(b * g, dh, k_codes.shape[1],
+                               kind=tuning.ATTN_DECODE, a_bits=kv_bits,
+                               w_bits=8, backend=backend)
     _record_dispatch(op="decode_attention", kind=ATTN_DECODE,
                      requested_backend=backend, impl_backend=matched[2],
                      a_bits=kv_bits, w_bits=8, m_rows=int(q.shape[0]),
-                     a_scale_shape=None)
+                     a_scale_shape=None, block=block)
     return fn(q, k_codes, k_scale, v_codes, v_scale, pos, kv_bits=kv_bits,
-              dtype=dtype)
+              dtype=dtype, block=block)
 
 
 @register_attention(ATTN_PAGED, (16, 8, 4), BACKEND_TORCH)
@@ -660,3 +710,316 @@ def fused_paged_decode(q, k_pool, k_scale, v_pool, v_scale, page_table, pos,
                       device=q.device)
     out[slot_map.long()] = compact
     return out
+
+
+# ---------------------------------------------------------------------------
+# legacy entry point (pre-engine signature; the reference's raw-kernel tests)
+# ---------------------------------------------------------------------------
+def quantized_matmul(x, pw: PackedWeight, bias=None, *,
+                     out_dtype=torch.float32, backend: str | None = None,
+                     block: tuple[int, int, int] | None = None):
+    """Pre-engine dispatch (kept for compatibility): binary weights always
+    binarize the activations; ``block`` names the kernel to run (None: the
+    automatic choice).  The reference's ``use_pallas``/``interpret`` become
+    ``backend`` ("cuda" | "torch"; None picks by the device of ``x``).  New
+    code should call :func:`qmatmul` with a :class:`PrecisionConfig`."""
+    backend = _check_backend(backend, x)
+    scale = pw.scale.reshape(-1).to(torch.float32)
+    if storage_kind(pw) == K_CODES:
+        return _codes_torch(x, pw, scale, bias, out_dtype=out_dtype)
+    if pw.mode == W_BINARY:
+        a_packed = packing.pack_binary_pm1(x) if x.dtype != torch.int32 else x
+        return resolve(W_BINARY, 1, 1, backend)(
+            a_packed, pw, scale, bias, out_dtype=out_dtype, block=block)
+    return resolve(pw.mode, 8, pw.bits, backend)(
+        x, pw, scale, bias, out_dtype=out_dtype, block=block)
+
+
+# ---------------------------------------------------------------------------
+# autotuning entry points: each sweeps the kernel on the card, or its plain
+# version for device="cpu" (entries keyed "torch|...", which serving on the
+# card never reads)
+# ---------------------------------------------------------------------------
+def _sweep_device(device) -> tuple[torch.device, str]:
+    """The device a sweep runs on (default: the card) and its backend."""
+    dev = torch.device(device if device is not None else "cuda")
+    if dev.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError("a sweep on the card needs a visible CUDA device "
+                           "(pass device='cpu' to sweep the plain versions)")
+    return dev, BACKEND_CUDA if dev.type == "cuda" else BACKEND_TORCH
+
+
+def _act_bits(cfg: PrecisionConfig) -> int:
+    return 0 if (cfg.a_mode == A_FLOAT or cfg.a_bits > 8) else cfg.a_bits
+
+
+def _from_numpy(a: np.ndarray, dev: torch.device) -> torch.Tensor:
+    return torch.from_numpy(a).to(dev)
+
+
+def autotune_matmul(cfg: PrecisionConfig, m: int, n: int, k: int, *,
+                    device=None, candidates=None, iters: int = 2,
+                    force: bool = False, seed: int = 0) -> dict:
+    """Sweep the compiled kernels of one (M, N, K, precision) shape class
+    (:func:`tuning.candidate_blocks`: the decode-rows kernel and the tensor
+    cores), each timed through :func:`qmatmul` on integer codes (or packed
+    bits at 1x1), and persist the winner.  Returns the cache entry."""
+    dev, backend = _sweep_device(device)
+    rng = np.random.default_rng(seed)
+    pw = pack_weight(_from_numpy(rng.normal(size=(k, n)).astype(np.float32),
+                                 dev), cfg)
+    kind, a_bits = storage_kind(pw), _act_bits(cfg)
+    if kind == K_CODES or a_bits == 0:
+        raise ValueError(f"{cfg.name}: unpacked storage and float "
+                         "activations run one kernel: nothing to tune")
+    if a_bits == 1:
+        x = _from_numpy(rng.choice([-1, 1], (m, k)).astype(np.int8), dev)
+        if kind == W_BINARY:
+            x = packing.pack_binary_pm1(x)        # the XNOR kernel's operand
+    else:
+        qmax = (1 << (a_bits - 1)) - 1
+        x = _from_numpy(rng.integers(-qmax, qmax + 1, (m, k)).astype(np.int8),
+                        dev)
+
+    def measure(block):
+        return tuning.time_fn(
+            lambda: qmatmul(x, pw, cfg, backend=backend, block=block),
+            iters=iters)
+
+    return tuning.autotune(m, n, k, kind=kind, a_bits=a_bits, w_bits=pw.bits,
+                           backend=backend, measure=measure,
+                           candidates=candidates, force=force)
+
+
+def _kv_cache(rng, shape, kv_bits: int, dev) -> tuple:
+    """Random K/V storage of ``shape`` (.., KV, Dh) and its scales: int8
+    codes (nibble pairs at kv4) with f32 scales, or f32 values at kv16."""
+    if kv_bits == 16:
+        mk = lambda: _from_numpy(rng.normal(size=shape).astype(np.float32),
+                                 dev)
+        return mk(), None, mk(), None
+    qmax = (1 << (min(kv_bits, 8) - 1)) - 1
+    store = shape[:-1] + (shape[-1] // 2 if kv_bits == 4 else shape[-1],)
+    mk = lambda: _from_numpy(
+        rng.integers(-qmax, qmax + 1, store).astype(np.int8), dev)
+    ms = lambda: _from_numpy(
+        rng.uniform(1e-3, 1e-1, shape[:-1] + (1,)).astype(np.float32), dev)
+    return mk(), ms(), mk(), ms()
+
+
+def autotune_decode_attention(*, b: int, s: int, kv: int, g: int, dh: int,
+                              kv_bits: int = 8, iters: int = 2,
+                              force: bool = False, seed: int = 0,
+                              device=None) -> dict:
+    """Sweep B5's launch plan (cluster 1/2/4/8 x span limit 8/16/32, and
+    the automatic plan as the default) for one cache shape class and
+    persist the winner (tuning kind ``attn_decode``, block (cluster, Dh,
+    span limit))."""
+    if kv_bits != 8:
+        raise ValueError(f"kv_bits={kv_bits}: B5 takes int8 codes")
+    dev, backend = _sweep_device(device)
+    rng = np.random.default_rng(seed)
+    q = _from_numpy(rng.normal(size=(b, kv, g, dh)).astype(np.float32), dev)
+    kc, ks, vc, vs = _kv_cache(rng, (b, s, kv, dh), kv_bits, dev)
+    pos = torch.full((b,), s - 1, dtype=torch.int32, device=dev)
+
+    def measure(block):
+        return tuning.time_fn(
+            lambda: _decode_attention_kernel(q, kc, ks, vc, vs, pos,
+                                             plan=(block[0], block[2])),
+            iters=iters)
+
+    default = None
+    if dev.type == "cuda":
+        auto = decode_launch_plan(q, kc, vc)
+        default = (auto["cluster"], dh, auto["span"])
+    cands = [(c, dh, sp) for c in tuning.PA_CLUSTERS for sp in (8, 16, 32)]
+    return tuning.autotune(b * g, dh, s, kind=tuning.ATTN_DECODE,
+                           a_bits=kv_bits, w_bits=8, backend=backend,
+                           measure=measure, candidates=cands,
+                           default=default, force=force)
+
+
+def _pool_sweep(kernel, kind: str, *, b, kv, g, dh, s_max, kv_bits,
+                candidates, iters, force, seed, device, extra=()):
+    """The pool block-size sweep of B2 and B4: for each candidate block size
+    that divides ``s_max``, a pool of whole sequences at the last position,
+    through a shuffled page table."""
+    dev, backend = _sweep_device(device)
+    rng = np.random.default_rng(seed)
+    q = _from_numpy(rng.normal(size=(b, kv, g, dh)).astype(np.float32), dev)
+    pos = torch.full((b,), s_max - 1, dtype=torch.int32, device=dev)
+
+    def measure(block):
+        bs = block[2]
+        nb = s_max // bs
+        pool = _kv_cache(rng, (b * nb + 1, bs, kv, dh), kv_bits, dev)
+        pt = _from_numpy(rng.permutation(b * nb).reshape(b, nb)
+                         .astype(np.int32) + 1, dev)
+        return tuning.time_fn(
+            lambda: kernel(q, *pool, pt, pos, *extra, kv_bits=kv_bits),
+            iters=iters)
+
+    cands = [(1, dh, bs) for bs in candidates if s_max % bs == 0] \
+        or [(1, dh, s_max)]
+    return tuning.autotune(b * g, dh, s_max, kind=kind, a_bits=kv_bits,
+                           w_bits=8, backend=backend, measure=measure,
+                           candidates=cands, force=force)
+
+
+def autotune_kv_block_size(*, b: int, kv: int, g: int, dh: int, s_max: int,
+                           kv_bits: int = 8, candidates=(16, 32, 64, 128),
+                           iters: int = 2, force: bool = False,
+                           seed: int = 0, device=None) -> dict:
+    """Sweep the paged-attention kernel (B2) over candidate KV **block
+    sizes** — the pool's block size is the knob, so the sweep recommends the
+    block size a deployment should configure (:func:`preferred_kv_block_size`
+    reads it back; ``--kv-block-size 0`` in ``launch.serve`` uses it)."""
+    return _pool_sweep(_paged_attention_kernel, tuning.ATTN_PAGED, b=b,
+                       kv=kv, g=g, dh=dh, s_max=s_max, kv_bits=kv_bits,
+                       candidates=candidates, iters=iters, force=force,
+                       seed=seed, device=device)
+
+
+def preferred_kv_block_size(*, b: int, kv: int, g: int, dh: int, s_max: int,
+                            kv_bits: int = 8, default: int = 16,
+                            device=None) -> int:
+    """Tuned pool block size for a cache shape class on ``device`` (default:
+    the card) — cache lookup only: ``default`` on a cold cache or when the
+    entry's size does not divide ``s_max``; never sweeps."""
+    backend = BACKEND_CUDA if torch.device(
+        device if device is not None else "cuda").type == "cuda" \
+        else BACKEND_TORCH
+    entry = tuning.lookup(b * g, dh, s_max, kind=tuning.ATTN_PAGED,
+                          a_bits=kv_bits, w_bits=8, backend=backend)
+    if entry is None:
+        return default
+    bs = int(entry["block"][2])
+    return bs if s_max % bs == 0 else default
+
+
+def autotune_fused_block_size(*, b: int, kv: int, g: int, dh: int, d: int,
+                              s_max: int, kv_bits: int = 8,
+                              candidates=(16, 32, 64, 128), iters: int = 2,
+                              force: bool = False, seed: int = 0,
+                              device=None) -> dict:
+    """Sweep the fused decode kernel (B4) over candidate pool block sizes,
+    persisted under tuning kind ``attn_fused_decode`` next to ``attn_paged``
+    (the two dispatch shapes may prefer different block sizes)."""
+    dev = _sweep_device(device)[0]
+    rng = np.random.default_rng(seed + 1)
+    wo = _from_numpy((rng.normal(size=(kv * g * dh, d)) * dh ** -0.5)
+                     .astype(np.float32), dev)
+    slot_map = torch.arange(b, dtype=torch.int32, device=dev)
+    return _pool_sweep(_fused_decode_kernel, tuning.ATTN_FUSED, b=b, kv=kv,
+                       g=g, dh=dh, s_max=s_max, kv_bits=kv_bits,
+                       candidates=candidates, iters=iters, force=force,
+                       seed=seed, device=device, extra=(slot_map, wo))
+
+
+def model_matmul_shapes(model_cfg, tp: int = 1) -> set:
+    """(N, K) pairs of every qlinear in a transformer-family ModelConfig —
+    the shapes serving will hit (attention projections + FFN).
+
+    ``tp`` > 1 yields the per-device shard shapes of the reference's
+    model-axis sharding policy: output-sharded projections (wq/wk/wv,
+    w_up/w_gate) shrink N -> N/tp, contraction-sharded ones (wo, w_down)
+    shrink K -> K/tp — each only when the head count / hidden dim divides
+    tp (otherwise that matrix replicates and keeps its global shape)."""
+    shapes = set()
+    d = getattr(model_cfg, "d_model", None)
+    if not d:
+        return shapes
+    h = getattr(model_cfg, "n_heads", 0)
+    kv = getattr(model_cfg, "n_kv_heads", h)
+    dh = getattr(model_cfg, "dh", 0)
+    f = getattr(model_cfg, "d_ff", 0)
+
+    def div(n):
+        return tp > 1 and n > 0 and n % tp == 0
+
+    if h and dh:
+        q_n = h * dh // tp if div(h) else h * dh          # wq: N-sharded
+        kv_n = kv * dh // tp if div(kv) else kv * dh      # wk/wv: N-sharded
+        o_k = h * dh // tp if div(h) else h * dh          # wo: K-sharded
+        shapes |= {(q_n, d), (kv_n, d), (d, o_k)}
+    if f:
+        f_loc = f // tp if div(f) else f
+        shapes |= {(f_loc, d), (d, f_loc)}                # w_up/gate | w_down
+    return shapes
+
+
+def _tunable_k(pcfg: PrecisionConfig, k: int) -> bool:
+    """Whether a matmul with contraction length ``k`` has a kernel choice to
+    tune under ``pcfg``: packed int32 storage, integer activations and a
+    CUDA kernel for the key (unpacked int8-codes storage, float weights and
+    float activations run one implementation)."""
+    if pcfg.w_mode == W_FLOAT:
+        return False
+    bits = weight_bits(pcfg)
+    packable = ((pcfg.pack_weights or pcfg.w_mode == W_BINARY)
+                and 32 % bits == 0)
+    a_bits = _act_bits(pcfg)
+    return (packable and k % (32 // bits) == 0 and a_bits > 0
+            and (pcfg.w_mode, a_bits, bits, BACKEND_CUDA) in _REGISTRY)
+
+
+def serving_tune_plan(model_cfg, pcfg: PrecisionConfig, *, n_slots: int,
+                      chunk_size: int, mesh=None, extra_m=()) -> list:
+    """The (M, N, K) shape classes the continuous batcher will dispatch —
+    what :func:`tune_serving_shapes` sweeps: ``chunk_size`` rows per prefill
+    chunk, ``n_slots`` rows per decode step and ``extra_m`` (such as the
+    paged batcher's occupancy buckets), against the model's (N, K) grid.
+    The per-device shapes of a mesh are not ported (Queue A item 9)."""
+    if mesh is not None:
+        raise ValueError("serving_tune_plan with a mesh: the per-device "
+                         "shard shapes are not ported (ROADMAP Queue A "
+                         "item 9)")
+    m_rows = (int(chunk_size), int(n_slots)) + tuple(int(m) for m in extra_m)
+    return sorted({(m, n, k) for (n, k) in model_matmul_shapes(model_cfg)
+                   for m in m_rows})
+
+
+def tune_serving_shapes(model_cfg, pcfg: PrecisionConfig, *, n_slots: int,
+                        chunk_size: int, mesh=None, extra_m=(), device=None,
+                        candidates=None, iters: int = 2) -> list:
+    """Pre-tune the exact M-row buckets the continuous batcher dispatches
+    (:func:`serving_tune_plan`), so the serving loop never misses.  Returns
+    the cache entries of the tunable classes."""
+    return [autotune_matmul(pcfg, m, n, k, device=device,
+                            candidates=candidates, iters=iters)
+            for (m, n, k) in serving_tune_plan(
+                model_cfg, pcfg, n_slots=n_slots, chunk_size=chunk_size,
+                mesh=mesh, extra_m=extra_m)
+            if _tunable_k(pcfg, k)]
+
+
+def prime_serving_shapes(model_cfg, pcfg: PrecisionConfig, *, n_slots: int,
+                         chunk_size: int, mesh=None, extra_m=(),
+                         backend: str | None = None) -> int:
+    """Insert default-block cache entries (``tuning.prime``, no measuring)
+    for every tunable shape class of :func:`serving_tune_plan`.  Returns the
+    number of shape classes primed or present."""
+    backend = backend or BACKEND_CUDA
+    n = 0
+    for (m, nn, k) in serving_tune_plan(model_cfg, pcfg, n_slots=n_slots,
+                                        chunk_size=chunk_size, mesh=mesh,
+                                        extra_m=extra_m):
+        if not _tunable_k(pcfg, k):
+            continue
+        # packed storage: the cache kind is the weight mode
+        tuning.prime(m, nn, k, kind=pcfg.w_mode, a_bits=_act_bits(pcfg),
+                     w_bits=weight_bits(pcfg), backend=backend,
+                     persist=False)
+        n += 1
+    return n
+
+
+def tune_model_shapes(model_cfg, pcfg: PrecisionConfig, *, m_rows=(8, 128),
+                      device=None, candidates=None, iters: int = 2) -> list:
+    """Pre-tune every (M, N, K) of ``m_rows`` against a model's matmul
+    shapes.  Returns the entries."""
+    return [autotune_matmul(pcfg, m, n, k, device=device,
+                            candidates=candidates, iters=iters)
+            for (n, k) in sorted(model_matmul_shapes(model_cfg))
+            if _tunable_k(pcfg, k) for m in m_rows]

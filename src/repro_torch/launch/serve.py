@@ -27,6 +27,17 @@ metrics snapshot every N scheduler steps next to ``--metrics-json``:
     PYTHONPATH=src python -m repro_torch.launch.serve --temperature 0.8 \
         --top-k 50 --trace /tmp/serve.json --profile
 
+``--autotune`` sweeps the kernel choice of every matmul shape class the
+batcher dispatches before serving (``kernels.tuning``: the cache file is
+``~/.cache/repro_torch/tuning.json`` or ``REPRO_TUNING_CACHE``; a rerun
+finds the entries and sweeps nothing).  With ``--paged``, ``--kv-block-size
+0`` takes the pool's block size from that cache (16 on a cold cache);
+with ``--autotune`` it sweeps the paged and the fused decode kernels over
+block sizes 16-128 first:
+
+    PYTHONPATH=src python -m repro_torch.launch.serve --paged --kv-bits 8 \
+        --kv-block-size 0 --autotune --prompt-len 96 --gen 32
+
 Runs on the card (``--device cuda``, the default) and refuses to start when
 no card is visible; ``--device cpu`` runs the plain PyTorch versions of the
 kernels instead.
@@ -34,13 +45,14 @@ kernels instead.
 from __future__ import annotations
 
 import argparse
+import dataclasses
 import json
 
 import numpy as np
 import torch
 
 from repro_torch.configs import ARCH_IDS, get_config
-from repro_torch.kernels import engine
+from repro_torch.kernels import engine, tuning
 from repro_torch.models import build_model, reduce_for_smoke, to_serving
 from repro_torch.models.convert import serving_param_bytes
 from repro_torch.runtime.kvcache import PagedBatcher, paged_block_bytes
@@ -84,8 +96,11 @@ def _trace_config(args):
 
 def _report_trace(batcher, args):
     """Post-run flight-recorder export: Perfetto file, snapshot stream
-    tail, per-phase device/host profile summary."""
+    tail, per-phase device/host profile summary.  The run is over, so the
+    tracer's engine listener comes off first (a later run in the same
+    process dispatches without it)."""
     tracer = batcher.tracer
+    tracer.detach_engine()
     if not tracer.enabled:
         return
     if args.trace:
@@ -118,10 +133,6 @@ def serve(args) -> list:
         raise SystemExit(
             f"--kv-bits {args.kv_bits}: the dense cache stores int8/int4 "
             "codes (or model dtype with 0); 16 is a --paged storage width")
-    if args.paged and args.kv_block_size == 0:
-        raise SystemExit(
-            "--kv-block-size 0 picks the block size from the tuning cache, "
-            "which is not ported yet; pass a block size (16-128)")
     # paged serving owns KV quantization in the block pool; the in-model
     # dense-cache quantizer stays off
     cfg = get_config(args.arch, precision=args.precision,
@@ -140,11 +151,31 @@ def serve(args) -> list:
 
     sc = ServingConfig(n_slots=args.slots or args.requests,
                        s_max=args.prompt_len + args.gen,
-                       chunk_size=args.chunk_size, kv_bits=args.kv_bits,
-                       block_size=args.kv_block_size,
+                       chunk_size=args.chunk_size, autotune=args.autotune,
+                       kv_bits=args.kv_bits, block_size=args.kv_block_size,
                        pool_bytes=args.pool_bytes or None,
                        prefix_cache=args.prefix_cache, reserve=args.reserve,
                        preemption=args.preemption, trace=_trace_config(args))
+    sweeps0 = tuning.stats()["sweeps"]
+    if args.paged and not sc.block_size:
+        attn_shape = dict(
+            b=sc.n_slots, kv=cfg.n_kv_heads,
+            g=max(cfg.n_heads // max(cfg.n_kv_heads, 1), 1), dh=cfg.dh,
+            s_max=sc.s_max, kv_bits=args.kv_bits, device=device)
+        if args.autotune:
+            # the pool block is the sequence tile of both decode dispatch
+            # shapes (two-dispatch paged attention, fused attention + wo):
+            # sweep both, the lookup below reads the paged one
+            for e in (engine.autotune_kv_block_size(**attn_shape),
+                      engine.autotune_fused_block_size(d=cfg.d_model,
+                                                       **attn_shape)):
+                print("  block size sweep: " + ", ".join(
+                    f"{s['block'][2]}: {s['us']:.2f} us" for s in e["swept"])
+                    + f" -> {e['block'][2]}")
+        sc = dataclasses.replace(
+            sc, block_size=engine.preferred_kv_block_size(**attn_shape))
+        print(f"--kv-block-size 0 -> {sc.block_size} "
+              f"({'tuned' if args.autotune else 'tuning-cache'} pick)")
     if args.paged:
         batcher = PagedBatcher(model, params, sc)
         print(f"paged KV cache: {batcher.num_blocks - 1} blocks x "
@@ -155,6 +186,10 @@ def serve(args) -> list:
               f"reserve={args.reserve}, preemption={args.preemption}")
     else:
         batcher = ContinuousBatcher(model, params, sc)
+    if args.autotune:
+        print(f"autotune: {len(batcher.tuned)} shape classes -> "
+              f"{tuning.cache_path()} (sweeps this run: "
+              f"{tuning.stats()['sweeps'] - sweeps0})")
     if batcher.chunk_size:
         print(f"chunked prefill: chunk={batcher.chunk_size}")
     else:
@@ -204,8 +239,8 @@ def main(argv=None):
                     help="serve through the paged KV cache (block pool + "
                          "radix prefix sharing, runtime.kvcache)")
     ap.add_argument("--kv-block-size", type=int, default=16,
-                    help="positions per paged KV block (0, the tuned pick of "
-                         "the reference, is not ported yet)")
+                    help="positions per paged KV block (0 -> the tuned pick "
+                         "from the tuning cache; 16 on a cold cache)")
     ap.add_argument("--prefix-cache", action=argparse.BooleanOptionalAction,
                     default=True,
                     help="radix prefix sharing across requests (--paged)")
@@ -260,6 +295,10 @@ def main(argv=None):
                          "<metrics-json stem>.snapshots.jsonl "
                          "(needs --metrics-json)")
     ap.add_argument("--reduced", action="store_true")
+    ap.add_argument("--autotune", action="store_true",
+                    help="pre-tune the kernel choice of the scheduler's "
+                         "matmul shape classes (persists to the tuning "
+                         "cache; serving then never re-tunes)")
     ap.add_argument("--device", default="cuda",
                     help="cuda (default; the hand-written kernels) or cpu")
     return serve(ap.parse_args(argv))

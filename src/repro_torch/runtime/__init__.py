@@ -1,5 +1,5 @@
-"""Runtime package: the serving facade (``repro.runtime``'s, as far as it
-is ported).
+"""Runtime package: the serving facade plus the host-side fault-tolerance
+helpers (``repro.runtime``'s, as far as they are ported).
 
 ``repro_torch.runtime`` is the stable import surface for serving:
 
@@ -15,10 +15,25 @@ is ported).
     :class:`StepProfiler` (per-step device time against host gap —
     ``runtime.profile``).
 
-Not ported yet: the adaptive server and its policy layer, and the
-fault-tolerance helpers of the reference's runtime package.
+**Fault-tolerance helpers** (host-side; they wrap step functions):
+  * ``PreemptionGuard``  — SIGTERM/SIGINT handler that flips a flag; a loop
+    checkpoints and exits cleanly at the next step boundary;
+  * ``StragglerMonitor`` — per-step wall-time EWMA + deviation; flags steps
+    exceeding mean + k*sigma, and recommends replacement after repeated
+    offenses;
+  * ``retry_with_backoff`` — transient-error wrapper for host I/O.
+
+Not ported yet: the adaptive server and its policy layer
+(``AdaptiveServer``, ``ByteLedger``, ``BrownoutController``, ...; ROADMAP
+Queue A item 6) and ``ElasticTrainer``, the checkpoint-resume loop over
+a device mesh (Queue A items 8-9).
 """
 from __future__ import annotations
+
+import dataclasses
+import signal
+import time
+from collections.abc import Callable
 
 from .errors import (AdmissionError, EmptyPromptError,  # noqa: F401
                      InvalidBudgetError, PoolFootprintError,
@@ -30,3 +45,84 @@ from .serving import (ContinuousBatcher, Request,  # noqa: F401
                       RequestOptions, ServingConfig)
 from .tracing import (MetricsSnapshotter, TraceConfig,  # noqa: F401
                       Tracer, span_coverage)
+
+
+class PreemptionGuard:
+    def __init__(self, signals=(signal.SIGTERM, signal.SIGINT)):
+        self.requested = False
+        self._old = {}
+        self._signals = signals
+
+    def __enter__(self):
+        for s in self._signals:
+            self._old[s] = signal.signal(s, self._handler)
+        return self
+
+    def _handler(self, signum, frame):
+        self.requested = True
+
+    def __exit__(self, *exc):
+        for s, h in self._old.items():
+            signal.signal(s, h)
+        return False
+
+
+@dataclasses.dataclass
+class StragglerEvent:
+    step: int
+    wall_s: float
+    mean_s: float
+    deviation: float
+
+
+class StragglerMonitor:
+    """EWMA step-time tracker; flags outliers > mean + k*std."""
+
+    def __init__(self, alpha: float = 0.1, k: float = 3.0, warmup: int = 5,
+                 replace_after: int = 3):
+        self.alpha = alpha
+        self.k = k
+        self.warmup = warmup
+        self.replace_after = replace_after
+        self.mean = 0.0
+        self.var = 0.0
+        self.n = 0
+        self.events: list[StragglerEvent] = []
+        self.consecutive = 0
+
+    def record(self, step: int, wall_s: float) -> StragglerEvent | None:
+        self.n += 1
+        if self.n <= self.warmup:
+            self.mean = wall_s if self.n == 1 else \
+                (self.mean * (self.n - 1) + wall_s) / self.n
+            self.var = max(self.var, (wall_s - self.mean) ** 2)
+            return None
+        std = self.var ** 0.5
+        event = None
+        if wall_s > self.mean + self.k * max(std, 1e-2 * self.mean):
+            event = StragglerEvent(step, wall_s, self.mean,
+                                   (wall_s - self.mean) / max(std, 1e-9))
+            self.events.append(event)
+            self.consecutive += 1
+        else:
+            self.consecutive = 0
+        self.mean = (1 - self.alpha) * self.mean + self.alpha * wall_s
+        self.var = (1 - self.alpha) * self.var + \
+            self.alpha * (wall_s - self.mean) ** 2
+        return event
+
+    @property
+    def should_replace(self) -> bool:
+        """Recommend pulling the slow host after repeated offenses."""
+        return self.consecutive >= self.replace_after
+
+
+def retry_with_backoff(fn: Callable, retries: int = 3, base_s: float = 0.1,
+                       exceptions=(OSError,)):
+    for attempt in range(retries + 1):
+        try:
+            return fn()
+        except exceptions:
+            if attempt == retries:
+                raise
+            time.sleep(base_s * 2 ** attempt)

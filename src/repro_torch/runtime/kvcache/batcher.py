@@ -127,6 +127,11 @@ class PagedBatcher(ContinuousBatcher):
         self.reserve = config.reserve
         self.preemption = config.preemption
         super().__init__(model, params, config, metrics=metrics)
+        if config.autotune and self._ragged:
+            # the ragged decode runs every matmul at an occupancy bucket's
+            # rows: tune those M rows too (the base class covered n_slots)
+            self.tuned = self._autotune(model.cfg, self._occupancy_buckets(),
+                                        self.chunk_size)
 
     # ------------------------------------------------------------- runtime
     def _build_runtime(self, cfg):
@@ -472,6 +477,11 @@ class PagedBatcher(ContinuousBatcher):
         while b < n_live:
             b *= 2
         return min(b, self.n_slots)
+
+    def _occupancy_buckets(self) -> tuple[int, ...]:
+        """Every decode batch the ragged dispatch can run."""
+        return tuple(sorted({self._occupancy_bucket(n)
+                             for n in range(1, self.n_slots + 1)}))
 
     def _slot_map(self, live: list[int]) -> np.ndarray:
         """The decode step's rows: the live slots padded to their occupancy

@@ -79,6 +79,9 @@ class ServingConfig:
     n_slots: int = 8
     s_max: int = 128
     chunk_size: int | None = None      # None -> min(32, s_max); 0 -> whole
+    # pre-tune the kernel choice of every matmul shape class the batcher
+    # dispatches (kernels.tuning; persists, so serving only looks up)
+    autotune: bool = False
     # ---- paged KV cache (PagedBatcher) ----------------------------------
     kv_bits: int = 16
     block_size: int = 16
@@ -278,6 +281,13 @@ class ContinuousBatcher:
         # the admission cache is rounded up so every chunk call is full-size
         self.s_adm = (bucket_length(s_max, self.chunk_size)
                       if self.chunk_size else s_max)
+        # the tuning-cache entries this batcher's autotune swept or found
+        self.tuned: list[dict] = []
+        if config.autotune:
+            # every matmul shape class of the chunk prefill and the decode
+            # step, so the serving loop only ever hits the cache (whole
+            # prompts vary in length: s_max stands for them)
+            self.tuned = self._autotune(cfg, (), self.chunk_size or s_max)
 
         self._adm_cache = None             # reused (1, s_adm) admission cache
         self.metrics = metrics if metrics is not None else Metrics(n_slots)
@@ -297,6 +307,13 @@ class ContinuousBatcher:
         self._adm: _Admission | None = None
         self._just_finished: list[Request] = []
         self._build_runtime(cfg)
+
+    def _autotune(self, cfg, extra_m, chunk_size: int) -> list[dict]:
+        from repro_torch.core.precision import get_precision, signed
+        from repro_torch.kernels import engine
+        return engine.tune_serving_shapes(
+            cfg, signed(get_precision(cfg.precision)), n_slots=self.n_slots,
+            chunk_size=chunk_size, extra_m=extra_m, device=self.device)
 
     def _build_runtime(self, cfg):
         """KV state construction: one (n_slots, s_max) slot cache.  The
@@ -553,11 +570,13 @@ class ContinuousBatcher:
         admitted) plus one decode step for every active slot.  Returns the
         requests finished this step.
 
-        This is the flight-recorder wrapper (the ``step`` span and the
-        metrics-snapshot cadence) around :meth:`_step_impl`."""
+        This is the flight-recorder wrapper (the ``step`` span, the
+        tuning-cache counter sample and the metrics-snapshot cadence) around
+        :meth:`_step_impl`."""
         tr = self.tracer
         with self._span("step", queue_depth=len(self.queue)):
             finished = self._step_impl()
+        tr.maybe_tuning_counter()
         if tr.snapshotter is not None:
             tr.tick_snapshot(self.metrics)
         return finished

@@ -10,7 +10,9 @@ did step 412 spend its time" has an answer:
   * **instants**: admission, first token, finish, preemption, stall,
     pool-eviction waves, and engine kernel dispatches (via
     :func:`repro_torch.kernels.engine.set_dispatch_listener`);
-  * **counters**: KV-pool occupancy;
+  * **counters**: KV-pool occupancy, and the tuning cache's hits, misses
+    and sweeps (``tuning_cache`` on the engine track, emitted when
+    :func:`repro_torch.kernels.tuning.stats` moved);
   * **flow events** linking one request's admission -> chunks -> first token
     -> finish (-> re-admission after preemption) across slots.
 
@@ -102,6 +104,7 @@ class Tracer:
         self._wall_t0 = time.time()
         self._tracks: dict[str, int] = {}
         self._dispatches_seen: set = set()
+        self._last_tuning: dict | None = None
         self._engine_attached = False
         self._crash_dumped = False
 
@@ -227,6 +230,18 @@ class Tracer:
             from repro_torch.kernels import engine
             engine.set_dispatch_listener(None)
             self._engine_attached = False
+
+    def maybe_tuning_counter(self) -> None:
+        """Emit a tuning-cache counter sample when the stats moved since the
+        last emission (hits/misses/sweeps live in one process-wide dict, so
+        sampling every step would repeat values)."""
+        if not self.enabled:
+            return
+        from repro_torch.kernels import tuning
+        s = tuning.stats()
+        if s != self._last_tuning:
+            self._last_tuning = dict(s)
+            self.counter("tuning_cache", "engine", track=TRACK_ENGINE, **s)
 
     # ----------------------------------------------------- snapshot tick
     def tick_snapshot(self, metrics) -> None:

@@ -25,7 +25,7 @@ from repro.core.precision import get_precision, signed  # noqa: E402
 from repro.kernels import engine as jengine  # noqa: E402
 from repro.kernels import ref as jref  # noqa: E402
 from repro_torch import core as tcore  # noqa: E402
-from repro_torch.kernels import act_quant as taq  # noqa: E402
+taq = importlib.import_module("repro_torch.kernels.act_quant")
 from repro_torch.kernels import engine  # noqa: E402
 from repro_torch.kernels import ref  # noqa: E402
 

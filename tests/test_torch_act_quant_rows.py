@@ -19,6 +19,7 @@ same dtype; the bit-level bf16 rounding against PyTorch's conversion, and
 the rounding by an add of 1.5 * 2^23 against ``np.rint``.  The kernel itself runs
 only on the card (``tests/test_torch_cuda.py``).
 """
+import importlib
 import numpy as np
 import pytest
 from hypothesis import given, settings
@@ -28,7 +29,7 @@ torch = pytest.importorskip("torch")
 import jax.numpy as jnp  # noqa: E402
 
 from repro.kernels import engine as jengine  # noqa: E402
-from repro_torch.kernels import act_quant as taq  # noqa: E402
+taq = importlib.import_module("repro_torch.kernels.act_quant")
 from repro_torch.kernels import engine  # noqa: E402
 from repro_torch.kernels import ref  # noqa: E402
 

@@ -5,19 +5,21 @@ runs on the card's machine:
 
     PYTHONPATH=src python -m pytest -q -m cuda tests/test_torch_cuda.py
 """
+import importlib
 import pytest
 
 torch = pytest.importorskip("torch")
 
 from repro_torch.core import packing  # noqa: E402
 from repro_torch.core.precision import get_precision, signed  # noqa: E402
-from repro_torch.kernels import decode_attention as tattn  # noqa: E402
+tattn = importlib.import_module("repro_torch.kernels.decode_attention")
 from repro_torch.kernels import decode_fused as tfused  # noqa: E402
 from repro_torch.kernels import engine  # noqa: E402
 from repro_torch.kernels import paged_attention as tpaged  # noqa: E402
-from repro_torch.kernels import act_quant as taq  # noqa: E402
+taq = importlib.import_module("repro_torch.kernels.act_quant")
 from repro_torch.kernels import flash_attention as tflash  # noqa: E402
 from repro_torch.kernels import ref  # noqa: E402
+from repro_torch.kernels import tuning  # noqa: E402
 
 pytestmark = pytest.mark.cuda
 
@@ -827,3 +829,57 @@ def test_paged_kernels_wide_f32_rows(gpu):
                          ids=["L1", "L3", "L4"])
 def test_fused_decode_repeated_slot_rows_equal(gpu, slot_map):
     _check_fused(_paged_case(gpu, 8, torch.int8), 8, slot_map)
+
+
+# ---------------------------------------------------------------------------
+# the tuning cache's choices (kernels/tuning.py)
+# ---------------------------------------------------------------------------
+@pytest.mark.parametrize("name", ["2xT", "4x4", "1x1"])
+def test_tuned_matmul_tiles_equal_the_automatic_choice(gpu, name, tmp_path,
+                                                       monkeypatch):
+    """Each compiled kernel a tuned entry can name, through
+    ``engine.qmatmul``, against the cold cache's automatic choice."""
+    monkeypatch.setenv("REPRO_TUNING_CACHE", str(tmp_path / "tuning.json"))
+    tuning.reset()
+    pcfg = signed(get_precision(name))
+    gen = torch.Generator().manual_seed(1)
+    bits = engine.weight_bits(pcfg)
+    for m in (1, 4, 32, 65, 300):
+        for n, k in ((576, 576), (1536, 576), (576, 1536)):
+            pw = engine.pack_weight(torch.randn((k, n), generator=gen)
+                                    .to(gpu), pcfg)
+            x = torch.randn((m, k), generator=gen).to(gpu, torch.bfloat16)
+            auto = engine.qmatmul(x, pw, pcfg)              # cold cache
+            for block in tuning.candidate_blocks(m, n, k, pcfg.w_mode, bits):
+                got = engine.qmatmul(x, pw, pcfg, block=block)
+                torch.cuda.synchronize()
+                assert torch.equal(got, auto), (name, m, n, k, block)
+
+
+@pytest.mark.parametrize("s", [16, 80, 300, 2048])
+def test_decode_attention_config_within_bound(gpu, s):
+    """B5 at every cluster size and span limit (0: automatic) within its
+    per-call bound of the plain version; (0, 0) is the automatic plan."""
+    da = tattn
+    gen = torch.Generator().manual_seed(s)
+    b, kv, g, dh = 4, 3, 3, 64
+    q = torch.randn((b, kv, g, dh), generator=gen).to(gpu, torch.bfloat16)
+    kc, vc = (torch.randint(-127, 128, (b, s, kv, dh), generator=gen,
+                            dtype=torch.int8).to(gpu) for _ in "kv")
+    ks, vs = ((torch.rand((b, s, kv, 1), generator=gen) * 0.02 + 1e-3)
+              .to(gpu) for _ in "kv")
+    pos = torch.tensor([s - 1, s // 2, 3, 0], dtype=torch.int32, device=gpu)
+    ref = da.decode_attention_ref(q, kc, ks, vc, vs, pos)
+    tol = 1e-5 + 1e-4 * ref.abs().max().item()
+    auto = da.decode_attention(q, kc, ks, vc, vs, pos)
+    assert torch.equal(auto, da.decode_attention(q, kc, ks, vc, vs, pos,
+                                                 plan=(0, 0)))
+    for cluster in (0, 1, 2, 4, 8):
+        for span in (0, 1, 8, 16, 32):
+            out = da.decode_attention(q, kc, ks, vc, vs, pos,
+                                      plan=(cluster, span))
+            torch.cuda.synchronize()
+            err = (out - ref).abs().max().item()
+            assert err <= tol, (s, cluster, span, err, tol)
+    with pytest.raises(ValueError):
+        da.decode_attention(q, kc, ks, vc, vs, pos, plan=(9, 0))

@@ -22,7 +22,7 @@ import pytest
 torch = pytest.importorskip("torch")
 import jax.numpy as jnp  # noqa: E402
 
-from repro_torch.kernels import decode_attention as tattn  # noqa: E402
+tattn = importlib.import_module("repro_torch.kernels.decode_attention")
 from test_torch_paged_split import pa_plan, replay_paged_attention  # noqa: E402
 
 # the module (``repro.kernels`` re-exports its function under the same name)

@@ -1,5 +1,5 @@
-"""The port stands alone: no module of ``src/repro_torch`` and not
-``chip_smoke.py`` imports JAX or anything of the JAX package ``repro``;
+"""The port stands alone: no module of ``src/repro_torch``, no example of
+the port (``examples/torch_*.py``) and not ``chip_smoke.py`` imports JAX or anything of the JAX package ``repro``;
 importing the port builds nothing; ``chip_smoke.py`` refuses to run
 outside a checkout."""
 import ast
@@ -15,6 +15,7 @@ torch = pytest.importorskip("torch")
 
 REPO = Path(__file__).resolve().parent.parent
 SOURCES = sorted((REPO / "src" / "repro_torch").rglob("*.py")) + \
+    sorted((REPO / "examples").glob("torch_*.py")) + \
     [REPO / "chip_smoke.py"]
 
 

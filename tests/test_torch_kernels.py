@@ -6,6 +6,7 @@ the dense decode attention at kv 8 and 4.
 Kernels are reached through the engines (and the port's ``ref`` /
 ``decode_attention`` modules), never through the raw matmul kernel modules.
 """
+import importlib
 import numpy as np
 import pytest
 
@@ -14,7 +15,7 @@ import jax.numpy as jnp  # noqa: E402
 
 from repro.core.precision import get_precision, signed  # noqa: E402
 from repro.kernels import engine as jengine  # noqa: E402
-from repro_torch.kernels import decode_attention as tattn  # noqa: E402
+tattn = importlib.import_module("repro_torch.kernels.decode_attention")
 from repro_torch.kernels import engine  # noqa: E402
 
 RNG = np.random.default_rng(3)

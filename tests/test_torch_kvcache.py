@@ -342,6 +342,11 @@ def test_launcher_paged_cpu(capsys):
     out = capsys.readouterr().out
     assert "paged KV cache:" in out and "kv_bits=16" in out
     assert "paged_attention=0" in out and "fused_decode=0" in out
-    with pytest.raises(SystemExit, match="tuning cache"):
-        tserve.main(["--paged", "--reduced", "--device", "cpu",
-                     "--kv-block-size", "0"])
+    # --kv-block-size 0: the tuning cache's pick (cold here: the default)
+    done = tserve.main(["--paged", "--reduced", "--device", "cpu",
+                        "--requests", "2", "--prompt-len", "12", "--gen", "3",
+                        "--kv-block-size", "0"])
+    assert sorted(len(r.output) for r in done) == [3, 3]
+    out = capsys.readouterr().out
+    assert "--kv-block-size 0 -> 16 (tuning-cache pick)" in out
+    assert "16 positions at kv_bits=8" in out

@@ -10,6 +10,7 @@ past ``pos`` at the null block 0; one slot map repeats a slot.
 Tolerance: atol 1e-5 + rtol 1e-5 in f32 — the same products summed in
 another order (online vs one-shot softmax, another matmul order).
 """
+import importlib
 import numpy as np
 import pytest
 
@@ -23,7 +24,7 @@ from repro.kernels import engine as jengine  # noqa: E402
 from repro.kernels import paged_attention as jpaged  # noqa: E402
 from repro.kernels.decode_attention import \
     decode_attention_serving_ref as jserving_ref  # noqa: E402
-from repro_torch.kernels import decode_attention as tdattn  # noqa: E402
+tdattn = importlib.import_module("repro_torch.kernels.decode_attention")
 from repro_torch.kernels import decode_fused as tfused  # noqa: E402
 from repro_torch.kernels import engine  # noqa: E402
 from repro_torch.kernels import paged_attention as tpaged  # noqa: E402

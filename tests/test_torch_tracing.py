@@ -10,8 +10,8 @@
   the same scheduler events in the same order.
 * Traced serving: streams equal the untraced run's, dense and paged, with
   and without the profiler; the document validates, its step spans cover
-  the serving window, and engine dispatches appear once per distinct
-  event.  An ``on_token`` that raises makes ``run()`` dump the ring and
+  the serving window, engine dispatches appear once per distinct event,
+  and the tuning cache's counter is on the engine track.  An ``on_token`` that raises makes ``run()`` dump the ring and
   re-raise.  The launcher's sampling and observability flags run, dense
   and paged.
 """
@@ -113,6 +113,7 @@ def test_disabled_tracer_records_nothing():
     tr.counter("c", "t", v=1)
     tr.complete("d", "t", 0.0, 1.0)
     tr.flow("s", 0)
+    tr.maybe_tuning_counter()
     assert list(tr.events) == [] and tr.dropped == 0
     assert list(NULL_TRACER.events) == []              # shared singleton
 
@@ -349,8 +350,8 @@ def test_traced_run_schema_coverage_and_identical_streams(tmp_path, paged,
     """One workload (greedy and sampled requests, and with ``paged`` a pool
     small enough to preempt) run with the recorder on and off: equal
     streams, a valid document whose step spans cover >= 95% of the serving
-    window, the scheduler's events, and each distinct engine dispatch once
-    on the timeline."""
+    window, the scheduler's events, each distinct engine dispatch once
+    on the timeline, and the tuning cache's counter."""
     kw = dict(num_blocks=6) if paged else {}
     vocab = _model(paged)[0].cfg.vocab
     reqs = _requests(vocab, n=5)
@@ -386,8 +387,13 @@ def test_traced_run_schema_coverage_and_identical_streams(tmp_path, paged,
         assert b.profiler is None
     assert want <= names, want - names
     dispatch = [(e["name"], e["args"]) for e in doc["traceEvents"]
-                if e.get("cat") == "engine"]
+                if e.get("cat") == "engine" and e["ph"] == "i"]
     assert len(dispatch) == len(set(events)) > 0
+    # the tuning cache's counter rides the engine track (first step at least)
+    counters = [e for e in doc["traceEvents"]
+                if e.get("name") == "tuning_cache"]
+    assert counters and all(e["ph"] == "C" and set(e["args"]) ==
+                            {"hits", "misses", "sweeps"} for e in counters)
     assert len({json.dumps(d, sort_keys=True) for d in dispatch}) == \
         len(dispatch)
     assert json.loads((tmp_path / "t.json").read_text()) == doc
@@ -497,6 +503,8 @@ def test_launcher_sampling_and_observability_flags(tmp_path, capsys, paged):
             "--metrics-json", metrics, "--metrics-interval", "2"]
     done = tserve.main(argv + (["--paged"] if paged else []))
     assert sorted(len(r.output) for r in done) == [4, 4, 4]
+    # the finished run's tracer no longer listens to the engine
+    assert engine._DISPATCH_LISTENER is None
     out = capsys.readouterr().out
     assert out.count("] tok ") == 12 and out.count("<eos>") == 3
     assert "profile[decode]:" in out and "profile[prefill_chunk]:" in out

@@ -17,6 +17,7 @@ exits non-zero on a failed check.
 """
 from __future__ import annotations
 
+import importlib
 import sys
 import time
 from pathlib import Path
@@ -35,7 +36,7 @@ def decode_error_stats(gen, device, card, n: int = 200) -> None:
     of max |diff| / max |out|."""
     import statistics
     import torch
-    from repro_torch.kernels import decode_attention as da
+    da = importlib.import_module("repro_torch.kernels.decode_attention")
     b, kv, g, dh, s = (chip_smoke.N_SLOTS, chip_smoke.KV_HEADS, chip_smoke.GROUP,
                        chip_smoke.DH, chip_smoke.S_MAX)
     rows = {"kernel - plain": [], "kernel - f64": [], "plain - f64": []}

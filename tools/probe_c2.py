@@ -74,13 +74,14 @@ def _recorders(per_call: bool, kv_from=None, serving: bool = False):
     saved = {b: engine.resolve_attention_entry(*key, b)[0]
              for b in engine.BACKENDS}
 
-    def kernel(q, k, ks, v, vs, pos, *, kv_bits, dtype):
-        out = decode_attention(q.contiguous(), k, ks, v, vs, pos)
+    def kernel(q, k, ks, v, vs, pos, *, kv_bits, dtype, block=None):
+        plan = None if block is None else (block[0], block[2])
+        out = decode_attention(q.contiguous(), k, ks, v, vs, pos, plan=plan)
         ref = decode_attention_ref(q, k, ks, v, vs, pos) if per_call else None
         attn.append({"q": q.clone(), "out": out, "ref": ref})
         return out.to(dtype)
 
-    def plain(q, k, ks, v, vs, pos, *, kv_bits, dtype):
+    def plain(q, k, ks, v, vs, pos, *, kv_bits, dtype, block=None):
         out = decode_attention_serving_ref(
             q, k, ks, v, vs, pos, kv_bits=kv_bits, dtype=dtype).to(
                 torch.float32) if serving else \
