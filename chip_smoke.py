@@ -79,6 +79,18 @@ Phases (each prints its own lines; any failed check exits non-zero):
      step's wall time with every row sampled beside all-greedy and the
      selection's own time, and the serving CLI's ITL with ``--profile`` and
      without;
+  4l. self-speculative decoding and the adaptive server, fp32 weights in
+     float32: phase 4's requests through the paged kv16 batcher with and
+     without speculation (2xT draft, k=3; then the 8x8 draft on 4
+     requests): the speculative counters, launches per draft step, the
+     streams against the non-speculative run's (equal, or parted where
+     that run's top-2 logit gap is within 1e-4 of max|logit|), the verify
+     step's time beside a decode step's; the adaptive server (4 premium
+     requests active, then 12 standard / batch ones; a shared 256 MiB
+     budget): ``check_pool()`` after every step, the routed rungs,
+     per-class SLO attainment, per-lane ITL and launches, premium streams
+     against an unloaded run's; the CLI with ``--brownout --speculative``
+     and its refusal of a quantized primary;
   5. decode steps of the dense and the paged 2xT paths, of the dense 1x1
      path and of the paged fp32-weight path (phase 4d's) under
      ``torch.profiler``: device operations per step, device busy time and
@@ -2161,6 +2173,326 @@ def phase_sampling(device, card, dense, paged):
 
 
 # ---------------------------------------------------------------------------
+# 4l: self-speculative decoding and the adaptive server
+# ---------------------------------------------------------------------------
+SPEC_K = 3
+ADAPTIVE_POOL = 256 << 20        # bytes; every lane sizes its pool to it
+N_PREMIUM, N_BURST = 4, 12
+
+
+def _top2_gap(model, params, prompt, stream, d, device):
+    """(top-2 gap, max|logit|) of the plain versions' logits after
+    ``prompt`` + ``stream[:d]`` (the token ``stream[d]`` is chosen from)."""
+    import numpy as np
+    import torch
+    toks = np.concatenate([prompt[0], np.asarray(stream[:d], prompt.dtype)])
+    tokens = torch.from_numpy(toks[None]).to(device)
+    logits, _ = model.prefill(params, {"tokens": tokens}, tokens.shape[1] + 1,
+                              backend="torch")
+    row = logits[0, -1].to(torch.float32)
+    top = row.topk(2).values
+    return (top[0] - top[1]).item(), row.abs().max().item()
+
+
+def _equal_or_near_tie(label, model, params, reqs, got, want, device) -> int:
+    """Every stream of ``got`` equals its stream in ``want``, or parts from
+    it where ``want``'s token was a near tie: a top-2 logit gap at most 1e-4
+    of max|logit| (phase 4's bound; the gap from the plain versions).
+    Prints each parting; returns the count of equal streams."""
+    n_eq = 0
+    for r in reqs:
+        g, w = got[r.rid], want[r.rid]
+        if g == w:
+            n_eq += 1
+            continue
+        d = next(i for i, (a, b) in enumerate(zip(g, w)) if a != b)
+        gap, scale = _top2_gap(model, params, r.tokens, w, d, device)
+        print(f"{label}: request {r.rid} parts at token {d} ({g[d]} for "
+              f"{w[d]}): top-2 logit gap {gap:.3e}, 1e-4 of max|logit| "
+              f"{1e-4 * scale:.3e} (near-tie exception)")
+        check(gap <= 1e-4 * scale,
+              f"{label}: request {r.rid} parts at token {d} where the top-2 "
+              f"gap {gap:.3e} > 1e-4 of max|logit| {scale:.3e}")
+    print(f"{label}: streams equal {n_eq}/{len(reqs)}")
+    return n_eq
+
+
+def _count_draft_steps(batcher, first_trace: list):
+    """Wrap ``batcher``'s draft steps: the launch counts of each (a list of
+    dicts, returned) and the first one's engine dispatches into
+    ``first_trace``."""
+    from repro_torch.kernels import engine
+    steps, step_rows = [], batcher._step_rows
+
+    def counted(model, params, live, tokens, pos):
+        if model is not batcher._draft_model:
+            return step_rows(model, params, live, tokens, pos)
+        before = engine.launch_counts()
+        if steps:
+            out = step_rows(model, params, live, tokens, pos)
+        else:
+            with engine.dispatch_trace() as ev:
+                out = step_rows(model, params, live, tokens, pos)
+            first_trace.extend(ev)
+        after = engine.launch_counts()
+        steps.append({k: after[k] - before[k] for k in after
+                      if after[k] != before[k]})
+        return out
+    batcher._step_rows = counted
+    return steps
+
+
+def _speculative(device, card, model, params, draft: str, n_req: int,
+                 timed: bool):
+    """The fp32 paged kv16 batcher with the ``draft`` draft beside the same
+    configuration without speculation, on ``n_req`` of phase 4's requests:
+    streams, counters, launches per draft step; with ``timed`` the verify
+    and draft steps' device ms beside a sequential decode step's."""
+    from repro_torch.runtime.kvcache import PagedBatcher
+    from repro_torch.runtime.tracing import TraceConfig
+    cfg = model.cfg
+    plain_sc = dataclasses.replace(_paged_config(), kv_bits=16)
+    sc = dataclasses.replace(plain_sc, speculative=True,
+                             draft_precision=draft, draft_k=SPEC_K)
+    for conf in (plain_sc, sc):
+        _warm(PagedBatcher(model, params, conf), cfg)
+    reqs = _requests(cfg, n_req, GEN)
+    plain, plain_launches = _run(PagedBatcher(model, params, plain_sc),
+                                 _requests(cfg, n_req, GEN), card,
+                                 "fp32 paged kv16")
+    check(plain_launches["fused_decode"] > 0,
+          "the fp32 kv16 decode steps launched no fused_decode")
+    b = PagedBatcher(model, params, sc)
+    trace = []
+    steps = _count_draft_steps(b, trace)
+    label = f"fp32 paged kv16, speculative ({draft} draft, k={SPEC_K})"
+    got, _ = _run(b, reqs, card, label)
+    s = b.metrics.summary()["speculative"]
+    print(f"{label}: verify_steps {s['verify_steps']}, draft_tokens "
+          f"{s['draft_tokens']}, accepted_tokens {s['accepted_tokens']}, "
+          f"acceptance rate {s['draft_accept_rate']:.4f} (accepted / "
+          f"drafted), {s['accepted_per_verify']:.3f} tokens a verify step")
+    kinds = sorted({tuple(st.items()) for st in steps})
+    print(f"{label}: launches per draft step ({len(steps)} draft steps): "
+          + " | ".join(str(dict(k)) for k in kinds))
+    plain_ops = sorted({(e.op, e.kind) for e in trace
+                        if e.impl_backend == "torch"})
+    print(f"{label}: plain-path dispatches of a draft step (dispatch_trace, "
+          f"impl_backend torch): {plain_ops or 'none'}")
+    # every draft projection quantizes its rows (B7c); the quantized wo
+    # composes B2 with qmatmul; 2xT packs its matrices for B1, while 8x8
+    # stores int8 codes unpacked (pack_weights False: the plain codes path)
+    need = ("act_quant_signed_grouped",) + (
+        ("ternary_matmul",) if draft == "2xT" else ())
+    n = cfg.n_layers
+    check(steps and all(st.get("paged_attention") == n
+                        and all(st.get(k, 0) > 0 for k in need)
+                        for st in steps),
+          f"{label}: a draft step missed {need} or one paged_attention a "
+          "layer")
+    check(s["verify_steps"] == b.metrics.decode_steps > 0,
+          f"{label}: no verify step")
+    _equal_or_near_tie(f"{label} against the non-speculative run", model,
+                       params, reqs, got, plain, device)
+    if not timed:
+        return s
+    prof, draft_ms = {}, []
+    for spec, conf in ((False, plain_sc), (True, sc)):
+        pb = PagedBatcher(model, params, dataclasses.replace(
+            conf, trace=TraceConfig(enabled=False, profile=True)))
+        if spec:
+            import torch
+            step_rows = pb._step_rows
+
+            def synced(m, *a, step_rows=step_rows, pb=pb):
+                if m is not pb._draft_model:
+                    return step_rows(m, *a)
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                out = step_rows(m, *a)          # ends in a host copy
+                draft_ms.append((time.perf_counter() - t0) * 1e3)
+                return out
+            pb._step_rows = synced
+        _streams(pb, _requests(cfg, n_req, GEN))
+        prof[spec] = pb.profiler.summary()
+    v, d = prof[True]["verify"]["device_ms"], prof[False]["decode"]["device_ms"]
+    print(f"[{card}] {label}: verify step (B={N_SLOTS} x W={SPEC_K + 1}, "
+          f"plain PyTorch) {v['p50']:.3f} ms p50 (p90 {v['p90']:.3f}) beside "
+          f"one sequential fp32 kv16 decode step (B4) {d['p50']:.3f} ms p50 "
+          f"(p90 {d['p90']:.3f}); a draft step {statistics.median(draft_ms):.3f}"
+          f" ms p50 over {len(draft_ms)} (StepProfiler brackets, synced; one "
+          "profiled run each)")
+    return s
+
+
+def _lane_counters(srv):
+    """Wrap each lane's step to count the kernel launches made inside it
+    (the counts' change across the step); returns one Counter a lane."""
+    from collections import Counter
+    from repro_torch.kernels import engine
+    per_lane = [Counter() for _ in srv.lanes]
+    for i, lane in enumerate(srv.lanes):
+        def step(lane_step=lane.step, c=per_lane[i]):
+            before = engine.launch_counts()
+            out = lane_step()
+            after = engine.launch_counts()
+            c.update({k: after[k] - before[k] for k in after})
+            return out
+        lane.step = step
+    return per_lane
+
+
+def _adaptive(device, card, model, params):
+    """The adaptive server at full width: four premium requests go active,
+    then a burst of standard / batch requests arrives."""
+    import torch
+    from repro_torch.kernels import engine
+    from repro_torch.runtime.adaptive import AdaptiveServer
+    from repro_torch.runtime.serving import ServingConfig
+    cfg = model.cfg
+    sc = ServingConfig(n_slots=N_SLOTS, s_max=S_MAX, chunk_size=CHUNK,
+                       block_size=BLOCK, pool_bytes=ADAPTIVE_POOL,
+                       brownout=True, speculative=True, draft_k=SPEC_K)
+    stamps = {}
+
+    def on_token(req, tok, finished):
+        stamps.setdefault(req.rid, []).append(time.perf_counter())
+
+    def premium():
+        reqs = _requests(cfg, N_PREMIUM, GEN)
+        for r in reqs:
+            r.options = dataclasses.replace(r.options, slo="premium",
+                                            on_token=on_token)
+        return reqs
+
+    def serve(burst: bool):
+        srv = AdaptiveServer(model, params, sc)
+        per_lane = _lane_counters(srv)
+        reqs = premium()
+        for r in reqs:
+            srv.submit(r)
+        done, n_checked = [], 0
+        for _ in range(200):                 # the premium slots go active
+            if all(r.output for r in reqs):
+                break
+            done += srv.step()
+            srv.check_pool()
+            n_checked += 1
+        check(all(r.output for r in reqs), "premium requests never active")
+        if burst:
+            extra = _requests(cfg, N_PREMIUM + N_BURST, GEN // 2)[N_PREMIUM:]
+            for j, r in enumerate(extra):
+                r.options = dataclasses.replace(
+                    r.options, slo=("standard", "batch")[j % 2],
+                    on_token=on_token)
+                srv.submit(r)
+            reqs += extra
+        engine.reset_launch_counts()
+        for _ in range(10_000):
+            if srv.idle:
+                break
+            done += srv.step()
+            srv.check_pool()                 # the ledger's bound included
+            n_checked += 1
+        torch.cuda.synchronize()
+        check(srv.idle and len(done) == len(reqs),
+              f"adaptive: served {len(done)} of {len(reqs)} requests")
+        for r in done:
+            check(len(r.output) == r.max_new
+                  and all(0 <= t < cfg.vocab for t in r.output),
+                  f"adaptive request {r.rid}: short or out-of-range tokens")
+        return srv, reqs, {r.rid: list(r.output) for r in done}, \
+            per_lane, n_checked
+
+    srv0, _, base, _, _ = serve(False)
+    del srv0
+    stamps.clear()
+    srv, reqs, got, per_lane, n_checked = serve(True)
+    m = srv.metrics
+    rungs = {r.rid: r.routed_rung for r in reqs}
+    print(f"adaptive: {len(srv.lanes)} lanes "
+          f"({', '.join(l.trace_track for l in srv.lanes)}), shared budget "
+          f"{ADAPTIVE_POOL >> 20} MiB, check_pool() clean after each of "
+          f"{n_checked} steps (ledger peak within budget); routed rung by "
+          f"request: {rungs}; brownout_raises {m.brownout_raises}, "
+          f"degraded_admissions {m.degraded_admissions}")
+    for name, c in sorted(srv.summary()["slo"].items()):
+        print(f"adaptive SLO {name}: finished {c['finished']}, attainment "
+              f"{c['attainment']:.3f} (targets {c['target']})")
+    for i, lane in enumerate(srv.lanes):
+        itl = [(b - a) * 1e3 for r in reqs if rungs[r.rid] == i
+               for a, b in zip(stamps[r.rid], stamps[r.rid][1:])]
+        launched = {k: v for k, v in per_lane[i].items() if v}
+        print(f"[{card}] adaptive lane {lane.trace_track}: "
+              f"{sum(rungs[r.rid] == i for r in reqs)} requests, ITL p50 "
+              + (f"{statistics.median(itl):.2f} ms" if itl else "n/a")
+              + f"; launches {launched}")
+    check(all(rungs[r.rid] == 0 for r in reqs[:N_PREMIUM]),
+          "a premium request left rung 0")
+    check(m.brownout_raises > 0 and m.degraded_admissions > 0,
+          "the burst never browned out")
+    for i in (1, 2):
+        check(per_lane[i]["fused_decode"] > 0,
+              f"rung {i}: no fused_decode launch")
+    check(all(per_lane[3][k] > 0 for k in ("paged_attention",
+                                           "ternary_matmul",
+                                           "act_quant_signed_grouped")),
+          "rung 3: B2, B1 or B7c never launched")
+    prem = reqs[:N_PREMIUM]
+    _equal_or_near_tie("adaptive premium streams against an unloaded run",
+                       model, params, prem, got, base, device)
+    del srv
+
+
+def _cli_adaptive() -> None:
+    """The serving CLI with --brownout --speculative, and its refusal of a
+    quantized primary."""
+    from repro_torch.launch import serve as cli
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        done = cli.main(["--precision", "fp32", "--brownout", "--speculative",
+                         "--slo", "mixed", "--requests", "12", "--slots",
+                         str(N_SLOTS)])
+    out = buf.getvalue().splitlines()
+    lanes = [ln for ln in out if ln.startswith("adaptive serving:")]
+    print("CLI --precision fp32 --brownout --speculative --slo mixed: "
+          + (lanes[0] if lanes else "no lanes line"))
+    check(len(lanes) == 1 and len(done) == 12,
+          "CLI --brownout --speculative: no lanes line or requests missing")
+    try:
+        cli.main(["--precision", "2xT", "--speculative"])
+    except SystemExit as e:
+        check(isinstance(e.code, str) and "need a float primary" in e.code,
+              f"CLI --precision 2xT --speculative: exit {e.code!r}")
+        print(f"CLI --precision 2xT --speculative refuses: {e.code[:60]}...")
+    else:
+        fail("CLI --precision 2xT --speculative did not refuse")
+
+
+def phase_speculative(device, card):
+    """4l: self-speculative decoding and the adaptive server at full width,
+    fp32 weights in float32."""
+    import torch
+    from repro_torch.kernels import engine
+    from repro_torch.models import build_model
+    print("== 4l. self-speculative decoding and the adaptive server: "
+          "smollm-135m fp32 float32 (full width)", flush=True)
+    t0 = time.time()
+    model = build_model(model_config(precision="fp32", kv_bits=0,
+                                     dtype="float32"))
+    params = model.init(torch.Generator().manual_seed(0), device)
+    _speculative(device, card, model, params, "2xT", N_REQ, timed=True)
+    s8 = _speculative(device, card, model, params, "8x8", N_SLOTS,
+                      timed=False)
+    check(s8["accepted_tokens"] > 0, "the 8x8 draft accepted nothing")
+    _adaptive(device, card, model, params)
+    _cli_adaptive()
+    engine.clear_variants()
+    torch.cuda.empty_cache()
+    print(f"phase 4l: {time.time() - t0:.1f} s")
+
+
+# ---------------------------------------------------------------------------
 # 4k: the tuning cache
 # ---------------------------------------------------------------------------
 TUNE_PRECISIONS = ("2xT", "4x4", "1x1")
@@ -2704,6 +3036,7 @@ def _main(torch, tmp: str) -> None:
     phase_forward(device, card)
     core_launches = phase_core_quant(device, card)
     phase_sampling(device, card, served, (paged_model, paged_streams))
+    phase_speculative(device, card)
     launches.update(paged_attention=paged_launches["paged_attention"],
                     fused_decode=fused_launches["fused_decode"],
                     binary_matmul=xnor_launches["binary_matmul"],

@@ -24,8 +24,10 @@ from .act_quant import (act_quant, act_quant_signed,  # noqa: F401
 from .decode_attention import decode_attention  # noqa: F401
 from .engine import (  # noqa: F401
     PackedWeight,
+    PrecisionVariant,
     as_packed_weight,
     available_kernels,
+    clear_variants,
     default_backend,
     fake_quant_dot,
     hbm_bytes,
@@ -33,5 +35,8 @@ from .engine import (  # noqa: F401
     qmatmul,
     quantized_matmul,
     register_kernel,
+    register_variant,
+    registered_variants,
     resolve,
+    variant_tune_plans,
 )

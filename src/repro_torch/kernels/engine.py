@@ -964,6 +964,61 @@ def _tunable_k(pcfg: PrecisionConfig, k: int) -> bool:
             and (pcfg.w_mode, a_bits, bits, BACKEND_CUDA) in _REGISTRY)
 
 
+# ---------------------------------------------------------------------------
+# precision-variant registry (adaptive serving)
+# ---------------------------------------------------------------------------
+class PrecisionVariant(NamedTuple):
+    """One precision variant of a model's weights held for runtime precision
+    switching: the serving-form params and the PrecisionConfig their
+    matmuls dispatch under.  The speculative batcher and the adaptive
+    server register their variants here, so tuning plans and tests can list
+    what a server holds."""
+    name: str                  # variant key, e.g. "primary", "2xT"
+    pcfg: PrecisionConfig
+    params: object             # serving-form param tree
+
+
+# model name -> variant name -> PrecisionVariant
+_VARIANTS: dict[str, dict[str, PrecisionVariant]] = {}
+
+
+def register_variant(model_name: str, name: str, pcfg: PrecisionConfig,
+                     params) -> PrecisionVariant:
+    """Register (or replace) a named precision variant of one model's
+    weights; re-registration overwrites, so rebuilding a batcher keeps no
+    stale param tree."""
+    var = PrecisionVariant(name, pcfg, params)
+    _VARIANTS.setdefault(model_name, {})[name] = var
+    return var
+
+
+def registered_variants(model_name: str) -> dict[str, PrecisionVariant]:
+    """The variants registered for ``model_name`` (possibly {})."""
+    return dict(_VARIANTS.get(model_name, {}))
+
+
+def clear_variants(model_name: str | None = None) -> None:
+    """Drop registered variants (every model's when ``model_name`` is None),
+    releasing the param trees they hold."""
+    if model_name is None:
+        _VARIANTS.clear()
+    else:
+        _VARIANTS.pop(model_name, None)
+
+
+def variant_tune_plans(model_cfg, *, n_slots: int, chunk_size: int,
+                       draft_window: int = 0, mesh=None) -> dict:
+    """:func:`serving_tune_plan` of every variant registered under
+    ``model_cfg.name``.  ``draft_window`` > 0 adds the speculative verify
+    window's rows (``n_slots * (draft_window + 1)``: the (B, W) window
+    flattens into the matmul M axis) to every plan."""
+    extra = (int(n_slots) * (int(draft_window) + 1),) if draft_window else ()
+    return {name: serving_tune_plan(model_cfg, var.pcfg, n_slots=n_slots,
+                                    chunk_size=chunk_size, mesh=mesh,
+                                    extra_m=extra)
+            for name, var in registered_variants(model_cfg.name).items()}
+
+
 def serving_tune_plan(model_cfg, pcfg: PrecisionConfig, *, n_slots: int,
                       chunk_size: int, mesh=None, extra_m=()) -> list:
     """The (M, N, K) shape classes the continuous batcher will dispatch —

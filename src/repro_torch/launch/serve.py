@@ -38,6 +38,16 @@ block sizes 16-128 first:
     PYTHONPATH=src python -m repro_torch.launch.serve --paged --kv-bits 8 \
         --kv-block-size 0 --autotune --prompt-len 96 --gen 32
 
+``--speculative`` serves through the paged batcher with self-speculative
+decoding (the ``--draft-precision`` variant drafts ``--draft-k`` tokens a
+slot, the float weights verify them in one windowed step), and
+``--brownout`` through the adaptive server (SLO-routed lanes down a kv
+16/8/4 ladder, then the draft weights; ``--slo`` tags the requests); both
+need a float ``--precision``:
+
+    PYTHONPATH=src python -m repro_torch.launch.serve --precision fp32 \
+        --brownout --speculative --slo mixed --requests 12 --slots 4
+
 Runs on the card (``--device cuda``, the default) and refuses to start when
 no card is visible; ``--device cpu`` runs the plain PyTorch versions of the
 kernels instead.
@@ -52,9 +62,11 @@ import numpy as np
 import torch
 
 from repro_torch.configs import ARCH_IDS, get_config
+from repro_torch.core.precision import A_FLOAT, W_FLOAT, get_precision, signed
 from repro_torch.kernels import engine, tuning
 from repro_torch.models import build_model, reduce_for_smoke, to_serving
 from repro_torch.models.convert import serving_param_bytes
+from repro_torch.runtime.adaptive import AdaptiveServer
 from repro_torch.runtime.kvcache import PagedBatcher, paged_block_bytes
 from repro_torch.runtime.serving import (ContinuousBatcher, Request,
                                          RequestOptions, ServingConfig)
@@ -111,9 +123,14 @@ def _report_trace(batcher, args):
         tracer.snapshotter.final(batcher.metrics)
         print(f"metrics snapshots -> {tracer.snapshotter.path} "
               f"({tracer.snapshotter.lines_written} lines)")
-    if batcher.profiler is not None:
-        for label, s in sorted(batcher.profiler.summary().items()):
-            print(f"profile[{label}]: {s['steps']} steps, device "
+    # the adaptive server's lanes each carry their own profiler
+    lanes = getattr(batcher, "lanes", None)
+    for b in lanes or [batcher]:
+        if b.profiler is None:
+            continue
+        where = f" {b.trace_track}" if lanes else ""
+        for label, s in sorted(b.profiler.summary().items()):
+            print(f"profile[{label}]{where}: {s['steps']} steps, device "
                   f"{s['device_ms']['p50']:.2f} ms p50, host gap "
                   f"{s['host_ms']['p50']:.2f} ms p50 "
                   f"(host_frac {s['host_frac']:.1%})")
@@ -127,6 +144,16 @@ def stream_cb(req, tok, finished):
 
 def serve(args) -> list:
     device = resolve_device(args.device)
+    # the adaptive server's lanes and the speculative batcher are paged
+    args.paged = args.paged or args.brownout or args.speculative
+    if args.brownout or args.speculative:
+        p = signed(get_precision(args.precision))
+        if p.w_mode != W_FLOAT or p.a_mode != A_FLOAT:
+            raise SystemExit(
+                f"--precision {args.precision}: --brownout/--speculative "
+                "need a float primary — the low-bit lanes and the draft "
+                "variant are packed down from the float weights at startup "
+                "(try --precision fp32)")
     if args.paged and args.kv_bits == 0:
         args.kv_bits = 16                  # dense spelling of "unquantized"
     if not args.paged and args.kv_bits not in (0, 4, 8):
@@ -155,7 +182,10 @@ def serve(args) -> list:
                        kv_bits=args.kv_bits, block_size=args.kv_block_size,
                        pool_bytes=args.pool_bytes or None,
                        prefix_cache=args.prefix_cache, reserve=args.reserve,
-                       preemption=args.preemption, trace=_trace_config(args))
+                       preemption=args.preemption, brownout=args.brownout,
+                       speculative=args.speculative,
+                       draft_precision=args.draft_precision,
+                       draft_k=args.draft_k, trace=_trace_config(args))
     sweeps0 = tuning.stats()["sweeps"]
     if args.paged and not sc.block_size:
         attn_shape = dict(
@@ -176,7 +206,15 @@ def serve(args) -> list:
             sc, block_size=engine.preferred_kv_block_size(**attn_shape))
         print(f"--kv-block-size 0 -> {sc.block_size} "
               f"({'tuned' if args.autotune else 'tuning-cache'} pick)")
-    if args.paged:
+    if args.brownout:
+        batcher = AdaptiveServer(model, params, sc)
+        print(f"adaptive serving: {len(batcher.lanes)} precision lanes "
+              f"(rung 0 {'speculative, ' if sc.speculative else ''}"
+              "kv ladder 16/8/4"
+              + (f", rung 3 = {sc.draft_precision} weights"
+                 if len(batcher.lanes) > 3 else "")
+              + f"); SLO classes: {sorted(batcher.classes)}")
+    elif args.paged:
         batcher = PagedBatcher(model, params, sc)
         print(f"paged KV cache: {batcher.num_blocks - 1} blocks x "
               f"{batcher.block_size} positions at kv_bits={args.kv_bits} "
@@ -184,14 +222,18 @@ def serve(args) -> list:
               f"B/block), prefix cache "
               f"{'on' if args.prefix_cache else 'off'}, "
               f"reserve={args.reserve}, preemption={args.preemption}")
+        if sc.speculative:
+            print(f"self-speculative decoding: {sc.draft_precision} "
+                  f"draft, k={sc.draft_k}, fp-verified (lossless)")
     else:
         batcher = ContinuousBatcher(model, params, sc)
+    lanes = getattr(batcher, "lanes", [batcher])
     if args.autotune:
-        print(f"autotune: {len(batcher.tuned)} shape classes -> "
-              f"{tuning.cache_path()} (sweeps this run: "
+        print(f"autotune: {sum(len(b.tuned) for b in lanes)} shape classes "
+              f"-> {tuning.cache_path()} (sweeps this run: "
               f"{tuning.stats()['sweeps'] - sweeps0})")
-    if batcher.chunk_size:
-        print(f"chunked prefill: chunk={batcher.chunk_size}")
+    if lanes[0].chunk_size:
+        print(f"chunked prefill: chunk={lanes[0].chunk_size}")
     else:
         print("whole-prompt admission (--chunk-size 0): each prompt is "
               "prefilled in one call, its full-sequence attention through "
@@ -199,6 +241,8 @@ def serve(args) -> list:
                  else "the reference's plain attention"))
 
     rng = np.random.default_rng(1)
+    slo_cycle = (["premium", "standard", "batch"] if args.slo == "mixed"
+                 else [args.slo])
     for rid in range(args.requests):
         plen = max(1, args.prompt_len - (rid % 3))   # ragged prompts
         batcher.submit(Request(
@@ -206,6 +250,7 @@ def serve(args) -> list:
             options=RequestOptions(
                 max_new=args.gen, temperature=args.temperature,
                 top_k=args.top_k, seed=args.seed,
+                slo=slo_cycle[rid % len(slo_cycle)],
                 on_token=stream_cb if args.stream else None)))
     engine.reset_launch_counts()
     done = batcher.run()
@@ -259,6 +304,31 @@ def main(argv=None):
     ap.add_argument("--pool-bytes", type=int, default=0,
                     help="--paged pool byte budget (0 -> size the pool to "
                          "n_slots+1 full sequences)")
+    ap.add_argument("--slo", default="standard",
+                    choices=["premium", "standard", "batch", "mixed"],
+                    help="SLO class tagged on the requests ('mixed' cycles "
+                         "premium/standard/batch).  With --brownout the "
+                         "class sets the request's latency targets and how "
+                         "deep down the precision ladder it may go; the "
+                         "plain batchers ignore it")
+    ap.add_argument("--brownout", action="store_true",
+                    help="serve through the AdaptiveServer: SLO-routed "
+                         "lanes (kv 16/8/4 rungs, then the "
+                         "--draft-precision weights) that degrade new "
+                         "admissions under pressure instead of queueing "
+                         "them; active slots keep their streams.  Needs a "
+                         "float --precision")
+    ap.add_argument("--speculative", action="store_true",
+                    help="self-speculative decoding: the --draft-precision "
+                         "variant drafts --draft-k tokens a slot, the float "
+                         "weights verify them in one windowed decode step.  "
+                         "Implies the paged cache; needs a float "
+                         "--precision")
+    ap.add_argument("--draft-precision", default="2xT",
+                    help="precision of the low-bit weight variant "
+                         "(speculative drafts and brownout rung 3)")
+    ap.add_argument("--draft-k", type=int, default=3,
+                    help="draft tokens per speculative round")
     ap.add_argument("--requests", type=int, default=4)
     ap.add_argument("--slots", type=int, default=0,
                     help="decode slots (0 -> one per request)")

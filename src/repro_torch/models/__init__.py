@@ -10,6 +10,8 @@ serving API of ``repro.models.Model`` for dense token LMs:
     model.prefill_chunk_paged(params, tokens, pool, page_table, pos, kv_bits)
     model.decode_step_paged(params, token, pool, page_table, pos, kv_bits,
                             slot_map=None, fused=True)  -> (logits, pool)
+    model.decode_window_paged(params, tokens, pool, page_table, pos, kv_bits)
+                                                       -> (logits, pool)
 
 ``batch`` is {"tokens": (B, S)}, plus {"labels": (B, S)} for ``loss``.
 Every call takes an optional ``backend`` ("cuda" | "torch"); None picks by
@@ -38,6 +40,10 @@ class Model:
     # paged-KV serving (runtime.kvcache): block pool + page table
     prefill_chunk_paged: Callable
     decode_step_paged: Callable
+    # multi-token decode window with per-slot start positions (the verify
+    # step of self-speculative decoding); (params, tokens (B, W), pool,
+    # page_table, pos (B,), kv_bits) -> (logits (B, W, V), pool)
+    decode_window_paged: Callable
     forward: Callable
 
     def loss(self, params, batch, backend=None):
@@ -76,4 +82,7 @@ def build_model(cfg: ModelConfig) -> Model:
             transformer.decode_step_paged(
                 p, tok, pool, pt, pos, cfg, kv_bits, slot_map=slot_map,
                 fused=fused, backend=backend),
+        decode_window_paged=lambda p, tok, pool, pt, pos, kv_bits,
+        backend=None: transformer.decode_window_paged(
+            p, tok, pool, pt, pos, cfg, kv_bits, backend=backend),
     )

@@ -252,3 +252,30 @@ def decode_step_paged(params, token, pool, page_table, pos, cfg: ModelConfig,
                           kv_bits, slot_map=slot_map, fused=fused,
                           backend=backend)
     return _logits(params, x, cfg), pool
+
+
+def decode_window_paged(params, tokens, pool, page_table, pos,
+                        cfg: ModelConfig, kv_bits: int, backend=None):
+    """Batched multi-token decode window with per-slot start positions: the
+    verify step of self-speculative decoding (``runtime.kvcache``).
+
+    tokens: (B, W), each slot's last accepted token followed by its W-1
+    draft tokens; pos: (B,) per-slot window starts.  Row j of slot i runs
+    at position ``pos[i] + j``: its KV is (re)written into the slot's
+    blocks, overwriting the draft's KV at the same positions before any
+    query of the window attends to it (each layer writes, then attends),
+    and its logits are the full-precision next-token distribution given the
+    window prefix.  The (B, W) grid attends through the gathered page-table
+    view (plain PyTorch on every device, as the reference's window).
+    Returns (logits (B, W, V), pool)."""
+    b, w = tokens.shape
+    x = _embed(params, tokens, cfg)
+    positions = (torch.as_tensor(pos, device=tokens.device).to(torch.int64)
+                 .reshape(b, 1) + torch.arange(w, device=tokens.device))
+    x, pool = _paged_scan(params, x, cfg, positions, pool, page_table,
+                          kv_bits, backend=backend)
+    # one (B, 1) classifier call per window row, the sequential step's
+    # shape: a matmul against the transposed tied embedding sums in an
+    # order that depends on its row count
+    return torch.cat([_logits(params, x[:, j:j + 1].contiguous(), cfg)
+                      for j in range(w)], dim=1), pool

@@ -6,7 +6,9 @@ helpers (``repro.runtime``'s, as far as they are ported).
   * :class:`ServingConfig` / :class:`RequestOptions` / :class:`Request` —
     the typed front door (``runtime.serving``);
   * :class:`ContinuousBatcher` (dense) / :class:`PagedBatcher` (paged,
-    quantized KV);
+    quantized KV; self-speculative decoding) / :class:`AdaptiveServer`
+    (SLO-routed multi-precision lanes under a brownout controller,
+    ``runtime.adaptive``; its policy layer in ``runtime.policy``);
   * :class:`Metrics` and the :mod:`repro_torch.runtime.errors`
     admission-error hierarchy;
   * :class:`Tracer` / :class:`TraceConfig` / :class:`MetricsSnapshotter`
@@ -23,10 +25,8 @@ helpers (``repro.runtime``'s, as far as they are ported).
     offenses;
   * ``retry_with_backoff`` — transient-error wrapper for host I/O.
 
-Not ported yet: the adaptive server and its policy layer
-(``AdaptiveServer``, ``ByteLedger``, ``BrownoutController``, ...; ROADMAP
-Queue A item 6) and ``ElasticTrainer``, the checkpoint-resume loop over
-a device mesh (Queue A items 8-9).
+Not ported yet: ``ElasticTrainer``, the checkpoint-resume loop over a
+device mesh (ROADMAP Queue A items 8-9).
 """
 from __future__ import annotations
 
@@ -35,11 +35,14 @@ import signal
 import time
 from collections.abc import Callable
 
+from .adaptive import AdaptiveServer, ByteLedger  # noqa: F401
 from .errors import (AdmissionError, EmptyPromptError,  # noqa: F401
                      InvalidBudgetError, PoolFootprintError,
                      PromptTooLongError, UnknownSLOClassError)
 from .kvcache import PagedBatcher  # noqa: F401
 from .metrics import Metrics  # noqa: F401
+from .policy import (BrownoutController, BrownoutPolicy,  # noqa: F401
+                     SLOClass, default_slo_classes, search_policy)
 from .profile import StepProfiler  # noqa: F401
 from .serving import (ContinuousBatcher, Request,  # noqa: F401
                       RequestOptions, ServingConfig)

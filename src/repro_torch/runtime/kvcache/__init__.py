@@ -9,7 +9,8 @@
     prefill; unreferenced cached blocks are evicted LRU under pressure.
   * :mod:`batcher` — :class:`PagedBatcher`, the continuous batcher whose KV
     state is the pool + per-slot page tables, with lazy block allocation,
-    preemption by recompute, and kv_bits 16/8/4 block storage.
+    preemption by recompute, kv_bits 16/8/4 block storage, and
+    self-speculative decoding (a low-bit draft, a windowed float verify).
 
 The attention through the page table lives in
 :mod:`repro_torch.kernels.paged_attention` and

@@ -35,8 +35,23 @@ rows, whose noise depends on (seed, rid, n_out) only, so a padding row
 repeats its slot's draw) and makes one device->host copy of them.  The
 flight recorder adds the paged events of the reference (admission and
 re-admission flows, ``evict``, the ``kv_blocks`` counter, ``preempt`` and
-``stall``).  Speculative decoding, meshes and the cross-lane byte ledger of
-the reference are not ported.
+``stall``).  Meshes are not ported.
+
+**Self-speculative decoding** (``ServingConfig.speculative``): a low-bit
+variant of the float weights (``draft_precision``, packed by ``to_serving``)
+drafts up to ``draft_k`` tokens a slot through the same ragged dispatch,
+writing its approximate KV into the same pool; one windowed decode of the
+float weights (``decode_window_paged``) over (last token, drafts) rewrites
+that KV exactly and gives the float model's token after each prefix, and
+the longest confirmed draft prefix is emitted.  Each draft step copies only
+the (n_slots,) next tokens to the host.  Sampled rows select with the same
+(seed, rid, n_out) noise as the sequential step, so speculative streams,
+greedy or sampled, are the non-speculative streams wherever the window's
+logits equal the sequential step's.
+
+**Cross-lane byte ledger**: the adaptive server may install a
+:class:`~repro_torch.runtime.adaptive.ByteLedger` (``_ledger``); allocation
+then also has to fit the lanes' shared byte budget.
 
 Progress: the earliest-admitted active request is never a preemption victim
 and a sole resident request never needs more than ``blocks_per_seq`` blocks,
@@ -45,6 +60,7 @@ pool.
 """
 from __future__ import annotations
 
+import dataclasses
 import math
 import time
 
@@ -99,10 +115,12 @@ class PagedBatcher(ContinuousBatcher):
       fused_decode : one engine dispatch per decode layer (attention + wo)
       ragged_decode: decode over live slots in occupancy buckets (else the
                      padded (n_slots, 1) batch)
+      speculative  : self-speculative decoding with the ``draft_precision``
+                     variant drafting ``draft_k`` tokens a round
     """
 
     def __init__(self, model, params, config: ServingConfig, *,
-                 metrics=None):
+                 metrics=None, tracer=None):
         if not isinstance(config, ServingConfig):
             raise TypeError(f"config must be a ServingConfig, got "
                             f"{type(config).__name__}")
@@ -126,12 +144,38 @@ class PagedBatcher(ContinuousBatcher):
         self.prefix_cache = bool(config.prefix_cache)
         self.reserve = config.reserve
         self.preemption = config.preemption
-        super().__init__(model, params, config, metrics=metrics)
+        # cross-lane byte budget (the adaptive server installs one; None:
+        # the lane's own pool is the only limit)
+        self._ledger = None
+        self.spec = bool(config.speculative)
+        self.spec_k = int(config.draft_k)
+        self.draft_precision = config.draft_precision
+        if self.spec:
+            from repro_torch.core.precision import (W_FLOAT, get_precision,
+                                                    signed)
+            if self.spec_k < 1:
+                raise ValueError(f"draft_k must be >= 1, got {self.spec_k}")
+            if model.decode_window_paged is None:
+                raise ValueError(
+                    f"{model.cfg.name}: speculative decoding needs the "
+                    "windowed paged decode path (attention-only token LM)")
+            if signed(get_precision(model.cfg.precision)).w_mode != W_FLOAT:
+                raise ValueError(
+                    f"{model.cfg.precision}: self-speculative serving needs "
+                    "a float-weight primary — float weights are what the "
+                    "draft variant packs down from.  (Quantized-act "
+                    "primaries are fine: per-row act scales keep the verify "
+                    "window's rows bit-identical to sequential decode.)")
+            get_precision(self.draft_precision)   # unknown name raises here
+        super().__init__(model, params, config, metrics=metrics,
+                         tracer=tracer)
         if config.autotune and self._ragged:
             # the ragged decode runs every matmul at an occupancy bucket's
             # rows: tune those M rows too (the base class covered n_slots)
             self.tuned = self._autotune(model.cfg, self._occupancy_buckets(),
                                         self.chunk_size)
+        if self.spec:
+            self._build_speculative(model.cfg)
 
     # ------------------------------------------------------------- runtime
     def _build_runtime(self, cfg):
@@ -177,6 +221,32 @@ class PagedBatcher(ContinuousBatcher):
         # re-admission's recomputed_tokens debt, net of radix hits
         self._recompute_debt = {}
         self.metrics.on_kv_blocks(0, num_blocks - 1)
+
+    def _build_speculative(self, cfg):
+        """Draft-variant wiring: pack the float weights down to the draft
+        precision (``to_serving`` with its default ``tp``, as the
+        reference), register both variants with the engine, and under
+        ``autotune`` tune the verify window's ``n_slots * (k+1)`` rows and
+        the draft's rows (the occupancy buckets of the ragged dispatch)."""
+        from repro_torch.core.precision import get_precision, signed
+        from repro_torch.kernels import engine
+        from repro_torch.models import build_model, to_serving
+        draft_cfg = dataclasses.replace(cfg, precision=self.draft_precision)
+        draft_pcfg = signed(get_precision(self.draft_precision))
+        self._draft_model = build_model(draft_cfg)
+        self._draft_params = to_serving(self.params, draft_cfg)
+        engine.register_variant(cfg.name, "primary",
+                                signed(get_precision(cfg.precision)),
+                                self.params)
+        engine.register_variant(cfg.name, self.draft_precision, draft_pcfg,
+                                self._draft_params)
+        if self.config.autotune:
+            window = (self.n_slots * (self.spec_k + 1),)
+            self.tuned = self.tuned + self._autotune(
+                cfg, window, self.chunk_size) + engine.tune_serving_shapes(
+                draft_cfg, draft_pcfg, n_slots=self.n_slots,
+                chunk_size=self.chunk_size,
+                extra_m=self._occupancy_buckets(), device=self.device)
 
     # -------------------------------------------------------------- submit
     def _blocks_needed(self, length: int, max_new: int) -> int:
@@ -316,6 +386,14 @@ class PagedBatcher(ContinuousBatcher):
         leaves only (radix-only references)."""
         if n <= 0:
             return []
+        if self._ledger is not None and not self._ledger.affords(self, n):
+            # the lanes' shared byte budget is spent although this lane's
+            # pool has room: reclaim freeable radix blocks across the lanes,
+            # then re-check; a refusal acts as pool exhaustion (admission
+            # waits, decode preempts within this lane)
+            self._ledger.reclaim(self, n)
+            if not self._ledger.affords(self, n):
+                return None
         blocks = self.pool_meta.alloc(n)
         if blocks is None and self.radix is not None and len(self.radix):
             # an infeasible allocation must not strip the warm cache: the
@@ -494,35 +572,165 @@ class PagedBatcher(ContinuousBatcher):
         sm += [sm[-1]] * (self._occupancy_bucket(len(sm)) - len(sm))
         return np.asarray(sm)
 
-    def _dispatch_decode(self, live: list[int]) -> np.ndarray:
-        """One decode step over the rows of the slot map: tokens, positions
-        and page-table rows gathered on the host and copied to the device
-        at once; the next tokens selected on the device from the compact
-        logits (each row under its slot's request) and copied back.
-        Returns the (n_slots,) next-token vector (rows outside the slot map
-        keep their previous token)."""
+    def _step_rows(self, model, params, live: list[int], tokens: np.ndarray,
+                   pos: np.ndarray):
+        """One decode step of ``model`` over the rows of the slot map:
+        tokens, positions and page-table rows gathered on the host and
+        copied to the device at once.  Returns (slot map, compact (L, V)
+        logits)."""
         sm = self._slot_map(live)
-        host = np.concatenate([self._pt[sm], self.tokens[sm],
-                               self.pos[sm, None]], axis=1).astype(np.int32)
+        host = np.concatenate([self._pt[sm], tokens[sm], pos[sm, None]],
+                              axis=1).astype(np.int32)
         dev = torch.from_numpy(host).to(self.device)
         nb = self.blocks_per_seq
-        pt, tok, pos = dev[:, :nb].contiguous(), dev[:, nb:nb + 1], dev[:, nb + 1]
-        logits, self.pool = self.model.decode_step_paged(
-            self.params, tok, self.pool, pt, pos, self.kv_bits,
-            fused=self._fused)
-        lg = logits[:, 0]
+        pt, tok, p = dev[:, :nb].contiguous(), dev[:, nb:nb + 1], dev[:, nb + 1]
+        logits, self.pool = model.decode_step_paged(
+            params, tok, self.pool, pt, p, self.kv_bits, fused=self._fused)
+        return sm, logits[:, 0]
+
+    def _dispatch_decode(self, live: list[int]) -> np.ndarray:
+        """One decode step over the rows of the slot map, the next tokens
+        selected on the device from the compact logits (each row under its
+        slot's request) and copied back.  Returns the (n_slots,) next-token
+        vector (rows outside the slot map keep their previous token)."""
+        sm, lg = self._step_rows(self.model, self.params, live, self.tokens,
+                                 self.pos)
         nxt = self.tokens[:, 0].copy()
         rows = [self.slots[i] if i in live else None for i in sm]
         nxt[sm] = select_tokens(lg, lg.argmax(dim=-1), rows).cpu().numpy()
         return nxt
 
     def _tick(self):
+        if not self.tick:
+            return
         active = sum(1 for i in range(self.n_slots)
                      if self.slots[i] is not None and not self.done[i])
         self.metrics.on_step(
             len(self.queue) + (1 if self._adm is not None else 0),
             pool_in_use=self.pool_meta.used_blocks,
             pool_total=self.num_blocks - 1, active=active)
+
+    # -------------------------------------------- self-speculative decode
+    def _extend_windows(self) -> np.ndarray:
+        """Back each active slot's draft window where blocks are free:
+        positions ``pos .. pos + draft_k`` need resident blocks for the
+        window's KV writes to land (an unbacked position's write deflects
+        to the null block).  Never preempts: a short window only means
+        fewer drafts.  Returns the per-slot usable draft count (0: plain
+        decode for that slot, row 0 of the window being the sequential
+        step)."""
+        limits = np.zeros(self.n_slots, np.int32)
+        for i in range(self.n_slots):
+            req = self.slots[i]
+            if req is None or self.done[i] or self.stalled[i]:
+                continue
+            p = int(self.pos[i])
+            # cap by the sequence budget (decode retires at s_max-1) and the
+            # request's remaining tokens
+            lim = min(self.spec_k, self.s_max - 1 - p,
+                      req.max_new - len(req.output) - 1)
+            if lim <= 0:
+                continue
+            b0, b_last = p // self.block_size, (p + lim) // self.block_size
+            for b in range(b0 + 1, min(b_last, self.blocks_per_seq - 1) + 1):
+                if self._pt[i, b] != 0:
+                    continue
+                blk = self._alloc(1)
+                if blk is None:
+                    break
+                self._slot_blocks[i].append(blk[0])
+                self._pt[i, b] = blk[0]
+            bb = b0
+            while bb < b_last and bb + 1 < self.blocks_per_seq \
+                    and self._pt[i, bb + 1] != 0:
+                bb += 1
+            limits[i] = min(lim, (bb + 1) * self.block_size - 1 - p)
+        if limits.any():
+            self._gauge()
+        return limits
+
+    def _spec_round(self, limits: np.ndarray):
+        """One draft/verify round in place of the batched decode step.
+
+        The draft variant decodes up to ``limits[i]`` tokens for slot i, one
+        ragged step at a time, into the same pool; then one windowed
+        decode of the float weights over (last token, drafts) of every slot
+        rewrites the KV of each window position and gives the float model's
+        next-token logits after each prefix.  Emission accepts the longest
+        draft prefix those tokens confirm, so every emitted token is the
+        sequential step's; KV left past the acceptance point is rewritten by
+        the next window before a query attends to it, or causally masked."""
+        w = self.spec_k + 1
+        base_pos = self.pos.copy()
+        window = np.zeros((self.n_slots, w), np.int64)
+        window[:, 0] = self.tokens[:, 0]
+        toks = self.tokens.copy()
+        n_draft = int(limits.max(initial=0))
+        with self._span("draft", rounds=n_draft):
+            for j in range(n_draft):
+                live = [i for i in range(self.n_slots) if limits[i] > j]
+                sm, lg = self._step_rows(self._draft_model,
+                                         self._draft_params, live, toks,
+                                         base_pos + j)
+                toks[sm, 0] = lg.argmax(dim=-1).cpu().numpy()
+                window[:, j + 1] = toks[:, 0]
+        with self._span("verify"):
+            def verify():
+                dev = torch.from_numpy(np.concatenate(
+                    [self._pt, window, base_pos[:, None]], axis=1)).to(
+                        self.device)
+                nb = self.blocks_per_seq
+                logits, self.pool = self.model.decode_window_paged(
+                    self.params, dev[:, nb:nb + w], self.pool,
+                    dev[:, :nb].to(torch.int32), dev[:, nb + w], self.kv_bits)
+                return logits, logits.argmax(dim=-1).cpu().numpy()
+            logits, greedy = self._profiled("verify", verify)
+        self.metrics.decode_steps += 1
+        drafted = accepted = 0
+        for i, req in enumerate(self.slots):
+            if req is None or self.done[i] or self.stalled[i]:
+                continue
+            lim = int(limits[i])
+            drafted += lim
+            j = 0
+            while True:
+                tok = int(greedy[i, j]) if req.temperature <= 0.0 \
+                    else self._sample(req, logits[i, j])
+                self.metrics.decode_slot_tokens += 1
+                self.pos[i] += 1
+                full = (len(req.output) + 1 >= req.max_new
+                        or (req.eos_id is not None and tok == req.eos_id)
+                        or self.pos[i] >= self.s_max - 1)
+                self._emit(req, tok, full)
+                if full:
+                    self._finish(req, i)
+                    accepted += j
+                    break
+                if j < lim and int(window[i, j + 1]) == tok:
+                    # the draft predicted this token: the next window row
+                    # already holds the float model's continuation
+                    j += 1
+                    continue
+                self.tokens[i, 0] = tok
+                accepted += j
+                break
+        self.metrics.on_spec_round(drafted, accepted)
+        if self.tracer.enabled:
+            self.tracer.instant("spec_round", "scheduler",
+                                track=self.trace_track,
+                                drafted=drafted, accepted=accepted)
+
+    def _step_impl(self):
+        if not self.spec:
+            return super()._step_impl()
+        self._tick()
+        self._advance_admission()
+        if not all(self.done):
+            self._pre_decode()
+        if not all(self.done):
+            self._spec_round(self._extend_windows())
+        finished, self._just_finished = self._just_finished, []
+        return finished
 
     # -------------------------------------------------------------- finish
     def _release_slot(self, req: Request, slot: int):

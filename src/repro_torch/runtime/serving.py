@@ -57,25 +57,30 @@ from .tracing import Tracer
 
 @dataclasses.dataclass
 class RequestOptions:
-    """Per-request options, with the reference's names and defaults (its
-    ``slo`` tier belongs to the adaptive server, which is not ported)."""
+    """Per-request options, with the reference's names and defaults.
+    ``slo`` names the service tier the adaptive server routes by (the plain
+    batchers ignore it)."""
     max_new: int = 16
     eos_id: int | None = None
     # sampling: temperature <= 0 -> greedy; top_k 0 -> full distribution
     temperature: float = 0.0
     top_k: int = 0
     seed: int = 0
+    # service tier for SLO-routed adaptive serving (runtime.adaptive)
+    slo: str = "standard"
     # per-token streaming: called as on_token(req, token, finished)
     on_token: Callable[["Request", int, bool], None] | None = None
 
 
 @dataclasses.dataclass
 class ServingConfig:
-    """Batcher configuration: the dense and paged fields of the reference's
-    ``ServingConfig``, with its names and defaults.  The paged fields
-    (``kv_bits`` .. ``ragged_decode``) are read by
+    """Batcher configuration: the reference's ``ServingConfig`` fields but
+    its mesh and prompt length, with its names and defaults.  The paged
+    fields (``kv_bits`` .. ``ragged_decode``) are read by
     :class:`repro_torch.runtime.kvcache.PagedBatcher` and ignored by
-    :class:`ContinuousBatcher`."""
+    :class:`ContinuousBatcher`; the adaptive fields (``slo_classes`` ..
+    ``draft_k``) are read by :class:`repro_torch.runtime.adaptive.
+    AdaptiveServer` and, for speculative decoding, by the paged batcher."""
     n_slots: int = 8
     s_max: int = 128
     chunk_size: int | None = None      # None -> min(32, s_max); 0 -> whole
@@ -95,6 +100,13 @@ class ServingConfig:
     # occupancy (ragged_decode=False pads to the full (n_slots, 1) batch)
     fused_decode: bool = True
     ragged_decode: bool = True
+    # ---- adaptive precision serving (AdaptiveServer / speculative) ------
+    slo_classes: dict[str, Any] | None = None   # name -> policy.SLOClass
+    brownout: bool = False
+    brownout_policy: Any = None                 # policy.BrownoutPolicy
+    speculative: bool = False
+    draft_precision: str | None = "2xT"         # PAPER_CONFIGS key
+    draft_k: int = 3
     # ---- observability (runtime.tracing flight recorder) ----------------
     # a tracing.TraceConfig (or None): structured event tracing, periodic
     # metrics snapshots, and per-step device/host profiling
@@ -116,6 +128,8 @@ class Request:
         self.last_token_at: float | None = None
         self.finished_at = 0.0
         self.output: list[int] = []
+        # the ladder rung the adaptive server routed this request to
+        self.routed_rung: int | None = None
 
     @property
     def max_new(self) -> int:
@@ -136,6 +150,10 @@ class Request:
     @property
     def seed(self) -> int:
         return self.options.seed
+
+    @property
+    def slo(self) -> str:
+        return self.options.slo
 
     @property
     def on_token(self):
@@ -264,7 +282,7 @@ class ContinuousBatcher:
     serves attention-only token LMs, so chunk admission is always exact)."""
 
     def __init__(self, model, params, config: ServingConfig, *,
-                 metrics: Metrics | None = None):
+                 metrics: Metrics | None = None, tracer: Tracer | None = None):
         if not isinstance(config, ServingConfig):
             raise TypeError(f"config must be a ServingConfig, got "
                             f"{type(config).__name__}")
@@ -292,10 +310,16 @@ class ContinuousBatcher:
         self._adm_cache = None             # reused (1, s_adm) admission cache
         self.metrics = metrics if metrics is not None else Metrics(n_slots)
         # flight recorder: host-side only, around the model's step calls
-        self.tracer = Tracer.from_config(config.trace)
+        # (the adaptive server passes one tracer shared by its lanes, each
+        # on its own track)
+        self.tracer = Tracer.from_config(config.trace) if tracer is None \
+            else tracer
         self.trace_track = "scheduler"
         self.profiler = StepProfiler(self.tracer) \
             if getattr(config.trace, "profile", False) else None
+        # per-step controller-signal sample (the adaptive server turns this
+        # off in its lanes and takes one consolidated sample itself)
+        self.tick = True
         self.queue: deque[Request] = deque()
         self.slots: list[Request | None] = [None] * n_slots
         self.pos = np.zeros(n_slots, np.int64)
@@ -392,8 +416,11 @@ class ContinuousBatcher:
 
     def submit(self, req: Request):
         self._validate(req)
-        req.submitted_at = time.time()
-        self.metrics.on_submit(req)
+        if req.submitted_at == 0.0:
+            # the adaptive server stamps and counts a request when it enters
+            # the central queue; routing it into a lane does not re-count it
+            req.submitted_at = time.time()
+            self.metrics.on_submit(req)
         self.queue.append(req)
 
     # ---------------------------------------------------------- token stream
@@ -558,7 +585,10 @@ class ContinuousBatcher:
         blocks here (and may preempt or stall slots)."""
 
     def _tick(self):
-        """Per-step scheduler sample (queue depth, active slots)."""
+        """Per-step scheduler sample (queue depth, active slots), unless the
+        adaptive server took ticking over (``tick = False``)."""
+        if not self.tick:
+            return
         active = sum(1 for i in range(self.n_slots)
                      if self.slots[i] is not None and not self.done[i])
         self.metrics.on_step(
@@ -577,7 +607,7 @@ class ContinuousBatcher:
         with self._span("step", queue_depth=len(self.queue)):
             finished = self._step_impl()
         tr.maybe_tuning_counter()
-        if tr.snapshotter is not None:
+        if self.tick and tr.snapshotter is not None:
             tr.tick_snapshot(self.metrics)
         return finished
 

@@ -32,12 +32,7 @@ REPO = Path(__file__).resolve().parent.parent
 
 # reference name -> the ROADMAP Queue A item that ports it
 NOT_PORTED = {
-    "repro.runtime": {
-        "AdaptiveServer": "item 6", "ByteLedger": "item 6",
-        "BrownoutController": "item 6", "BrownoutPolicy": "item 6",
-        "SLOClass": "item 6", "default_slo_classes": "item 6",
-        "search_policy": "item 6", "ElasticTrainer": "items 8-9",
-    },
+    "repro.runtime": {"ElasticTrainer": "items 8-9"},
 }
 FACADES = ("core", "kernels", "kernels.ops", "runtime")
 
