@@ -91,6 +91,23 @@ Phases (each prints its own lines; any failed check exits non-zero):
      per-class SLO attainment, per-lane ITL and launches, premium streams
      against an unloaded run's; the CLI with ``--brownout --speculative``
      and its refusal of a quantized primary;
+  4m. the MoE, Mamba and hybrid stacks: B1 at their projection shapes
+     and B8 at granite's prefill against the plain versions; then
+     granite-moe-1b-a400m at full size (24 layers, 32 experts top-8,
+     random weights from seed 0 drawn on the card, 2xT kv8 bf16): the dense
+     batcher (phase 4's 8 requests, chunked and whole-prompt), the paged
+     kv8 batcher, launches per chunk and step, one chunk and decode step
+     (dense and paged) through the kernels against the plain versions with
+     the tokens whose expert set differs counted, a profiled decode step;
+     fp32 weights in float32: the dense kv8 step under fault C2's contract
+     and the fused paged step (B4) at kv16 (bounded) and kv8 (C2's swap);
+     falcon-mamba-7b at full width and depth (2xT bf16, whole-prompt
+     admission, 4 requests x 8 tokens; one prefill and decode step
+     through the kernels equal to the plain versions in bf16 and float32;
+     a profiled decode step); jamba-v0.1-52b at reduce_for_smoke shapes
+     (one prefill and three decode steps, fp32 and 2xT bounded);
+     the weights' bytes before and after ``to_serving``, decode tok/s and
+     ITL p50 of each run; the expert product's and the scan's own times;
   5. decode steps of the dense and the paged 2xT paths, of the dense 1x1
      path and of the paged fp32-weight path (phase 4d's) under
      ``torch.profiler``: device operations per step, device busy time and
@@ -1327,14 +1344,17 @@ def _run(batcher, reqs, card, label, each_step=None):
     torch.cuda.synchronize()
     launches = engine.launch_counts()
     print(f"{label} launches: {launches}")
-    vocab = batcher.model.cfg.vocab
+    # the logits span the padded vocabulary (granite: 49155 -> 49664), and
+    # random weights give the padding rows logits like any other
+    vocab = batcher.model.cfg.padded_vocab
     check(len(done) == len(reqs), f"{label}: served {len(done)} of "
                                   f"{len(reqs)} requests")
     for r in done:
         check(len(r.output) == r.max_new,
               f"{label} request {r.rid}: {len(r.output)} tokens")
         check(all(0 <= t < vocab for t in r.output),
-              f"{label} request {r.rid}: token out of vocabulary {r.output}")
+              f"{label} request {r.rid}: token outside the logits' "
+              f"{vocab} rows {r.output}")
     m = batcher.metrics
     s = m.summary()
     print(m.format())
@@ -2493,6 +2513,603 @@ def phase_speculative(device, card):
 
 
 # ---------------------------------------------------------------------------
+# 4m: MoE, Mamba and hybrid stacks
+# ---------------------------------------------------------------------------
+FALCON_REQ, FALCON_GEN = 4, 8
+# falcon-mamba's depth in phase 4m (64: no cut)
+FALCON_LAYERS = 64
+JAMBA_STEPS = 3
+# B1 at the new shapes: (label, N, K) of granite's attention projections
+# and falcon-mamba's four, each at decode (M 4) and prefill rows (M 64:
+# N 16384 past the rows kernel's M.N limit, so the tensor cores)
+FAMILY_PROJ = (("granite wq/wo", 1024, 1024), ("granite wk/wv", 512, 1024),
+               ("falcon w_in", 16384, 4096), ("falcon w_x", 288, 8192),
+               ("falcon w_dt", 8192, 256), ("falcon w_out", 4096, 8192))
+
+
+def _family_model(arch, device, reduced=False, **kw):
+    """(model, serving params) of ``arch`` from seed 0, drawn on the card;
+    prints the weights' bytes before and after ``to_serving``."""
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.models import build_model, reduce_for_smoke, to_serving
+    from repro_torch.models.convert import serving_param_bytes
+    cfg = get_config(arch, **kw)
+    if reduced:
+        cfg = reduce_for_smoke(cfg)                 # float32
+    model = build_model(cfg)
+    t0 = time.time()
+    params = model.init(torch.Generator(device=device).manual_seed(0), device)
+    base = serving_param_bytes(params)
+    params = to_serving(params, cfg, tp=1)
+    torch.cuda.synchronize()
+    packed = serving_param_bytes(params)
+    print(f"{arch}{' (reduced)' if reduced else ''}: {cfg.n_layers} layers, "
+          f"d_model {cfg.d_model}, vocab {cfg.padded_vocab}, {cfg.dtype}, "
+          f"{cfg.precision}: weights {base / 1e9:.4f} GB {cfg.dtype}-form -> "
+          f"{packed / 1e9:.4f} GB serving form ({base / packed:.2f}x "
+          f"smaller); init + to_serving {time.time() - t0:.1f} s")
+    return model, params
+
+
+@contextlib.contextmanager
+def _routing_probe():
+    """Record every MoE layer's routing: per call, each token's expert set
+    (sorted) and the gap between its k-th and (k+1)-th router
+    probabilities, computed as ``moe_apply`` computes them (f32, TF32
+    off).  Yields the list of (sets, gaps) per call."""
+    import torch
+    from repro_torch.models import layers as L
+    saved, calls = L.moe_apply, []
+
+    def probe(p, x, cfg, backend=None):
+        xin = L.rmsnorm(p["norm"], x, cfg.norm_eps).reshape(-1, x.shape[-1])
+        probs = torch.softmax(xin.to(torch.float32) @ p["w_router"], -1)
+        top = torch.topk(probs, cfg.top_k + 1, dim=-1).values
+        sets = torch.topk(probs, cfg.top_k, dim=-1).indices.sort(-1).values
+        calls.append((sets, top[:, -2] - top[:, -1]))
+        return saved(p, x, cfg, backend)
+
+    L.moe_apply = probe
+    try:
+        yield calls
+    finally:
+        L.moe_apply = saved
+
+
+def _routing_flips(calls, n_runs: int, first: int = 0, second: int = 1):
+    """Tokens whose expert set differs between two runs of the same calls
+    (the probe's list holds ``n_runs`` runs back to back), the smallest
+    top-k margin among them, and the index of the first call (MoE layer,
+    in call order) where one differs (None: none does)."""
+    per = len(calls) // n_runs
+    flips, margin, where = 0, float("inf"), None
+    for i, ((a, ga), (b, _)) in enumerate(zip(
+            calls[first * per:(first + 1) * per],
+            calls[second * per:(second + 1) * per])):
+        diff = (a != b).any(-1)
+        flips += int(diff.sum())
+        if bool(diff.any()):
+            margin = min(margin, ga[diff].min().item())
+            where = i if where is None else where
+    return flips, margin, where
+
+
+def _c2_contract(card, model, params, prompt, device):
+    """Fault C2's contract (ROADMAP Queue C; ``tests/test_torch_c2.py``
+    holds it on smollm) on another model's fp32 kv8 decode step, through
+    ``tools/probe_c2.py``'s layer report: B5 within its per-call bound in
+    every layer; before the first K/V code that differs between the kernel
+    and the plain runs, K/V within 1e-3 code steps and attention within
+    2e-6; the first differing code within 1e-3 steps of its rounding
+    boundary; every differing code one step from the other; the plain run
+    given the kernel run's K/V codes within 0.05 of phase 4's bound.  The
+    smollm contract bounds the later codes' distance from their boundary
+    by 0.1 steps; past the first step the runs drift apart by the printed
+    ``du``, so here each later differing code is held within that layer's
+    ``du`` of its boundary (a code step that the drift upstream does not
+    explain, such as a dequantization error, fails).  Returns the first
+    layer with a code step (None: none, and then the step is within 0.05
+    of the bound as it stands)."""
+    sys.path.insert(0, str(ROOT / "tools"))
+    import probe_c2
+    rep = probe_c2.layer_report(model, params, prompt, device)
+    probe_c2._print(card, 0, rep)
+    flipped = [r["layer"] for r in rep["layers"]
+               if r["k"]["flips"] or r["v"]["flips"]]
+    first = flipped[0] if flipped else None
+    later = 0.0
+    for r in rep["layers"]:
+        check(r["per_call"] <= r["per_call_tol"],
+              f"C2 contract: B5 off its bound at layer {r['layer']}")
+        before = first is None or r["layer"] < first
+        check(not before or r["attn_rel"] <= 2e-6,
+              f"C2 contract: attention parts before a code step: {r}")
+        for kv in (r["k"], r["v"]):
+            check(kv["max_step"] <= 1, f"C2 contract: layer {r['layer']} "
+                                       f"codes more than one step apart {kv}")
+            check(not before or kv["du"] <= 1e-3,
+                  f"C2 contract: K/V part before a code step: {kv}")
+            check(r["layer"] != first or kv["flip_dist"] <= 1e-3,
+                  f"C2 contract: first code step {kv['flip_dist']} steps "
+                  "from its boundary")
+            if first is not None and r["layer"] > first:
+                check(kv["flip_dist"] <= kv["du"],
+                      f"C2 contract: layer {r['layer']} code step "
+                      f"{kv['flip_dist']} steps from its boundary, past the "
+                      f"runs' drift {kv['du']}")
+                later = max(later, kv["flip_dist"])
+    check(rep["cuda_swap"] <= 0.05, f"C2 contract: with the kernel run's "
+          f"K/V codes the plain run is {rep['cuda_swap']:.3f} of the bound")
+    check(first is not None or rep["cuda_plain"] <= 0.05,
+          f"C2 contract: no code step, yet {rep['cuda_plain']:.3f} of the "
+          "bound")
+    print(f"C2 contract holds: first code step at layer {first}; later "
+          f"differing codes lie up to {later:.3f} steps from their boundary, "
+          "each within its layer's drift du")
+    return first
+
+
+def _family_kernel_shapes(gen, device) -> None:
+    """B1 and B8 through the kernels against their plain versions at this
+    phase's new shapes: B1 (2-bit activation codes x ternary words)
+    ``torch.equal`` at M in (4, 64); B8 at granite's whole prefill (B 1,
+    S PROMPT, KV 8, G 2, Dh 64, causal) in f32 and bf16 within 1e-5 of
+    max|out| (phase 3's bound).  B5, B2 and B4 are held at granite's
+    shapes inside the model comparisons below."""
+    import torch
+    from repro_torch.kernels import ref
+    from repro_torch.kernels.flash_attention import flash_attention
+    from repro_torch.kernels.ternary_matmul import ternary_matmul
+    for label, n, k in FAMILY_PROJ:
+        w, _ = _rand_packed(gen, n, k, 2, device)
+        scale = (torch.rand(n, generator=gen) + 0.5).to(device)
+        for m in (4, 64):
+            x = torch.randint(-1, 2, (m, k), generator=gen,
+                              dtype=torch.int8).to(device)
+            y, y_ref = ternary_matmul(x, w, scale), \
+                ref.ternary_matmul_ref(x, w, scale)
+            torch.cuda.synchronize()
+            check(torch.equal(y, y_ref), f"ternary_matmul {label} M={m} "
+                  f"N={n} K={k}: not equal to the plain version")
+    print("ternary_matmul torch.equal to the plain version at M in (4, 64) x "
+          + ", ".join(f"{label} ({n}, {k})" for label, n, k in FAMILY_PROJ))
+    for dtype in (torch.float32, torch.bfloat16):
+        q = torch.randn((1, PROMPT, 8, 2, 64), generator=gen).to(device, dtype)
+        k, v = (torch.randn((1, PROMPT, 8, 64), generator=gen).to(device, dtype)
+                for _ in range(2))
+        out = flash_attention(q, k, v, causal=True)
+        want = ref.flash_attention_ref(q, k, v, causal=True)
+        torch.cuda.synchronize()
+        err, tol = (out - want).abs().max().item(), \
+            1e-5 * want.abs().max().item()
+        print(f"flash_attention granite prefill B=1 S={PROMPT} KV=8 G=2 Dh=64 "
+              f"{dtype}: max |diff| vs f32 plain version {err:.3e} (tolerance "
+              f"{tol:.3e})")
+        check(err <= tol, f"flash_attention at granite's shape {dtype}: "
+                          f"{err} > {tol}")
+
+
+def _compare_recurrent(model, params, prompt, device, steps: int = 1):
+    """A whole-prompt prefill of ``prompt`` (1, L), then ``steps`` decode
+    steps over N_SLOTS slots each holding that prefill's cache, through the
+    kernels and through the plain versions.  Returns the launches of the
+    kernel run per prefill and per decode step, and the largest logit
+    differences (prefill, decode) with the plain run's max|logit|."""
+    import torch
+    from repro_torch.kernels import engine
+    from repro_torch.models import transformer as tfm
+    from repro_torch.runtime.serving import write_slot
+    cfg = model.cfg
+    tokens = torch.as_tensor(prompt, device=device)
+    length = tokens.shape[1]
+    runs, launches = {}, {}
+    for run, backend in (("cuda", "cuda"), ("plain", "torch")):
+        engine.reset_launch_counts()
+        lp, one = model.prefill(params, {"tokens": tokens}, length + steps + 1,
+                                backend=backend)
+        torch.cuda.synchronize()
+        launches[f"prefill_{run}"] = engine.launch_counts()
+        cache = tfm.make_cache(cfg, N_SLOTS, length + steps + 1, device)
+        for i in range(N_SLOTS):
+            write_slot(cache, one, i)
+        tok = lp[:, -1:].argmax(-1).expand(N_SLOTS, 1).contiguous()
+        logits = [lp]
+        for s in range(steps):
+            engine.reset_launch_counts()
+            ld, cache = model.decode_step(params, tok, cache, length + s,
+                                          backend=backend)
+            torch.cuda.synchronize()
+            launches[f"decode_{run}"] = engine.launch_counts()
+            logits.append(ld)
+            tok = ld[:, -1:].argmax(-1)
+        check(all(bool(torch.isfinite(x).all()) for x in logits),
+              f"non-finite logits ({cfg.name}, {run})")
+        runs[run] = logits
+    check(not any(n for c in ("prefill", "decode")
+                  for n in launches[f"{c}_plain"].values()),
+          "backend='torch' launched a kernel")
+    diffs = [(a - b).abs().max().item()
+             for a, b in zip(runs["cuda"], runs["plain"])]
+    return {"launches": {"prefill": launches["prefill_cuda"],
+                         "decode": launches["decode_cuda"]},
+            "prefill": diffs[0], "decode": max(diffs[1:]),
+            "scale": max(x.abs().max().item() for x in runs["plain"])}
+
+
+def _family_times(device, card, granite_cfg, falcon_cfg) -> None:
+    """The two plain pieces of this slice by design, timed on the card:
+    one granite decode step's expert product (three per layer, E 32, one
+    slot an expert: the unpack of every expert's words each call) and one
+    falcon-mamba layer's chunked scan at the prompt's length."""
+    import torch
+    from repro_torch.core.precision import get_precision, signed
+    from repro_torch.kernels import engine
+    from repro_torch.models import layers as L
+    from repro_torch.models.convert import to_serving
+    gen = torch.Generator(device=device).manual_seed(3)
+    e, d, f = granite_cfg.n_experts, granite_cfg.d_model, granite_cfg.moe_d_ff
+    pcfg = signed(get_precision("2xT"))
+    w = to_serving({"moe": {"w_gate": torch.randn(
+        (e, d, f), generator=gen, device=device)}}, granite_cfg)["moe"]["w_gate"]
+    x = torch.randn((e, 1, d), generator=gen, device=device,
+                    dtype=torch.bfloat16)
+    ms, eager = time_ms(lambda: engine.qmatmul_experts(x, w, pcfg))
+    words = w["wt_packed"].numel() * 4
+    print(f"[{card}] qmatmul_experts (E {e}, C 1, K {d}, N {f}, 2xT words "
+          f"{words / 1e6:.2f} MB): {ms:.4f} ms device ({eager:.4f} ms eager); "
+          f"x {3 * granite_cfg.n_layers} a decode step = "
+          f"{ms * 3 * granite_cfg.n_layers:.2f} ms")
+    di, n = falcon_cfg.d_inner, falcon_cfg.ssm_state
+    dt = torch.rand((1, PROMPT, di), generator=gen, device=device) * 0.1
+    xs = torch.randn((1, PROMPT, di), generator=gen, device=device)
+    bm = torch.randn((1, PROMPT, n), generator=gen, device=device)
+    cm = torch.randn((1, PROMPT, n), generator=gen, device=device)
+    a = -torch.arange(1, n + 1, device=device, dtype=torch.float32
+                      ).repeat(di, 1)
+    h0 = torch.zeros((1, di, n), device=device)
+    scan = lambda: L._ssm_scan_chunked(dt, xs, bm, cm, a, h0,
+                                       falcon_cfg.ssm_chunk)
+    ms, eager = time_ms(scan)
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    calls = 5
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(calls):
+            scan()
+        torch.cuda.synchronize()
+    # the host's launch calls (phase 5 reads them beside the device
+    # operations, which the profiler can drop for short windows)
+    ops = sum(ev.device_type == DeviceType.CPU and ev.name in (
+        "cudaLaunchKernel", "cudaLaunchKernelExC", "cuLaunchKernel",
+        "cudaMemcpyAsync", "cudaMemsetAsync") for ev in prof.events()) / calls
+    print(f"[{card}] _ssm_scan_chunked (B 1, S {PROMPT}, Di {di}, N {n}): "
+          f"{ms:.4f} ms device ({eager:.4f} ms eager), {ops:.0f} host "
+          f"launch calls a call; x {falcon_cfg.n_layers} a prefill = "
+          f"{ms * falcon_cfg.n_layers:.2f} ms")
+
+
+def _granite(device, card) -> dict:
+    """granite-moe-1b-a400m at full size, 2xT kv8 bf16: the dense batcher
+    (chunked and whole-prompt), the paged kv8 batcher, kernels against the
+    plain versions (2xT bf16 and fp32 float32, routing flips counted), an
+    fp32-weight paged decode step (B4) and a profiled decode step."""
+    import torch
+    from repro_torch.kernels import engine
+    from repro_torch.models import build_model
+    from repro_torch.runtime.kvcache import PagedBatcher
+    from repro_torch.runtime.serving import ContinuousBatcher, ServingConfig
+    print("-- 4m granite-moe-1b-a400m 2xT kv8 bf16 (full size)", flush=True)
+    model, params = _family_model("granite-moe-1b-a400m", device,
+                                  precision="2xT", kv_bits=8)
+    cfg = model.cfg
+    n_proj, n_l = 4 * cfg.n_layers, cfg.n_layers
+    sc = ServingConfig(n_slots=N_SLOTS, s_max=S_MAX, chunk_size=CHUNK)
+    _warm(ContinuousBatcher(model, params, sc), cfg)
+    batcher = ContinuousBatcher(model, params, sc)
+    streams, launches = _run(batcher, _requests(cfg, N_REQ, GEN), card,
+                             "granite 2xT kv8")
+    m = batcher.metrics
+    for name in ("act_quant_signed_grouped", "ternary_matmul"):
+        check(launches[name] == n_proj * _model_calls(m),
+              f"granite: {name} launched {launches[name]} times in "
+              f"{_model_calls(m)} model calls, not {n_proj} per call")
+    check(launches["decode_attention"] == n_l * m.decode_steps,
+          "granite: not one decode_attention launch per layer and step")
+
+    with _routing_probe() as routes:
+        cmp = _compare_backends(model, params, sc, _requests(cfg, 1, GEN)[0]
+                                .tokens, device)
+    flips, margin, where = _routing_flips(routes, 3)
+    print(f"granite launches per prefill chunk (C={CHUNK}): "
+          f"{cmp['launches']['chunk']}; per decode step (B={N_SLOTS}): "
+          f"{cmp['launches']['decode']}")
+    tol0 = 1e-5 + 1e-4 * cmp["attn0_scale"]
+    print(f"granite 2xT bf16, kernels vs plain versions: prefill_chunk max "
+          f"|dlogit| {cmp['chunk']:.3e} (tolerance 0); decode step layer 0 "
+          f"attention max |diff| {cmp['attn0']:.3e} (tolerance {tol0:.3e}); "
+          f"attention outputs equal in bf16 in the first "
+          f"{cmp['layers_equal']} of {n_l} layers; logits max |dlogit| "
+          f"{cmp['decode']:.3e} of max|logit| {cmp['scale']:.3e}, greedy "
+          f"tokens agree on {cmp['agree']}/{N_SLOTS} rows (not bounded, as "
+          f"phase 4); tokens routed to another expert set {flips} (first "
+          f"at MoE call {where} of {2 * n_l}: chunk layers, then decode "
+          f"layers; smallest top-k margin among them {margin:.3e})")
+    check(cmp["chunk"] == 0.0, f"granite prefill_chunk differs by "
+                               f"{cmp['chunk']}")
+    check(cmp["q0_equal"] and cmp["attn0"] <= tol0,
+          f"granite decode step layer 0 attention differs by {cmp['attn0']}")
+
+    whole = dataclasses.replace(sc, chunk_size=0)
+    wb = ContinuousBatcher(model, params, whole)
+    _, wl = _run(wb, _requests(cfg, N_REQ, GEN), card,
+                 "granite 2xT kv8 whole-prompt")
+    print(f"granite flash_attention launches {wl['flash_attention']} over "
+          f"{wb.metrics.prefill_full} whole prefills ({n_l} per prefill)")
+    check(wl["flash_attention"] == n_l * wb.metrics.prefill_full > 0,
+          "granite whole-prompt: not one flash_attention launch per layer")
+
+    pmodel = build_model(dataclasses.replace(cfg, kv_bits=0))
+    pb = PagedBatcher(pmodel, params, _paged_config())
+    pstreams, pl = _run(pb, _requests(cfg, N_REQ, GEN), card,
+                        "granite 2xT paged kv8")
+    check(pl["paged_attention"] == n_l * pb.metrics.decode_steps,
+          "granite paged: not one paged_attention launch per layer and step")
+    pc = _compare_paged(pmodel, params, _requests(cfg, 1, GEN)[0].tokens,
+                        device, probe=True)
+    ptol0 = 1e-5 + 1e-4 * pc["attn0_scale"]
+    print(f"granite 2xT bf16 paged, kernels vs plain versions: "
+          f"prefill_chunk_paged max |dlogit| {pc['chunk']:.3e} (tolerance 0); "
+          f"decode_step_paged layer 0 attention max |diff| {pc['attn0']:.3e} "
+          f"(tolerance {ptol0:.3e}); logits max |dlogit| {pc['decode']:.3e} "
+          f"of max|logit| {pc['scale']:.3e} (not bounded, as phase 4c); "
+          f"launches per paged decode step {pc['launches']['decode']}")
+    check(pc["chunk"] == 0.0 and pc["q0_equal"] and pc["attn0"] <= ptol0,
+          f"granite paged: chunk {pc['chunk']}, layer 0 attention "
+          f"{pc['attn0']}")
+    check(pc["launches"]["decode"]["paged_attention"] == n_l,
+          "granite paged decode step: not one paged_attention per layer")
+    agree = sum(pstreams[r] == streams[r] for r in streams)
+    print(f"granite paged_attention launches {pl['paged_attention']} over "
+          f"{pb.metrics.decode_steps} decode steps; streams equal to the dense "
+          f"run's {agree}/{N_REQ} (not required: the paged decode batches "
+          "live slots only, and MoE capacity depends on the batch)")
+    phase_profile(card, "granite 2xT dense", ContinuousBatcher(model, params,
+                                                               sc))
+    del batcher, wb, pb, params
+    torch.cuda.empty_cache()
+
+    model32, params32 = _family_model("granite-moe-1b-a400m", device,
+                                      precision="fp32", kv_bits=8,
+                                      dtype="float32")
+    prompt = _requests(model32.cfg, 1, GEN)[0].tokens
+    with _routing_probe() as routes:
+        c32 = _compare_backends(model32, params32, sc, prompt, device)
+    flips32, margin32, where32 = _routing_flips(routes, 3)
+    tol = 1e-4 * c32["scale"]
+    print(f"granite fp32 weights, float32, kv8, kernels vs plain versions: "
+          f"prefill_chunk max |dlogit| {c32['chunk']:.3e}, decode_step max "
+          f"|dlogit| {c32['decode']:.3e} (tolerance {tol:.3e} = 1e-4 of "
+          f"max|logit| {c32['scale']:.3e}), greedy tokens agree on "
+          f"{c32['agree']}/{N_SLOTS} rows; tokens routed to another expert "
+          f"set {flips32} (first at MoE call {where32} of {2 * n_l}, "
+          f"smallest top-k margin among them {margin32:.3e})")
+    check(c32["launches"]["decode"]["decode_attention"] == n_l,
+          "granite fp32 decode step: not one decode_attention per layer")
+    check(c32["chunk"] == 0.0, f"granite fp32 prefill_chunk differs by "
+                               f"{c32['chunk']}")
+    first = _c2_contract(card, model32, params32, prompt, device)
+    check(c32["decode"] <= tol or first is not None,
+          f"granite fp32 decode_step logits differ by {c32['decode']} > "
+          f"{tol} with no K/V code step")
+    # the fused decode (B4) at granite's shapes: with raw f32 blocks (kv16:
+    # no K/V code to step, as phase 4l) within the bound; at kv8 under C2's
+    # swap, as the dense step above: given the kernel run's K/V codes, the
+    # plain run within 0.05 of the bound (within the bound outright when no
+    # code steps)
+    p32 = build_model(dataclasses.replace(model32.cfg, kv_bits=0))
+    fused = {}
+    for kv_bits in (16, 8):
+        f32 = _compare_paged(p32, params32, prompt, device, probe=False,
+                             kv_bits=kv_bits, swap=kv_bits == 8)
+        bound = 1e-4 * f32["scale"]
+        print(f"granite fp32 weights, float32, paged kv{kv_bits} (fused "
+              f"decode), kernels vs plain versions: prefill_chunk_paged max "
+              f"|dlogit| {f32['chunk']:.3e}, decode_step_paged max |dlogit| "
+              f"{f32['decode']:.3e} ({f32['decode'] / bound:.3f} of the bound "
+              f"{bound:.3e})"
+              + ("" if kv_bits == 16 else
+                 f" with {f32['code_steps']} K/V codes apart; plain given the "
+                 f"kernel run's K/V codes {f32['swap'] / bound:.4f} of the "
+                 "bound (tolerance 0.05)")
+              + f"; greedy tokens agree on {f32['agree']}/{N_SLOTS} rows; "
+              f"launches {f32['launches']['decode']}")
+        check(f32["launches"]["decode"]["fused_decode"] == n_l,
+              f"granite fp32 paged kv{kv_bits} decode step: not one "
+              "fused_decode per layer")
+        check(f32["chunk"] == 0.0, f"granite fp32 paged kv{kv_bits} "
+                                   f"prefill_chunk_paged differs by "
+                                   f"{f32['chunk']}")
+        if kv_bits == 16 or f32["code_steps"] == 0:
+            check(f32["decode"] <= bound, f"granite fp32 paged kv{kv_bits} "
+                                          f"decode differs by {f32['decode']}")
+        else:
+            check(f32["swap"] <= 0.05 * bound,
+                  f"granite fp32 paged kv8: with the kernel run's K/V codes "
+                  f"the plain run is {f32['swap'] / bound:.4f} of the bound")
+        fused[kv_bits] = f32["launches"]["decode"]
+    del params32
+    torch.cuda.empty_cache()
+    return {"2xT dense": launches, "whole": wl, "paged": pl,
+            "fused": fused, "cfg": cfg}
+
+
+def _falcon(device, card, layers: int) -> dict:
+    """falcon-mamba-7b at full width, 2xT bf16, whole-prompt admission
+    (``layers`` of its 64: a stated cut when fewer)."""
+    import torch
+    from repro_torch.runtime.serving import ContinuousBatcher, ServingConfig
+    print(f"-- 4m falcon-mamba-7b 2xT bf16 (full width, {layers} layers)",
+          flush=True)
+    model, params = _family_model("falcon-mamba-7b", device,
+                                  precision="2xT", n_layers=layers)
+    cfg = model.cfg
+    n_proj = 4 * cfg.n_layers
+    sc = ServingConfig(n_slots=N_SLOTS, s_max=PROMPT + FALCON_GEN)
+    _warm(ContinuousBatcher(model, params, sc), cfg)
+    batcher = ContinuousBatcher(model, params, sc)
+    check(batcher.chunk_size == 0, "falcon-mamba: chunked admission chosen")
+    _, launches = _run(batcher, _requests(cfg, FALCON_REQ, FALCON_GEN), card,
+                       "falcon-mamba 2xT")
+    m = batcher.metrics
+    check(m.prefill_full == FALCON_REQ and m.prefill_chunks == 0,
+          f"falcon-mamba: {m.prefill_full} whole prefills, "
+          f"{m.prefill_chunks} chunks")
+    for name in ("act_quant_signed_grouped", "ternary_matmul"):
+        check(launches[name] == n_proj * _model_calls(m),
+              f"falcon-mamba: {name} launched {launches[name]} times in "
+              f"{_model_calls(m)} model calls, not {n_proj} per call")
+    prompt = _requests(cfg, 1, FALCON_GEN)[0].tokens
+    out = {"dense": launches}
+    for dtype in ("bfloat16", "float32"):
+        mdl, p = _as_dtype(model, params, dtype)
+        cmp = _compare_recurrent(mdl, p, prompt, device)
+        print(f"falcon-mamba 2xT {dtype}, kernels vs plain versions: prefill "
+              f"max |dlogit| {cmp['prefill']:.3e}, decode step max |dlogit| "
+              f"{cmp['decode']:.3e} (tolerance 0: only B1 and B7c differ, "
+              f"both integer-exact) of max|logit| {cmp['scale']:.3e}; "
+              f"launches per prefill {cmp['launches']['prefill']}, per decode "
+              f"step (B={N_SLOTS}) {cmp['launches']['decode']}")
+        check(cmp["prefill"] == 0.0 and cmp["decode"] == 0.0,
+              f"falcon-mamba {dtype}: logits differ by {cmp['prefill']} / "
+              f"{cmp['decode']}")
+        for name in ("act_quant_signed_grouped", "ternary_matmul"):
+            check(cmp["launches"]["decode"][name] == n_proj,
+                  f"falcon-mamba {dtype}: {name} not {n_proj} a step")
+        out[dtype] = cmp["launches"]
+        del p
+    phase_profile(card, "falcon-mamba 2xT dense",
+                  ContinuousBatcher(model, params, sc))
+    del batcher, params
+    torch.cuda.empty_cache()
+    out["cfg"] = cfg
+    return out
+
+
+def _as_dtype(model, params, dtype: str):
+    """``model`` rebuilt at ``dtype`` and ``params`` with every float leaf
+    cast to it (packed words, codes and f32 scales unchanged in value)."""
+    import torch
+    from repro_torch.models import build_model
+    target = getattr(torch, dtype)
+
+    def cast(t):
+        if isinstance(t, dict):
+            return {k: cast(v) for k, v in t.items()}
+        return t.to(target) if t.is_floating_point() else t
+    if model.cfg.dtype == dtype:
+        return model, params
+    return build_model(dataclasses.replace(model.cfg, dtype=dtype)), \
+        cast(params)
+
+
+def _n_proj(cfg) -> int:
+    """Quantized projections a model call runs: 4 per attention or Mamba
+    layer, 3 (or 2) per dense FFN; the expert products are not among
+    them."""
+    per = sum(4 + {"dense": 3 if cfg.ffn_gated else 2}.get(f, 0)
+              for f in cfg.ffn_pattern)
+    return per * cfg.n_periods
+
+
+def _n_packed(params) -> int:
+    """Projections a model call runs on packed words: the period-stacked
+    qlinear leaves ``(P, N, KW)`` int32 (expert words are (P, E, N, KW))."""
+    import torch
+    if not isinstance(params, dict):
+        return 0
+    wt = params.get("wt_packed")
+    if wt is not None:
+        return wt.shape[0] if wt.ndim == 3 and wt.dtype == torch.int32 else 0
+    return sum(_n_packed(v) for v in params.values())
+
+
+def _jamba(device, card) -> dict:
+    """jamba-v0.1-52b at reduce_for_smoke shapes (2 periods of 8: 2
+    attention, 14 Mamba, 8 MoE layers; f32): the hybrid cache through one
+    whole prefill and JAMBA_STEPS decode steps, kernels against the plain
+    versions, fp32 and 2xT weights each within 1e-4 of max|logit|."""
+    print("-- 4m jamba-v0.1-52b (reduce_for_smoke shapes, float32)",
+          flush=True)
+    out = {}
+    for precision in ("fp32", "2xT"):
+        model, params = _family_model("jamba-v0.1-52b", device, reduced=True,
+                                      precision=precision, kv_bits=8)
+        cfg = model.cfg
+        prompt = _requests(cfg, 1, GEN)[0].tokens
+        cmp = _compare_recurrent(model, params, prompt, device,
+                                 steps=JAMBA_STEPS)
+        tol = 1e-4 * cmp["scale"]
+        print(f"jamba {precision} float32 kv8, kernels vs plain versions: "
+              f"prefill max |dlogit| {cmp['prefill']:.3e}, {JAMBA_STEPS} "
+              f"decode steps max |dlogit| {cmp['decode']:.3e} of max|logit| "
+              f"{cmp['scale']:.3e}"
+              + f" (tolerance {tol:.3e}); launches per prefill {cmp['launches']['prefill']}, per "
+              f"decode step {cmp['launches']['decode']}")
+        n_attn = sum(m.startswith("attn") for m in cfg.layer_pattern) \
+            * cfg.n_periods
+        check(cmp["launches"]["prefill"]["flash_attention"] == n_attn and
+              cmp["launches"]["decode"]["decode_attention"] == n_attn,
+              f"jamba {precision}: not one B8 / B5 launch per attention layer")
+        check(cmp["prefill"] <= tol and cmp["decode"] <= tol,
+              f"jamba {precision} logits differ by {cmp['prefill']} / "
+              f"{cmp['decode']} > {tol}")
+        if precision == "2xT":
+            # w_dt's K (dt_rank 8) packs into no whole word: int8 codes,
+            # the plain path, after B7c's codes
+            want = {"act_quant_signed_grouped": _n_proj(cfg),
+                    "ternary_matmul": _n_packed(params)}
+            for name, n in want.items():
+                check(cmp["launches"]["decode"][name] == n,
+                      f"jamba 2xT: {name} not {n} a step")
+        out[precision] = cmp["launches"]
+    return out
+
+
+def phase_families(device, card) -> dict:
+    """4m: the MoE, Mamba and hybrid stacks (granite at full size,
+    falcon-mamba at full width, jamba reduced).  Returns the launches of
+    their runs by kernel, summed."""
+    import torch
+    from repro_torch.kernels import engine
+    print("== 4m. MoE, Mamba and hybrid stacks", flush=True)
+    t0 = time.time()
+    _family_kernel_shapes(torch.Generator().manual_seed(7), device)
+    granite = _granite(device, card)
+    falcon = _falcon(device, card, FALCON_LAYERS)
+    jamba = _jamba(device, card)
+    _family_times(device, card, granite["cfg"], falcon["cfg"])
+    total = {}
+
+    def add(counts):
+        for name, n in counts.items():
+            if isinstance(n, dict):
+                add(n)
+            elif isinstance(n, int) and name in engine.KERNELS:
+                total[name] = total.get(name, 0) + n
+    for runs in (granite, falcon, jamba):
+        add(runs)
+    print(f"phase 4m launches by kernel: {total}")
+    for name in ("ternary_matmul", "act_quant_signed_grouped",
+                 "decode_attention", "flash_attention", "paged_attention",
+                 "fused_decode"):
+        check(total.get(name, 0) > 0, f"phase 4m never launched {name}")
+    print(f"phase 4m: {time.time() - t0:.1f} s")
+    return total
+
+
+# ---------------------------------------------------------------------------
 # 4k: the tuning cache
 # ---------------------------------------------------------------------------
 TUNE_PRECISIONS = ("2xT", "4x4", "1x1")
@@ -2753,7 +3370,8 @@ def phase_profile(card, label, batcher, steps: int = 5):
                                "cudaMemsetAsync")]
     dev, busy, by_name = _profile_device(prof)
     busy_ms = busy / 1e3 / steps
-    print(f"[{card}] {label} decode step (B={N_SLOTS}, 30 layers): wall "
+    print(f"[{card}] {label} decode step (B={N_SLOTS}, "
+          f"{batcher.model.cfg.n_layers} layers): wall "
           f"{plain_ms:.2f} ms unprofiled, {prof_ms:.2f} ms profiled; device "
           f"operations {len(dev) / steps:.0f} per step (host launch calls "
           f"{len(launches) / steps:.0f}); device busy {busy_ms:.3f} ms per "
@@ -2934,14 +3552,43 @@ def _paged_probe():
         engine.register_attention(*key, engine.BACKEND_TORCH)(saved_plain)
 
 
-def _compare_paged(model, params, prompt, device, probe: bool):
+@contextlib.contextmanager
+def _decode_kv_codes(kv_from=None):
+    """Record the decoded token's K/V codes and scales in each layer
+    (``layers._kv_quantize`` on a one-position input); with ``kv_from``,
+    hand back that run's codes and scales, in call order, instead of
+    quantizing.  Restores the quantizer on exit."""
+    from repro_torch.models import layers as L
+    quantize, codes = L._kv_quantize, []
+
+    def kv_quantize(k, v, bits):
+        out = quantize(k, v, bits)
+        if k.shape[1] == 1:
+            if kv_from is not None:
+                out = kv_from[len(codes)]
+            codes.append(out)
+        return out
+
+    L._kv_quantize = kv_quantize
+    try:
+        yield codes
+    finally:
+        L._kv_quantize = quantize
+
+
+def _compare_paged(model, params, prompt, device, probe: bool,
+                   kv_bits: int = 8, swap: bool = False):
     """One ``prefill_chunk_paged`` of the prompt's first chunk into blocks
     1-2, then one ``decode_step_paged`` over N_SLOTS slots, each holding its
     own copy of those blocks and decoding at a ragged position, through the
     kernels (backend "cuda") and the plain versions (backend "torch").  With
     ``probe`` (a quantized ``wo``) the plain side's paged attention is the
     kernel's f32 plain version and each layer's attention is recorded on
-    both sides.  Returns launches per call and the differences."""
+    both sides.  With ``swap`` a third run, the plain versions given the
+    kernel run's decoded-token K/V codes (fault C2's swap), adds ``swap``
+    (its logits' distance from the kernel run's) and ``code_steps`` (the
+    K/V codes that differ between the kernel and the plain runs).  Returns
+    launches per call and the differences."""
     import torch
     from repro_torch.kernels import engine
     from repro_torch.models import transformer as tfm
@@ -2960,12 +3607,15 @@ def _compare_paged(model, params, prompt, device, probe: bool):
         dst += list(range(base, base + n_chunk))
     chunk_row, pt = chunk_row.to(device), pt.to(device)
     pos = torch.tensor(pos_list, dtype=torch.int32, device=device)
-    launches, runs = {}, {}
-    for run, backend in (("cuda", "cuda"), ("plain", "torch")):
-        pool = tfm.make_pool(cfg, 1 + n_chunk + N_SLOTS * nb, BLOCK, 8, device)
+    launches, runs, codes = {}, {}, {}
+    order = (("cuda", "cuda"), ("plain", "torch")) + \
+        ((("swap", "torch"),) if swap else ())
+    for run, backend in order:
+        pool = tfm.make_pool(cfg, 1 + n_chunk + N_SLOTS * nb, BLOCK, kv_bits,
+                             device)
         engine.reset_launch_counts()
         lc, pool = model.prefill_chunk_paged(params, tokens, pool, chunk_row,
-                                             0, 8, backend=backend)
+                                             0, kv_bits, backend=backend)
         torch.cuda.synchronize()
         launches[f"chunk_{run}"] = engine.launch_counts()
         for leaves in pool.values():                # every slot's own copy
@@ -2973,8 +3623,10 @@ def _compare_paged(model, params, prompt, device, probe: bool):
                 t[:, dst] = t[:, src]
         tok = lc[:, -1:].argmax(-1).expand(N_SLOTS, 1).contiguous()
         engine.reset_launch_counts()
-        with (_paged_probe() if probe else contextlib.nullcontext([])) as attn:
-            ld, _ = model.decode_step_paged(params, tok, pool, pt, pos, 8,
+        with (_paged_probe() if probe else contextlib.nullcontext([])) as attn, \
+                _decode_kv_codes(codes["cuda"] if run == "swap" else None) \
+                as codes[run]:
+            ld, _ = model.decode_step_paged(params, tok, pool, pt, pos, kv_bits,
                                             backend=backend)
         torch.cuda.synchronize()
         launches[f"decode_{run}"] = engine.launch_counts()
@@ -2983,8 +3635,8 @@ def _compare_paged(model, params, prompt, device, probe: bool):
         check(bool(torch.isfinite(lc).all() and torch.isfinite(ld).all()),
               f"non-finite paged logits ({cfg.precision}, {run})")
         runs[run] = (lc, ld, attn)
-    check(not any(n for c in ("chunk", "decode")
-                  for n in launches[f"{c}_plain"].values()),
+    check(not any(n for c in ("chunk", "decode") for run, b in order
+                  if b == "torch" for n in launches[f"{c}_{run}"].values()),
           "backend='torch' launched a kernel")
     (cc, cd, ca), (pc, pd, pa) = runs["cuda"], runs["plain"]
     out = {"launches": {"chunk": launches["chunk_cuda"],
@@ -2993,6 +3645,12 @@ def _compare_paged(model, params, prompt, device, probe: bool):
            "decode": (cd - pd).abs().max().item(),
            "scale": pd.abs().max().item(),
            "agree": int((cd.argmax(-1) == pd.argmax(-1)).sum())}
+    if swap:
+        out.update(swap=(cd - runs["swap"][1]).abs().max().item(),
+                   code_steps=sum(int((a[i] != b[i]).sum())
+                                  for a, b in zip(codes["cuda"],
+                                                  codes["plain"])
+                                  for i in (0, 2)))
     if probe:
         out.update(q0_equal=torch.equal(ca[0][0], pa[0][0]),
                    attn0=(ca[0][1] - pa[0][1]).abs().max().item(),
@@ -3037,6 +3695,7 @@ def _main(torch, tmp: str) -> None:
     core_launches = phase_core_quant(device, card)
     phase_sampling(device, card, served, (paged_model, paged_streams))
     phase_speculative(device, card)
+    phase_families(device, card)
     launches.update(paged_attention=paged_launches["paged_attention"],
                     fused_decode=fused_launches["fused_decode"],
                     binary_matmul=xnor_launches["binary_matmul"],

@@ -7,10 +7,14 @@ import importlib
 
 from repro_torch.models.config import ModelConfig
 
-ARCH_IDS = ["smollm-135m"]
+ARCH_IDS = ["smollm-135m", "granite-moe-1b-a400m", "falcon-mamba-7b",
+            "jamba-v0.1-52b"]
 
 _MODULES = {
     "smollm-135m": "smollm_135m",
+    "granite-moe-1b-a400m": "granite_moe_1b_a400m",
+    "falcon-mamba-7b": "falcon_mamba_7b",
+    "jamba-v0.1-52b": "jamba_v01_52b",
 }
 
 

@@ -216,7 +216,8 @@ class DispatchEvent(NamedTuple):
     inputs); ``block`` the tuning cache's choice that ran (a packed kernel's
     tile, or B5's plan; None for the automatic plan and for dispatches
     that choose nothing)."""
-    op: str                     # "qmatmul" | "act_quant_signed_grouped" |
+    op: str                     # "qmatmul" | "qmatmul_experts" |
+                                # "ssm_scan" | "act_quant_signed_grouped" |
                                 # "decode_attention" | "paged_attention" |
                                 # "fused_paged_decode" | "flash_attention"
     kind: str                   # storage kind / attn kind
@@ -472,6 +473,49 @@ def qmatmul(x: torch.Tensor, pw: PackedWeight, cfg: PrecisionConfig, *,
     out = fn(xq, pw, scale, bias, out_dtype=out_dtype, a_scale=a_scale,
              block=block)
     return out.reshape(*lead, out.shape[-1])
+
+
+def qmatmul_experts(x: torch.Tensor, p: dict, cfg: PrecisionConfig, *,
+                    backend: str | None = None) -> torch.Tensor:
+    """Per-expert serving matmul: x (E, C, K) @ W_e (K, N) with the experts'
+    packed storage ``{"wt_packed": (E, N, KW), "scale": (E, N)}``.
+
+    The words are unpacked (signed k-bit fields, or +/-1 at 1 bit; int8
+    codes are taken as they are), then one f32 einsum over every expert and
+    the per-channel scale.  The activations are not quantized: expert
+    buffers are gathered rows, and per-expert scales would change the
+    routing semantics.  The reference computes this product outside any
+    Pallas kernel, so it is plain PyTorch on every device, and the dispatch
+    trace says so (``impl_backend="torch"``)."""
+    backend = _check_backend(backend, x)
+    wt = p["wt_packed"]
+    bits = weight_bits(cfg)
+    if wt.dtype == torch.int32:
+        codes = (packing.unpack_binary_pm1(wt) if cfg.w_mode == W_BINARY
+                 else packing.unpack(wt, bits, signed=True))       # (E, N, K)
+    else:
+        codes = wt                                                 # int8 codes
+    _record_dispatch(op="qmatmul_experts",
+                     kind=cfg.w_mode if wt.dtype == torch.int32 else K_CODES,
+                     requested_backend=backend, impl_backend=BACKEND_TORCH,
+                     a_bits=0, w_bits=bits,
+                     m_rows=int(x.shape[0] * x.shape[1]), a_scale_shape=None)
+    acc = torch.einsum("eck,enk->ecn", x.to(torch.float32),
+                       codes.to(torch.float32))
+    return (acc * p["scale"][:, None, :]).to(x.dtype)
+
+
+def record_plain(op: str, kind: str, x: torch.Tensor,
+                 backend: str | None = None) -> None:
+    """Record a dispatch that runs plain PyTorch on every device by the
+    reference's design (the Mamba layer's selective scan, ``op``
+    "ssm_scan"): ``impl_backend="torch"`` whatever was requested, so the
+    trace shows the plain piece on the card.  ``x`` gives the device and
+    the rows (all but its last axis)."""
+    _record_dispatch(op=op, kind=kind,
+                     requested_backend=_check_backend(backend, x),
+                     impl_backend=BACKEND_TORCH, a_bits=0, w_bits=0,
+                     m_rows=int(x.numel() // x.shape[-1]), a_scale_shape=None)
 
 
 def fake_quant_dot(x: torch.Tensor, w: torch.Tensor, cfg: PrecisionConfig, *,

@@ -48,6 +48,13 @@ need a float ``--precision``:
     PYTHONPATH=src python -m repro_torch.launch.serve --precision fp32 \
         --brownout --speculative --slo mixed --requests 12 --slots 4
 
+``--arch`` also takes the MoE, Mamba and hybrid stacks
+(granite-moe-1b-a400m, falcon-mamba-7b, jamba-v0.1-52b); the two with Mamba
+layers admit whole prompts and refuse ``--paged`` and a chunk size:
+
+    PYTHONPATH=src python -m repro_torch.launch.serve \
+        --arch falcon-mamba-7b --requests 4 --gen 8
+
 Runs on the card (``--device cuda``, the default) and refuses to start when
 no card is visible; ``--device cpu`` runs the plain PyTorch versions of the
 kernels instead.
@@ -69,7 +76,8 @@ from repro_torch.models.convert import serving_param_bytes
 from repro_torch.runtime.adaptive import AdaptiveServer
 from repro_torch.runtime.kvcache import PagedBatcher, paged_block_bytes
 from repro_torch.runtime.serving import (ContinuousBatcher, Request,
-                                         RequestOptions, ServingConfig)
+                                         RequestOptions, ServingConfig,
+                                         supports_chunked_prefill)
 from repro_torch.runtime.tracing import TraceConfig
 
 
@@ -167,7 +175,9 @@ def serve(args) -> list:
     if args.reduced:
         cfg = reduce_for_smoke(cfg)
     model = build_model(cfg)
-    gen = torch.Generator(device="cpu").manual_seed(args.seed)
+    # drawn on the serving device: falcon-mamba-7b's ~7e9 draws take
+    # minutes on a host generator
+    gen = torch.Generator(device=device).manual_seed(args.seed)
     params = model.init(gen, device)
     base_bytes = serving_param_bytes(params)
     params = to_serving(params, cfg, tp=1)
@@ -235,10 +245,14 @@ def serve(args) -> list:
     if lanes[0].chunk_size:
         print(f"chunked prefill: chunk={lanes[0].chunk_size}")
     else:
-        print("whole-prompt admission (--chunk-size 0): each prompt is "
-              "prefilled in one call, its full-sequence attention through "
-              + ("the flash_attention kernel" if device.type == "cuda"
-                 else "the reference's plain attention"))
+        why = ("--chunk-size 0" if supports_chunked_prefill(cfg) else
+               "chunked prefill unsupported: recurrent state")
+        print(f"whole-prompt admission ({why}): each prompt is prefilled in "
+              "one call"
+              + (", its full-sequence attention through "
+                 + ("the flash_attention kernel" if device.type == "cuda"
+                    else "the reference's plain attention")
+                 if cfg.has_attention else ""))
 
     rng = np.random.default_rng(1)
     slo_cycle = (["premium", "standard", "batch"] if args.slo == "mixed"

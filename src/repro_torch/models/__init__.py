@@ -1,5 +1,6 @@
 """Model facade: ``build_model(cfg)`` returns a ``Model`` with the functional
-serving API of ``repro.models.Model`` for dense token LMs:
+serving API of ``repro.models.Model`` for token LMs (attention, Mamba and
+hybrid stacks, dense or MoE FFNs):
 
     model.init(generator, device)                      -> params
     model.forward(params, batch)                       -> (logits, aux)
@@ -12,6 +13,9 @@ serving API of ``repro.models.Model`` for dense token LMs:
                             slot_map=None, fused=True)  -> (logits, pool)
     model.decode_window_paged(params, tokens, pool, page_table, pos, kv_bits)
                                                        -> (logits, pool)
+
+The three paged entry points are None for a stack with a Mamba layer (its
+state has no sequence axis to page), as in the reference.
 
 ``batch`` is {"tokens": (B, S)}, plus {"labels": (B, S)} for ``loss``.
 Every call takes an optional ``backend`` ("cuda" | "torch"); None picks by
@@ -37,14 +41,15 @@ class Model:
     prefill: Callable
     decode_step: Callable
     prefill_chunk: Callable
-    # paged-KV serving (runtime.kvcache): block pool + page table
-    prefill_chunk_paged: Callable
-    decode_step_paged: Callable
+    forward: Callable
+    # paged-KV serving (runtime.kvcache): block pool + page table; None for
+    # stacks the paged cache does not cover (SSM / hybrid)
+    prefill_chunk_paged: Callable | None = None
+    decode_step_paged: Callable | None = None
     # multi-token decode window with per-slot start positions (the verify
     # step of self-speculative decoding); (params, tokens (B, W), pool,
     # page_table, pos (B,), kv_bits) -> (logits (B, W, V), pool)
-    decode_window_paged: Callable
-    forward: Callable
+    decode_window_paged: Callable | None = None
 
     def loss(self, params, batch, backend=None):
         """Next-token NLL of ``batch["labels"]`` under the forward's logits,
@@ -61,6 +66,7 @@ def build_model(cfg: ModelConfig) -> Model:
         raise NotImplementedError(
             f"{cfg.name}: the port serves token LMs only (kind={cfg.kind!r}, "
             f"frontend={cfg.frontend!r})")
+    pageable = transformer.attention_only(cfg)
     return Model(
         cfg=cfg,
         init=lambda generator, device: transformer.init_params(
@@ -74,15 +80,21 @@ def build_model(cfg: ModelConfig) -> Model:
         prefill_chunk=lambda p, tok, cache, pos, backend=None:
             transformer.prefill_chunk(p, tok, cache, pos, cfg,
                                       backend=backend),
-        prefill_chunk_paged=lambda p, tok, pool, pt, pos, kv_bits,
-        backend=None: transformer.prefill_chunk_paged(
-            p, tok, pool, pt, pos, cfg, kv_bits, backend=backend),
-        decode_step_paged=lambda p, tok, pool, pt, pos, kv_bits,
-        slot_map=None, fused=True, backend=None:
+        prefill_chunk_paged=(
+            lambda p, tok, pool, pt, pos, kv_bits, backend=None:
+            transformer.prefill_chunk_paged(
+                p, tok, pool, pt, pos, cfg, kv_bits, backend=backend)
+        ) if pageable else None,
+        decode_step_paged=(
+            lambda p, tok, pool, pt, pos, kv_bits, slot_map=None,
+            fused=True, backend=None:
             transformer.decode_step_paged(
                 p, tok, pool, pt, pos, cfg, kv_bits, slot_map=slot_map,
-                fused=fused, backend=backend),
-        decode_window_paged=lambda p, tok, pool, pt, pos, kv_bits,
-        backend=None: transformer.decode_window_paged(
-            p, tok, pool, pt, pos, cfg, kv_bits, backend=backend),
+                fused=fused, backend=backend)
+        ) if pageable else None,
+        decode_window_paged=(
+            lambda p, tok, pool, pt, pos, kv_bits, backend=None:
+            transformer.decode_window_paged(
+                p, tok, pool, pt, pos, cfg, kv_bits, backend=backend)
+        ) if pageable else None,
     )

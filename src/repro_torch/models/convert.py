@@ -1,7 +1,11 @@
 """Float-form -> serving-form parameter conversion (``repro.models.convert``).
 
 Walks the param tree and replaces every qlinear ``{"qw": (..., K, N)}`` with
-the packed serving form ``{"wt_packed", "scale"}``.
+the packed serving form ``{"wt_packed", "scale"}``, and every 3-D MoE
+expert weight ``(..., E, K, N)`` with its per-expert packed form
+``{"wt_packed": (..., E, N, KW), "scale": (..., E, N)}`` (K never sharded).
+A stacked tensor is converted one period at a time, so the f32 copy the
+quantizer takes is one period's.
 
 Pack-vs-int8 fallback rule: the K axis of a matrix is packed only if every
 tensor-parallel shard's slice is word-aligned — ``K_eff % (32/bits) == 0``
@@ -23,6 +27,8 @@ from .config import ModelConfig
 
 # matrices whose K (contraction) axis is sharded over the model axis
 _K_SHARDED = ("wo", "w_down", "w_out")
+# moe expert tensors (E, K, N): experts sharded, K unsharded
+_EXPERT = ("w_gate", "w_up", "w_down")
 
 
 def _bits_of(pcfg: PrecisionConfig) -> int:
@@ -41,8 +47,14 @@ def _packable(k: int, bits: int, k_sharded: bool, tp: int) -> bool:
     return k_eff % cpw == 0
 
 
-def _convert_qw(w, pcfg, bits, k_sharded, tp):
-    """w: (..., K, N) — leading dims are the period stacking."""
+def _convert_qw(w, pcfg, bits, k_sharded, tp, matrix_dims: int = 2):
+    """w: (..., K, N), a matrix (``matrix_dims`` 2) or experts (E, K, N)
+    (3) stacked over periods; the periods are converted one at a time."""
+    if w.ndim > matrix_dims:
+        parts = [_convert_qw(wi, pcfg, bits, k_sharded, tp, matrix_dims)
+                 for wi in w]
+        return {name: torch.stack([p[name] for p in parts])
+                for name in parts[0]}
     k = w.shape[-2]
     codes, scale = weight_quant(w.to(torch.float32), pcfg, axis=-2)
     scale = scale.squeeze(-2)                              # (..., N)
@@ -68,10 +80,14 @@ def to_serving(params, cfg: ModelConfig, tp: int = 16):
             return node
         if "qw" in node and path and \
                 (path[-1] != "lm_head" or cfg.quantize_lm_head):
-            out = _convert_qw(node["qw"], pcfg, bits, path[-1] in _K_SHARDED, tp)
+            out = _convert_qw(node["qw"], pcfg, bits, path[-1] in _K_SHARDED,
+                              tp)
             out.update({k: v for k, v in node.items() if k != "qw"})
             return out
-        return {key: walk(val, path + (key,)) for key, val in node.items()}
+        return {key: (_convert_qw(val, pcfg, bits, False, tp, matrix_dims=3)
+                      if key in _EXPERT and torch.is_tensor(val)
+                      and val.ndim >= 3 else walk(val, path + (key,)))
+                for key, val in node.items()}
 
     return walk(params, ())
 

@@ -1,4 +1,5 @@
-"""Layer library — the dense-LM layers of ``repro.models.layers`` in PyTorch.
+"""Layer library — the LM layers of ``repro.models.layers`` in PyTorch:
+attention, the dense FFN, the token-choice MoE FFN and the Mamba-1 mixer.
 
 Params are plain nested dicts of tensors.  A quantized linear ("qlinear")
 has two forms:
@@ -16,9 +17,17 @@ and through the reference's ``_attend`` / ``_attend_flash`` on the CPU.
 
 Unlike the JAX package, the cached attention paths update the cache (and
 the paged block pool) IN PLACE and return the same dict: a serving step
-never copies the cache.
+never copies the cache.  The MoE and Mamba layers return new values as the
+reference does (``moe_apply`` its auxiliary loss, ``mamba_apply`` its
+recurrent state); the model copies a state into its cache.
+
+The expert product (``engine.qmatmul_experts``) and the selective scan are
+plain PyTorch on every device: the reference computes both outside any
+Pallas kernel.
 """
 from __future__ import annotations
+
+import math
 
 import torch
 import torch.nn.functional as F
@@ -482,3 +491,244 @@ def ffn_apply(p, x, cfg: ModelConfig, backend: str | None = None):
     else:
         up = _act(up, cfg.act_fn)
     return qlinear_apply(p["w_down"], up, cfg, backend)
+
+
+# ---------------------------------------------------------------------------
+# MoE (token-choice top-k, capacity + slot-map dispatch)
+# ---------------------------------------------------------------------------
+def moe_init(generator, cfg: ModelConfig, device):
+    d, f, e = cfg.d_model, cfg.moe_d_ff, cfg.n_experts
+    dt = pdtype(cfg)
+    return {
+        "norm": rmsnorm_init(d, device),
+        "w_router": _randn(generator, (d, e), device) * d ** -0.5,
+        "w_gate": (_randn(generator, (e, d, f), device) * d ** -0.5).to(dt),
+        "w_up": (_randn(generator, (e, d, f), device) * d ** -0.5).to(dt),
+        "w_down": (_randn(generator, (e, f, d), device) * f ** -0.5).to(dt),
+    }
+
+
+def _expert_matmul(w, x, cfg: ModelConfig, backend: str | None = None):
+    """x: (E, C, K) @ w: (E, K, N) per expert; serving weights are packed
+    per expert (``engine.qmatmul_experts``)."""
+    pcfg = signed(get_precision(cfg.precision))
+    if isinstance(w, dict):
+        return engine.qmatmul_experts(x, w, pcfg, backend=backend)
+    if pcfg.w_mode != W_FLOAT:
+        raise NotImplementedError(
+            f"{cfg.precision}: the fake-quant (QAT) form is not ported; "
+            "serve packed weights (models.convert.to_serving)")
+    return torch.einsum("eck,ekn->ecn", x, w.to(x.dtype))
+
+
+def moe_apply(p, x, cfg: ModelConfig, backend: str | None = None):
+    """Token-choice top-k MoE with capacity, slot-map dispatch: an
+    (E, cap) slot -> token map gathers each expert's rows, and each token
+    sums its experts' gated outputs.  Returns (out, aux load-balance loss).
+
+    Capacity depends on the batch: ``cap = int(T k / E * capacity_factor)``
+    or 1, and entries claim slots in token-major order, so a token's
+    experts depend on the other rows of the call (dead decode slots
+    included).  Over-capacity entries are dropped.  Each token's expert
+    outputs are summed in ascending expert order, one add at a time (the
+    order of the reference's scatter-add on XLA's CPU), never by atomics."""
+    if cfg.moe_impl != "pjit" or cfg.moe_ep_constraints:
+        raise NotImplementedError(
+            f"{cfg.name}: moe_impl={cfg.moe_impl!r}, moe_ep_constraints="
+            f"{cfg.moe_ep_constraints!r} are mesh features; the port serves "
+            "the slot-map path on one card")
+    b, s, d = x.shape
+    t = b * s
+    e, k = cfg.n_experts, cfg.top_k
+    cap = int(t * k / e * cfg.capacity_factor) or 1
+
+    xin = rmsnorm(p["norm"], x, cfg.norm_eps).reshape(t, d)
+    # f32 with TF32 off (PyTorch's default, which the port never changes):
+    # a router logit rounded through TF32 can flip a token's experts
+    logits = xin.to(torch.float32) @ p["w_router"]
+    probs = torch.softmax(logits, dim=-1)
+    top_p, top_i = torch.topk(probs, k, dim=-1)                  # (T, k)
+    top_p = top_p / top_p.sum(-1, keepdim=True).clamp_min(1e-9)
+
+    flat_e = top_i.reshape(-1)                                    # (T*k,)
+    onehot = F.one_hot(flat_e, e).to(torch.int32)                 # (T*k, E)
+    pos = (onehot.cumsum(0) - 1).gather(1, flat_e[:, None])[:, 0]
+    keep = pos < cap
+    tok = torch.arange(t, device=x.device).repeat_interleave(k)
+
+    # (E, cap) slot maps: token index (t = the zero row) and gate weight
+    tok_map = torch.full((e, cap), t, dtype=torch.int64, device=x.device)
+    tok_map[flat_e[keep], pos[keep]] = tok[keep]
+    gate_map = torch.zeros((e, cap), dtype=torch.float32, device=x.device)
+    gate_map[flat_e[keep], pos[keep]] = top_p.reshape(-1)[keep]
+
+    x_pad = torch.cat([xin, xin.new_zeros((1, d))])
+    buf = x_pad[tok_map]                                          # (E, cap, D)
+    h = _act(_expert_matmul(p["w_gate"], buf, cfg, backend), cfg.act_fn) * \
+        _expert_matmul(p["w_up"], buf, cfg, backend)
+    y = _expert_matmul(p["w_down"], h, cfg, backend)              # (E, cap, D)
+
+    # combine: each token's kept slots in ascending expert order (a zero
+    # row for a dropped entry), summed left to right
+    contrib = torch.cat([(y.to(torch.float32) * gate_map[..., None]
+                          ).reshape(e * cap, d),
+                         torch.zeros((1, d), device=x.device)])
+    slot = torch.where(keep, flat_e * cap + pos, e * cap).reshape(t, k)
+    slot = slot.gather(1, torch.argsort(top_i, dim=1))
+    parts = contrib[slot]                                         # (T, k, D)
+    out = parts[:, 0]
+    for j in range(1, k):
+        out = out + parts[:, j]
+
+    me = probs.mean(dim=0)
+    ce = F.one_hot(top_i[:, 0], e).to(torch.float32).mean(dim=0)
+    aux = e * torch.sum(me * ce)
+    return out.reshape(b, s, d).to(x.dtype), aux
+
+
+# ---------------------------------------------------------------------------
+# Mamba-1 (chunked selective scan; O(1) decode state)
+# ---------------------------------------------------------------------------
+def mamba_init(generator, cfg: ModelConfig, device):
+    d, di, r, n = cfg.d_model, cfg.d_inner, cfg.dt_rank_, cfg.ssm_state
+    dt = pdtype(cfg)
+    lo, hi = math.log(1e-3), math.log(1e-1)
+    u = torch.rand((di,), generator=generator, dtype=torch.float32,
+                   device=generator.device).to(device)
+    return {
+        "norm": rmsnorm_init(d, device),
+        "w_in": qlinear_init(generator, d, 2 * di, cfg, device),
+        "conv_w": (_randn(generator, (cfg.ssm_conv, di), device) * 0.2
+                   ).to(dt),
+        "conv_b": torch.zeros((di,), dtype=torch.float32, device=device),
+        "w_x": qlinear_init(generator, di, r + 2 * n, cfg, device),
+        "w_dt": qlinear_init(generator, r, di, cfg, device),
+        "dt_bias": torch.log(torch.expm1(torch.exp(lo + (hi - lo) * u))),
+        "A_log": torch.log(torch.arange(1, n + 1, dtype=torch.float32,
+                                        device=device).repeat(di, 1)),
+        "D": torch.ones((di,), dtype=torch.float32, device=device),
+        "w_out": qlinear_init(generator, di, d, cfg, device),
+    }
+
+
+def _causal_conv(x, w, b, state=None):
+    """Depthwise causal conv over the sequence.  x: (B,S,Di), w: (K,Di).
+    With ``state`` ((B, K-1, Di)) it continues from it: one-step decode for
+    S == 1, chunk continuation for S > 1.  Returns (out, new state)."""
+    kk = w.shape[0]
+    if state is None:
+        xp = F.pad(x, (0, 0, kk - 1, 0))
+        out = sum(xp[:, i:i + x.shape[1], :] * w[i] for i in range(kk))
+        return out + b, xp[:, -(kk - 1):, :] if kk > 1 else None
+    if x.shape[1] > 1:                                        # chunk append
+        xp = torch.cat([state.to(x.dtype), x], dim=1)
+        out = sum(xp[:, i:i + x.shape[1], :] * w[i] for i in range(kk))
+        return out + b, xp[:, -(kk - 1):, :] if kk > 1 else state
+    xs = torch.cat([state, x], dim=1)                         # (B, K, Di)
+    out = torch.einsum("bkd,kd->bd", xs.to(torch.float32),
+                       w.to(torch.float32))[:, None, :].to(x.dtype)
+    return out + b, xs[:, 1:, :]
+
+
+def _scan_inclusive(a, b):
+    """Inclusive scan over axis 1 of the pairs (a_t, b_t) under
+    (l, r) -> (r.a * l.a, r.a * l.b + r.b), in log2(L) doubling steps:
+    a_t becomes the product of a_0..a_t, b_t the recurrence h_t = a_t h_{t-1}
+    + b_t started from 0."""
+    off, length = 1, a.shape[1]
+    while off < length:
+        b = torch.cat([b[:, :off], a[:, off:] * b[:, :-off] + b[:, off:]],
+                      dim=1)
+        a = torch.cat([a[:, :off], a[:, off:] * a[:, :-off]], dim=1)
+        off *= 2
+    return a, b
+
+
+def _ssm_scan_chunked(dt, xs, bmat, cmat, a_mat, h0, chunk: int):
+    """Selective scan h_t = exp(dt_t A) h_{t-1} + dt_t B_t x_t ; y_t = C_t.h_t.
+
+    dt, xs: (B,S,Di); bmat, cmat: (B,S,N); a_mat: (Di,N); h0: (B,Di,N).
+    The sequence is cut into nc = max(S // chunk, 1) pieces of S // nc
+    positions, and the (B, piece, Di, N) decay and drive tensors exist for
+    one piece at a time.  As in the reference, S >= 2 * chunk must be a
+    multiple of S // chunk.  Returns (y (B,S,Di) f32, h_last (B,Di,N))."""
+    b, s, di = dt.shape
+    nc = max(s // chunk, 1)
+    lc = s // nc
+    if nc * lc != s:
+        raise ValueError(
+            f"selective scan: a sequence of {s} positions does not split "
+            f"into {nc} pieces of {lc} (chunk {chunk}): the reference "
+            "reshapes to (nc, S // nc) and refuses such lengths too")
+    h, ys = h0, []
+    for c in range(nc):
+        sl = slice(c * lc, (c + 1) * lc)
+        dtk, xsk, bk, ck = dt[:, sl], xs[:, sl], bmat[:, sl], cmat[:, sl]
+        decay = torch.exp(dtk[..., None] * a_mat[None, None])     # (B,lc,Di,N)
+        drive = (dtk * xsk)[..., None] * bk[:, :, None, :]
+        aa, bb = _scan_inclusive(decay, drive)
+        h_all = aa * h[:, None] + bb
+        ys.append(torch.einsum("bldn,bln->bld", h_all, ck))
+        h = h_all[:, -1]
+    return torch.cat(ys, dim=1), h
+
+
+def mamba_apply(p, x, cfg: ModelConfig, state=None,
+                backend: str | None = None):
+    """state: None (forward / whole prefill) or {"conv": (B,K-1,Di), "ssm":
+    (B,Di,N)}.  Returns (out, new_state): the final state for a prefill
+    (S > 1), a chunk or a decode step; None for a forward of one position
+    with no state (the reference's own rule)."""
+    b = x.shape[0]
+    di, n, r = cfg.d_inner, cfg.ssm_state, cfg.dt_rank_
+    xn = rmsnorm(p["norm"], x, cfg.norm_eps)
+    xz = qlinear_apply(p["w_in"], xn, cfg, backend)
+    xs, z = xz.chunk(2, dim=-1)                                # (B,S,Di) each
+
+    conv_state = state["conv"] if state is not None else None
+    xs, new_conv = _causal_conv(xs, p["conv_w"].to(torch.float32),
+                                p["conv_b"], conv_state)
+    xs = F.silu(xs.to(torch.float32)).to(x.dtype)
+
+    dbc = qlinear_apply(p["w_x"], xs, cfg, backend)
+    dt_r, b_, c_ = torch.split(dbc, [r, n, n], dim=-1)
+    dt = F.softplus(qlinear_apply(p["w_dt"], dt_r, cfg, backend
+                                  ).to(torch.float32) + p["dt_bias"])
+    a_mat = -torch.exp(p["A_log"])                             # (Di,N)
+
+    scan = state is None or xs.shape[1] > 1
+    engine.record_plain("ssm_scan", "chunked" if scan else "step", dt,
+                        backend)
+    if scan:
+        h0 = state["ssm"] if state is not None else \
+            torch.zeros((b, di, n), dtype=torch.float32, device=x.device)
+        y, h_last = _ssm_scan_chunked(dt, xs.to(torch.float32),
+                                      b_.to(torch.float32),
+                                      c_.to(torch.float32), a_mat, h0,
+                                      cfg.ssm_chunk)
+    else:                                                       # one-step decode
+        decay = torch.exp(dt[:, 0, :, None] * a_mat[None])      # (B,Di,N)
+        drive = (dt[:, 0] * xs[:, 0].to(torch.float32))[..., None] * \
+            b_[:, 0].to(torch.float32)[:, None, :]
+        h_last = decay * state["ssm"] + drive
+        y = torch.einsum("bdn,bn->bd", h_last,
+                         c_[:, 0].to(torch.float32))[:, None]   # (B,1,Di)
+
+    y = y + p["D"] * xs.to(torch.float32)
+    y = (y * F.silu(z.to(torch.float32))).to(x.dtype)
+    out = qlinear_apply(p["w_out"], y, cfg, backend)
+    new_state = None
+    if state is not None or xs.shape[1] > 1:
+        new_state = {"conv": new_conv if new_conv is not None else
+                     torch.zeros((b, cfg.ssm_conv - 1, di), dtype=x.dtype,
+                                 device=x.device),
+                     "ssm": h_last}
+    return out, new_state
+
+
+def make_ssm_state(cfg: ModelConfig, b: int, device, stacked: int = None):
+    lead = (stacked,) if stacked else ()
+    return {"conv": torch.zeros(lead + (b, cfg.ssm_conv - 1, cfg.d_inner),
+                                dtype=pdtype(cfg), device=device),
+            "ssm": torch.zeros(lead + (b, cfg.d_inner, cfg.ssm_state),
+                               dtype=torch.float32, device=device)}

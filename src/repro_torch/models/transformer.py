@@ -1,10 +1,14 @@
-"""Period-stacked decoder LM — the dense token-LM entry points of
-``repro.models.transformer``.
+"""Period-stacked decoder LM — the token-LM entry points of
+``repro.models.transformer``: attention, Mamba-1 and hybrid stacks, with
+dense or MoE FFNs.
 
 The layer stack is ``n_periods`` repetitions of ``cfg.layer_pattern`` /
 ``cfg.ffn_pattern``; parameters (and the cache) are stacked along a leading
 period axis exactly as in the JAX package, so the param tree maps leaf for
-leaf.  Where JAX scans over the stack, the port loops over periods.
+leaf.  Where JAX scans over the stack, the port loops over periods.  The
+cache holds ``{"k","v"[,"ks","vs"]}`` for an attention layer and
+``{"conv", "ssm"}`` (the recurrent state, no sequence axis) for a Mamba
+layer.
 
 Entry points (functions of (params, inputs)):
   forward(params, tokens, cfg)                     -> logits, aux
@@ -15,10 +19,10 @@ Entry points (functions of (params, inputs)):
   decode_step_paged(params, token, pool, page_table, pos, cfg, kv_bits)
                                                    -> logits, pool
 
-The cached entry points update ``cache`` (or the block ``pool``) in place
-and return it.  Every
-entry point takes ``backend`` ("cuda" | "torch" | None = by device), which
-reaches every engine dispatch.
+The paged entry points take attention-only stacks.  The cached entry
+points update ``cache`` (or the block ``pool``) in place and return it.
+Every entry point takes ``backend`` ("cuda" | "torch" | None = by device),
+which reaches every engine dispatch.
 """
 from __future__ import annotations
 
@@ -32,16 +36,23 @@ from .config import ModelConfig
 # init
 # ---------------------------------------------------------------------------
 def _init_period(generator, cfg: ModelConfig, device):
+    """One period's params: layer_i -> {mixer, ffn} by pattern."""
     p = {}
     for i, (mixer, ffn) in enumerate(zip(cfg.layer_pattern, cfg.ffn_pattern)):
-        if not mixer.startswith("attn") or ffn != "dense":
-            raise NotImplementedError(
-                f"{cfg.name}: the port serves dense attention stacks only "
-                f"(layer {i} is {mixer}/{ffn})")
-        p[f"layer_{i}"] = {
-            "attn": L.attn_init(generator, cfg, device),
-            "ffn": L.ffn_init(generator, cfg, device, gated=cfg.ffn_gated),
-        }
+        lp = {}
+        if mixer.startswith("attn"):
+            lp["attn"] = L.attn_init(generator, cfg, device)
+        elif mixer == "mamba":
+            lp["mamba"] = L.mamba_init(generator, cfg, device)
+        else:
+            raise ValueError(mixer)
+        if ffn == "dense":
+            lp["ffn"] = L.ffn_init(generator, cfg, device, gated=cfg.ffn_gated)
+        elif ffn == "moe":
+            lp["moe"] = L.moe_init(generator, cfg, device)
+        elif ffn != "none":
+            raise ValueError(ffn)
+        p[f"layer_{i}"] = lp
     return p
 
 
@@ -72,23 +83,53 @@ def init_params(cfg: ModelConfig, generator: torch.Generator, device):
 # period application
 # ---------------------------------------------------------------------------
 def _period(tree, i: int):
-    """Period ``i`` of a stacked tree (views: cache writes reach the stack)."""
+    """Period ``i`` of a stacked tree (views: cache writes reach the stack;
+    a None leaf, a state the reference's prefill did not return, stays
+    None)."""
     if isinstance(tree, dict):
         return {k: _period(v, i) for k, v in tree.items()}
-    return tree[i]
+    return None if tree is None else tree[i]
+
+
+def _ffn(lp, x, ffn: str, cfg: ModelConfig, backend):
+    """x after the layer's FFN and its residual; returns (x, aux)."""
+    if ffn == "dense":
+        return x + L.ffn_apply(lp["ffn"], x, cfg, backend), 0.0
+    if ffn == "moe":
+        out, aux = L.moe_apply(lp["moe"], x, cfg, backend)
+        return x + out, aux
+    return x, 0.0
+
+
+def _put_state(cache: dict, key: str, state) -> None:
+    """Copy a Mamba layer's new state into its (period view of the) cache."""
+    for name, leaf in cache[key].items():
+        leaf.copy_(state[name])
 
 
 def _apply_period(pp, x, cfg: ModelConfig, positions, *, caches=None,
                   cache_pos=None, backend=None):
-    for i, mixer in enumerate(cfg.layer_pattern):
-        lp = pp[f"layer_{i}"]
-        cache_i = caches[f"layer_{i}"] if caches is not None else None
-        out, _ = L.attn_apply(lp["attn"], x, cfg, positions,
-                              local=(mixer == "attn_local"), cache=cache_i,
-                              cache_pos=cache_pos, backend=backend)
-        x = x + out
-        x = x + L.ffn_apply(lp["ffn"], x, cfg, backend)
-    return x
+    """One period.  With ``caches`` (the period's view of the cache) the
+    attention KV and the Mamba states are updated in place.  Returns
+    (x, aux): the MoE layers' load-balance terms summed (0.0, no device
+    operation, with none)."""
+    aux_total = 0.0
+    for i, (mixer, ffn) in enumerate(zip(cfg.layer_pattern, cfg.ffn_pattern)):
+        lp, key = pp[f"layer_{i}"], f"layer_{i}"
+        cache_i = caches[key] if caches is not None else None
+        if mixer.startswith("attn"):
+            out, _ = L.attn_apply(lp["attn"], x, cfg, positions,
+                                  local=(mixer == "attn_local"),
+                                  cache=cache_i, cache_pos=cache_pos,
+                                  backend=backend)
+        else:
+            out, state = L.mamba_apply(lp["mamba"], x, cfg, state=cache_i,
+                                       backend=backend)
+            if cache_i is not None:
+                _put_state(caches, key, state)
+        x, aux = _ffn(lp, x + out, ffn, cfg, backend)
+        aux_total = aux_total + aux
+    return x, aux_total
 
 
 def _embed(params, tokens, cfg: ModelConfig):
@@ -107,29 +148,38 @@ def _logits(params, x, cfg: ModelConfig):
 # entry points
 # ---------------------------------------------------------------------------
 def make_cache(cfg: ModelConfig, b: int, s_max: int, device):
-    """Stacked per-period cache (periods as leading axis)."""
-    return {f"layer_{i}": L.make_kv_cache(cfg, b, s_max, device,
-                                          stacked=cfg.n_periods)
-            for i in range(cfg.period)}
+    """Stacked per-period cache (periods as leading axis): KV for the
+    attention layers, ``{"conv", "ssm"}`` states for the Mamba layers."""
+    return {f"layer_{i}": (L.make_kv_cache(cfg, b, s_max, device,
+                                           stacked=cfg.n_periods)
+                           if mixer.startswith("attn") else
+                           L.make_ssm_state(cfg, b, device,
+                                            stacked=cfg.n_periods))
+            for i, mixer in enumerate(cfg.layer_pattern)}
 
 
 def forward(params, tokens, cfg: ModelConfig, backend=None):
     """The forward of a whole sequence (B, S), no cache: logits (B, S, V)
-    f32 and the auxiliary loss (a 0.0 f32 scalar: a dense stack has none).
-    Forward value only; gradients come with the training slice."""
+    f32 and the auxiliary loss (the MoE layers' load-balance terms summed,
+    an f32 scalar; 0.0 with no MoE layer).  Forward value only; gradients
+    come with the training slice."""
     b, s = tokens.shape
     x = _embed(params, tokens, cfg)
     positions = torch.arange(s, device=tokens.device)[None].expand(b, s)
+    aux = 0.0
     for per in range(cfg.n_periods):
-        x = _apply_period(_period(params["blocks"], per), x, cfg, positions,
-                          backend=backend)
-    return _logits(params, x, cfg), torch.zeros((), dtype=torch.float32,
-                                                device=tokens.device)
+        x, a = _apply_period(_period(params["blocks"], per), x, cfg,
+                             positions, backend=backend)
+        aux = aux + a
+    return _logits(params, x, cfg), torch.as_tensor(
+        aux, dtype=torch.float32, device=tokens.device)
 
 
 def prefill(params, tokens, cfg: ModelConfig, s_max: int, backend=None):
     """Process a whole prompt (B, S), build the cache, return the
-    last-position logits (B, 1, V) and the cache."""
+    last-position logits (B, 1, V) and the cache.  A Mamba layer given one
+    position returns no state (the reference's rule): its cache entry is
+    then None, and a decode step from it starts from a zero state."""
     b, s = tokens.shape
     device = tokens.device
     x = _embed(params, tokens, cfg)
@@ -137,21 +187,30 @@ def prefill(params, tokens, cfg: ModelConfig, s_max: int, backend=None):
     cache = make_cache(cfg, b, s_max, device)
     for per in range(cfg.n_periods):
         pp = _period(params["blocks"], per)
-        for i, mixer in enumerate(cfg.layer_pattern):
-            lp = pp[f"layer_{i}"]
-            out, (k, v) = L.attn_apply(lp["attn"], x, cfg, positions,
-                                       local=(mixer == "attn_local"),
-                                       return_kv=True, backend=backend)
-            x = x + out
-            c = _period(cache[f"layer_{i}"], per)
-            if cfg.kv_bits:
-                kq, ks, vq, vs = L._kv_quantize(k, v, cfg.kv_bits)
-                for name, val in (("k", kq), ("v", vq), ("ks", ks), ("vs", vs)):
-                    c[name][:, :s] = val          # rest keeps the 1e-6 pad
+        for i, (mixer, ffn) in enumerate(zip(cfg.layer_pattern,
+                                             cfg.ffn_pattern)):
+            lp, key = pp[f"layer_{i}"], f"layer_{i}"
+            if mixer.startswith("attn"):
+                out, (k, v) = L.attn_apply(lp["attn"], x, cfg, positions,
+                                           local=(mixer == "attn_local"),
+                                           return_kv=True, backend=backend)
+                c = _period(cache[key], per)
+                if cfg.kv_bits:
+                    kq, ks, vq, vs = L._kv_quantize(k, v, cfg.kv_bits)
+                    for name, val in (("k", kq), ("v", vq), ("ks", ks),
+                                      ("vs", vs)):
+                        c[name][:, :s] = val      # rest keeps the 1e-6 pad
+                else:
+                    c["k"][:, :s] = k.to(c["k"].dtype)
+                    c["v"][:, :s] = v.to(c["v"].dtype)
             else:
-                c["k"][:, :s] = k.to(c["k"].dtype)
-                c["v"][:, :s] = v.to(c["v"].dtype)
-            x = x + L.ffn_apply(lp["ffn"], x, cfg, backend)
+                out, state = L.mamba_apply(lp["mamba"], x, cfg, state=None,
+                                           backend=backend)
+                if state is None:
+                    cache[key] = None
+                else:
+                    _put_state(_period(cache, per), key, state)
+            x, _ = _ffn(lp, x + out, ffn, cfg, backend)
     return _logits(params, x[:, -1:, :], cfg), cache
 
 
@@ -165,9 +224,9 @@ def prefill_chunk(params, tokens, cache, pos: int, cfg: ModelConfig,
     x = _embed(params, tokens, cfg)
     positions = (pos + torch.arange(c, device=tokens.device))[None].expand(b, c)
     for per in range(cfg.n_periods):
-        x = _apply_period(_period(params["blocks"], per), x, cfg, positions,
-                          caches=_period(cache, per), cache_pos=pos,
-                          backend=backend)
+        x, _ = _apply_period(_period(params["blocks"], per), x, cfg,
+                             positions, caches=_period(cache, per),
+                             cache_pos=pos, backend=backend)
     return _logits(params, x, cfg), cache
 
 
@@ -180,21 +239,27 @@ def decode_step(params, token, cache, pos, cfg: ModelConfig, backend=None):
     x = _embed(params, token, cfg)
     positions = pos_b[:, None]
     for per in range(cfg.n_periods):
-        x = _apply_period(_period(params["blocks"], per), x, cfg, positions,
-                          caches=_period(cache, per), cache_pos=pos_b,
-                          backend=backend)
+        x, _ = _apply_period(_period(params["blocks"], per), x, cfg,
+                             positions, caches=_period(cache, per),
+                             cache_pos=pos_b, backend=backend)
     return _logits(params, x, cfg), cache
 
 
 # ---------------------------------------------------------------------------
 # paged KV cache (runtime.kvcache)
 # ---------------------------------------------------------------------------
+def attention_only(cfg: ModelConfig) -> bool:
+    """Every mixer attends: the stacks that the paged cache and chunked
+    admission cover (a Mamba layer's state has no sequence axis)."""
+    return all(m.startswith("attn") for m in cfg.layer_pattern)
+
+
 def make_pool(cfg: ModelConfig, num_blocks: int, block_size: int,
               kv_bits: int, device):
     """Stacked per-period block pool for the paged KV cache: every attention
     layer gets ``num_blocks`` physical blocks of ``block_size`` positions
     (block 0 reserved as null)."""
-    if not all(m.startswith("attn") for m in cfg.layer_pattern):
+    if not attention_only(cfg):
         raise ValueError(f"{cfg.name}: paged KV cache needs an attention-only "
                          "stack")
     return {f"layer_{i}": L.make_kv_pool(cfg, num_blocks, block_size, kv_bits,
@@ -207,15 +272,15 @@ def _paged_scan(params, x, cfg: ModelConfig, positions, pool, page_table,
                 backend=None):
     for per in range(cfg.n_periods):
         pp, pool_p = _period(params["blocks"], per), _period(pool, per)
-        for i, mixer in enumerate(cfg.layer_pattern):
+        for i, (mixer, ffn) in enumerate(zip(cfg.layer_pattern,
+                                             cfg.ffn_pattern)):
             lp = pp[f"layer_{i}"]
             out, _ = L.attn_apply_paged(
                 lp["attn"], x, cfg, positions, local=(mixer == "attn_local"),
                 pool=pool_p[f"layer_{i}"], page_table=page_table,
                 kv_bits=kv_bits, slot_map=slot_map, fused=fused,
                 backend=backend)
-            x = x + out
-            x = x + L.ffn_apply(lp["ffn"], x, cfg, backend)
+            x, _ = _ffn(lp, x + out, ffn, cfg, backend)
     return x, pool
 
 

@@ -133,6 +133,11 @@ class PagedBatcher(ContinuousBatcher):
         if config.preemption not in PREEMPTION_CHOICES:
             raise ValueError(f"preemption must be one of "
                              f"{PREEMPTION_CHOICES}, got {config.preemption!r}")
+        if model.decode_step_paged is None:
+            raise ValueError(
+                f"{model.cfg.name}: the paged KV cache needs an "
+                "attention-only token LM (SSM state has no sequence dim to "
+                "page; embeds/enc-dec stacks have no token stream to share)")
         if model.cfg.kv_bits:
             raise ValueError(
                 "paged serving owns KV quantization (kv_bits=...); build the "

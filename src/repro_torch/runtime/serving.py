@@ -20,8 +20,12 @@
     :class:`.profile.StepProfiler` around each step call).
 
 Exactness contract: greedy generations equal isolated sequential runs for
-attention-only stacks, and the same schedule gives the same streams as the
-JAX package's batcher.
+attention-only stacks with dense FFNs, and the same schedule gives the same
+streams as the JAX package's batcher.  SSM and hybrid stacks take
+whole-prompt admission (padding tokens would pollute the recurrent state).
+An MoE layer's expert capacity depends on the rows of the call (dead
+decode slots included), so its streams depend on the schedule as the
+reference's do.
 
 Sampling contract.  The draw is split in two.  :func:`sample_core` is the
 deterministic part: given the logits and one (V,) Gumbel noise row per
@@ -83,7 +87,8 @@ class ServingConfig:
     AdaptiveServer` and, for speculative decoding, by the paged batcher."""
     n_slots: int = 8
     s_max: int = 128
-    chunk_size: int | None = None      # None -> min(32, s_max); 0 -> whole
+    chunk_size: int | None = None      # None -> min(32, s_max), or 0 (whole
+                                       # prompts) where chunks are refused
     # pre-tune the kernel choice of every matmul shape class the batcher
     # dispatches (kernels.tuning; persists, so serving only looks up)
     autotune: bool = False
@@ -170,6 +175,15 @@ class _Admission:
     next_pos: int = 0                  # next chunk start (relative to start)
     start: int = 0                     # first position to prefill (> 0 when a
                                        # radix prefix-cache hit covers [0, start))
+
+
+def supports_chunked_prefill(cfg) -> bool:
+    """Chunk admission preserves exactness only when no recurrent state
+    crosses padded positions: attention-only layer stacks over token ids."""
+    from repro_torch.models.transformer import attention_only
+    return (getattr(cfg, "kind", "") == "lm"
+            and getattr(cfg, "frontend", "none") == "none"
+            and attention_only(cfg))
 
 
 def bucket_length(length: int, chunk: int) -> int:
@@ -266,9 +280,16 @@ def select_tokens(logits: torch.Tensor, greedy: torch.Tensor,
 
 def write_slot(cache, one, i: int) -> None:
     """Copy a batch-1 cache ``one`` into slot ``i`` of the slot cache, in
-    place.  Leaves are (periods, B, S, ...); the admission cache may be
-    longer than the slot cache, so its sequence axis is cut first."""
+    place.  KV leaves are (periods, B, S, ...): the admission cache may be
+    longer than the slot cache, so its sequence axis is cut first.  A Mamba
+    layer's ``conv`` / ``ssm`` leaves have no sequence axis: their axis 2 is
+    the same length in both caches, so the cut copies them whole."""
     for name, c in cache.items():
+        if one.get(name) is None:
+            # the reference's tree-mapped write refuses the same tree
+            raise ValueError(
+                f"admission cache has no {name!r}: a one-position prompt "
+                "returns no recurrent state (reference rule)")
         if isinstance(c, dict):
             write_slot(c, one[name], i)
         else:
@@ -278,8 +299,8 @@ def write_slot(cache, one, i: int) -> None:
 
 class ContinuousBatcher:
     """Slot-based continuous batching: chunked (or whole-prompt) prefill
-    interleaved with batched decode, on the device of the params (the port
-    serves attention-only token LMs, so chunk admission is always exact)."""
+    interleaved with batched decode, on the device of the params.  Stacks
+    with a Mamba layer admit whole prompts only."""
 
     def __init__(self, model, params, config: ServingConfig, *,
                  metrics: Metrics | None = None, tracer: Tracer | None = None):
@@ -294,8 +315,15 @@ class ContinuousBatcher:
         self.s_max = s_max = config.s_max
         cfg = model.cfg
         chunk_size = config.chunk_size
-        self.chunk_size = int(min(32, s_max) if chunk_size is None
-                              else chunk_size)
+        chunkable = supports_chunked_prefill(cfg)
+        if chunk_size is None:
+            chunk_size = min(32, s_max) if chunkable else 0
+        if chunk_size and not chunkable:
+            raise ValueError(
+                f"{cfg.name}: chunked prefill needs an attention-only token "
+                "LM (recurrent state cannot cross padded chunk positions); "
+                "pass chunk_size=0 for whole-prompt admission")
+        self.chunk_size = int(chunk_size)
         # the admission cache is rounded up so every chunk call is full-size
         self.s_adm = (bucket_length(s_max, self.chunk_size)
                       if self.chunk_size else s_max)
@@ -559,8 +587,9 @@ class ContinuousBatcher:
             self._activate(adm.req, adm.slot, self._adm_cache, row)
 
     def _admit_full(self):
-        """Whole-prompt admission (chunk_size=0): exact-length prefill per
-        request — stalls decode for its duration."""
+        """Whole-prompt admission (SSM / hybrid stacks, or chunk_size=0):
+        exact-length prefill per request — stalls decode for its
+        duration."""
         while (picked := self._admit_request()) is not None:
             req, slot = picked
             self.metrics.prefill_full += 1
