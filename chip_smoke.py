@@ -283,7 +283,8 @@ def _rand_packed(gen, n, k, bits, device):
     import torch
     from repro_torch.core import packing
     lo, hi = -(1 << (bits - 1)), (1 << (bits - 1)) - 1
-    codes = torch.randint(lo, hi + 1, (n, k), generator=gen, dtype=torch.int8)
+    codes = torch.randint(lo, hi + 1, (n, k), generator=gen, dtype=torch.int8,
+                          device=gen.device)
     return packing.pack(codes, bits).to(device), codes.to(device)
 
 
@@ -2527,16 +2528,18 @@ FAMILY_PROJ = (("granite wq/wo", 1024, 1024), ("granite wk/wv", 512, 1024),
                ("falcon w_dt", 8192, 256), ("falcon w_out", 4096, 8192))
 
 
-def _family_model(arch, device, reduced=False, **kw):
+def _family_model(arch, device, reduced=False, reduced_kw=None, **kw):
     """(model, serving params) of ``arch`` from seed 0, drawn on the card;
-    prints the weights' bytes before and after ``to_serving``."""
+    prints the weights' bytes before and after ``to_serving``.  ``kw``
+    overrides the config, ``reduced_kw`` the reduce_for_smoke one."""
     import torch
     from repro_torch.configs import get_config
     from repro_torch.models import build_model, reduce_for_smoke, to_serving
     from repro_torch.models.convert import serving_param_bytes
     cfg = get_config(arch, **kw)
     if reduced:
-        cfg = reduce_for_smoke(cfg)                 # float32
+        cfg = dataclasses.replace(reduce_for_smoke(cfg),   # float32
+                                  **(reduced_kw or {}))
     model = build_model(cfg)
     t0 = time.time()
     params = model.init(torch.Generator(device=device).manual_seed(0), device)
@@ -2545,7 +2548,9 @@ def _family_model(arch, device, reduced=False, **kw):
     torch.cuda.synchronize()
     packed = serving_param_bytes(params)
     print(f"{arch}{' (reduced)' if reduced else ''}: {cfg.n_layers} layers, "
-          f"d_model {cfg.d_model}, vocab {cfg.padded_vocab}, {cfg.dtype}, "
+          f"d_model {cfg.d_model}, {f'Dh {cfg.dh}, ' if cfg.n_heads else ''}"
+          f"vocab {cfg.padded_vocab}, "
+          f"{cfg.dtype}, "
           f"{cfg.precision}: weights {base / 1e9:.4f} GB {cfg.dtype}-form -> "
           f"{packed / 1e9:.4f} GB serving form ({base / packed:.2f}x "
           f"smaller); init + to_serving {time.time() - t0:.1f} s")
@@ -2903,18 +2908,29 @@ def _granite(device, card) -> dict:
     check(c32["decode"] <= tol or first is not None,
           f"granite fp32 decode_step logits differ by {c32['decode']} > "
           f"{tol} with no K/V code step")
-    # the fused decode (B4) at granite's shapes: with raw f32 blocks (kv16:
-    # no K/V code to step, as phase 4l) within the bound; at kv8 under C2's
-    # swap, as the dense step above: given the kernel run's K/V codes, the
-    # plain run within 0.05 of the bound (within the bound outright when no
-    # code steps)
+    fused = _fused_checks("granite", model32, params32, prompt, device)
+    del params32
+    torch.cuda.empty_cache()
+    return {"2xT dense": launches, "whole": wl, "paged": pl,
+            "fused": fused, "cfg": cfg}
+
+
+def _fused_checks(label, model32, params32, prompt, device) -> dict:
+    """The fused decode (B4) at a model's shapes, fp32 weights in float32:
+    with raw f32 blocks (kv16: no K/V code to step, as phase 4l) within
+    the bound; at kv8 under C2's swap, as the dense step: given the kernel
+    run's K/V codes, the plain run within 0.05 of the bound (within the
+    bound outright when no code steps).  Returns the decode step's
+    launches by kv width."""
+    from repro_torch.models import build_model
+    n_l = model32.cfg.n_layers
     p32 = build_model(dataclasses.replace(model32.cfg, kv_bits=0))
     fused = {}
     for kv_bits in (16, 8):
         f32 = _compare_paged(p32, params32, prompt, device, probe=False,
                              kv_bits=kv_bits, swap=kv_bits == 8)
         bound = 1e-4 * f32["scale"]
-        print(f"granite fp32 weights, float32, paged kv{kv_bits} (fused "
+        print(f"{label} fp32 weights, float32, paged kv{kv_bits} (fused "
               f"decode), kernels vs plain versions: prefill_chunk_paged max "
               f"|dlogit| {f32['chunk']:.3e}, decode_step_paged max |dlogit| "
               f"{f32['decode']:.3e} ({f32['decode'] / bound:.3f} of the bound "
@@ -2926,23 +2942,20 @@ def _granite(device, card) -> dict:
               + f"; greedy tokens agree on {f32['agree']}/{N_SLOTS} rows; "
               f"launches {f32['launches']['decode']}")
         check(f32["launches"]["decode"]["fused_decode"] == n_l,
-              f"granite fp32 paged kv{kv_bits} decode step: not one "
+              f"{label} fp32 paged kv{kv_bits} decode step: not one "
               "fused_decode per layer")
-        check(f32["chunk"] == 0.0, f"granite fp32 paged kv{kv_bits} "
+        check(f32["chunk"] == 0.0, f"{label} fp32 paged kv{kv_bits} "
                                    f"prefill_chunk_paged differs by "
                                    f"{f32['chunk']}")
         if kv_bits == 16 or f32["code_steps"] == 0:
-            check(f32["decode"] <= bound, f"granite fp32 paged kv{kv_bits} "
+            check(f32["decode"] <= bound, f"{label} fp32 paged kv{kv_bits} "
                                           f"decode differs by {f32['decode']}")
         else:
             check(f32["swap"] <= 0.05 * bound,
-                  f"granite fp32 paged kv8: with the kernel run's K/V codes "
+                  f"{label} fp32 paged kv8: with the kernel run's K/V codes "
                   f"the plain run is {f32['swap'] / bound:.4f} of the bound")
         fused[kv_bits] = f32["launches"]["decode"]
-    del params32
-    torch.cuda.empty_cache()
-    return {"2xT dense": launches, "whole": wl, "paged": pl,
-            "fused": fused, "cfg": cfg}
+    return fused
 
 
 def _falcon(device, card, layers: int) -> dict:
@@ -3035,24 +3048,24 @@ def _n_packed(params) -> int:
     return sum(_n_packed(v) for v in params.values())
 
 
-def _jamba(device, card) -> dict:
-    """jamba-v0.1-52b at reduce_for_smoke shapes (2 periods of 8: 2
-    attention, 14 Mamba, 8 MoE layers; f32): the hybrid cache through one
-    whole prefill and JAMBA_STEPS decode steps, kernels against the plain
-    versions, fp32 and 2xT weights each within 1e-4 of max|logit|."""
-    print("-- 4m jamba-v0.1-52b (reduce_for_smoke shapes, float32)",
-          flush=True)
+def _reduced_stack(device, card, arch: str, label: str, steps: int,
+                   **reduced_kw) -> dict:
+    """``arch`` at reduce_for_smoke shapes (f32; ``reduced_kw`` overrides
+    them): one whole prefill and ``steps`` decode steps, kernels against
+    the plain versions, fp32 and 2xT weights each within 1e-4 of
+    max|logit|; one B8 / B5 launch per attention layer, B7c per quantized
+    projection, B1 per packed one."""
     out = {}
     for precision in ("fp32", "2xT"):
-        model, params = _family_model("jamba-v0.1-52b", device, reduced=True,
+        model, params = _family_model(arch, device, reduced=True,
+                                      reduced_kw=reduced_kw,
                                       precision=precision, kv_bits=8)
         cfg = model.cfg
         prompt = _requests(cfg, 1, GEN)[0].tokens
-        cmp = _compare_recurrent(model, params, prompt, device,
-                                 steps=JAMBA_STEPS)
+        cmp = _compare_recurrent(model, params, prompt, device, steps=steps)
         tol = 1e-4 * cmp["scale"]
-        print(f"jamba {precision} float32 kv8, kernels vs plain versions: "
-              f"prefill max |dlogit| {cmp['prefill']:.3e}, {JAMBA_STEPS} "
+        print(f"{label} {precision} float32 kv8, kernels vs plain versions: "
+              f"prefill max |dlogit| {cmp['prefill']:.3e}, {steps} "
               f"decode steps max |dlogit| {cmp['decode']:.3e} of max|logit| "
               f"{cmp['scale']:.3e}"
               + f" (tolerance {tol:.3e}); launches per prefill {cmp['launches']['prefill']}, per "
@@ -3061,9 +3074,10 @@ def _jamba(device, card) -> dict:
             * cfg.n_periods
         check(cmp["launches"]["prefill"]["flash_attention"] == n_attn and
               cmp["launches"]["decode"]["decode_attention"] == n_attn,
-              f"jamba {precision}: not one B8 / B5 launch per attention layer")
+              f"{label} {precision}: not one B8 / B5 launch per attention "
+              "layer")
         check(cmp["prefill"] <= tol and cmp["decode"] <= tol,
-              f"jamba {precision} logits differ by {cmp['prefill']} / "
+              f"{label} {precision} logits differ by {cmp['prefill']} / "
               f"{cmp['decode']} > {tol}")
         if precision == "2xT":
             # w_dt's K (dt_rank 8) packs into no whole word: int8 codes,
@@ -3072,7 +3086,7 @@ def _jamba(device, card) -> dict:
                     "ternary_matmul": _n_packed(params)}
             for name, n in want.items():
                 check(cmp["launches"]["decode"][name] == n,
-                      f"jamba 2xT: {name} not {n} a step")
+                      f"{label} 2xT: {name} not {n} a step")
         out[precision] = cmp["launches"]
     return out
 
@@ -3088,7 +3102,10 @@ def phase_families(device, card) -> dict:
     _family_kernel_shapes(torch.Generator().manual_seed(7), device)
     granite = _granite(device, card)
     falcon = _falcon(device, card, FALCON_LAYERS)
-    jamba = _jamba(device, card)
+    print("-- 4m jamba-v0.1-52b (reduce_for_smoke shapes, float32)",
+          flush=True)
+    jamba = _reduced_stack(device, card, "jamba-v0.1-52b", "jamba",
+                           JAMBA_STEPS)
     _family_times(device, card, granite["cfg"], falcon["cfg"])
     total = {}
 
@@ -3106,6 +3123,654 @@ def phase_families(device, card) -> dict:
                  "fused_decode"):
         check(total.get(name, 0) > 0, f"phase 4m never launched {name}")
     print(f"phase 4m: {time.time() - t0:.1f} s")
+    return total
+
+
+# ---------------------------------------------------------------------------
+# 4n: the enc-dec backbone, the embeds frontend and the last LM configs
+# ---------------------------------------------------------------------------
+WHISPER_B, WHISPER_FRAMES, WHISPER_PROMPT, WHISPER_GEN = 4, 1500, 32, 16
+GEMMA_LAYERS, GEMMA_PREFILL = 4, 4608   # 2 of 23 periods; S past the window
+WIDE_LAYERS = 2                         # starcoder2, internvl2, glm4 fp32
+# B8 in this phase's modes: (label, B, Sq, Sk, KV, G, Dh, causal, window,
+# softcap, timed)
+FLASH_4N = (
+    ("whisper encoder", 4, 1500, 1500, 8, 1, 64, False, 0, 0.0, True),
+    ("whisper cross-attention, prefill", 4, 32, 1500, 8, 1, 64, False, 0,
+     0.0, True),
+    ("whisper cross-attention, decode step", 4, 1, 1500, 8, 1, 64, False, 0,
+     0.0, True),
+    ("kimi-k2 Dh 112", 1, 512, 512, 8, 8, 112, True, 0, 0.0, True),
+    ("gemma2 window 4096 + softcap 50", 1, GEMMA_PREFILL, GEMMA_PREFILL, 16,
+     2, 128, True, 4096, 50.0, False))
+
+
+# B1 and B7c at the projection shapes of these families (glm4's are held
+# by its prefill_chunk's equality with the plain run)
+PROJ_4N = ("whisper-base", "gemma2-27b", "starcoder2-15b", "internvl2-76b")
+
+
+def _proj_kernel_shapes_4n(gen, device) -> None:
+    """B1 (2-bit activation codes x ternary words) ``torch.equal`` to its
+    plain version at M in (4, 64) at every projection (N, K) of PROJ_4N's
+    configs (wq, wk / wv, wo, the FFN's up / gate and down), and B7c's
+    row form (2 bits, f32 and bf16) codes and scales ``torch.equal`` to
+    its plain version at the same M and each K."""
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import ref
+    from repro_torch.kernels.act_quant import act_quant_signed_rows
+    from repro_torch.kernels.ternary_matmul import ternary_matmul
+    shapes = {}
+    for arch in PROJ_4N:
+        cfg = get_config(arch)
+        d, f = cfg.d_model, cfg.d_ff
+        q, kv = cfg.n_heads * cfg.dh, cfg.n_kv_heads * cfg.dh
+        for nk in ((q, d), (kv, d), (d, q), (f, d), (d, f)):
+            shapes.setdefault(nk, arch.split("-")[0])
+    for (n, k), label in shapes.items():
+        w, _ = _rand_packed(gen, n, k, 2, device)
+        scale = torch.rand(n, generator=gen, device=device) + 0.5
+        for m in (4, 64):
+            x = torch.randint(-1, 2, (m, k), generator=gen, dtype=torch.int8,
+                              device=device)
+            y, y_ref = ternary_matmul(x, w, scale), \
+                ref.ternary_matmul_ref(x, w, scale)
+            torch.cuda.synchronize()
+            check(torch.equal(y, y_ref), f"ternary_matmul {label} M={m} "
+                  f"N={n} K={k}: not equal to the plain version")
+        del w
+    ks = sorted({k for _, k in shapes})
+    for k in ks:
+        for m in (4, 64):
+            for dtype in (torch.float32, torch.bfloat16):
+                x = torch.randn((m, k), generator=gen, device=device
+                                ).to(dtype)
+                (c, s), (c_ref, s_ref) = act_quant_signed_rows(x, bits=2), \
+                    ref.act_quant_signed_rows_ref(x, 2)
+                torch.cuda.synchronize()
+                check(torch.equal(c, c_ref) and torch.equal(s, s_ref),
+                      f"act_quant_signed_rows ({m}, {k}) {dtype}: "
+                      f"{int((c != c_ref).sum())} codes, "
+                      f"{int((s != s_ref).sum())} scales differ from the "
+                      "plain version")
+    torch.cuda.empty_cache()
+    print("ternary_matmul torch.equal to the plain version at M in (4, 64) x "
+          "(N, K) " + ", ".join(f"{label} ({n}, {k})"
+                                for (n, k), label in shapes.items()))
+    print(f"act_quant_signed_rows 2 bits, f32 and bf16: codes and scales "
+          f"torch.equal to the plain version at M in (4, 64) x K {ks}")
+
+
+def _flash_cost_4n(b, sq, sk, kv, g, dh, causal, window, in_bytes):
+    """(bytes, operations) of attention over these inputs: q, k, v read
+    once, the f32 output written once; 4 * Dh operations per visible
+    (query head, key) pair (every pair without the causal mask)."""
+    if causal:
+        pairs = sum(min(i + 1, window) if window > 0 else i + 1
+                    for i in range(sq))
+    else:
+        pairs = sq * sk
+    nbytes = b * kv * (sq * g + 2 * sk) * dh * in_bytes + 4 * b * sq * kv * g * dh
+    return nbytes, 4 * dh * b * kv * g * pairs
+
+
+def _flash_4n(gen, device, card) -> None:
+    """B8 in its new modes against its f32 plain version, f32 and bf16,
+    within 1e-5 of max|out| (phase 3's per-call bound): no mask with
+    Sq = Sk (whisper's encoder) and Sq != Sk (its cross-attention at a
+    prefill and at a decode step: one query row of a 64-row tile, a ragged
+    key tail), kimi-k2's Dh 112, gemma2's window + softcap at full width.
+    Timed beside the plain version and SDPA in the same dtype (K/V
+    expanded to KV * G heads; no SDPA call takes the softcap)."""
+    import torch
+    import torch.nn.functional as F
+    from repro_torch.kernels.flash_attention import flash_attention
+    from repro_torch.kernels.ref import flash_attention_ref
+    for (label, b, sq, sk, kv, g, dh, causal, window, softcap,
+         timed) in FLASH_4N:
+        kw = dict(causal=causal, window=window, softcap=softcap)
+        for dtype in (torch.float32, torch.bfloat16):
+            q = torch.randn((b, sq, kv, g, dh), generator=gen).to(device, dtype)
+            k, v = (torch.randn((b, sk, kv, dh), generator=gen).to(device, dtype)
+                    for _ in range(2))
+            out = flash_attention(q, k, v, **kw)
+            want = flash_attention_ref(q, k, v, **kw)
+            torch.cuda.synchronize()
+            err = (out - want).abs().max().item()
+            tol = 1e-5 * want.abs().max().item()
+            print(f"flash_attention {label} B={b} Sq={sq} Sk={sk} KV={kv} "
+                  f"G={g} Dh={dh} causal={causal} {str(dtype)[6:]}: max |diff| "
+                  f"vs f32 plain version {err:.3e} (tolerance {tol:.3e}, "
+                  f"{err / tol:.3f} of it)")
+            check(err <= tol, f"flash_attention {label} {dtype}: max |diff| "
+                              f"{err} > {tol}")
+            del want
+            if not timed:
+                continue
+            bf16 = dtype == torch.bfloat16
+            qh = q.reshape(b, sq, kv * g, dh).transpose(1, 2).contiguous()
+            kh, vh = (t.repeat_interleave(g, dim=2).transpose(1, 2).contiguous()
+                      for t in (k, v))
+            tk, tk_eager = time_ms(lambda: flash_attention(q, k, v, **kw),
+                                   reps=5)
+            tp, _ = time_ms(lambda: flash_attention_ref(q, k, v, **kw), reps=5)
+            tl, _ = time_ms(lambda: F.scaled_dot_product_attention(
+                qh, kh, vh, is_causal=causal), reps=5)
+            nbytes, ops = _flash_cost_4n(b, sq, sk, kv, g, dh, causal, window,
+                                         2 if bf16 else 4)
+            bt, by = bound(nbytes, ops if bf16 else 3 * ops,
+                           PEAK_BF16 if bf16 else PEAK_TF32)
+            print(f"  [{card}] {label} {str(dtype)[6:]}: kernel {tk:.4f} ms "
+                  f"(eager call {tk_eager:.4f} ms), plain {tp:.4f} ms, sdpa "
+                  f"is_causal={causal} {tl:.4f} ms, kernel / sdpa "
+                  f"{tk / tl:.2f}, bound {bt:.5f} ms ({by}: "
+                  f"{ops:.3e} FLOP{'' if bf16 else ' x 3 TF32 products'}), "
+                  f"{ops / tk / 1e9:.1f} TFLOP/s")
+
+
+def _tree_clone(tree):
+    if isinstance(tree, dict):
+        return {k: _tree_clone(v) for k, v in tree.items()}
+    return tree.clone()
+
+
+def _compare_steps(model, params, batch, step_in, device) -> dict:
+    """One whole prefill of ``batch`` and one decode step (input
+    ``step_in``, every row at the prompt's end) through the kernels and
+    through the plain versions.  Both decode steps start from a copy of
+    the plain run's cache (a prefill's K/V codes may step between the runs:
+    fault C2), and a third run, the plain versions given the kernel run's
+    decoded-token K/V codes, gives ``swap`` (C2's swap).  A fourth run
+    takes the kernels with B8 and B5 swapped for their plain versions
+    (``_plain_attention``): its prefill and step must equal the plain
+    run's, so any gap between the kernel and plain runs comes from the
+    attention kernels.  Returns the launches per prefill and per step, the
+    logits' differences, the K/V codes apart, the largest distance
+    between two of them in code steps (kv8) and the plain runs'
+    max|logit|."""
+    import torch
+    from repro_torch.kernels import engine
+    s = next(iter(batch.values())).shape[1]
+    launches, logits, codes = {}, {}, {}
+    for run, backend in (("cuda", "cuda"), ("plain", "torch"),
+                         ("attn_plain", "cuda")):
+        engine.reset_launch_counts()
+        with _plain_attention(run == "attn_plain"):
+            lp, c = model.prefill(params, batch, s + 2, backend=backend)
+        torch.cuda.synchronize()
+        launches[f"prefill_{run}"] = engine.launch_counts()
+        logits[f"prefill_{run}"] = lp
+        if run == "plain":
+            cache = c
+    for run, backend in (("cuda", "cuda"), ("plain", "torch"),
+                         ("swap", "torch"), ("attn_plain", "cuda")):
+        engine.reset_launch_counts()
+        with _decode_kv_codes(codes["cuda"] if run == "swap" else None) \
+                as codes[run], _plain_attention(run == "attn_plain"):
+            ld, _ = model.decode_step(params, step_in, _tree_clone(cache), s,
+                                      backend=backend)
+        torch.cuda.synchronize()
+        launches[f"decode_{run}"] = engine.launch_counts()
+        logits[f"decode_{run}"] = ld
+    check(all(bool(torch.isfinite(x).all()) for x in logits.values()),
+          f"non-finite logits ({model.cfg.name})")
+    check(not any(n for key, c in launches.items() if "cuda" not in key
+                  and "attn_plain" not in key for n in c.values()),
+          "backend='torch' launched a kernel")
+    for step in ("prefill", "decode"):
+        attn = launches[f"{step}_attn_plain"]
+        check(not any(attn.get(name, 0) for name in ("flash_attention",
+                                                     "decode_attention")),
+              f"{model.cfg.name}: the plain-attention run launched B8 or B5")
+        check(all(attn.get(name, 0) == n
+                  for name, n in launches[f"{step}_cuda"].items()
+                  if name not in ("flash_attention", "decode_attention")),
+              f"{model.cfg.name}: the plain-attention {step} launched "
+              f"{attn}, not the kernel run's other launches")
+        check(torch.equal(logits[f"{step}_attn_plain"],
+                          logits[f"{step}_plain"]),
+              f"{model.cfg.name}: with B8 and B5 plain, the kernels' {step} "
+              "differs from the plain one: a kernel other than the "
+              "attention's parts from its plain version")
+    d = lambda a, b: (logits[a] - logits[b]).abs().max().item()
+    return {"launches": {"prefill": launches["prefill_cuda"],
+                         "decode": launches["decode_cuda"]},
+            "max_step": max((int((a[i].to(torch.int16)
+                                  - b[i].to(torch.int16)).abs().max())
+                             for a, b in zip(codes["cuda"], codes["plain"])
+                             for i in (0, 2)), default=0),
+            "prefill": d("prefill_cuda", "prefill_plain"),
+            "prefill_scale": logits["prefill_plain"].abs().max().item(),
+            "decode": d("decode_cuda", "decode_plain"),
+            "swap": d("decode_cuda", "decode_swap"),
+            "scale": logits["decode_plain"].abs().max().item(),
+            "code_steps": sum(int((a[i] != b[i]).sum())
+                              for a, b in zip(codes["cuda"], codes["plain"])
+                              for i in (0, 2)),
+            "agree": int((logits["decode_cuda"].argmax(-1)
+                          == logits["decode_plain"].argmax(-1)).sum())}
+
+
+def _report_steps(label, cmp, bounded: bool) -> None:
+    """Print one ``_compare_steps`` result; when ``bounded``, hold the
+    prefill within 1e-4 of max|logit| and the decode step within it too,
+    or, where a K/V code stepped between the runs, hold C2's swap (the
+    plain run given the kernel run's codes) within 0.05 of it and every
+    differing code one step from the other."""
+    tp, td = 1e-4 * cmp["prefill_scale"], 1e-4 * cmp["scale"]
+    print(f"{label}, kernels vs plain versions: prefill max |dlogit| "
+          f"{cmp['prefill']:.3e} ({cmp['prefill'] / tp:.4f} of 1e-4 "
+          f"max|logit|), decode step {cmp['decode']:.3e} "
+          f"({cmp['decode'] / td:.4f}) with {cmp['code_steps']} K/V codes "
+          f"apart (at most {cmp['max_step']} step), plain given the kernel "
+          f"run's codes {cmp['swap'] / td:.4f}; greedy rows agree "
+          f"{cmp['agree']}/{N_SLOTS}"
+          + ("" if bounded else " (reported, not bounded)")
+          + "; with B8 and B5 plain and the other kernels on the card, "
+          "prefill and step equal to the plain run's"
+          + f"; launches per prefill {cmp['launches']['prefill']}, per "
+          f"decode step {cmp['launches']['decode']}")
+    if bounded:
+        check(cmp["prefill"] <= tp, f"{label}: prefill differs by "
+                                    f"{cmp['prefill']} > {tp}")
+        if cmp["code_steps"] == 0:
+            check(cmp["decode"] <= td, f"{label}: decode step differs by "
+                                       f"{cmp['decode']} > {td}")
+        else:
+            check(cmp["swap"] <= 0.05 * td, f"{label}: with the kernel run's "
+                  f"K/V codes the plain run is {cmp['swap'] / td:.4f} of the "
+                  "bound")
+            check(cmp["max_step"] <= 1, f"{label}: K/V codes "
+                  f"{cmp['max_step']} steps apart")
+
+
+def _check_counts(label, got: dict, want: dict) -> None:
+    for name, n in want.items():
+        check(got.get(name, 0) == n, f"{label}: {name} launched "
+                                     f"{got.get(name, 0)} times, not {n}")
+
+
+def _profile_call(card, label, fn, calls: int = 3) -> None:
+    """``fn`` (one model call) under ``torch.profiler``: device busy time a
+    call, its operations, the leading kernels."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        for _ in range(calls):
+            fn()
+        torch.cuda.synchronize()
+        wall = (time.perf_counter() - t0) * 1e3 / calls
+    dev, busy, by_name = _profile_device(prof)
+    busy_ms = busy / 1e3 / calls
+    print(f"[{card}] {label} under torch.profiler: wall {wall:.2f} ms, device "
+          f"operations {len(dev) / calls:.0f}, device busy {busy_ms:.3f} ms, "
+          f"idle share {max(0.0, 1 - busy_ms / wall):.4f}")
+    for name, (n, t) in sorted(by_name.items(), key=lambda kv: -kv[1][1])[:6]:
+        print(f"  {t / 1e3 / calls:8.3f} ms  {n / calls:5.0f}x  {name[:90]}")
+
+
+def _whisper(device, card) -> dict:
+    """whisper-base at full size (6 + 6 layers, d 512, vocab 51865 padded),
+    2xT kv8 bf16: stub frames (4, 1500, 512), a 32-token prompt, 16 greedy
+    steps; launches per prefill and step against the code's counts; a
+    profiled decode step; kernels against the plain versions (2xT
+    reported, fp32 in float32 bounded); the launcher's legacy loop."""
+    import torch
+    from repro_torch.kernels import engine
+    from repro_torch.launch import serve as cli
+    from repro_torch.models import frontends
+    print("-- 4n whisper-base 2xT kv8 bf16 (full size)", flush=True)
+    model, params = _family_model("whisper-base", device, precision="2xT",
+                                  kv_bits=8)
+    cfg = model.cfg
+    gen = torch.Generator(device=device).manual_seed(5)
+    frames = frontends.audio_frames_stub(gen, WHISPER_B, WHISPER_FRAMES,
+                                         cfg.d_model)
+    tokens = torch.randint(0, cfg.vocab, (WHISPER_B, WHISPER_PROMPT),
+                           generator=gen, device=device)
+    batch = {"tokens": tokens, "frames": frames}
+    # from the code: an encoder layer 4 + 2 projections, a decoder layer 4
+    # self + 4 cross + 2 FFN at prefill, 4 + 2 (cross wq, wo) + 2 a step
+    e, dl = cfg.n_enc_layers, cfg.n_layers
+    want_prefill = {"ternary_matmul": 6 * e + 10 * dl,
+                    "act_quant_signed_grouped": 6 * e + 10 * dl,
+                    "flash_attention": e + 2 * dl, "decode_attention": 0}
+    want_step = {"ternary_matmul": 8 * dl, "act_quant_signed_grouped": 8 * dl,
+                 "flash_attention": dl, "decode_attention": dl}
+    s_max = WHISPER_PROMPT + WHISPER_GEN
+    model.prefill(params, batch, s_max)                  # warm
+    torch.cuda.synchronize()
+    engine.reset_launch_counts()
+    t0 = time.perf_counter()
+    lp, cache = model.prefill(params, batch, s_max)
+    torch.cuda.synchronize()
+    t_prefill = (time.perf_counter() - t0) * 1e3
+    prefill = engine.launch_counts()
+    _check_counts("whisper prefill", prefill, want_prefill)
+    tok = lp[:, -1:].argmax(-1)
+    stream = [tok]
+    engine.reset_launch_counts()
+    ld, cache = model.decode_step(params, tok, cache, WHISPER_PROMPT)
+    torch.cuda.synchronize()
+    step = engine.launch_counts()
+    _check_counts("whisper decode step", step, want_step)
+    tok = ld[:, -1:].argmax(-1)
+    stream.append(tok)
+    t0 = time.perf_counter()
+    for i in range(1, WHISPER_GEN - 1):
+        ld, cache = model.decode_step(params, tok, cache, WHISPER_PROMPT + i)
+        tok = ld[:, -1:].argmax(-1)
+        stream.append(tok)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    toks = torch.cat(stream, dim=1)
+    check(bool(torch.isfinite(ld).all()) and toks.shape == (WHISPER_B,
+                                                            WHISPER_GEN)
+          and int(toks.max()) < cfg.padded_vocab, "whisper: bad stream")
+    print(f"[{card}] whisper 2xT kv8 bf16: prefill (frames {WHISPER_B} x "
+          f"{WHISPER_FRAMES}, prompt {WHISPER_PROMPT}) {t_prefill:.1f} ms; "
+          f"decode {WHISPER_B * (WHISPER_GEN - 2) / wall:.1f} tok/s "
+          f"({wall * 1e3 / (WHISPER_GEN - 2):.2f} ms a step); launches per "
+          f"prefill {prefill}, per decode step {step}; first tokens "
+          f"{toks[:, :8].tolist()}")
+    _profile_call(card, "whisper 2xT decode step (B 4)",
+                  lambda: model.decode_step(params, tok, cache,
+                                            WHISPER_PROMPT + WHISPER_GEN - 1))
+    step_in = tokens[:, -1:]
+    cmp = _compare_steps(model, params, batch, step_in, device)
+    _report_steps("whisper 2xT bf16 kv8", cmp, bounded=False)
+    out = {"prefill": prefill, "step": step, "2xT": cmp["launches"]}
+    del params, cache
+    m32, p32 = _family_model("whisper-base", device, precision="fp32",
+                             kv_bits=8, dtype="float32")
+    cmp = _compare_steps(m32, p32, batch, step_in, device)
+    _report_steps("whisper fp32 weights, float32, kv8", cmp, bounded=True)
+    _check_counts("whisper fp32 decode step", cmp["launches"]["decode"],
+                  {"flash_attention": dl, "decode_attention": dl})
+    out["fp32"] = cmp["launches"]
+    del p32
+    argv = ["--arch", "whisper-base", "--precision", "2xT", "--kv-bits", "8",
+            "--requests", "4", "--prompt-len", "64", "--gen", "16"]
+    print(f"serving CLI: python -m repro_torch.launch.serve {' '.join(argv)}",
+          flush=True)
+    toks = cli.main(argv)
+    check(toks.shape == (4, 16), f"CLI: tokens {toks.shape}")
+    _check_counts("CLI decode steps", engine.launch_counts(),
+                  {k: 15 * n for k, n in want_step.items()})
+    torch.cuda.empty_cache()
+    return out
+
+
+def _glm4(device, card) -> dict:
+    """glm4-9b at full size (40 layers, d 4096, 32 / 2 heads: G 16), 2xT
+    kv8 bf16 through the dense batcher (chunked and whole-prompt) and the
+    paged kv8 batcher, kernels against the plain versions, a profiled
+    decode step; fp32 weights in float32 at 2 of 40 layers: B5 under C2's
+    contract, B4 at kv16 (bound) and kv8 (C2's swap)."""
+    import torch
+    from repro_torch.models import build_model
+    from repro_torch.runtime.kvcache import PagedBatcher
+    from repro_torch.runtime.serving import ContinuousBatcher, ServingConfig
+    print("-- 4n glm4-9b 2xT kv8 bf16 (full size)", flush=True)
+    model, params = _family_model("glm4-9b", device, precision="2xT",
+                                  kv_bits=8)
+    cfg = model.cfg
+    n_l, n_proj = cfg.n_layers, _n_proj(cfg)
+    sc = ServingConfig(n_slots=N_SLOTS, s_max=S_MAX, chunk_size=CHUNK)
+    _warm(ContinuousBatcher(model, params, sc), cfg)
+    batcher = ContinuousBatcher(model, params, sc)
+    streams, launches = _run(batcher, _requests(cfg, N_REQ, GEN), card,
+                             "glm4 2xT kv8")
+    m = batcher.metrics
+    for name in ("act_quant_signed_grouped", "ternary_matmul"):
+        check(launches[name] == n_proj * _model_calls(m),
+              f"glm4: {name} launched {launches[name]} times in "
+              f"{_model_calls(m)} model calls, not {n_proj} per call")
+    check(launches["decode_attention"] == n_l * m.decode_steps,
+          "glm4: not one decode_attention launch per layer and step")
+    prompt = _requests(cfg, 1, GEN)[0].tokens
+    cmp = _compare_backends(model, params, sc, prompt, device)
+    tol0 = 1e-5 + 1e-4 * cmp["attn0_scale"]
+    print(f"glm4 launches per prefill chunk (C={CHUNK}): "
+          f"{cmp['launches']['chunk']}; per decode step (B={N_SLOTS}): "
+          f"{cmp['launches']['decode']}")
+    print(f"glm4 2xT bf16, kernels vs plain versions: prefill_chunk max "
+          f"|dlogit| {cmp['chunk']:.3e} (tolerance 0); decode step layer 0 "
+          f"attention (B5, G 16) max |diff| {cmp['attn0']:.3e} (tolerance "
+          f"{tol0:.3e}); attention outputs equal in bf16 in the first "
+          f"{cmp['layers_equal']} of {n_l} layers; logits max |dlogit| "
+          f"{cmp['decode']:.3e} of max|logit| {cmp['scale']:.3e}, greedy "
+          f"tokens agree on {cmp['agree']}/{N_SLOTS} rows (not bounded, as "
+          "phase 4)")
+    check(cmp["chunk"] == 0.0, f"glm4 prefill_chunk differs by {cmp['chunk']}")
+    check(cmp["q0_equal"] and cmp["attn0"] <= tol0,
+          f"glm4 decode step layer 0 attention differs by {cmp['attn0']}")
+    check(cmp["launches"]["decode"]["ternary_matmul"] == n_proj,
+          f"glm4 decode step: ternary_matmul not {n_proj}")
+
+    wb = ContinuousBatcher(model, params, dataclasses.replace(sc,
+                                                              chunk_size=0))
+    _, wl = _run(wb, _requests(cfg, N_REQ, GEN), card,
+                 "glm4 2xT kv8 whole-prompt")
+    print(f"glm4 flash_attention launches {wl['flash_attention']} over "
+          f"{wb.metrics.prefill_full} whole prefills ({n_l} per prefill)")
+    check(wl["flash_attention"] == n_l * wb.metrics.prefill_full > 0,
+          "glm4 whole-prompt: not one flash_attention launch per layer")
+
+    pmodel = build_model(dataclasses.replace(cfg, kv_bits=0))
+    pb = PagedBatcher(pmodel, params, _paged_config())
+    pstreams, pl = _run(pb, _requests(cfg, N_REQ, GEN), card,
+                        "glm4 2xT paged kv8")
+    check(pl["paged_attention"] == n_l * pb.metrics.decode_steps,
+          "glm4 paged: not one paged_attention launch per layer and step")
+    pc = _compare_paged(pmodel, params, prompt, device, probe=True)
+    ptol0 = 1e-5 + 1e-4 * pc["attn0_scale"]
+    print(f"glm4 2xT bf16 paged, kernels vs plain versions: "
+          f"prefill_chunk_paged max |dlogit| {pc['chunk']:.3e} (tolerance 0); "
+          f"decode_step_paged layer 0 attention (B2, G 16) max |diff| "
+          f"{pc['attn0']:.3e} (tolerance {ptol0:.3e}); logits max |dlogit| "
+          f"{pc['decode']:.3e} of max|logit| {pc['scale']:.3e} (not bounded); "
+          f"launches per paged decode step {pc['launches']['decode']}; "
+          f"streams equal to the dense run's "
+          f"{sum(pstreams[r] == streams[r] for r in streams)}/{N_REQ}")
+    check(pc["chunk"] == 0.0 and pc["q0_equal"] and pc["attn0"] <= ptol0,
+          f"glm4 paged: chunk {pc['chunk']}, layer 0 attention {pc['attn0']}")
+    phase_profile(card, "glm4 2xT dense", ContinuousBatcher(model, params, sc))
+    del batcher, wb, pb, params
+    torch.cuda.empty_cache()
+
+    print(f"-- 4n glm4-9b fp32 weights, float32 ({WIDE_LAYERS} of 40 layers "
+          "at full width: a depth cut for memory)", flush=True)
+    model32, params32 = _family_model("glm4-9b", device, precision="fp32",
+                                      kv_bits=8, dtype="float32",
+                                      n_layers=WIDE_LAYERS)
+    c32 = _compare_backends(model32, params32, sc, prompt, device)
+    tol = 1e-4 * c32["scale"]
+    print(f"glm4 fp32 weights, float32, kv8, kernels vs plain versions: "
+          f"prefill_chunk max |dlogit| {c32['chunk']:.3e}, decode_step max "
+          f"|dlogit| {c32['decode']:.3e} (tolerance {tol:.3e} = 1e-4 of "
+          f"max|logit| {c32['scale']:.3e}), greedy tokens agree on "
+          f"{c32['agree']}/{N_SLOTS} rows")
+    check(c32["launches"]["decode"]["decode_attention"] == WIDE_LAYERS,
+          "glm4 fp32 decode step: not one decode_attention per layer")
+    check(c32["chunk"] == 0.0, f"glm4 fp32 prefill_chunk differs by "
+                               f"{c32['chunk']}")
+    first = _c2_contract(card, model32, params32, prompt, device)
+    check(c32["decode"] <= tol or first is not None,
+          f"glm4 fp32 decode_step logits differ by {c32['decode']} > {tol} "
+          "with no K/V code step")
+    fused = _fused_checks("glm4", model32, params32, prompt, device)
+    del params32
+    torch.cuda.empty_cache()
+    return {"2xT dense": launches, "whole": wl, "paged": pl, "fused": fused}
+
+
+def _gemma2(device, card) -> dict:
+    """gemma2-27b at full width, 2 periods (4 of 46 layers: a depth cut
+    for memory): 2xT bf16 through the dense batcher, chunked (every layer
+    has a softcap: the plain attention path) and whole-prompt (B8 with the
+    window and the softcap); fp32 weights in float32, a whole prefill of
+    GEMMA_PREFILL positions (past the 4096 window) through the kernels
+    against the plain versions within 1e-4 of max|logit|; 2xT one prefill
+    and one step through the kernels against the plain versions,
+    reported, and equal to them with B8 plain."""
+    import torch
+    from repro_torch.kernels import engine
+    from repro_torch.runtime.serving import ContinuousBatcher, ServingConfig
+    print(f"-- 4n gemma2-27b 2xT bf16 (full width, {GEMMA_LAYERS} of 46 "
+          "layers: a depth cut for memory)", flush=True)
+    model, params = _family_model("gemma2-27b", device, precision="2xT",
+                                  kv_bits=8, n_layers=GEMMA_LAYERS)
+    cfg = model.cfg
+    n_proj = _n_proj(cfg)
+    sc = ServingConfig(n_slots=N_SLOTS, s_max=S_MAX, chunk_size=CHUNK)
+    _warm(ContinuousBatcher(model, params, sc), cfg)
+    batcher = ContinuousBatcher(model, params, sc)
+    _, launches = _run(batcher, _requests(cfg, N_REQ, GEN), card,
+                       "gemma2 2xT kv8")
+    m = batcher.metrics
+    for name in ("act_quant_signed_grouped", "ternary_matmul"):
+        check(launches[name] == n_proj * _model_calls(m),
+              f"gemma2: {name} not {n_proj} per model call")
+    check(launches["decode_attention"] == 0,
+          "gemma2: decode_attention launched (every layer has a softcap)")
+    wb = ContinuousBatcher(model, params, dataclasses.replace(sc,
+                                                              chunk_size=0))
+    _, wl = _run(wb, _requests(cfg, N_REQ, GEN), card,
+                 "gemma2 2xT kv8 whole-prompt")
+    check(wl["flash_attention"] == cfg.n_layers * wb.metrics.prefill_full > 0,
+          "gemma2 whole-prompt: not one flash_attention launch per layer")
+    toks = torch.randint(0, cfg.vocab, (N_SLOTS, PROMPT), device=device,
+                         generator=torch.Generator(device=device
+                                                   ).manual_seed(6))
+    cmp = _compare_steps(model, params, {"tokens": toks}, toks[:, -1:],
+                         device)
+    _report_steps("gemma2 2xT bf16 kv8", cmp, bounded=False)
+    del batcher, wb, params
+    torch.cuda.empty_cache()
+    model32, params32 = _family_model("gemma2-27b", device, precision="fp32",
+                                      kv_bits=0, dtype="float32",
+                                      n_layers=GEMMA_LAYERS)
+    tokens = torch.randint(0, cfg.vocab, (1, GEMMA_PREFILL), device=device,
+                           generator=torch.Generator(device=device
+                                                     ).manual_seed(4))
+    runs, counts = {}, {}
+    for run, backend in (("cuda", "cuda"), ("plain", "torch")):
+        engine.reset_launch_counts()
+        runs[run], _ = model32.prefill(params32, {"tokens": tokens},
+                                       GEMMA_PREFILL, backend=backend)
+        torch.cuda.synchronize()
+        counts[run] = engine.launch_counts()
+    err = (runs["cuda"] - runs["plain"]).abs().max().item()
+    tol = 1e-4 * runs["plain"].abs().max().item()
+    print(f"gemma2 fp32 weights, float32, whole prefill S={GEMMA_PREFILL} "
+          f"(local layers' window 4096, softcap 50, final softcap 30), "
+          f"kernels vs plain versions: max |dlogit| {err:.3e} (tolerance "
+          f"{tol:.3e}, {err / tol:.4f} of it); launches {counts['cuda']}")
+    check(err <= tol, f"gemma2 fp32 prefill differs by {err} > {tol}")
+    check(counts["cuda"]["flash_attention"] == GEMMA_LAYERS
+          and not any(counts["plain"].values()),
+          "gemma2 fp32 prefill: not one flash_attention per layer")
+    del params32
+    torch.cuda.empty_cache()
+    return {"2xT dense": launches, "whole": wl, "fp32": counts["cuda"]}
+
+
+def _wide_two_layers(device, card, arch: str) -> dict:
+    """``arch`` at full width, WIDE_LAYERS layers (a depth cut for memory):
+    one prefill of 4 prompts of PROMPT tokens (or, for the embeds
+    frontend, the vision stub's patch embeddings) and one decode step
+    through the kernels against the plain versions, 2xT bf16 reported and
+    fp32 in float32 bounded; the embeds stack also through the launcher's
+    legacy loop."""
+    import argparse
+    import torch
+    from repro_torch.launch import serve as cli
+    from repro_torch.models import frontends
+    label = arch.split("-")[0]
+    print(f"-- 4n {arch} (full width, {WIDE_LAYERS} layers: a depth cut for "
+          "memory)", flush=True)
+    out = {}
+    for precision, dtype in (("2xT", "bfloat16"), ("fp32", "float32")):
+        model, params = _family_model(arch, device, precision=precision,
+                                      kv_bits=8, dtype=dtype,
+                                      n_layers=WIDE_LAYERS)
+        cfg = model.cfg
+        gen = torch.Generator(device=device).manual_seed(6)
+        if cfg.frontend == "embeds":
+            batch = {"embeds": frontends.vision_patches_stub(
+                gen, N_SLOTS, PROMPT, cfg.d_model)}
+            step_in = torch.zeros((N_SLOTS, 1, cfg.d_model), device=device)
+        else:
+            batch = {"tokens": torch.randint(0, cfg.vocab, (N_SLOTS, PROMPT),
+                                             generator=gen, device=device)}
+            step_in = batch["tokens"][:, -1:]
+        cmp = _compare_steps(model, params, batch, step_in, device)
+        _report_steps(f"{label} {precision} {dtype} kv8", cmp,
+                      bounded=precision == "fp32")
+        want = {"flash_attention": WIDE_LAYERS}
+        if precision == "2xT":
+            want.update(ternary_matmul=_n_packed(params),
+                        act_quant_signed_grouped=_n_proj(cfg))
+        _check_counts(f"{label} {precision} prefill",
+                      cmp["launches"]["prefill"], want)
+        want.update(flash_attention=0, decode_attention=WIDE_LAYERS)
+        _check_counts(f"{label} {precision} decode step",
+                      cmp["launches"]["decode"], want)
+        out[precision] = cmp["launches"]
+        if cfg.frontend == "embeds" and precision == "2xT":
+            args = argparse.Namespace(autotune=False, requests=N_SLOTS,
+                                      prompt_len=PROMPT, gen=8)
+            print(f"{label} through the launcher's legacy loop (embeds "
+                  f"input, {N_SLOTS} x {PROMPT} patches, 8 steps):")
+            toks = cli._legacy_loop(model, params, cfg, args, device)
+            check(toks.shape == (N_SLOTS, 8), f"{label} legacy loop: {toks.shape}")
+        del params
+        torch.cuda.empty_cache()
+    return out
+
+
+def phase_encdec(device, card) -> dict:
+    """4n: the enc-dec backbone, the embeds frontend, gemma2's post-norms
+    and the last LM configs.  Returns the launches of its runs by kernel,
+    summed."""
+    import torch
+    from repro_torch.kernels import engine
+    print("== 4n. enc-dec, embeds frontend and the last LM families",
+          flush=True)
+    t0 = time.time()
+    _flash_4n(torch.Generator().manual_seed(8), device, card)
+    _proj_kernel_shapes_4n(torch.Generator(device=device).manual_seed(9),
+                           device)
+    runs = [_whisper(device, card), _glm4(device, card),
+            _gemma2(device, card),
+            _wide_two_layers(device, card, "starcoder2-15b"),
+            _wide_two_layers(device, card, "internvl2-76b")]
+    print("-- 4n kimi-k2-1t-a32b (reduce_for_smoke shapes, Dh 112, float32)",
+          flush=True)
+    runs.append(_reduced_stack(device, card, "kimi-k2-1t-a32b", "kimi-k2",
+                               2, head_dim=112))
+    total = {}
+
+    def add(counts):
+        for name, n in counts.items():
+            if isinstance(n, dict):
+                add(n)
+            elif isinstance(n, int) and name in engine.KERNELS:
+                total[name] = total.get(name, 0) + n
+    for r in runs:
+        add(r)
+    print(f"phase 4n launches by kernel: {total}")
+    for name in ("ternary_matmul", "act_quant_signed_grouped",
+                 "decode_attention", "flash_attention", "paged_attention",
+                 "fused_decode"):
+        check(total.get(name, 0) > 0, f"phase 4n never launched {name}")
+    print(f"phase 4n: {time.time() - t0:.1f} s")
     return total
 
 
@@ -3553,6 +4218,25 @@ def _paged_probe():
 
 
 @contextlib.contextmanager
+def _plain_attention(on: bool = True):
+    """With ``on``, route B8 and B5 (``engine.flash_attention``,
+    ``engine.decode_attention``) to their plain versions whatever backend
+    the model passes, so the other kernels run alone on the card.
+    Restores both on exit."""
+    from repro_torch.kernels import engine
+    saved = engine.flash_attention, engine.decode_attention
+    if on:
+        engine.decode_attention = lambda *a, backend=None, **kw: saved[1](
+            *a, backend="torch", **kw)
+        engine.flash_attention = lambda *a, backend=None, **kw: saved[0](
+            *a, backend="torch", **kw)
+    try:
+        yield
+    finally:
+        engine.flash_attention, engine.decode_attention = saved
+
+
+@contextlib.contextmanager
 def _decode_kv_codes(kv_from=None):
     """Record the decoded token's K/V codes and scales in each layer
     (``layers._kv_quantize`` on a one-position input); with ``kv_from``,
@@ -3696,6 +4380,7 @@ def _main(torch, tmp: str) -> None:
     phase_sampling(device, card, served, (paged_model, paged_streams))
     phase_speculative(device, card)
     phase_families(device, card)
+    phase_encdec(device, card)
     launches.update(paged_attention=paged_launches["paged_attention"],
                     fused_decode=fused_launches["fused_decode"],
                     binary_matmul=xnor_launches["binary_matmul"],

@@ -1,5 +1,5 @@
-"""Config registry: ``get_config(arch_id)`` for the architectures the port
-serves so far."""
+"""Config registry: ``get_config(arch_id)`` for every LM architecture of the
+reference, in its order."""
 from __future__ import annotations
 
 import dataclasses
@@ -7,14 +7,30 @@ import importlib
 
 from repro_torch.models.config import ModelConfig
 
-ARCH_IDS = ["smollm-135m", "granite-moe-1b-a400m", "falcon-mamba-7b",
-            "jamba-v0.1-52b"]
+ARCH_IDS = [
+    "jamba-v0.1-52b",
+    "glm4-9b",
+    "smollm-135m",
+    "gemma2-27b",
+    "starcoder2-15b",
+    "whisper-base",
+    "internvl2-76b",
+    "kimi-k2-1t-a32b",
+    "granite-moe-1b-a400m",
+    "falcon-mamba-7b",
+]
 
 _MODULES = {
+    "jamba-v0.1-52b": "jamba_v01_52b",
+    "glm4-9b": "glm4_9b",
     "smollm-135m": "smollm_135m",
+    "gemma2-27b": "gemma2_27b",
+    "starcoder2-15b": "starcoder2_15b",
+    "whisper-base": "whisper_base",
+    "internvl2-76b": "internvl2_76b",
+    "kimi-k2-1t-a32b": "kimi_k2_1t_a32b",
     "granite-moe-1b-a400m": "granite_moe_1b_a400m",
     "falcon-mamba-7b": "falcon_mamba_7b",
-    "jamba-v0.1-52b": "jamba_v01_52b",
 }
 
 

@@ -39,8 +39,10 @@
 //   in ascending order, then projects them onto all D columns: warp w
 //   takes contiguous rows in ascending order, each lane 16-byte column
 //   groups (float4 loads along D); the warps' sums add in ascending warp
-//   order.  Each rank pushes its column sums to the rank that writes those
-//   columns; after a second cluster.sync() rank r adds the eight ranks'
+//   order; above FD_PASS columns (D 4096, 6144) in passes of FD_PASS
+//   columns (a kernel of its own, MULTI: the pass loop costs 9% at one
+//   pass), the same sums in the same order a column.  Each rank pushes
+//   its column sums to the rank that writes those columns; after a second cluster.sync() rank r adds the eight ranks'
 //   sums of its D/8 columns in ascending rank order.  No block adds into
 //   another's output, and the arithmetic depends on the slot alone, so a
 //   repeated slot gives bit-identical rows.
@@ -54,6 +56,12 @@ namespace {
 constexpr int FD_CLUSTER = 8;
 constexpr int FD_BATCH = 16;       // wo rows in flight a thread
 constexpr int FD_CHUNK = 32768;    // bytes a bulk copy or prefetch
+constexpr int FD_PASS = 2048;      // output columns a projection pass
+
+// Columns one projection pass takes: all D up to FD_PASS (a multiple of
+// the load width), so the warps' partial sums of a pass fit in the scratch
+// at any model width (D 4096, 6144: glm4-9b, starcoder2-15b).
+__host__ __device__ inline int fd_pass_cols(int D) { return D < FD_PASS ? D : FD_PASS; }
 
 // wo rows (of K = KV*G*Dh) rank r projects: [r * kr, (r + 1) * kr).
 __host__ __device__ inline int fd_rows(int K) { return (K + FD_CLUSTER - 1) / FD_CLUSTER; }
@@ -72,11 +80,12 @@ __host__ __device__ inline int fd_parts_max(int KV) {
 __host__ __device__ inline int fd_parts(int KV, int h) {
   return KV <= FD_CLUSTER ? (FD_CLUSTER - 1 - h) / KV + 1 : 1;
 }
-// The warps' scratch, reused by the projection's partial sums afterwards.
+// The warps' scratch, reused by the projection's partial sums (one pass's
+// columns) afterwards.
 __host__ __device__ inline int fd_scratch_floats(int kv_kind, bool vec, int G, int Dh, int D,
                                                  int span) {
   const int warps = PA_NW * pa_warp_floats(kv_kind, vec, G, Dh, span);
-  const int psum = pa_round4(PA_NW * D);
+  const int psum = pa_round4(PA_NW * fd_pass_cols(D));
   return warps > psum ? warps : psum;
 }
 // Shared memory without the staged wo rows, in floats: the mbarrier (4), q
@@ -156,13 +165,16 @@ template <> struct FdVec<1> {
   static __device__ __forceinline__ float get(const float& v, int) { return v; }
 };
 
-// out[0..D) = x[r0..r1) . rows[r0..r1) (rows of D floats, as W-wide
-// vectors), one warp: lane t takes column groups t, t + 32, ..., each
-// summed over the rows in ascending order with FD_BATCH loads in flight.
+// out[0..nc) = x[r0..r1) . rows[r0..r1)[c0..c0 + nc) (rows of D floats, as
+// W-wide vectors; c0 a multiple of W), one warp: lane t takes column
+// groups t, t + 32, ..., each summed over the rows in ascending order with
+// FD_BATCH loads in flight.
 template <int W, typename V>
 __device__ __forceinline__ void fd_project(const V* __restrict__ rows, const float* __restrict__ x,
-                                           int r0, int r1, int D, float* __restrict__ out) {
-  const int ncw = (D + W - 1) / W, stride = D / W;
+                                           int r0, int r1, int c0, int nc, int D,
+                                           float* __restrict__ out) {
+  const int ncw = (nc + W - 1) / W, stride = D / W;
+  rows += c0 / W;
   for (int c = threadIdx.x % 32; c < ncw; c += 32) {
     float acc[W];
 #pragma unroll
@@ -183,7 +195,7 @@ __device__ __forceinline__ void fd_project(const V* __restrict__ rows, const flo
     }
 #pragma unroll
     for (int e = 0; e < W; ++e)
-      if (c * W + e < D) out[c * W + e] = acc[e];
+      if (c * W + e < nc) out[c * W + e] = acc[e];
   }
 }
 
@@ -199,7 +211,7 @@ enum FdVariant : int {
   FD_TRACE = 8
 };
 
-template <typename QT, int KIND, bool VEC, int W>
+template <typename QT, int KIND, bool VEC, int W, bool MULTI>
 __global__ void __launch_bounds__(PA_THREADS, 1)
 fused_decode_kernel(const QT* __restrict__ q, const typename KvStore<KIND>::T* __restrict__ kp,
                     const float* __restrict__ ks,
@@ -305,30 +317,42 @@ fused_decode_kernel(const QT* __restrict__ q, const typename KvStore<KIND>::T* _
   __syncthreads();
   stamp(5);
 
-  // projection of this rank's rows onto all D columns: warp w takes the
-  // contiguous rows [w * cs, (w + 1) * cs) in ascending order, lane t the
-  // column groups t, t + 32, ... (16-byte loads along a row)
+  // projection of this rank's rows onto the columns [c0, c0 + nc), pc of
+  // them a pass: warp w takes the contiguous rows [w * cs, (w + 1) * cs) in
+  // ascending order, lane t the column groups t, t + 32, ... of the pass
+  // (16-byte loads along a row)
   const int cs = (nk + PA_NW - 1) / PA_NW;
   const int r0 = min(nk, warp * cs), r1 = min(nk, (warp + 1) * cs);
-  float* psum = scratch;                         // PA_NW x D
+  float* psum = scratch;                         // PA_NW x pc
   if (staged) mbar_wait(bar);
   stamp(6);
-  if (!(variant & FD_NO_PROJECTION)) {
-    if (staged)
-      fd_project<W>(reinterpret_cast<const V*>(wo_s), x, r0, r1, D, psum + warp * D);
-    else
-      fd_project<W>(reinterpret_cast<const V*>(wo_rows), x, r0, r1, D, psum + warp * D);
-  }
-  __syncthreads();
-  stamp(7);
-  // this rank's sums (warps in ascending order) of every column, into the
-  // inbox of the rank that writes the column
-  for (int n = threadIdx.x; n < D; n += PA_THREADS) {
-    float a = 0.f;
-    if (!(variant & FD_NO_PROJECTION))
-      for (int w = 0; w < PA_NW; ++w) a += psum[w * D + n];
-    const int owner = n / dc;
-    cl.map_shared_rank(inbox2, owner)[rank * dc + n - owner * dc] = a;
+  auto project = [&](int c0, int nc, int pc) {
+    if (!(variant & FD_NO_PROJECTION)) {
+      if (staged)
+        fd_project<W>(reinterpret_cast<const V*>(wo_s), x, r0, r1, c0, nc, D, psum + warp * pc);
+      else
+        fd_project<W>(reinterpret_cast<const V*>(wo_rows), x, r0, r1, c0, nc, D,
+                      psum + warp * pc);
+    }
+    __syncthreads();
+    if (c0 == 0) stamp(7);
+    // this rank's sums (warps in ascending order) of the pass's columns,
+    // into the inbox of the rank that writes the column
+    for (int n = threadIdx.x; n < nc; n += PA_THREADS) {
+      float a = 0.f;
+      if (!(variant & FD_NO_PROJECTION))
+        for (int w = 0; w < PA_NW; ++w) a += psum[w * pc + n];
+      const int col = c0 + n, owner = col / dc;
+      cl.map_shared_rank(inbox2, owner)[rank * dc + col - owner * dc] = a;
+    }
+  };
+  if (MULTI) {
+    for (int c0 = 0; c0 < D; c0 += FD_PASS) {
+      project(c0, min(FD_PASS, D - c0), FD_PASS);
+      if (c0 + FD_PASS < D) __syncthreads();     // before the next pass's sums
+    }
+  } else {
+    project(0, D, D);                            // D <= FD_PASS: one pass
   }
   stamp(8);
   cl.sync();
@@ -357,33 +381,40 @@ struct FdArgs {
   int B, NB, bs, n_blocks, KV, G, Dh, D, span, stage_wo, variant;
 };
 
-template <typename QT, int KIND, bool VEC, int W>
+template <typename QT, int KIND, bool VEC, int W, bool MULTI>
 cudaError_t launch_kind(int grid, int smem, cudaStream_t stream, const FdArgs& a) {
   using T = typename KvStore<KIND>::T;
-  return pa_launch(fused_decode_kernel<QT, KIND, VEC, W>, grid, FD_CLUSTER, smem, stream,
+  return pa_launch(fused_decode_kernel<QT, KIND, VEC, W, MULTI>, grid, FD_CLUSTER, smem, stream,
                    static_cast<const QT*>(a.q), static_cast<const T*>(a.k), a.ks,
                    static_cast<const T*>(a.v), a.vs, a.pt, a.pos, a.sm, a.wo, a.out, a.B, a.NB,
                    a.bs, a.n_blocks, a.KV, a.G, a.Dh, a.D, a.span, a.stage_wo, a.variant);
 }
 
-template <typename QT, bool VEC, int W>
+template <typename QT, bool VEC, int W, bool MULTI>
 cudaError_t launch_vec(int kv_kind, int grid, int smem, cudaStream_t stream, const FdArgs& a) {
   switch (kv_kind) {
-    case KV_INT8: return launch_kind<QT, KV_INT8, VEC, W>(grid, smem, stream, a);
-    case KV_INT4: return launch_kind<QT, KV_INT4, VEC, W>(grid, smem, stream, a);
-    case KV_F32: return launch_kind<QT, KV_F32, VEC, W>(grid, smem, stream, a);
-    case KV_BF16: return launch_kind<QT, KV_BF16, VEC, W>(grid, smem, stream, a);
+    case KV_INT8: return launch_kind<QT, KV_INT8, VEC, W, MULTI>(grid, smem, stream, a);
+    case KV_INT4: return launch_kind<QT, KV_INT4, VEC, W, MULTI>(grid, smem, stream, a);
+    case KV_F32: return launch_kind<QT, KV_F32, VEC, W, MULTI>(grid, smem, stream, a);
+    case KV_BF16: return launch_kind<QT, KV_BF16, VEC, W, MULTI>(grid, smem, stream, a);
     default: return cudaErrorInvalidValue;
   }
+}
+
+template <typename QT, bool MULTI>
+cudaError_t launch_passes(bool vec, bool wvec, int kv_kind, int grid, int smem,
+                          cudaStream_t stream, const FdArgs& a) {
+  if (vec && wvec) return launch_vec<QT, true, 4, MULTI>(kv_kind, grid, smem, stream, a);
+  if (vec) return launch_vec<QT, true, 1, MULTI>(kv_kind, grid, smem, stream, a);
+  if (wvec) return launch_vec<QT, false, 4, MULTI>(kv_kind, grid, smem, stream, a);
+  return launch_vec<QT, false, 1, MULTI>(kv_kind, grid, smem, stream, a);
 }
 
 template <typename QT>
 cudaError_t launch(bool vec, bool wvec, int kv_kind, int grid, int smem, cudaStream_t stream,
                    const FdArgs& a) {
-  if (vec && wvec) return launch_vec<QT, true, 4>(kv_kind, grid, smem, stream, a);
-  if (vec) return launch_vec<QT, true, 1>(kv_kind, grid, smem, stream, a);
-  if (wvec) return launch_vec<QT, false, 4>(kv_kind, grid, smem, stream, a);
-  return launch_vec<QT, false, 1>(kv_kind, grid, smem, stream, a);
+  if (a.D > FD_PASS) return launch_passes<QT, true>(vec, wvec, kv_kind, grid, smem, stream, a);
+  return launch_passes<QT, false>(vec, wvec, kv_kind, grid, smem, stream, a);
 }
 
 bool wo_vector_ok(int D, const void* wo) {

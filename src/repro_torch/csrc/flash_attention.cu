@@ -8,7 +8,8 @@
 //   out   (B, Sq, KV, G, Dh)  f32
 //
 // Positions count from 0 on both sides (a prefill or a forward, never a
-// chunk at an offset).  Semantics as the Pallas kernel: q, k and v are read
+// chunk at an offset); causal = 0 drops the causal mask (an encoder's
+// self-attention, a cross-attention: Sq and Sk independent).  Semantics as the Pallas kernel: q, k and v are read
 // as f32; s = (q . k) * Dh^-0.5, then softcap * tanh(s / softcap) when
 // softcap > 0; key k_pos is seen by query q_pos iff k_pos <= q_pos (causal)
 // and k_pos > q_pos - window (window > 0); online softmax with m starting at
@@ -122,6 +123,29 @@ __device__ __forceinline__ void split_bf16(float p0, float p1, uint32_t& hi, uin
   const __nv_bfloat162 h = __floats2bfloat162_rn(p0, p1);
   hi = bf16x2_bits(h);
   lo = bf16x2_bits(__floats2bfloat162_rn(p0 - __low2float(h), p1 - __high2float(h)));
+}
+
+// TILE_SUM: acc = acc * corr + t, a tile's P.V added in f32 on the CUDA
+// cores.  The tensor cores' f32 accumulation is not IEEE: the addends of an
+// MMA are aligned to the largest and the bits below are cut (toward zero),
+// so MMAs straight into the running acc lose ~2^-23 of |acc| each, biased.
+// Over a long unmasked row (whisper's cross-attention, Sq 32 against 1500
+// keys: ~560 TF32 MMAs into an acc ~40x a tile's terms, and a small
+// max|out|, the average of 1500 values) the f32 kernel read 1.54 of its
+// 1e-5 * max|out| bound on an H100, against 0.12 for the same arithmetic
+// with IEEE sums (the emulation of tests/test_torch_flash_attention.py).
+// From zero each tile, t stays the size of one tile's terms: 0.27 of the
+// bound there (chip_smoke.py phase 4n).
+template <int NT>
+__device__ __forceinline__ void add_tile(float (&o)[NT][4], const float (&t)[NT][4],
+                                         const float (&corr)[2]) {
+#pragma unroll
+  for (int n = 0; n < NT; ++n) {
+    o[n][0] = o[n][0] * corr[0] + t[n][0];
+    o[n][1] = o[n][1] * corr[0] + t[n][1];
+    o[n][2] = o[n][2] * corr[1] + t[n][2];
+    o[n][3] = o[n][3] * corr[1] + t[n][3];
+  }
 }
 
 template <int DH>
@@ -286,17 +310,16 @@ flash_attn_tc_kernel(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* _
         sum[h] += __shfl_xor_sync(0xffffffffu, sum[h], 2);
         l[h] = l[h] * corr[h] + sum[h];
       }
-#pragma unroll
-      for (int n = 0; n < NT; ++n) {
-        o[n][0] *= corr[0];
-        o[n][1] *= corr[0];
-        o[n][2] *= corr[1];
-        o[n][3] *= corr[1];
-      }
 
-      // acc += (p_hi + p_lo) . V: the score fragments of keys 16kk .. +15
-      // are the A fragment of that k-step; the p_lo MMAs follow all p_hi
-      // ones, so no MMA waits on the one just before it
+      // t = (p_hi + p_lo) . V of this tile, from zero: the score fragments
+      // of keys 16kk .. +15 are the A fragment of that k-step; the p_lo
+      // MMAs follow all p_hi ones, so no MMA waits on the one just before
+      // it.  Then acc = acc * corr + t on the CUDA cores (TILE_SUM).
+      float t[NT][4];
+#pragma unroll
+      for (int n = 0; n < NT; ++n)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) t[n][e] = 0.f;
 #pragma unroll
       for (int kk = 0; kk < ST / 2; ++kk) {
         uint32_t ph[4], pl[4];
@@ -309,15 +332,16 @@ flash_attn_tc_kernel(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* _
         for (int dp = 0; dp < NT / 2; ++dp) {
           ldsm_x4_trans(r[dp], smem_addr(vb + (kk * 16 + (lane & 15)) * LD + dp * 16 +
                                          (lane >> 4) * 8));
-          mma_bf16(o[2 * dp], ph, r[dp][0], r[dp][1]);
-          mma_bf16(o[2 * dp + 1], ph, r[dp][2], r[dp][3]);
+          mma_bf16(t[2 * dp], ph, r[dp][0], r[dp][1]);
+          mma_bf16(t[2 * dp + 1], ph, r[dp][2], r[dp][3]);
         }
 #pragma unroll
         for (int dp = 0; dp < NT / 2; ++dp) {
-          mma_bf16(o[2 * dp], pl, r[dp][0], r[dp][1]);
-          mma_bf16(o[2 * dp + 1], pl, r[dp][2], r[dp][3]);
+          mma_bf16(t[2 * dp], pl, r[dp][0], r[dp][1]);
+          mma_bf16(t[2 * dp + 1], pl, r[dp][2], r[dp][3]);
         }
       }
+      add_tile(o, t, corr);
     }
     __syncthreads();                       // before tile i+2 overwrites buf
   }
@@ -571,18 +595,18 @@ flash_attn_tf32_kernel(const float* __restrict__ q, const float* __restrict__ k,
         sum[h] += __shfl_xor_sync(0xffffffffu, sum[h], 2);
         l[h] = l[h] * corr[h] + sum[h];
       }
-#pragma unroll
-      for (int n = 0; n < NT; ++n) {
-        o[n][0] *= corr[0];
-        o[n][1] *= corr[0];
-        o[n][2] *= corr[1];
-        o[n][3] *= corr[1];
-      }
 
-      // acc += P.V over the k-steps of 8 keys.  The A fragment's columns
-      // (tig, tig + 4) take keys (2 tig, 2 tig + 1) of the step, the keys the
-      // score fragment s[kk] holds, so P stays in registers; V's B fragment
-      // takes the same two keys (rows 2 tig, 2 tig + 1) at column gid.
+      // t = P.V of this tile, from zero, over the k-steps of 8 keys; then
+      // acc = acc * corr + t on the CUDA cores (TILE_SUM).  The A fragment's
+      // columns (tig, tig + 4) take keys (2 tig, 2 tig + 1) of the step, the
+      // keys the score fragment s[kk] holds, so P stays in registers; V's B
+      // fragment takes the same two keys (rows 2 tig, 2 tig + 1) at column
+      // gid.
+      float t[NT][4];
+#pragma unroll
+      for (int n = 0; n < NT; ++n)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) t[n][e] = 0.f;
 #pragma unroll
       for (int kk = 0; kk < ST; ++kk) {
         uint32_t ph[4], pl[4];
@@ -594,10 +618,11 @@ flash_attn_tf32_kernel(const float* __restrict__ q, const float* __restrict__ k,
 #pragma unroll
         for (int n = 0; n < NT; ++n) {
           const int at = vb_at + n * 8;
-          mma_3xtf32(o[n], ph, pl, __float_as_uint(vb[at]), __float_as_uint(vb[at + LD]),
+          mma_3xtf32(t[n], ph, pl, __float_as_uint(vb[at]), __float_as_uint(vb[at + LD]),
                      __float_as_uint(vl_s[at]), __float_as_uint(vl_s[at + LD]));
         }
       }
+      add_tile(o, t, corr);
     }
     __syncthreads();                       // before tile i+2 overwrites buf
   }
@@ -662,8 +687,10 @@ cudaError_t launch_dh(int kind, const void* q, const void* k, const void* v, voi
 
 // q: (B, Sq, KV, G, Dh), k/v: (B, Sk, KV, Dh), all f32 or all bf16 (kind),
 // 16-byte aligned (cp.async); out: (B, Sq, KV, G, Dh) f32.
-// Dh in {32, 64, 96, 128}.  causal: 0/1; window <= 0 and softcap <= 0
-// switch those masks off.
+// Dh in {32, 64, 96, 112, 128} (112 = 7 bf16 k-steps of 16, 14 n-tiles of
+// 8, 14 / 28 16-byte chunks a bf16 / f32 row: kimi-k2's head).  causal:
+// 0/1 (0: every query sees every key, Sq and Sk independent); window <= 0
+// and softcap <= 0 switch those masks off.
 extern "C" cudaError_t flash_attention(const void* q, const void* k, const void* v,
                                        int kind, void* out, int B, int Sq, int Sk, int KV,
                                        int G, int Dh, int causal, int window,
@@ -681,6 +708,9 @@ extern "C" cudaError_t flash_attention(const void* q, const void* k, const void*
     case 96:
       return launch_dh<96>(kind, q, k, v, out, B, Sq, Sk, KV, G, causal, window, softcap,
                            sm_scale, stream);
+    case 112:
+      return launch_dh<112>(kind, q, k, v, out, B, Sq, Sk, KV, G, causal, window, softcap,
+                            sm_scale, stream);
     case 128:
       return launch_dh<128>(kind, q, k, v, out, B, Sq, Sk, KV, G, causal, window, softcap,
                             sm_scale, stream);

@@ -5,8 +5,9 @@
   out : (B, Sq, KV, G, Dh)  f32
 
 Query and key positions both count from 0; causal (``k_pos <= q_pos``),
-sliding-window (``k_pos > q_pos - window``) and tanh-softcap masks; f32
-softmax.  On a CUDA tensor :func:`flash_attention` launches the
+sliding-window (``k_pos > q_pos - window``) and tanh-softcap masks, or with
+``causal=False`` none (Sq and Sk independent: an encoder's self-attention,
+a cross-attention); f32 softmax.  On a CUDA tensor :func:`flash_attention` launches the
 hand-written kernel in ``csrc/flash_attention.cu`` (it replaces the TPU
 kernel ``repro/kernels/flash_attention.py:flash_attention``); on a CPU
 tensor it runs the plain version, :func:`repro_torch.kernels.ref.flash_attention_ref`.
@@ -29,7 +30,7 @@ from . import _build
 from .ref import flash_attention_ref
 
 _KINDS = {torch.float32: 1, torch.bfloat16: 2}
-HEAD_DIMS = (32, 64, 96, 128)       # Dh the kernel is built for
+HEAD_DIMS = (32, 64, 96, 112, 128)  # Dh the kernel is built for
 
 
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,

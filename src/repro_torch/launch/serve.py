@@ -48,12 +48,21 @@ need a float ``--precision``:
     PYTHONPATH=src python -m repro_torch.launch.serve --precision fp32 \
         --brownout --speculative --slo mixed --requests 12 --slots 4
 
-``--arch`` also takes the MoE, Mamba and hybrid stacks
-(granite-moe-1b-a400m, falcon-mamba-7b, jamba-v0.1-52b); the two with Mamba
-layers admit whole prompts and refuse ``--paged`` and a chunk size:
+``--arch`` takes every LM architecture of the reference.  The stacks with
+Mamba layers (falcon-mamba-7b, jamba-v0.1-52b) admit whole prompts and
+refuse ``--paged`` and a chunk size:
 
     PYTHONPATH=src python -m repro_torch.launch.serve \
         --arch falcon-mamba-7b --requests 4 --gen 8
+
+The enc-dec backbone (whisper-base) and the embeds frontend (internvl2-76b)
+are served as the reference serves them, by a plain batched prefill and
+greedy decode loop (their inputs are the stub frontends' embeddings, not
+token streams the batchers can chunk; ``--paged`` and the sampling,
+tracing and adaptive flags do not apply):
+
+    PYTHONPATH=src python -m repro_torch.launch.serve --arch whisper-base \
+        --precision 2xT --kv-bits 8 --requests 4 --prompt-len 64 --gen 16
 
 Runs on the card (``--device cuda``, the default) and refuses to start when
 no card is visible; ``--device cpu`` runs the plain PyTorch versions of the
@@ -64,6 +73,7 @@ from __future__ import annotations
 import argparse
 import dataclasses
 import json
+import time
 
 import numpy as np
 import torch
@@ -71,7 +81,8 @@ import torch
 from repro_torch.configs import ARCH_IDS, get_config
 from repro_torch.core.precision import A_FLOAT, W_FLOAT, get_precision, signed
 from repro_torch.kernels import engine, tuning
-from repro_torch.models import build_model, reduce_for_smoke, to_serving
+from repro_torch.models import (ShapeConfig, build_model, make_batch,
+                                 reduce_for_smoke, to_serving)
 from repro_torch.models.convert import serving_param_bytes
 from repro_torch.runtime.adaptive import AdaptiveServer
 from repro_torch.runtime.kvcache import PagedBatcher, paged_block_bytes
@@ -150,7 +161,73 @@ def stream_cb(req, tok, finished):
     print(f"  [rid {req.rid}] tok {tok}{mark}", flush=True)
 
 
-def serve(args) -> list:
+def _sync(device) -> None:
+    if device.type == "cuda":
+        torch.cuda.synchronize(device)
+
+
+def _legacy_loop(model, params, cfg, args, device) -> np.ndarray:
+    """Batched prefill + greedy decode for the embeds / enc-dec archs, as
+    the reference's launcher serves them: one ``make_batch`` of
+    ``--requests`` x ``--prompt-len`` (generator seed 1; the stub frontend's
+    frames or patches), one prefill, ``--gen - 1`` decode steps (zero
+    embeddings as the embeds model's step input).  Returns the (requests,
+    gen) tokens."""
+    if args.autotune:
+        sweeps0 = tuning.stats()["sweeps"]
+        entries = engine.tune_model_shapes(
+            cfg, signed(get_precision(args.precision)),
+            m_rows=(args.requests, args.requests * args.prompt_len),
+            device=device)
+        print(f"autotune: {len(entries)} shape classes -> "
+              f"{tuning.cache_path()} (sweeps this run: "
+              f"{tuning.stats()['sweeps'] - sweeps0})")
+    s_max = args.prompt_len + args.gen
+    shape = ShapeConfig("serve", args.prompt_len, args.requests, "prefill")
+    batch = make_batch(cfg, shape, torch.Generator(device=device).manual_seed(1))
+
+    engine.reset_launch_counts()
+    t0 = time.perf_counter()
+    logits, cache = model.prefill(params, batch, s_max)
+    _sync(device)
+    t_prefill = time.perf_counter() - t0
+    prefill_launches = engine.launch_counts()
+
+    tok = logits[:, -1:].argmax(-1)
+    generated = [tok]
+    engine.reset_launch_counts()
+    t0 = time.perf_counter()
+    for i in range(args.gen - 1):
+        if cfg.frontend == "embeds":
+            step_in = torch.zeros((args.requests, 1, cfg.d_model),
+                                  dtype=torch.float32, device=device)
+        else:
+            step_in = tok
+        logits, cache = model.decode_step(params, step_in, cache,
+                                          args.prompt_len + i)
+        tok = logits[:, -1:].argmax(-1)
+        generated.append(tok)
+    _sync(device)
+    t_decode = time.perf_counter() - t0
+    if not bool(torch.isfinite(logits).all()):
+        raise RuntimeError("non-finite logits")
+    toks = torch.cat(generated, dim=1).cpu().numpy()
+    steps = max(args.gen - 1, 1)
+    tps = args.requests * (args.gen - 1) / max(t_decode, 1e-9)
+    print(f"prefill: {args.requests} reqs x {args.prompt_len} tok in "
+          f"{t_prefill * 1e3:.0f} ms; decode: {tps:.1f} tok/s "
+          f"({t_decode / steps * 1e3:.1f} ms/step)")
+    print(f"sample generations (first 8 tokens/request):\n{toks[:, :8]}")
+    decode_launches = engine.launch_counts()
+    print("kernel launches per prefill: " + ", ".join(
+        f"{k}={v}" for k, v in prefill_launches.items()))
+    print(f"kernel launches per decode step ({args.gen - 1} steps): "
+          + ", ".join(f"{k}={v / steps:g}"
+                      for k, v in decode_launches.items()))
+    return toks
+
+
+def serve(args):
     device = resolve_device(args.device)
     # the adaptive server's lanes and the speculative batcher are paged
     args.paged = args.paged or args.brownout or args.speculative
@@ -185,6 +262,8 @@ def serve(args) -> list:
     print(f"weights: {base_bytes/1e6:.1f} MB {cfg.dtype}-form -> "
           f"{packed_bytes/1e6:.1f} MB {args.precision} serving form "
           f"({base_bytes/packed_bytes:.2f}x smaller)")
+    if cfg.kind != "lm" or cfg.frontend == "embeds":
+        return _legacy_loop(model, params, cfg, args, device)
 
     sc = ServingConfig(n_slots=args.slots or args.requests,
                        s_max=args.prompt_len + args.gen,
@@ -378,7 +457,9 @@ def main(argv=None):
                          "delta) every N scheduler steps to "
                          "<metrics-json stem>.snapshots.jsonl "
                          "(needs --metrics-json)")
-    ap.add_argument("--reduced", action="store_true")
+    ap.add_argument("--reduced", action="store_true",
+                    help="serve the architecture at reduce_for_smoke shapes "
+                         "(a few layers, narrow widths, float32)")
     ap.add_argument("--autotune", action="store_true",
                     help="pre-tune the kernel choice of the scheduler's "
                          "matmul shape classes (persists to the tuning "

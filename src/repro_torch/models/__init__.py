@@ -1,6 +1,7 @@
 """Model facade: ``build_model(cfg)`` returns a ``Model`` with the functional
-serving API of ``repro.models.Model`` for token LMs (attention, Mamba and
-hybrid stacks, dense or MoE FFNs):
+serving API of ``repro.models.Model`` for every LM family: decoder-only
+stacks (attention, Mamba and hybrid, dense or MoE FFNs; token ids or the
+stub frontend's embeddings) and the enc-dec backbone:
 
     model.init(generator, device)                      -> params
     model.forward(params, batch)                       -> (logits, aux)
@@ -15,9 +16,13 @@ hybrid stacks, dense or MoE FFNs):
                                                        -> (logits, pool)
 
 The three paged entry points are None for a stack with a Mamba layer (its
-state has no sequence axis to page), as in the reference.
+state has no sequence axis to page), for the embeds frontend and for the
+enc-dec backbone, whose ``prefill_chunk`` is None too, as in the reference.
 
-``batch`` is {"tokens": (B, S)}, plus {"labels": (B, S)} for ``loss``.
+``batch`` is {"tokens": (B, S)} for token LMs, {"embeds": (B, S, D)} for
+the embeds frontend (whose decode step takes (B, 1, D) embeddings), plus
+{"frames": (B, S_enc, D)} for enc-dec, and {"labels": (B, S)} for
+``loss``; :func:`make_batch` draws one from a generator.
 Every call takes an optional ``backend`` ("cuda" | "torch"); None picks by
 the device of the inputs.  ``forward`` and ``loss`` are forward values
 only: training and its gradients come in a later slice.
@@ -26,11 +31,12 @@ from __future__ import annotations
 
 import dataclasses
 from collections.abc import Callable
+from typing import Any
 
 import torch
 
-from . import transformer
-from .config import ModelConfig, reduce_for_smoke  # noqa: F401
+from . import encdec, frontends, transformer  # noqa: F401
+from .config import SHAPES, ModelConfig, ShapeConfig, reduce_for_smoke  # noqa: F401
 from .convert import to_serving  # noqa: F401
 
 
@@ -40,10 +46,12 @@ class Model:
     init: Callable
     prefill: Callable
     decode_step: Callable
-    prefill_chunk: Callable
     forward: Callable
+    # chunked prefill: (params, tokens, cache, pos) -> (logits, cache); None
+    # for the enc-dec backbone (no cache-append path)
+    prefill_chunk: Callable | None = None
     # paged-KV serving (runtime.kvcache): block pool + page table; None for
-    # stacks the paged cache does not cover (SSM / hybrid)
+    # stacks the paged cache does not cover (SSM / hybrid, embeds, enc-dec)
     prefill_chunk_paged: Callable | None = None
     decode_step_paged: Callable | None = None
     # multi-token decode window with per-slot start positions (the verify
@@ -61,20 +69,34 @@ class Model:
         return nll.mean() + 0.01 * aux
 
 
+def _lm_inputs(batch, cfg: ModelConfig):
+    return batch["embeds"] if cfg.frontend == "embeds" else batch["tokens"]
+
+
 def build_model(cfg: ModelConfig) -> Model:
-    if cfg.kind != "lm" or cfg.frontend != "none":
-        raise NotImplementedError(
-            f"{cfg.name}: the port serves token LMs only (kind={cfg.kind!r}, "
-            f"frontend={cfg.frontend!r})")
-    pageable = transformer.attention_only(cfg)
+    if cfg.kind == "encdec":
+        return Model(
+            cfg=cfg,
+            init=lambda generator, device: encdec.init_params(
+                cfg, generator, device),
+            forward=lambda p, b, backend=None: encdec.forward(
+                p, b["tokens"], b["frames"], cfg, backend=backend),
+            prefill=lambda p, b, s_max, backend=None: encdec.prefill(
+                p, b["tokens"], b["frames"], cfg, s_max, backend=backend),
+            decode_step=lambda p, tok, cache, pos, backend=None:
+                encdec.decode_step(p, tok, cache, pos, cfg, backend=backend),
+        )
+    if cfg.kind != "lm":
+        raise ValueError(cfg.kind)
+    pageable = cfg.frontend == "none" and transformer.attention_only(cfg)
     return Model(
         cfg=cfg,
         init=lambda generator, device: transformer.init_params(
             cfg, generator, device),
         forward=lambda p, b, backend=None: transformer.forward(
-            p, b["tokens"], cfg, backend=backend),
+            p, _lm_inputs(b, cfg), cfg, backend=backend),
         prefill=lambda p, b, s_max, backend=None: transformer.prefill(
-            p, b["tokens"], cfg, s_max, backend=backend),
+            p, _lm_inputs(b, cfg), cfg, s_max, backend=backend),
         decode_step=lambda p, tok, cache, pos, backend=None:
             transformer.decode_step(p, tok, cache, pos, cfg, backend=backend),
         prefill_chunk=lambda p, tok, cache, pos, backend=None:
@@ -98,3 +120,30 @@ def build_model(cfg: ModelConfig) -> Model:
                 p, tok, pool, pt, pos, cfg, kv_bits, backend=backend)
         ) if pageable else None,
     )
+
+
+def make_batch(cfg: ModelConfig, shape: ShapeConfig,
+               generator: torch.Generator) -> dict[str, Any]:
+    """An input batch of ``shape`` drawn from ``generator``, on the
+    generator's device: frames and tokens for enc-dec, the stub's
+    embeddings for the embeds frontend, else tokens; labels when
+    ``shape.mode == "train"``."""
+    b = shape.global_batch
+    s = shape.seq_len
+
+    def tokens():
+        return torch.randint(0, cfg.vocab, (b, s), generator=generator,
+                             device=generator.device)
+    batch: dict[str, Any] = {}
+    if cfg.kind == "encdec":
+        batch["frames"] = frontends.audio_frames_stub(generator, b, s,
+                                                      cfg.d_model)
+        batch["tokens"] = tokens()
+    elif cfg.frontend == "embeds":
+        batch["embeds"] = frontends.vision_patches_stub(generator, b, s,
+                                                        cfg.d_model)
+    else:
+        batch["tokens"] = tokens()
+    if shape.mode == "train":
+        batch["labels"] = tokens()
+    return batch

@@ -34,6 +34,9 @@ class ModelConfig:
     window: int = 4096                     # sliding window for attn_local
     attn_softcap: float = 0.0              # gemma2: 50.0
     final_softcap: float = 0.0             # gemma2: 30.0
+    post_norms: bool = False               # gemma2: RMSNorm after each
+                                           # attention / FFN sub-block
+    embed_scale: bool = False              # gemma2: embeddings x sqrt(d_model)
     # MoE
     n_experts: int = 0
     top_k: int = 0

@@ -13,7 +13,9 @@ Serving matmuls go through the precision-dispatch engine; the dense KV
 cache is int8/int4 codes with per-(position, head) scales, or the model
 dtype when ``kv_bits`` is 0.  Full-sequence attention (a whole-prompt
 prefill, the forward) goes through ``engine.flash_attention`` on the card
-and through the reference's ``_attend`` / ``_attend_flash`` on the CPU.
+and through the reference's ``_attend`` / ``_attend_flash`` on the CPU,
+causal (``_attend_full``) or with no mask (``_attend_all``: the enc-dec
+encoder and cross-attention).
 
 Unlike the JAX package, the cached attention paths update the cache (and
 the paged block pool) IN PLACE and return the same dict: a serving step
@@ -33,7 +35,8 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.core.packing import pack_nibbles, unpack_nibbles
-from repro_torch.core.precision import W_FLOAT, get_precision, signed
+from repro_torch.core.precision import A_FLOAT, W_FLOAT, get_precision, signed
+from repro_torch.core.quantize import act_fake_quant
 from repro_torch.kernels import engine
 from repro_torch.kernels.paged_attention import gather_pool
 
@@ -64,16 +67,20 @@ def qlinear_init(generator, k: int, n: int, cfg: ModelConfig, device):
 def qlinear_apply(p, x, cfg: ModelConfig, backend: str | None = None):
     """x @ W under the model's PrecisionConfig.  Dispatches on param form:
     packed serving weights go through ``engine.qmatmul``; float weights of a
-    float config are a plain matmul."""
+    float config are a plain matmul; float weights of a quantized config
+    take the reference's fake-quant (QAT) forward, plain on every device:
+    activations fake-quantized with ONE absmax scale over the whole tensor
+    (so a row's result depends on the other rows of the call), times the
+    fake-quantized weights.  The STE backward comes with training."""
     pcfg = signed(get_precision(cfg.precision))
     if "wt_packed" in p:
         pw = engine.as_packed_weight(p, pcfg)
         return engine.qmatmul(x, pw, pcfg, backend=backend).to(pdtype(cfg))
-    if pcfg.w_mode != W_FLOAT:
-        raise NotImplementedError(
-            f"{cfg.precision}: the fake-quant (QAT) form is not ported; "
-            "serve packed weights (models.convert.to_serving)")
-    return x @ p["qw"].to(x.dtype)
+    if pcfg.w_mode == W_FLOAT:
+        return x @ p["qw"].to(x.dtype)
+    if pcfg.a_mode != A_FLOAT:
+        x = act_fake_quant(x.to(torch.float32), pcfg).to(x.dtype)
+    return engine.fake_quant_dot(x, p["qw"], pcfg, axis=0)
 
 
 # ---------------------------------------------------------------------------
@@ -93,7 +100,7 @@ def _act(x, kind: str):
     if kind == "silu":
         return F.silu(x)
     if kind == "gelu":
-        return F.gelu(x)
+        return F.gelu(x, approximate="tanh")     # jax.nn.gelu's default
     raise ValueError(kind)
 
 
@@ -121,14 +128,26 @@ def _softcap(x, cap: float):
 # attention (GQA + RoPE + sliding window + softcap + quantized KV cache)
 # ---------------------------------------------------------------------------
 def attn_init(generator, cfg: ModelConfig, device):
+    """With ``cfg.post_norms``, an RMSNorm on the sub-block's output
+    (gemma2)."""
     d, h, kv, dh = cfg.d_model, cfg.n_heads, cfg.n_kv_heads, cfg.dh
-    return {
+    p = {
         "norm": rmsnorm_init(d, device),
         "wq": qlinear_init(generator, d, h * dh, cfg, device),
         "wk": qlinear_init(generator, d, kv * dh, cfg, device),
         "wv": qlinear_init(generator, d, kv * dh, cfg, device),
         "wo": qlinear_init(generator, h * dh, d, cfg, device),
     }
+    if cfg.post_norms:
+        p["post_norm"] = rmsnorm_init(d, device)
+    return p
+
+
+def _post_norm(p, out, cfg: ModelConfig):
+    """The sub-block's post-norm where its params carry one (gemma2)."""
+    if "post_norm" in p:
+        return rmsnorm(p["post_norm"], out, cfg.norm_eps)
+    return out
 
 
 def _kv_quantize(k, v, bits: int):
@@ -251,6 +270,29 @@ def _attend_full(q, k, v, positions, cfg: ModelConfig, local: bool,
     return _attend(q, k, v, mask[:, None], cfg)
 
 
+def _attend_all(q, k, v, cfg: ModelConfig, backend: str | None):
+    """Attention with no mask: every query sees every key (the enc-dec
+    encoder's self-attention and the cross-attention; Sq may differ from
+    Sk).  On the card: ``engine.flash_attention`` with ``causal=False``.
+    On the CPU: the reference's choice, ``_attend_flash`` for
+    Sk > ATTN_KV_CHUNK in whole chunks, else ``_attend`` with an all-true
+    mask."""
+    b, sq, h, dh = q.shape
+    kvh, sk = k.shape[2], k.shape[1]
+    if q.is_cuda:
+        out = engine.flash_attention(
+            q.reshape(b, sq, kvh, h // kvh, dh), k, v, causal=False,
+            softcap=cfg.attn_softcap, backend=backend)
+        return out.reshape(b, sq, h * dh).to(q.dtype)
+    if sk > ATTN_KV_CHUNK and sk % ATTN_KV_CHUNK == 0:
+        pos_q, pos_k = (torch.zeros((b, n), dtype=torch.int64,
+                                    device=q.device) for n in (sq, sk))
+        return _attend_flash(q, k, v, pos_q, pos_k, cfg, causal=False,
+                             local=False)
+    mask = torch.ones((1, 1, sq, sk), dtype=torch.bool, device=q.device)
+    return _attend(q, k, v, mask, cfg)
+
+
 def attn_apply(p, x, cfg: ModelConfig, positions, *, local: bool,
                cache=None, cache_pos=None, return_kv: bool = False,
                backend: str | None = None):
@@ -331,7 +373,7 @@ def attn_apply(p, x, cfg: ModelConfig, positions, *, local: bool,
             out = _attend(q, kk, vv, mask, cfg)
 
     out = qlinear_apply(p["wo"], out, cfg, backend)
-    return out, new
+    return _post_norm(p, out, cfg), new
 
 
 def make_kv_cache(cfg: ModelConfig, b: int, s_max: int, device,
@@ -419,7 +461,7 @@ def attn_apply_paged(p, x, cfg: ModelConfig, positions, *, local: bool,
                 q4, pool["k"], pool.get("ks"), pool["v"], pool.get("vs"),
                 pt32, pos[:, 0], slot_map, p["wo"], pcfg, kv_bits=kv_bits,
                 dtype=x.dtype, backend=backend)
-            return out, pool
+            return _post_norm(p, out, cfg), pool
         out = engine.paged_attention(
             q4, pool["k"], pool.get("ks"), pool["v"], pool.get("vs"), pt32,
             pos[:, 0], kv_bits=kv_bits, dtype=x.dtype, backend=backend)
@@ -444,7 +486,7 @@ def attn_apply_paged(p, x, cfg: ModelConfig, positions, *, local: bool,
         out = _attend(q, kk, vv, mask, cfg)
 
     out = qlinear_apply(p["wo"], out, cfg, backend)
-    return out, pool
+    return _post_norm(p, out, cfg), pool
 
 
 def make_kv_pool(cfg: ModelConfig, num_blocks: int, block_size: int,
@@ -479,6 +521,8 @@ def ffn_init(generator, cfg: ModelConfig, device, gated: bool = True):
         p["w_gate"] = qlinear_init(generator, d, f, cfg, device)
     p["w_up"] = qlinear_init(generator, d, f, cfg, device)
     p["w_down"] = qlinear_init(generator, f, d, cfg, device)
+    if cfg.post_norms:
+        p["post_norm"] = rmsnorm_init(d, device)
     return p
 
 
@@ -490,7 +534,7 @@ def ffn_apply(p, x, cfg: ModelConfig, backend: str | None = None):
                   cfg.act_fn) * up
     else:
         up = _act(up, cfg.act_fn)
-    return qlinear_apply(p["w_down"], up, cfg, backend)
+    return _post_norm(p, qlinear_apply(p["w_down"], up, cfg, backend), cfg)
 
 
 # ---------------------------------------------------------------------------

@@ -12,6 +12,7 @@ layer.
 
 Entry points (functions of (params, inputs)):
   forward(params, tokens, cfg)                     -> logits, aux
+  (tokens may be (B, S, D) embeds for ``frontend="embeds"``)
   prefill(params, tokens, cfg, s_max)              -> logits, cache
   prefill_chunk(params, tokens, cache, pos, cfg)   -> logits, cache
   decode_step(params, token, cache, pos, cfg)      -> logits, cache
@@ -36,7 +37,9 @@ from .config import ModelConfig
 # init
 # ---------------------------------------------------------------------------
 def _init_period(generator, cfg: ModelConfig, device):
-    """One period's params: layer_i -> {mixer, ffn} by pattern."""
+    """One period's params: layer_i -> {mixer, ffn} by pattern; with
+    ``cfg.post_norms`` the attention and dense FFN sub-blocks carry a
+    post-norm (gemma2)."""
     p = {}
     for i, (mixer, ffn) in enumerate(zip(cfg.layer_pattern, cfg.ffn_pattern)):
         lp = {}
@@ -132,16 +135,30 @@ def _apply_period(pp, x, cfg: ModelConfig, positions, *, caches=None,
     return x, aux_total
 
 
-def _embed(params, tokens, cfg: ModelConfig):
-    return params["embed"]["w"][tokens]
+def _embed(params, inputs, cfg: ModelConfig):
+    """Token ids through the embedding, or (``frontend="embeds"``) the stub
+    frontend's (B, S, D) embeddings cast to the model dtype; gemma2
+    (``embed_scale``) multiplies by sqrt(d_model) rounded to the model
+    dtype first, as the reference does (68.0, not 67.88, in bf16)."""
+    if cfg.frontend == "embeds":
+        x = inputs.to(L.pdtype(cfg))
+    else:
+        x = params["embed"]["w"][inputs]
+    if cfg.embed_scale:
+        x = x * torch.tensor(cfg.d_model ** 0.5, dtype=x.dtype)
+    return x
 
 
 def _logits(params, x, cfg: ModelConfig):
     """f32 logits; the classifier stays at full precision (paper/WRPN
-    convention), tied to the embedding or a float ``lm_head``."""
+    convention), tied to the embedding or a float ``lm_head``; gemma2's
+    final softcap after the f32 cast."""
     xn = L.rmsnorm(params["final_norm"], x, cfg.norm_eps)
     w = params["embed"]["w"].T if cfg.tie_embeddings else params["lm_head"]["qw"]
-    return (xn @ w.to(xn.dtype)).to(torch.float32)
+    logits = (xn @ w.to(xn.dtype)).to(torch.float32)
+    if cfg.final_softcap > 0:
+        logits = cfg.final_softcap * torch.tanh(logits / cfg.final_softcap)
+    return logits
 
 
 # ---------------------------------------------------------------------------
@@ -159,11 +176,11 @@ def make_cache(cfg: ModelConfig, b: int, s_max: int, device):
 
 
 def forward(params, tokens, cfg: ModelConfig, backend=None):
-    """The forward of a whole sequence (B, S), no cache: logits (B, S, V)
-    f32 and the auxiliary loss (the MoE layers' load-balance terms summed,
-    an f32 scalar; 0.0 with no MoE layer).  Forward value only; gradients
-    come with the training slice."""
-    b, s = tokens.shape
+    """The forward of a whole sequence (B, S) (or (B, S, D) embeds), no
+    cache: logits (B, S, V) f32 and the auxiliary loss (the MoE layers'
+    load-balance terms summed, an f32 scalar; 0.0 with no MoE layer).
+    Forward value only; gradients come with the training slice."""
+    b, s = tokens.shape[:2]
     x = _embed(params, tokens, cfg)
     positions = torch.arange(s, device=tokens.device)[None].expand(b, s)
     aux = 0.0
@@ -176,11 +193,12 @@ def forward(params, tokens, cfg: ModelConfig, backend=None):
 
 
 def prefill(params, tokens, cfg: ModelConfig, s_max: int, backend=None):
-    """Process a whole prompt (B, S), build the cache, return the
-    last-position logits (B, 1, V) and the cache.  A Mamba layer given one
-    position returns no state (the reference's rule): its cache entry is
-    then None, and a decode step from it starts from a zero state."""
-    b, s = tokens.shape
+    """Process a whole prompt (B, S) (or (B, S, D) embeds), build the
+    cache, return the last-position logits (B, 1, V) and the cache.  A
+    Mamba layer given one position returns no state (the reference's
+    rule): its cache entry is then None, and a decode step from it starts
+    from a zero state."""
+    b, s = tokens.shape[:2]
     device = tokens.device
     x = _embed(params, tokens, cfg)
     positions = torch.arange(s, device=device)[None].expand(b, s)
@@ -219,7 +237,7 @@ def prefill_chunk(params, tokens, cache, pos: int, cfg: ModelConfig,
     """Process one prompt chunk (B, C) against an existing cache: its KV is
     written at positions [pos, pos + C) and its queries attend causally over
     the cache.  Returns (logits (B, C, V), cache)."""
-    b, c = tokens.shape
+    b, c = tokens.shape[:2]
     pos = int(pos)
     x = _embed(params, tokens, cfg)
     positions = (pos + torch.arange(c, device=tokens.device))[None].expand(b, c)
@@ -231,8 +249,9 @@ def prefill_chunk(params, tokens, cache, pos: int, cfg: ModelConfig,
 
 
 def decode_step(params, token, cache, pos, cfg: ModelConfig, backend=None):
-    """One decoding step.  token: (B, 1); pos: int or (B,) per-slot
-    positions (continuous batching).  Returns (logits (B, 1, V), cache)."""
+    """One decoding step.  token: (B, 1) (or (B, 1, D) embeds); pos: int or
+    (B,) per-slot positions (continuous batching).  Returns (logits
+    (B, 1, V), cache)."""
     b = token.shape[0]
     pos_b = torch.as_tensor(pos, device=token.device).to(torch.int64
                                                          ).reshape(-1).expand(b)

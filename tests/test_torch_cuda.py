@@ -371,6 +371,22 @@ def test_decode_attention_scalar_loads(gpu, s, dh, g):
     _check_decode(args)
 
 
+@pytest.mark.parametrize("kv,g,dh", [(2, 16, 128), (4, 12, 128), (8, 8, 128),
+                                     (2, 2, 112)],
+                         ids=["glm4", "starcoder2", "internvl2", "kimi-dh112"])
+@pytest.mark.parametrize("q_dtype", [torch.float32, torch.bfloat16])
+def test_decode_attention_model_heads(gpu, q_dtype, kv, g, dh):
+    """The LM families' head layouts: glm4-9b's 16 query heads a KV head
+    (the plan's shared memory grows with G), starcoder2's 12, internvl2's
+    8, and kimi-k2's Dh 112 (7 int8 16-byte vectors a row) at the serving
+    step's 80 positions and at 2048 (an 8-block cluster)."""
+    for s, pos in ((80, [79, 40, 0, 33]), (2048, [2047, 1023, 511, 0])):
+        args = _decode_case(gpu, s, pos, q_dtype=q_dtype, kv=kv, g=g, dh=dh)
+        plan = tattn.launch_plan(args[0], args[1], args[3])
+        assert plan["vector"] and plan["cluster"] == (1 if s <= 128 else 8)
+        _check_decode(args)
+
+
 @pytest.mark.parametrize("s,pos", [(16, [15, 0, 7, 3]), (5, [4, 0, 2, 9]),
                                    (128, [127, 64, 0, 100])],
                          ids=["s16", "s5-pos-past-s", "s128"])
@@ -554,16 +570,25 @@ def test_act_quant_wrappers_refuse_what_the_kernel_does_not_take(gpu):
     assert sum(engine.launch_counts().values()) == 0
 
 
-# (B, S, KV, G, Dh, causal, window, softcap): prefill, ragged lengths, the
-# gemma2-style window + softcap at Dh 128, Dh 96, no mask; then the bf16
+# (B, S, KV, G, Dh, causal, window, softcap[, Sk]): prefill, ragged lengths,
+# the gemma2-style window + softcap at Dh 128, Dh 96, no mask; then the bf16
 # kernel's tiling (16 rows a warp, 64 a block, 64 keys a tile): Sq*G = 111
 # rows (no multiple of 16 or 64), Sk = 20 < one key tile, G = 1 at Dh 128
-# with a window, and the forward's S = 2048 at Dh 64
+# with a window, and the forward's S = 2048 at Dh 64.  With a ninth entry
+# the keys number Sk, not S (no mask): whisper-base's cross-attention over
+# 1500 encoder frames at a 32-token prefill and at a decode step (one
+# query row of a 64-row tile, a ragged key tail), and its encoder (S 1500);
+# kimi-k2's Dh 112, causal and with Sq != Sk
 FLASH_CASES = [(1, 64, 3, 3, 64, True, 0, 0.0), (2, 100, 3, 3, 64, True, 0, 0.0),
                (1, 300, 2, 2, 128, True, 64, 50.0), (2, 77, 1, 4, 96, True, 16, 5.0),
                (1, 45, 2, 1, 32, False, 0, 0.0),
                (1, 37, 2, 3, 64, True, 0, 0.0), (2, 20, 1, 2, 32, True, 0, 0.0),
-               (1, 200, 2, 1, 128, True, 100, 0.0), (1, 2048, 3, 3, 64, True, 0, 0.0)]
+               (1, 200, 2, 1, 128, True, 100, 0.0), (1, 2048, 3, 3, 64, True, 0, 0.0),
+               (4, 32, 8, 1, 64, False, 0, 0.0, 1500),
+               (4, 1, 8, 1, 64, False, 0, 0.0, 1500),
+               (2, 1500, 8, 1, 64, False, 0, 0.0),
+               (2, 300, 2, 4, 112, True, 0, 0.0),
+               (1, 77, 2, 3, 112, False, 0, 0.0, 130)]
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
@@ -572,10 +597,11 @@ FLASH_CASES = [(1, 64, 3, 3, 64, True, 0, 0.0), (2, 100, 3, 3, 64, True, 0, 0.0)
 def test_flash_attention_kernel(gpu, case, dtype):
     """Against the f32 plain version: online against one-shot softmax, max
     |diff| <= 1e-5 * max|out|; one launch counted per call."""
-    b, s, kv, g, dh, causal, window, softcap = case
+    b, s, kv, g, dh, causal, window, softcap, *sk = case
+    sk = sk[0] if sk else s
     gen = torch.Generator().manual_seed(s)
     q = torch.randn((b, s, kv, g, dh), generator=gen).to(gpu, dtype)
-    k, v = (torch.randn((b, s, kv, dh), generator=gen).to(gpu, dtype)
+    k, v = (torch.randn((b, sk, kv, dh), generator=gen).to(gpu, dtype)
             for _ in range(2))
     kw = dict(causal=causal, window=window, softcap=softcap)
     got = _launch_once("flash_attention",
@@ -823,6 +849,20 @@ def test_paged_kernels_wide_f32_rows(gpu):
     assert plan["cluster"] == 8 and plan["span"] < 32
     _check_paged(args, 16)
     _check_fused(args, 16, [0, 3, 3])
+
+
+@pytest.mark.parametrize("kv,g,dh,d", [(2, 16, 128, 4096), (4, 12, 128, 6144),
+                                       (2, 2, 112, 128)],
+                         ids=["glm4", "starcoder2", "kimi-dh112"])
+@pytest.mark.parametrize("kv_bits,pool_dtype", POOLS[:3], ids=POOL_IDS[:3])
+def test_paged_kernels_model_widths(gpu, kv_bits, pool_dtype, kv, g, dh, d):
+    """B2 and B4 at the LM families' head layouts and model widths: B4's
+    projection onto glm4-9b's 4096 and starcoder2-15b's 6144 columns runs
+    in passes of 2048 (the warps' partial sums of all D columns would not
+    fit in shared memory), wo read from global memory; kimi-k2's Dh 112."""
+    args = _paged_case(gpu, kv_bits, pool_dtype, kv=kv, g=g, dh=dh)
+    _check_paged(args, kv_bits)
+    _check_fused(args, kv_bits, [0, 3, 3, 1], d=d)
 
 
 @pytest.mark.parametrize("slot_map", [[3], [3, 3, 0], [3, 3, 0, 3]],

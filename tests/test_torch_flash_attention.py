@@ -320,3 +320,23 @@ def test_single_tf32_misses_the_bound(s):
     three = (_tf32_split_emulation(q, k, v, terms=3, **kw) - want).abs().max()
     assert one > 10 * tol
     assert three <= tol
+
+
+@pytest.mark.parametrize("sq", [32, 1])
+def test_kernel_arithmetic_without_mask_holds_the_bound(sq):
+    """whisper-base's cross-attention (B 4, KV 8, G 1, Dh 64) over 1500
+    encoder frames, Sq 32 (a prefill) and 1 (a decode step), no mask: both
+    kernels' arithmetic (each tile's P.V summed from zero and added to the
+    running acc in f32) within 1e-5 * max|out| of the plain version.  Long
+    unmasked rows average ~1500 values, so max|out| is small and the bound
+    tight."""
+    gen = torch.Generator().manual_seed(sq)
+    q = torch.randn((4, sq, 8, 1, 64), generator=gen)
+    k, v = (torch.randn((4, 1500, 8, 64), generator=gen) for _ in range(2))
+    kw = dict(causal=False, window=0, softcap=0.0)
+    want = ref.flash_attention_ref(q, k, v, **kw)
+    _close(_tf32_split_emulation(q, k, v, **kw).numpy(), want.numpy())
+    qb, kb, vb = q.bfloat16(), k.bfloat16(), v.bfloat16()
+    want = ref.flash_attention_ref(qb, kb, vb, **kw)
+    _close(_tensor_core_emulation(qb, kb, vb, split=True, **kw).numpy(),
+           want.numpy())
