@@ -108,6 +108,26 @@ Phases (each prints its own lines; any failed check exits non-zero):
      (one prefill and three decode steps, fp32 and 2xT bounded);
      the weights' bytes before and after ``to_serving``, decode tok/s and
      ITL p50 of each run; the expert product's and the scan's own times;
+  4n. the enc-dec backbone (whisper-base), the embeds frontend
+     (internvl2-76b), gemma2-27b, glm4-9b, starcoder2-15b and kimi-k2:
+     B8's new modes against its plain version, launches per prefill and
+     step, kernels against the plain versions (fp32 under fault C2's
+     contract for whisper, glm4 and starcoder2);
+  4q. QAT training at 2xT, bf16 params, adamw, batch 8 x 256 tokens:
+     smollm-135m's full-size (30-layer) train step timed (wall p50,
+     tokens/s, peak memory) and under ``torch.profiler`` (its loss finite;
+     its grad norm printed: the reference's 2xT gradient overflows at that
+     depth); at full width with 2 layers, a run through ``launch.train``
+     (ElasticTrainer, checkpoints in the run's temp dir) with finite
+     losses, the loss on one fixed batch against a stated drop, one train
+     step of reduced smollm on the card against the CPU's (fp32, and 2xT
+     with the activation codes that differ counted and taken from the CPU
+     run), a restart from the step-20 checkpoint (restored state
+     ``torch.equal`` to the saved one, the data position continuing); the
+     trained weights packed (``to_serving``) and served by the dense
+     batcher at kv8: B1, B7c and B5 launched on every layer, and B1 and
+     B7c ``torch.equal`` to their plain versions on layer 0's trained
+     projections;
   5. decode steps of the dense and the paged 2xT paths, of the dense 1x1
      path and of the paged fp32-weight path (phase 4d's) under
      ``torch.profiler``: device operations per step, device busy time and
@@ -2600,7 +2620,7 @@ def _routing_flips(calls, n_runs: int, first: int = 0, second: int = 1):
     return flips, margin, where
 
 
-def _c2_contract(card, model, params, prompt, device):
+def _c2_contract(card, model, params, prompt, device, start=None):
     """Fault C2's contract (ROADMAP Queue C; ``tests/test_torch_c2.py``
     holds it on smollm) on another model's fp32 kv8 decode step, through
     ``tools/probe_c2.py``'s layer report: B5 within its per-call bound in
@@ -2615,10 +2635,13 @@ def _c2_contract(card, model, params, prompt, device):
     ``du`` of its boundary (a code step that the drift upstream does not
     explain, such as a dequantization error, fails).  Returns the first
     layer with a code step (None: none, and then the step is within 0.05
-    of the bound as it stands)."""
+    of the bound as it stands).  ``start`` = (token, cache, pos): decode
+    from copies of that one cache instead of phase 4's chunk (the enc-dec
+    backbone: one prefill holds the encoder output fixed across the
+    runs)."""
     sys.path.insert(0, str(ROOT / "tools"))
     import probe_c2
-    rep = probe_c2.layer_report(model, params, prompt, device)
+    rep = probe_c2.layer_report(model, params, prompt, device, start=start)
     probe_c2._print(card, 0, rep)
     flipped = [r["layer"] for r in rep["layers"]
                if r["k"]["flips"] or r["v"]["flips"]]
@@ -3385,6 +3408,23 @@ def _report_steps(label, cmp, bounded: bool) -> None:
                   f"{cmp['max_step']} steps apart")
 
 
+def _report_c2(card, label, model, params, cmp, prompt, device,
+               start=None) -> None:
+    """An fp32 ``_compare_steps`` result held by fault C2's contract
+    (``_c2_contract``, per layer) instead of ``_report_steps``'s bound on
+    the logits alone: the prefill within 1e-4 of max|logit|, the contract
+    on the decode step, and the step within 1e-4 of max|logit| unless a
+    K/V code stepped."""
+    _report_steps(label, cmp, bounded=False)
+    tp = 1e-4 * cmp["prefill_scale"]
+    check(cmp["prefill"] <= tp, f"{label}: prefill differs by "
+                                f"{cmp['prefill']} > {tp}")
+    first = _c2_contract(card, model, params, prompt, device, start=start)
+    check(cmp["decode"] <= 1e-4 * cmp["scale"] or first is not None,
+          f"{label}: decode step differs by {cmp['decode']} with no K/V "
+          "code step")
+
+
 def _check_counts(label, got: dict, want: dict) -> None:
     for name, n in want.items():
         check(got.get(name, 0) == n, f"{label}: {name} launched "
@@ -3419,7 +3459,8 @@ def _whisper(device, card) -> dict:
     2xT kv8 bf16: stub frames (4, 1500, 512), a 32-token prompt, 16 greedy
     steps; launches per prefill and step against the code's counts; a
     profiled decode step; kernels against the plain versions (2xT
-    reported, fp32 in float32 bounded); the launcher's legacy loop."""
+    reported, fp32 in float32 under fault C2's contract, the encoder
+    output held fixed); the launcher's legacy loop."""
     import torch
     from repro_torch.kernels import engine
     from repro_torch.launch import serve as cli
@@ -3489,7 +3530,12 @@ def _whisper(device, card) -> dict:
     m32, p32 = _family_model("whisper-base", device, precision="fp32",
                              kv_bits=8, dtype="float32")
     cmp = _compare_steps(m32, p32, batch, step_in, device)
-    _report_steps("whisper fp32 weights, float32, kv8", cmp, bounded=True)
+    # one plain prefill holds the encoder output (and the cross K/V) fixed
+    # across the contract's decode runs
+    _, cache32 = m32.prefill(p32, batch, WHISPER_PROMPT + 2, backend="torch")
+    _report_c2(card, "whisper fp32 weights, float32, kv8", m32, p32, cmp,
+               None, device, start=(step_in, cache32, WHISPER_PROMPT))
+    del cache32
     _check_counts("whisper fp32 decode step", cmp["launches"]["decode"],
                   {"flash_attention": dl, "decode_attention": dl})
     out["fp32"] = cmp["launches"]
@@ -3686,8 +3732,8 @@ def _wide_two_layers(device, card, arch: str) -> dict:
     one prefill of 4 prompts of PROMPT tokens (or, for the embeds
     frontend, the vision stub's patch embeddings) and one decode step
     through the kernels against the plain versions, 2xT bf16 reported and
-    fp32 in float32 bounded; the embeds stack also through the launcher's
-    legacy loop."""
+    fp32 in float32 bounded (a token stack: under fault C2's contract);
+    the embeds stack also through the launcher's legacy loop."""
     import argparse
     import torch
     from repro_torch.launch import serve as cli
@@ -3711,8 +3757,12 @@ def _wide_two_layers(device, card, arch: str) -> dict:
                                              generator=gen, device=device)}
             step_in = batch["tokens"][:, -1:]
         cmp = _compare_steps(model, params, batch, step_in, device)
-        _report_steps(f"{label} {precision} {dtype} kv8", cmp,
-                      bounded=precision == "fp32")
+        if precision == "fp32" and cfg.frontend != "embeds":
+            _report_c2(card, f"{label} {precision} {dtype} kv8", model,
+                       params, cmp, _requests(cfg, 1, GEN)[0].tokens, device)
+        else:
+            _report_steps(f"{label} {precision} {dtype} kv8", cmp,
+                          bounded=precision == "fp32")
         want = {"flash_attention": WIDE_LAYERS}
         if precision == "2xT":
             want.update(ternary_matmul=_n_packed(params),
@@ -3772,6 +3822,401 @@ def phase_encdec(device, card) -> dict:
         check(total.get(name, 0) > 0, f"phase 4n never launched {name}")
     print(f"phase 4n: {time.time() - t0:.1f} s")
     return total
+
+
+# ---------------------------------------------------------------------------
+# 4q: QAT training, then serving the trained weights
+# ---------------------------------------------------------------------------
+TRAIN_B, TRAIN_S = 8, 256               # batch x sequence of a train step
+# The trained run's depth cut: the reference's 2xT straight-through
+# gradient grows ~10^2-10^3 a layer going back through the stack (both
+# packages, on the CPU: the grad norm is ~5e4 at 2 layers, ~1e9 at 4,
+# inf at 12 at full width; NaN at 30 at reduce_for_smoke widths), so past
+# a few layers an update is NaN.  The uncut 30-layer step is timed, not
+# trained.
+TRAIN_LAYERS = 2
+TRAIN_LR = 3e-3                         # examples/train_qat.py's
+TRAIN_FIRST, TRAIN_STEPS = 20, 30       # the run checkpoints at 20, resumes
+FULL_STEPS = 5                          # timed steps of the 30-layer model
+LEARN_STEPS, LEARN_MARGIN = 20, 0.5
+STEP_LR = 1e-3                          # the card-vs-CPU step's adamw lr
+# the card's train step against the CPU's (reduced smollm, float32, TF32
+# off): loss and grad norm relative, every updated leaf in units of lr (an
+# Adam step moves an entry by ~lr g / (|g| + eps): near +-lr whatever the
+# summation order, except where g itself is at the f32 ulps' level);
+# activation codes that differ (2xT), each one step from the other and
+# within CODE_DIST steps of the boundary between them
+STEP_METRIC_RTOL, STEP_LEAF_LR, CODE_DIST = 1e-5, 0.1, 1e-3
+
+
+@contextlib.contextmanager
+def _act_codes(take_from=None):
+    """Record ``u = x / scale`` of every signed activation quantizer call
+    (the fake-quant forward, ``models.layers.act_fake_quant``) on the host.
+    With ``take_from`` (another run's records), each call keeps its own
+    values and gradient except where its code, or its clip gradient
+    factor (1 inside, 1/2 on the bound, 0 outside), differs from that
+    run's call: there it takes the other run's (fault C1's swap, as
+    ``tests/test_torch_qat.py`` holds the port to the reference).  Yields
+    (records, differing entries as (kind, steps apart, distance of this
+    run's u from the boundary in steps))."""
+    import torch
+    from repro_torch.core.precision import A_SIGNED
+    from repro_torch.models import layers
+    orig = layers.act_fake_quant
+    recs, flips = [], []
+
+    def factor(u, qmax):
+        a = u.abs()
+        return torch.where(a < qmax, 1.0, torch.where(a == qmax, 0.5, 0.0))
+
+    def quantizer(x, cfg):
+        y = orig(x, cfg)
+        if cfg.a_mode != A_SIGNED or cfg.a_bits == 1:
+            return y
+        qmax = (1 << (cfg.a_bits - 1)) - 1
+        xs = x.detach()
+        s = xs.abs().amax().clamp_min(1e-8) / qmax        # the quantizer's ops
+        u = xs / s
+        recs.append(u.cpu())
+        if take_from is None:
+            return y
+        ur = take_from[len(recs) - 1].to(u.device)
+        own = torch.round(u.clamp(-qmax, qmax))
+        want = torch.round(ur.clamp(-qmax, qmax))
+        d = want - own
+        for i in torch.nonzero(d.reshape(-1)).reshape(-1).tolist():
+            flips.append(("code", abs(float(d.reshape(-1)[i])),
+                          abs(float(u.reshape(-1)[i]
+                                    - (want + own).reshape(-1)[i] / 2))))
+        df = factor(ur, qmax) - factor(u, qmax)
+        for i in torch.nonzero(df.reshape(-1)).reshape(-1).tolist():
+            flips.append(("clip", 0.0, abs(abs(float(u.reshape(-1)[i]))
+                                           - qmax)))
+        return y + (d * s).to(y.dtype) + df.to(x.dtype) * (x - x.detach())
+
+    layers.act_fake_quant = quantizer
+    try:
+        yield recs, flips
+    finally:
+        layers.act_fake_quant = orig
+
+
+def train_step_vs_cpu(precision: str, device) -> dict:
+    """One adamw train step (lr STEP_LR) of reduced smollm in float32 from
+    the same params, optimizer state and batch on the card and on the CPU.
+    At a quantized precision the card also runs with the CPU run's
+    activation codes where its own differ (``_act_codes``); the bounded
+    numbers are that run's, the raw run's are reported.  Returns the
+    relative loss and grad-norm gaps, the largest updated-leaf gap in
+    units of lr, and the differing codes."""
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.core.precision import get_precision, signed
+    from repro_torch.launch.steps import make_train_step
+    from repro_torch.models import build_model, reduce_for_smoke
+    from repro_torch.optim import make_optimizer
+    from repro_torch.tree import tree_leaves, tree_map
+    cfg = reduce_for_smoke(get_config("smollm-135m", precision=precision))
+    check(cfg.dtype == "float32", f"reduced smollm in {cfg.dtype}")
+    model, opt = build_model(cfg), make_optimizer("adamw", lr=STEP_LR)
+    step = make_train_step(model, opt)
+    params = model.init(torch.Generator().manual_seed(0), "cpu")
+    gen = torch.Generator().manual_seed(1)
+    tokens = torch.randint(0, cfg.vocab, (4, 32), generator=gen)
+    batch = {"tokens": tokens, "labels": tokens}
+    state = opt.init(params)
+
+    def run(dev, take_from=None):
+        on = lambda t: t.to(dev)
+        with _act_codes(take_from) as (recs, flips):
+            p, s, m = step(tree_map(on, params), tree_map(on, state),
+                           {k: on(v) for k, v in batch.items()})
+        if dev.type == "cuda":
+            torch.cuda.synchronize()
+        return ([x.cpu() for x in tree_leaves(p)],
+                {k: float(v) for k, v in m.items()}, recs, flips)
+
+    cpu_p, cpu_m, cpu_u, _ = run(torch.device("cpu"))
+
+    def gaps(p, m):
+        return {"loss_rel": abs(m["loss"] - cpu_m["loss"]) / abs(cpu_m["loss"]),
+                "gnorm_rel": abs(m["grad_norm"] - cpu_m["grad_norm"])
+                / abs(cpu_m["grad_norm"]),
+                "leaf_lr": max(float((a - b).abs().max())
+                               for a, b in zip(p, cpu_p)) / STEP_LR}
+    raw_p, raw_m, raw_u, _ = run(device)
+    out = {"precision": precision, "quant_calls": len(cpu_u),
+           "cpu_loss": cpu_m["loss"], "cpu_grad_norm": cpu_m["grad_norm"],
+           "raw": gaps(raw_p, raw_m), "bounded": gaps(raw_p, raw_m),
+           "raw_codes_apart": 0, "flips": []}
+    if cpu_u:
+        qmax = (1 << (signed(get_precision(precision)).a_bits - 1)) - 1
+        code = lambda u: torch.round(u.clamp(-qmax, qmax))
+        out["raw_codes_apart"] = sum(int((code(a) != code(b)).sum())
+                                     for a, b in zip(raw_u, cpu_u))
+        sw_p, sw_m, _, out["flips"] = run(device, take_from=cpu_u)
+        out["bounded"] = gaps(sw_p, sw_m)
+    return out
+
+
+def _check_step(rep: dict) -> None:
+    b, r = rep["bounded"], rep["raw"]
+    print(f"card vs CPU, one train step of reduced smollm {rep['precision']} "
+          f"float32 (adamw lr {STEP_LR}, TF32 off): loss {rep['cpu_loss']:.6f} "
+          f"(CPU), grad norm {rep['cpu_grad_norm']:.6g}; "
+          f"{rep['quant_calls']} activation quantizer calls, "
+          f"{rep['raw_codes_apart']} codes apart on the card's own run "
+          f"(loss {r['loss_rel']:.3e} rel, grad norm {r['gnorm_rel']:.3e} "
+          f"rel, leaves {r['leaf_lr']:.4f} lr); with the CPU's codes where "
+          f"they differ ({len(rep['flips'])} entries {rep['flips'][:8]}): "
+          f"loss {b['loss_rel']:.3e} rel, grad norm {b['gnorm_rel']:.3e} "
+          f"rel, updated leaves within {b['leaf_lr']:.4f} lr (bounds "
+          f"{STEP_METRIC_RTOL}, {STEP_METRIC_RTOL}, {STEP_LEAF_LR} lr)")
+    check(b["loss_rel"] <= STEP_METRIC_RTOL and
+          b["gnorm_rel"] <= STEP_METRIC_RTOL and b["leaf_lr"] <= STEP_LEAF_LR,
+          f"{rep['precision']}: the card's train step leaves the CPU's bound")
+    for kind, steps, dist in rep["flips"]:
+        check((kind == "clip" or steps == 1) and dist <= CODE_DIST,
+              f"{rep['precision']}: an activation code parts from the CPU's "
+              f"by {steps} steps, {dist} steps from its boundary")
+
+
+def _train_batch(cfg, device):
+    """The data pipeline's first batch of TRAIN_B x TRAIN_S tokens, on the
+    card."""
+    import torch
+    from repro_torch.data import SyntheticLM
+    data = SyntheticLM(vocab=cfg.vocab, seq_len=TRAIN_S, global_batch=TRAIN_B)
+    return {k: torch.from_numpy(v).to(device, torch.int64)
+            for k, v in next(data).items()}
+
+
+def _full_depth_step(device, card) -> None:
+    """smollm-135m at full size (30 layers), 2xT, bf16 params, adamw: the
+    train step's wall time (FULL_STEPS steps, each from the same initial
+    state, after a warm-up step), tokens/s, peak memory and a profiled
+    step.  Its loss is finite; its grad norm is printed (the reference's
+    2xT gradient overflows at this depth, see TRAIN_LAYERS)."""
+    import numpy as np
+    import torch
+    from repro_torch.launch.steps import make_train_step
+    from repro_torch.models import build_model
+    from repro_torch.optim import make_optimizer
+    from repro_torch.tree import tree_leaves
+    cfg = model_config(precision="2xT")
+    check(cfg.n_layers == 30 and cfg.d_model == 576 and cfg.vocab == 49152
+          and cfg.dtype == "bfloat16", f"not smollm-135m at full size: {cfg}")
+    model, opt = build_model(cfg), make_optimizer("adamw", lr=TRAIN_LR)
+    step = make_train_step(model, opt)
+    torch.cuda.reset_peak_memory_stats()
+    params = model.init(torch.Generator().manual_seed(0), device)
+    state = opt.init(params)
+    batch = _train_batch(cfg, device)
+    metrics = []
+    times = []
+    for i in range(FULL_STEPS + 1):
+        t0 = time.perf_counter()
+        _, _, m = step(params, state, batch)
+        m = {k: float(v) for k, v in m.items()}
+        times.append((time.perf_counter() - t0) * 1e3)
+        metrics.append(m)
+    peak = torch.cuda.max_memory_allocated()
+    p50 = statistics.median(times[1:])
+    n_params = sum(x.numel() for x in tree_leaves(params))
+    check(all(np.isfinite(m["loss"]) for m in metrics),
+          f"30-layer 2xT train step: loss {metrics}")
+    print(f"[{card}] train step, smollm-135m 2xT bf16 at full size ({cfg.n_layers} "
+          f"layers, {n_params / 1e6:.1f} M params), adamw, {TRAIN_B} x "
+          f"{TRAIN_S} tokens: wall p50 {p50:.2f} ms over {FULL_STEPS} steps "
+          f"(first {times[0]:.1f} ms), {TRAIN_B * TRAIN_S / p50 * 1e3:.0f} "
+          f"tokens/s; peak memory {peak / 1e9:.3f} GB "
+          f"(max_memory_allocated); loss {metrics[0]['loss']:.4f}, grad norm "
+          f"{metrics[0]['grad_norm']} (the reference's 2xT gradient overflows "
+          "at this depth: not trained)")
+    _profile_call(card, f"smollm-135m 2xT train step ({cfg.n_layers} layers, "
+                  f"B {TRAIN_B}, S {TRAIN_S})",
+                  lambda: step(params, state, batch))
+    del params, state
+    torch.cuda.empty_cache()
+
+
+def phase_train(device, card, tmp: str) -> None:
+    """4q: QAT training of smollm-135m at 2xT, bf16 params, adamw, batch
+    TRAIN_B x TRAIN_S: the full-size (30-layer) step timed and profiled
+    (``_full_depth_step``); at full width with the depth cut to
+    TRAIN_LAYERS, a run through ``launch.train`` (ElasticTrainer,
+    checkpoints under ``tmp``) with finite losses, the loss on one fixed
+    batch against LEARN_MARGIN, the card's step against the CPU's
+    (``train_step_vs_cpu``, fp32 and 2xT), a restart from the
+    step-TRAIN_FIRST checkpoint; then the trained weights packed and
+    served through the kernels."""
+    import numpy as np
+    import torch
+    from repro_torch.checkpoint import Checkpointer
+    from repro_torch.kernels import engine, ref
+    from repro_torch.kernels.act_quant import act_quant_signed_rows
+    from repro_torch.kernels.ternary_matmul import ternary_matmul
+    from repro_torch.launch import train
+    from repro_torch.launch.steps import make_train_step
+    from repro_torch.models import build_model, to_serving
+    from repro_torch.models import transformer as tfm
+    from repro_torch.optim import make_optimizer
+    from repro_torch.runtime.serving import ContinuousBatcher, ServingConfig
+    from repro_torch.tree import tree_leaves
+    print("== 4q. QAT training: smollm-135m 2xT bf16, then serving the "
+          "trained weights", flush=True)
+    t0 = time.time()
+    _full_depth_step(device, card)
+
+    cfg = dataclasses.replace(model_config(precision="2xT"),
+                              n_layers=TRAIN_LAYERS)
+    ckpt = str(Path(tmp) / "train_ckpt")
+    argv = ["--arch", "smollm-135m", "--precision", "2xT", "--batch",
+            str(TRAIN_B), "--seq", str(TRAIN_S), "--lr", str(TRAIN_LR),
+            "--optimizer", "adamw", "--save-every", "100", "--ckpt-dir", ckpt,
+            "--device", "cuda"]
+    torch.cuda.reset_peak_memory_stats()
+    first = train.train(train.parse_args(argv + ["--steps", str(TRAIN_FIRST)]),
+                        cfg)
+    torch.cuda.synchronize()
+    peak = torch.cuda.max_memory_allocated()
+    losses = [m["loss"] for m in first.metrics]
+    check(first.status == "done" and len(losses) == TRAIN_FIRST
+          and all(np.isfinite(losses)), f"train run: {first.status} {losses}")
+    p50 = statistics.median(first.step_ms)
+    print(f"[{card}] launch.train smollm-135m 2xT bf16, full width, "
+          f"{TRAIN_LAYERS} layers (a depth cut: the reference's 2xT gradient "
+          f"overflows deeper), adamw lr {TRAIN_LR}: {TRAIN_FIRST} steps of "
+          f"{TRAIN_B} x {TRAIN_S} tokens in {first.wall_s:.1f} s; step wall "
+          f"p50 {p50:.2f} ms (first {first.step_ms[0]:.1f}); "
+          f"{TRAIN_B * TRAIN_S / p50 * 1e3:.0f} tokens/s at p50; peak memory "
+          f"{peak / 1e9:.3f} GB; losses {[round(x, 3) for x in losses]}")
+
+    # one fixed batch, repeated: the loss must fall
+    model = first.model
+    opt = make_optimizer("adamw", lr=TRAIN_LR)
+    step = make_train_step(model, opt)
+    batch = _train_batch(cfg, device)
+    params = model.init(torch.Generator().manual_seed(0), device)
+    state = opt.init(params)
+    learn = []
+    for _ in range(LEARN_STEPS):
+        params, state, m = step(params, state, batch)
+        learn.append(float(m["loss"]))
+    del params, state
+    print(f"[{card}] one fixed batch x {LEARN_STEPS} steps: loss "
+          f"{learn[0]:.4f} -> {learn[-1]:.4f} (drop {learn[0] - learn[-1]:.4f}"
+          f", margin {LEARN_MARGIN}); {[round(x, 3) for x in learn]}")
+    check(all(np.isfinite(learn)) and learn[-1] <= learn[0] - LEARN_MARGIN,
+          f"the loss on a fixed batch fell {learn[0] - learn[-1]:.4f}, not "
+          f"{LEARN_MARGIN}")
+
+    # attention under autograd: the reference's plain training attention,
+    # traced as a plain dispatch; without gradients B8 as before
+    engine.reset_launch_counts()
+    with engine.dispatch_trace() as ev:
+        step(first.state["params"], first.state["opt"], batch)
+    torch.cuda.synchronize()
+    plain = sum(e.op == "flash_attention" and e.impl_backend == "torch"
+                for e in ev)
+    b8_grad = engine.launch_counts()["flash_attention"]
+    engine.reset_launch_counts()
+    with torch.no_grad():
+        model.forward(first.state["params"], batch)
+    torch.cuda.synchronize()
+    b8_fwd = engine.launch_counts()["flash_attention"]
+    print(f"attention in a train step: {plain} plain dispatches traced "
+          f"(impl_backend torch), {b8_grad} B8 launches; a forward without "
+          f"gradients: {b8_fwd} B8 launches")
+    check(plain == cfg.n_layers and b8_grad == 0 and b8_fwd == cfg.n_layers,
+          "attention routing under autograd")
+
+    for precision in ("fp32", "2xT"):
+        _check_step(train_step_vs_cpu(precision, device))
+
+    # restart from the step-TRAIN_FIRST checkpoint
+    ck = Checkpointer(ckpt)
+    check(ck.all_steps() == [TRAIN_FIRST], f"checkpoints {ck.all_steps()}")
+    saved = tree_leaves(first.state)
+    back = tree_leaves(ck.restore(TRAIN_FIRST, first.state))
+    check(len(saved) == len(back) and all(
+        a.dtype == b.dtype and a.device == b.device and torch.equal(a, b)
+        for a, b in zip(saved, back)),
+        "the restored state differs from the saved one")
+    del back
+    resumed = train.train(train.parse_args(argv + ["--steps",
+                                                   str(TRAIN_STEPS)]), cfg)
+    rl = [m["loss"] for m in resumed.metrics]
+    check(resumed.status == "done" and len(rl) == TRAIN_STEPS - TRAIN_FIRST
+          and resumed.data.state_dict() == {"step": TRAIN_STEPS}
+          and all(np.isfinite(rl)),
+          f"resume: {resumed.status}, {len(rl)} steps, data at "
+          f"{resumed.data.state_dict()}")
+    print(f"restart: {len(saved)} leaves restored torch.equal to the saved "
+          f"step-{TRAIN_FIRST} state; the resumed run took steps "
+          f"{TRAIN_FIRST}..{TRAIN_STEPS - 1} (data position {TRAIN_FIRST} -> "
+          f"{resumed.data.state_dict()['step']}); losses "
+          f"{[round(x, 3) for x in rl]}; checkpoints {ck.all_steps()}")
+    del first, saved
+
+    # deploy: pack the trained weights, serve through the kernels
+    scfg = dataclasses.replace(cfg, kv_bits=8)
+    smodel = build_model(scfg)
+    sparams = to_serving(resumed.state["params"], scfg, tp=1)
+    del resumed
+    torch.cuda.empty_cache()
+    sc = ServingConfig(n_slots=N_SLOTS, s_max=S_MAX, chunk_size=CHUNK)
+    _warm(ContinuousBatcher(smodel, sparams, sc), scfg)
+    reqs = _requests(scfg, N_SLOTS, GEN)
+    _run(ContinuousBatcher(smodel, sparams, sc), reqs, card,
+         "trained 2xT kv8")
+    n_proj = N_PROJ * scfg.n_layers
+    cmp = _compare_backends(smodel, sparams, sc, reqs[0].tokens, device)
+    want = {"ternary_matmul": n_proj, "act_quant_signed_grouped": n_proj,
+            "decode_attention": scfg.n_layers}
+    _check_counts("trained decode step", cmp["launches"]["decode"], want)
+    check(cmp["quant_dispatches"]["decode"] == n_proj,
+          f"trained decode step: {cmp['quant_dispatches']['decode']} "
+          "quantizer dispatches traced")
+    cache = tfm.make_cache(scfg, N_SLOTS, S_MAX, device)
+    with engine.dispatch_trace() as ev:
+        smodel.decode_step(sparams, torch.zeros((N_SLOTS, 1), dtype=torch.long,
+                                                device=device), cache,
+                           torch.tensor([3, 4, 5, 6], device=device))
+    torch.cuda.synchronize()
+    traced = {op: sum(e.op == op and e.impl_backend == "cuda" for e in ev)
+              for op in ("qmatmul", "decode_attention")}
+    check(traced == {"qmatmul": n_proj, "decode_attention": scfg.n_layers},
+          f"trained decode step traced {traced}")
+    # B7c then B1 on layer 0's seven trained projections at M = N_SLOTS
+    gen = torch.Generator(device=device).manual_seed(12)
+    lp = sparams["blocks"]["layer_0"]
+    projs = [lp["attn"][n] for n in ("wq", "wk", "wv", "wo")] + \
+        [lp["ffn"][n] for n in ("w_gate", "w_up", "w_down")]
+    for p in projs:
+        w, scale = p["wt_packed"][0], p["scale"][0]
+        k = w.shape[1] * 16
+        x = torch.randn((N_SLOTS, k), generator=gen, device=device
+                        ).to(torch.bfloat16)
+        (c, s), (c_ref, s_ref) = act_quant_signed_rows(x, bits=2), \
+            ref.act_quant_signed_rows_ref(x, 2)
+        y, y_ref = ternary_matmul(c, w, scale), \
+            ref.ternary_matmul_ref(c, w, scale)
+        torch.cuda.synchronize()
+        check(torch.equal(c, c_ref) and torch.equal(s, s_ref),
+              f"trained layer 0 (N, K) ({w.shape[0]}, {k}): B7c differs from "
+              "its plain version")
+        check(torch.equal(y, y_ref), f"trained layer 0 (N, K) ({w.shape[0]}, "
+              f"{k}): B1 differs from its plain version")
+    print(f"trained weights served: launches per decode step "
+          f"{cmp['launches']['decode']} ({N_PROJ} / {N_PROJ} / 1 a layer, as "
+          f"phase 4's), traced {traced}; B7c and B1 torch.equal to their "
+          f"plain versions on layer 0's {len(projs)} projections (M = "
+          f"{N_SLOTS}); tokens within the logits' {scfg.padded_vocab} rows")
+    print(f"phase 4q: {time.time() - t0:.1f} s")
+    del sparams, cache
+    torch.cuda.empty_cache()
 
 
 # ---------------------------------------------------------------------------
@@ -4381,6 +4826,7 @@ def _main(torch, tmp: str) -> None:
     phase_speculative(device, card)
     phase_families(device, card)
     phase_encdec(device, card)
+    phase_train(device, card, tmp)
     launches.update(paged_attention=paged_launches["paged_attention"],
                     fused_decode=fused_launches["fused_decode"],
                     binary_matmul=xnor_launches["binary_matmul"],

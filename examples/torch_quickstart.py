@@ -6,8 +6,8 @@ Run:  PYTHONPATH=src python examples/torch_quickstart.py               # the car
 
 On the card every packed matmul, quantizer and attention runs through the
 hand-written CUDA kernels (built with nvcc at first use); on the CPU their
-plain PyTorch versions run.  The port has no fake-quant (QAT) forward yet,
-so the forward of step 3 runs the packed serving form.
+plain PyTorch versions run.  The forward of step 3 runs the packed serving
+form; ``examples/torch_train_qat.py`` trains the fake-quant (QAT) form.
 """
 import argparse
 

@@ -12,12 +12,13 @@ with a per-tensor scale; 1-bit signed values are sign(x).  The integer-code
 quantizers (:func:`act_quant_codes_unsigned`, :func:`act_quant_codes_signed`)
 run the activation-quantizer kernels (``kernels/act_quant.py``) on the card.
 
-The fake-quant (quantize -> dequantize) functions are the FORWARD of the
-reference's straight-through estimators, value for value: the reference
-computes ``w + stop_gradient(wq - w)``, and the port computes the same
-``w + (wq - w)`` in the same order (not plain ``wq``, which can differ by
-one rounding).  ``torch.round`` and ``jnp.round`` both round half to even.
-The STE backward (identity gradient) comes with the training slice.
+The fake-quant (quantize -> dequantize) functions are the reference's
+straight-through estimators, value for value and gradient for gradient: the
+reference computes ``w + stop_gradient(wq - w)``, and the port computes
+``w + (wq - w).detach()``, the same sum in the same order (not plain ``wq``,
+which can differ by one rounding) with the identity gradient.  Every
+``stop_gradient`` of the reference is a ``.detach()`` here.  ``torch.round``
+and ``jnp.round`` both round half to even.
 """
 from __future__ import annotations
 
@@ -56,26 +57,39 @@ def act_quant_codes_signed(x: torch.Tensor, bits: int
     return codes.reshape(x.shape), scale.to(torch.float32)
 
 
+def _clip(x: torch.Tensor, lo: float, hi: float) -> torch.Tensor:
+    """clamp(x, lo, hi) with the reference's ``jnp.clip`` gradient: an entry
+    equal to a bound gets half the gradient (``maximum`` / ``minimum`` split
+    ties in both packages; ``torch.clamp`` would pass all of it).  The
+    bounds are filled on x's device (``new_tensor`` would copy them from
+    the host and wait for the device's queue)."""
+    return torch.minimum(torch.maximum(x, x.new_full((), lo)),
+                         x.new_full((), hi))
+
+
 def _round_ste(x: torch.Tensor) -> torch.Tensor:
-    """round(x), as the reference's ``x + stop_gradient(round(x) - x)``."""
-    return x + (torch.round(x) - x)
+    """round(x) with identity gradient, as the reference's
+    ``x + stop_gradient(round(x) - x)``."""
+    return x + (torch.round(x) - x).detach()
 
 
 def act_fake_quant(x: torch.Tensor, cfg: PrecisionConfig) -> torch.Tensor:
-    """Fake-quantized activations (forward only): unsigned eq. (4) levels,
-    signed k-bit with a per-tensor absmax scale, or sign(x) at 1 bit."""
+    """Fake-quantized activations with STE, for QAT and the plain paths:
+    unsigned eq. (4) levels, signed k-bit with a per-tensor absmax scale
+    (no gradient through the scale), or sign(x) at 1 bit, whose gradient
+    is zero, as the reference's ``sign(x) + stop_gradient(0 x)``."""
     if cfg.a_mode == A_FLOAT:
         return x
     bits = cfg.a_bits
     if cfg.a_mode == A_UNSIGNED:
         levels = (1 << bits) - 1
-        return _round_ste(torch.clamp(x, 0.0, 1.0) * levels) / levels
+        return _round_ste(_clip(x, 0.0, 1.0) * levels) / levels
     if cfg.a_mode == A_SIGNED:
         if bits == 1:
             return torch.sign(x) + 0.0 * x          # XNOR-net binary activations
         qmax = (1 << (bits - 1)) - 1
-        scale = x.abs().amax().clamp_min(1e-8) / qmax
-        return _round_ste(torch.clamp(x / scale, -qmax, qmax)) * scale
+        scale = x.abs().amax().clamp_min(1e-8).detach() / qmax
+        return _round_ste(_clip(x / scale, -qmax, qmax)) * scale
     raise ValueError(cfg.a_mode)
 
 
@@ -123,10 +137,10 @@ def weight_quant(w: torch.Tensor, cfg: PrecisionConfig, axis=0
 
 def weight_fake_quant(w: torch.Tensor, cfg: PrecisionConfig, axis=0
                       ) -> torch.Tensor:
-    """Quantize -> dequantize weights (the QAT forward; float configs pass
-    through)."""
+    """Quantize -> dequantize weights with STE (the QAT forward, identity
+    gradient; float configs pass through)."""
     if cfg.w_mode == W_FLOAT:
         return w
     codes, alpha = weight_quant(w.detach(), cfg, axis=axis)
     wq = codes.to(w.dtype) * alpha.to(w.dtype)
-    return w + (wq - w)
+    return w + (wq - w).detach()

@@ -12,14 +12,15 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from repro_torch.tree import tree_map
+
 
 def _to_torch(arr, device) -> torch.Tensor:
-    arr = np.ascontiguousarray(arr)
+    arr = np.array(arr, order="C")     # a copy; a 0-d leaf (a count) stays 0-d
     if arr.dtype.name == "bfloat16":
-        t = torch.from_numpy(arr.view(np.int16).copy()).view(torch.bfloat16)
-    else:
-        t = torch.from_numpy(arr.copy())
-    return t.to(device)
+        return torch.from_numpy(arr.view(np.int16)).view(torch.bfloat16
+                                                         ).to(device)
+    return torch.from_numpy(arr).to(device)
 
 
 def params_from_numpy(tree, device):
@@ -30,26 +31,18 @@ def params_from_numpy(tree, device):
     if torch.device(device).type == "cuda" and not torch.cuda.is_available():
         raise RuntimeError(f"params_from_numpy(device={device!r}): no CUDA "
                            "device is visible")
-    return _from_numpy(tree, device)
+    return tree_map(lambda x: _to_torch(x, device), tree)
 
 
-def _from_numpy(tree, device):
-    if isinstance(tree, dict):
-        return {k: _from_numpy(v, device) for k, v in tree.items()}
-    if isinstance(tree, (list, tuple)):
-        return type(tree)(_from_numpy(v, device) for v in tree)
-    return _to_torch(np.asarray(tree), device)
+def _to_numpy(t: torch.Tensor) -> np.ndarray:
+    t = t.detach().cpu()
+    if t.dtype == torch.bfloat16:
+        t = t.to(torch.float32)
+    return t.numpy()
 
 
 def params_to_numpy(tree):
     """Nested dicts / lists / tuples of torch tensors -> the same tree of
     numpy arrays on the host (bfloat16 leaves come back as float32: numpy
     has no bfloat16)."""
-    if isinstance(tree, dict):
-        return {k: params_to_numpy(v) for k, v in tree.items()}
-    if isinstance(tree, (list, tuple)):
-        return type(tree)(params_to_numpy(v) for v in tree)
-    t = tree.detach().cpu()
-    if t.dtype == torch.bfloat16:
-        t = t.to(torch.float32)
-    return t.numpy()
+    return tree_map(_to_numpy, tree)

@@ -47,7 +47,8 @@ import torch
 from repro_torch.core import packing
 from repro_torch.core.precision import (A_FLOAT, PrecisionConfig, W_BINARY,
                                         W_FLOAT, W_INT, W_TERNARY)
-from repro_torch.core.quantize import weight_fake_quant, weight_quant
+from repro_torch.core.quantize import (act_fake_quant, weight_fake_quant,
+                                      weight_quant)
 
 from . import _build, ref, tuning
 from .act_quant import act_quant_signed_rows
@@ -509,7 +510,8 @@ def record_plain(op: str, kind: str, x: torch.Tensor,
                  backend: str | None = None) -> None:
     """Record a dispatch that runs plain PyTorch on every device by the
     reference's design (the Mamba layer's selective scan, ``op``
-    "ssm_scan"): ``impl_backend="torch"`` whatever was requested, so the
+    "ssm_scan"; full-sequence attention under autograd, ``op``
+    "flash_attention"): ``impl_backend="torch"`` whatever was requested, so the
     trace shows the plain piece on the card.  ``x`` gives the device and
     the rows (all but its last axis)."""
     _record_dispatch(op=op, kind=kind,
@@ -521,7 +523,9 @@ def record_plain(op: str, kind: str, x: torch.Tensor,
 def fake_quant_dot(x: torch.Tensor, w: torch.Tensor, cfg: PrecisionConfig, *,
                    axis=0) -> torch.Tensor:
     """QAT-form ``x @ fake_quant(w)`` — the float counterpart of
-    :func:`qmatmul` (forward only: the STE backward waits for training)."""
+    :func:`qmatmul`: a float matmul of STE-quantized weights, whose
+    gradient reaches ``w`` as the identity (plain PyTorch on every
+    device, as the reference's jnp form)."""
     if cfg.w_mode == W_FLOAT:
         return x @ w.to(x.dtype)
     wq = weight_fake_quant(w.to(torch.float32), cfg, axis=axis).to(x.dtype)
@@ -676,15 +680,19 @@ def _project_wo(x, wo_p: dict, pcfg: PrecisionConfig, model_dtype, backend):
     """The decode output projection, op for op as the model's
     ``qlinear_apply(p["wo"], x, cfg)``: packed serving weights go through
     :func:`qmatmul` (per-row activation scales, so a gathered sub-batch
-    gives the padded batch's rows), float weights are a plain matmul."""
+    gives the padded batch's rows), float weights of a float config are a
+    plain matmul, and float weights of a quantized config (a QAT
+    checkpoint before ``to_serving``) take the fake-quant form: the
+    activations fake-quantized with one absmax scale over the whole call,
+    times :func:`fake_quant_dot`."""
     if "wt_packed" in wo_p:
         pw = as_packed_weight(wo_p, pcfg)
         return qmatmul(x, pw, pcfg, backend=backend).to(model_dtype)
-    if pcfg.w_mode != W_FLOAT:
-        raise NotImplementedError(
-            f"{pcfg.name}: the fake-quant (QAT) form of wo is not ported; "
-            "serve packed weights (models.convert.to_serving)")
-    return x @ wo_p["qw"].to(x.dtype)
+    if pcfg.w_mode == W_FLOAT:
+        return x @ wo_p["qw"].to(x.dtype)
+    if pcfg.a_mode != A_FLOAT:
+        x = act_fake_quant(x.to(torch.float32), pcfg).to(x.dtype)
+    return fake_quant_dot(x, wo_p["qw"], pcfg, axis=0)
 
 
 def _wo_is_float(wo_p: dict, pcfg: PrecisionConfig) -> bool:

@@ -24,8 +24,10 @@ the embeds frontend (whose decode step takes (B, 1, D) embeddings), plus
 {"frames": (B, S_enc, D)} for enc-dec, and {"labels": (B, S)} for
 ``loss``; :func:`make_batch` draws one from a generator.
 Every call takes an optional ``backend`` ("cuda" | "torch"); None picks by
-the device of the inputs.  ``forward`` and ``loss`` are forward values
-only: training and its gradients come in a later slice.
+the device of the inputs.  ``forward`` and ``loss`` are differentiable
+with float params: ``loss.backward()`` gives the reference's
+``jax.grad(model.loss)`` (straight-through fake-quant at a quantized
+precision; ``launch.steps.make_train_step`` trains on it).
 """
 from __future__ import annotations
 

@@ -15,7 +15,11 @@ dtype when ``kv_bits`` is 0.  Full-sequence attention (a whole-prompt
 prefill, the forward) goes through ``engine.flash_attention`` on the card
 and through the reference's ``_attend`` / ``_attend_flash`` on the CPU,
 causal (``_attend_full``) or with no mask (``_attend_all``: the enc-dec
-encoder and cross-attention).
+encoder and cross-attention).  Under autograd (gradients enabled and an
+input that requires one) both take the reference's training attention,
+``_attend`` / ``_attend_flash``, on every device: the reference trains
+through its jnp attention and never through its flash kernel, and the
+port's kernel has no backward.
 
 Unlike the JAX package, the cached attention paths update the cache (and
 the paged block pool) IN PLACE and return the same dict: a serving step
@@ -36,7 +40,7 @@ import torch.nn.functional as F
 
 from repro_torch.core.packing import pack_nibbles, unpack_nibbles
 from repro_torch.core.precision import A_FLOAT, W_FLOAT, get_precision, signed
-from repro_torch.core.quantize import act_fake_quant
+from repro_torch.core.quantize import act_fake_quant, weight_fake_quant
 from repro_torch.kernels import engine
 from repro_torch.kernels.paged_attention import gather_pool
 
@@ -71,7 +75,7 @@ def qlinear_apply(p, x, cfg: ModelConfig, backend: str | None = None):
     take the reference's fake-quant (QAT) forward, plain on every device:
     activations fake-quantized with ONE absmax scale over the whole tensor
     (so a row's result depends on the other rows of the call), times the
-    fake-quantized weights.  The STE backward comes with training."""
+    fake-quantized weights.  Gradients pass straight through (STE)."""
     pcfg = signed(get_precision(cfg.precision))
     if "wt_packed" in p:
         pw = engine.as_packed_weight(p, pcfg)
@@ -239,17 +243,29 @@ def _attend_flash(q, k, v, pos_q, pos_k, cfg: ModelConfig, *, causal: bool,
     return out.permute(0, 3, 1, 2, 4).reshape(b, sq, h * dh).to(q.dtype)
 
 
+def _training(q, k, v, backend: str | None) -> bool:
+    """True when autograd records this attention call (gradients enabled
+    and an input requires one): it then runs the reference's training
+    attention, on the card too, recorded as a plain dispatch."""
+    if not (torch.is_grad_enabled()
+            and (q.requires_grad or k.requires_grad or v.requires_grad)):
+        return False
+    engine.record_plain("flash_attention", engine.ATTN_FLASH, q, backend)
+    return True
+
+
 def _attend_full(q, k, v, positions, cfg: ModelConfig, local: bool,
                  backend: str | None):
     """Causal attention of a whole sequence over itself (no cache): a
     whole-prompt prefill or the forward, whose positions are
-    ``arange(S)``.  On the card: ``engine.flash_attention`` (the kernel, or
-    its plain version for ``backend="torch"``), whose positions count from
-    0.  On the CPU: the reference's choice, ``_attend_flash`` for
+    ``arange(S)``.  On the card without autograd: ``engine.flash_attention``
+    (the kernel, or its plain version for ``backend="torch"``), whose
+    positions count from 0.  On the CPU, and under autograd on every
+    device: the reference's choice, ``_attend_flash`` for
     Sq > ATTN_KV_CHUNK in whole chunks, else ``_attend``."""
     b, sq, h, dh = q.shape
     kvh = k.shape[2]
-    if q.is_cuda:
+    if q.is_cuda and not _training(q, k, v, backend):
         if cfg.attn_probs_bf16:
             raise NotImplementedError(
                 "attn_probs_bf16: no kernel computes bf16 probabilities; the "
@@ -273,13 +289,13 @@ def _attend_full(q, k, v, positions, cfg: ModelConfig, local: bool,
 def _attend_all(q, k, v, cfg: ModelConfig, backend: str | None):
     """Attention with no mask: every query sees every key (the enc-dec
     encoder's self-attention and the cross-attention; Sq may differ from
-    Sk).  On the card: ``engine.flash_attention`` with ``causal=False``.
-    On the CPU: the reference's choice, ``_attend_flash`` for
-    Sk > ATTN_KV_CHUNK in whole chunks, else ``_attend`` with an all-true
-    mask."""
+    Sk).  On the card without autograd: ``engine.flash_attention`` with
+    ``causal=False``.  On the CPU, and under autograd on every device: the
+    reference's choice, ``_attend_flash`` for Sk > ATTN_KV_CHUNK in whole
+    chunks, else ``_attend`` with an all-true mask."""
     b, sq, h, dh = q.shape
     kvh, sk = k.shape[2], k.shape[1]
-    if q.is_cuda:
+    if q.is_cuda and not _training(q, k, v, backend):
         out = engine.flash_attention(
             q.reshape(b, sq, kvh, h // kvh, dh), k, v, causal=False,
             softcap=cfg.attn_softcap, backend=backend)
@@ -554,14 +570,15 @@ def moe_init(generator, cfg: ModelConfig, device):
 
 def _expert_matmul(w, x, cfg: ModelConfig, backend: str | None = None):
     """x: (E, C, K) @ w: (E, K, N) per expert; serving weights are packed
-    per expert (``engine.qmatmul_experts``)."""
+    per expert (``engine.qmatmul_experts``).  Float weights of a quantized
+    config take the reference's fake-quant (QAT) form: each expert's
+    weights STE-quantized per output channel (reduced over K, axis 1),
+    the activations left in float, as the reference does."""
     pcfg = signed(get_precision(cfg.precision))
     if isinstance(w, dict):
         return engine.qmatmul_experts(x, w, pcfg, backend=backend)
     if pcfg.w_mode != W_FLOAT:
-        raise NotImplementedError(
-            f"{cfg.precision}: the fake-quant (QAT) form is not ported; "
-            "serve packed weights (models.convert.to_serving)")
+        w = weight_fake_quant(w.to(torch.float32), pcfg, axis=1).to(x.dtype)
     return torch.einsum("eck,ekn->ecn", x, w.to(x.dtype))
 
 

@@ -17,16 +17,18 @@ helpers (``repro.runtime``'s, as far as they are ported).
     :class:`StepProfiler` (per-step device time against host gap —
     ``runtime.profile``).
 
-**Fault-tolerance helpers** (host-side; they wrap step functions):
-  * ``PreemptionGuard``  — SIGTERM/SIGINT handler that flips a flag; a loop
-    checkpoints and exits cleanly at the next step boundary;
+**Fault-tolerance runtime** (host-side; they wrap step functions):
+  * ``PreemptionGuard``  — SIGTERM/SIGINT handler that flips a flag; the
+    train loop checkpoints and exits cleanly at the next step boundary;
   * ``StragglerMonitor`` — per-step wall-time EWMA + deviation; flags steps
     exceeding mean + k*sigma, and recommends replacement after repeated
     offenses;
+  * ``ElasticTrainer``   — the restart driver: resolve the latest
+    checkpoint, restore the state and the data position, continue; step
+    granularity recovery.  On one device ``build`` returns no mesh and no
+    shardings; rebuilding a mesh for however many devices are healthy
+    waits for the multi-device slice (ROADMAP Queue A item 9);
   * ``retry_with_backoff`` — transient-error wrapper for host I/O.
-
-Not ported yet: ``ElasticTrainer``, the checkpoint-resume loop over a
-device mesh (ROADMAP Queue A items 8-9).
 """
 from __future__ import annotations
 
@@ -129,3 +131,46 @@ def retry_with_backoff(fn: Callable, retries: int = 3, base_s: float = 0.1,
             if attempt == retries:
                 raise
             time.sleep(base_s * 2 ** attempt)
+
+
+class ElasticTrainer:
+    """Restart driver: checkpoint-resume.
+
+    ``build`` = (n_data, n_model) -> (mesh, state_like, shardings, step_fn),
+    ``step_fn(state, batch) -> (state, metrics)``; the port's ``build``
+    returns ``mesh`` and ``shardings`` None (one device).  On each
+    (re)start: restore the latest checkpoint and the data iterator's
+    position (``load_state_dict({"step": N})``), run until preempted or
+    done, checkpoint on exit.
+    """
+
+    def __init__(self, ckpt, build: Callable, save_every: int = 50):
+        self.ckpt = ckpt
+        self.build = build
+        self.save_every = save_every
+
+    def run(self, n_steps: int, n_data: int, n_model: int, data_iter,
+            monitor: StragglerMonitor | None = None):
+        mesh, state, shardings, step_fn = self.build(n_data, n_model)
+        start = 0
+        latest = self.ckpt.latest_step()
+        if latest is not None:
+            state = self.ckpt.restore(latest, state, shardings)
+            if hasattr(data_iter, "load_state_dict"):
+                data_iter.load_state_dict({"step": latest})
+            start = latest
+        metrics_log = []
+        with PreemptionGuard() as guard:
+            for step in range(start, n_steps):
+                t0 = time.time()
+                state, metrics = step_fn(state, next(data_iter))
+                wall = time.time() - t0
+                if monitor is not None:
+                    monitor.record(step, wall)
+                metrics_log.append(metrics)
+                if guard.requested or (step + 1) % self.save_every == 0:
+                    self.ckpt.save(step + 1, state)
+                if guard.requested:
+                    return state, metrics_log, "preempted"
+        self.ckpt.save(n_steps, state)
+        return state, metrics_log, "done"

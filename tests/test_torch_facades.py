@@ -31,9 +31,7 @@ import repro_torch.runtime as truntime  # noqa: E402
 REPO = Path(__file__).resolve().parent.parent
 
 # reference name -> the ROADMAP Queue A item that ports it
-NOT_PORTED = {
-    "repro.runtime": {"ElasticTrainer": "items 8-9"},
-}
+NOT_PORTED: dict = {}
 FACADES = ("core", "kernels", "kernels.ops", "runtime")
 
 

@@ -73,3 +73,33 @@ def test_chip_smoke_fails_outside_a_checkout(tmp_path):
                           capture_output=True, text=True, timeout=120)
     assert proc.returncode != 0
     assert '"ok"' not in proc.stdout
+
+
+TRAINING_MODULES = ("repro_torch.tree", "repro_torch.optim",
+                    "repro_torch.data", "repro_torch.checkpoint",
+                    "repro_torch.launch.steps", "repro_torch.launch.train",
+                    "repro_torch.runtime")
+
+
+def test_training_modules_stand_alone():
+    """The training slice (optimizers, steps, data, checkpoints, the
+    elastic loop, the launcher) and its examples are among the checked
+    sources, and importing them in a fresh interpreter loads no JAX and
+    nothing of ``repro``."""
+    for name in TRAINING_MODULES + ("examples.torch_train_qat",
+                                    "examples.torch_widening_tradeoff"):
+        rel = Path("src", *name.split(".")) if name.startswith("repro") \
+            else Path(*name.split("."))
+        assert any(p in SOURCES for p in (REPO / rel.with_suffix(".py"),
+                                          REPO / rel / "__init__.py")), name
+    code = ("import sys\n"
+            f"for m in {TRAINING_MODULES!r}: __import__(m)\n"
+            "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
+            "('jax', 'jaxlib', 'repro', 'ml_dtypes'))\n"
+            "print(bad)\n")
+    proc = subprocess.run([sys.executable, "-c", code], cwd=REPO,
+                          env={**__import__("os").environ,
+                               "PYTHONPATH": str(REPO / "src")},
+                          capture_output=True, text=True, timeout=300)
+    assert proc.returncode == 0, proc.stderr
+    assert proc.stdout.strip() == "[]", proc.stdout

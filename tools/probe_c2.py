@@ -101,21 +101,30 @@ def _recorders(per_call: bool, kv_from=None, serving: bool = False):
 
 
 def decode_run(model, params, prompt, device, backend: str, kv_from=None,
-               serving: bool = False):
+               serving: bool = False, start=None):
     """Phase 4's chunk + decode step through ``backend``; returns the decode
-    logits and the per-layer records (K/V quantization, attention)."""
+    logits and the per-layer records (K/V quantization, attention).
+    ``start`` = (token, cache, pos) replaces the chunk: every run decodes
+    from its own copy of that one cache (the enc-dec backbone, whose
+    prefill through B8 would otherwise move the encoder output between
+    the runs)."""
     import torch
     from repro_torch.models import transformer as tfm
     from repro_torch.runtime.serving import write_slot
     cfg, c = model.cfg, chip_smoke.CHUNK
-    tokens = torch.as_tensor(prompt[:, :c], device=device)
-    cache = tfm.make_cache(cfg, 1, chip_smoke.S_MAX, device)
-    lc, cache = model.prefill_chunk(params, tokens, cache, 0, backend=backend)
-    slots = tfm.make_cache(cfg, len(POS), chip_smoke.S_MAX, device)
-    for i in range(len(POS)):
-        write_slot(slots, cache, i)
-    tok = lc[:, -1:].argmax(-1).expand(len(POS), 1).contiguous()
-    pos = torch.tensor(POS, device=device)
+    if start is not None:
+        tok, cache, pos = start
+        slots = chip_smoke._tree_clone(cache)
+    else:
+        tokens = torch.as_tensor(prompt[:, :c], device=device)
+        cache = tfm.make_cache(cfg, 1, chip_smoke.S_MAX, device)
+        lc, cache = model.prefill_chunk(params, tokens, cache, 0,
+                                        backend=backend)
+        slots = tfm.make_cache(cfg, len(POS), chip_smoke.S_MAX, device)
+        for i in range(len(POS)):
+            write_slot(slots, cache, i)
+        tok = lc[:, -1:].argmax(-1).expand(len(POS), 1).contiguous()
+        pos = torch.tensor(POS, device=device)
     with _recorders(backend == "cuda", kv_from, serving) as (kvq, attn):
         ld, _ = model.decode_step(params, tok, slots, pos, backend=backend)
     if device.type == "cuda":
@@ -127,18 +136,20 @@ def _rel(a, b) -> float:
     return ((a - b).abs().max() / b.abs().max().clamp_min(1e-30)).item()
 
 
-def layer_report(model, params, prompt, device, kernels: str = "cuda"
-                 ) -> dict:
+def layer_report(model, params, prompt, device, kernels: str = "cuda",
+                 start=None) -> dict:
     """The three runs of one weight seed and the per-layer comparison of
     the ``kernels`` backend's run against ``plain`` (see the module
-    docstring)."""
+    docstring); ``start`` as :func:`decode_run`'s."""
     import torch
-    ld_c, kv_c, at_c = decode_run(model, params, prompt, device, kernels)
-    ld_p, kv_p, at_p = decode_run(model, params, prompt, device, "torch")
+    ld_c, kv_c, at_c = decode_run(model, params, prompt, device, kernels,
+                                  start=start)
+    ld_p, kv_p, at_p = decode_run(model, params, prompt, device, "torch",
+                                  start=start)
     ld_s, _, _ = decode_run(model, params, prompt, device, "torch",
-                            kv_from=kv_c)
+                            kv_from=kv_c, start=start)
     ld_o, kv_o, _ = decode_run(model, params, prompt, device, "torch",
-                               serving=True)
+                               serving=True, start=start)
     layers = []
     for i, (kc, kp, ac, ap) in enumerate(zip(kv_c, kv_p, at_c, at_p)):
         row = {"layer": i}
@@ -171,7 +182,8 @@ def layer_report(model, params, prompt, device, kernels: str = "cuda"
             "plain_order": (ld_o - ld_p).abs().max().item() / tol,
             "order_flips": sum(int((a["codes"][i] != b["codes"][i]).sum())
                                for a, b in zip(kv_o, kv_p) for i in (0, 2)),
-            "agree": int((ld_c.argmax(-1) == ld_p.argmax(-1)).sum())}
+            "agree": int((ld_c.argmax(-1) == ld_p.argmax(-1)).sum()),
+            "rows": ld_p.shape[0]}
 
 
 def _print(card, seed, rep) -> None:
@@ -183,7 +195,7 @@ def _print(card, seed, rep) -> None:
           f"run's K/V codes) {rep['cuda_swap']:.3f}; two plain versions "
           f"(summation order only) {rep['plain_order']:.3f}, with "
           f"{rep['order_flips']} K/V codes apart; greedy rows agree "
-          f"{rep['agree']}/{len(POS)}; first layer with a K/V code "
+          f"{rep['agree']}/{rep['rows']}; first layer with a K/V code "
           f"difference: {first}", flush=True)
     print("  layer  q_rel     attn_rel  B5-plain/tol |  K: rel  du(steps) "
           "flips max dist |  V: rel  du(steps) flips max dist")
