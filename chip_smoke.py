@@ -128,6 +128,18 @@ Phases (each prints its own lines; any failed check exits non-zero):
      batcher at kv8: B1, B7c and B5 launched on every layer, and B1 and
      B7c ``torch.equal`` to their plain versions on layer 0's trained
      projections;
+  4r. serving over a mesh of ranks (``ServingConfig.mesh``; two ranks
+     spawned on the one card, over gloo: the NCCL branch is not run here):
+     B7c's given-scale codes of a K-split row ``torch.equal`` to its row
+     form's; smollm-135m 2xT kv8 bf16 at full size (pure DP) on meshes 2,1
+     and 1,2, dense chunked and paged, streams equal to the one-rank run's;
+     glm4-9b 2xT kv8 at full size on 1,2 (tensor parallel) streams equal to
+     the one-rank run's, and fp32 at 2 layers (f32 cache) within 1e-4 of
+     max|logit|; granite-moe-1b-a400m on 1,2 with the expert-parallel MoE
+     (``moe_impl="shard_map"``): fp32 within the bound, 2xT streams
+     reported; per rank, one decode step's kernel launches and collectives
+     against the expected counts, its wall beside the one-rank step's
+     (glm4's next step under ``torch.profiler``: device busy ms);
   5. decode steps of the dense and the paged 2xT paths, of the dense 1x1
      path and of the paged fp32-weight path (phase 4d's) under
      ``torch.profiler``: device operations per step, device busy time and
@@ -2548,10 +2560,11 @@ FAMILY_PROJ = (("granite wq/wo", 1024, 1024), ("granite wk/wv", 512, 1024),
                ("falcon w_dt", 8192, 256), ("falcon w_out", 4096, 8192))
 
 
-def _family_model(arch, device, reduced=False, reduced_kw=None, **kw):
+def _family_model(arch, device, reduced=False, reduced_kw=None, tp=1, **kw):
     """(model, serving params) of ``arch`` from seed 0, drawn on the card;
-    prints the weights' bytes before and after ``to_serving``.  ``kw``
-    overrides the config, ``reduced_kw`` the reduce_for_smoke one."""
+    prints the weights' bytes before and after ``to_serving`` (with
+    ``tp``).  ``kw`` overrides the config, ``reduced_kw`` the
+    reduce_for_smoke one."""
     import torch
     from repro_torch.configs import get_config
     from repro_torch.models import build_model, reduce_for_smoke, to_serving
@@ -2564,7 +2577,7 @@ def _family_model(arch, device, reduced=False, reduced_kw=None, **kw):
     t0 = time.time()
     params = model.init(torch.Generator(device=device).manual_seed(0), device)
     base = serving_param_bytes(params)
-    params = to_serving(params, cfg, tp=1)
+    params = to_serving(params, cfg, tp=tp)
     torch.cuda.synchronize()
     packed = serving_param_bytes(params)
     print(f"{arch}{' (reduced)' if reduced else ''}: {cfg.n_layers} layers, "
@@ -2587,13 +2600,13 @@ def _routing_probe():
     from repro_torch.models import layers as L
     saved, calls = L.moe_apply, []
 
-    def probe(p, x, cfg, backend=None):
+    def probe(p, x, cfg, backend=None, shard=None):
         xin = L.rmsnorm(p["norm"], x, cfg.norm_eps).reshape(-1, x.shape[-1])
         probs = torch.softmax(xin.to(torch.float32) @ p["w_router"], -1)
         top = torch.topk(probs, cfg.top_k + 1, dim=-1).values
         sets = torch.topk(probs, cfg.top_k, dim=-1).indices.sort(-1).values
         calls.append((sets, top[:, -2] - top[:, -1]))
-        return saved(p, x, cfg, backend)
+        return saved(p, x, cfg, backend, shard)
 
     L.moe_apply = probe
     try:
@@ -4220,6 +4233,271 @@ def phase_train(device, card, tmp: str) -> None:
 
 
 # ---------------------------------------------------------------------------
+# 4r: serving over a mesh of ranks
+# ---------------------------------------------------------------------------
+MESH_REQ, MESH_GEN = 4, 8          # the large models' requests on a mesh
+
+
+def _serve_probed(batcher, reqs, profile: bool = False):
+    """Serve ``reqs``; the first step with no admission left (one decode
+    step of the live slots alone) runs between synchronizations with the
+    kernel launches and the collectives set to 0 just before and read just
+    after, and with ``profile`` the next such step under
+    ``torch.profiler``.  Returns ({rid: tokens}, (launches, collectives,
+    wall ms, device busy ms or None, the three largest device ops))."""
+    import torch
+    from repro_torch.kernels import engine
+    from repro_torch.parallel import comm
+    for r in reqs:
+        batcher.submit(r)
+    done, probe, busy = [], None, None
+    top = []
+    for _ in range(10_000):
+        if batcher.idle:
+            break
+        decode_only = not batcher.queue and batcher._adm is None \
+            and bool(batcher._live_slots())
+        if decode_only and probe is None:
+            torch.cuda.synchronize()
+            engine.reset_launch_counts()
+            comm.reset_collective_counts()
+            t0 = time.perf_counter()
+            done += batcher.step()
+            torch.cuda.synchronize()
+            probe = (engine.launch_counts(), comm.collective_counts(),
+                     (time.perf_counter() - t0) * 1e3)
+        elif decode_only and profile and busy is None:
+            acts = [torch.profiler.ProfilerActivity.CPU,
+                    torch.profiler.ProfilerActivity.CUDA]
+            with torch.profiler.profile(activities=acts) as prof:
+                done += batcher.step()
+                torch.cuda.synchronize()
+            _, us, by_name = _profile_device(prof)
+            busy = us / 1e3
+            top = [(n[:40], c, round(t / 1e3, 3)) for n, (c, t) in
+                   sorted(by_name.items(), key=lambda kv: -kv[1][1])[:3]]
+        else:
+            done += batcher.step()
+    return {r.rid: list(r.output) for r in done}, probe + (busy, top)
+
+
+def _mesh_logits(cfg, params, prompt, mesh=None):
+    """f32 logits of one CHUNK-token prefill chunk and one decode step on
+    its cache, on one card or (``mesh``) this rank's tensor-parallel share
+    (the caller's params cut by ``param_specs``)."""
+    import torch
+    from repro_torch.models import build_model
+    from repro_torch.models import transformer as tfm
+    from repro_torch.parallel import sharding as shd
+    from repro_torch.parallel.comm import StepSharding
+    from repro_torch.tree import tree_map
+    model = build_model(cfg)
+    kw = {}
+    dev = params["embed"]["w"].device
+    if mesh is not None:
+        dev = mesh.device
+        params = tree_map(lambda t: t.to(dev), shd.shard_tree(
+            params, shd.param_specs(params, cfg, mesh), mesh))
+        kw["shard"] = StepSharding(mesh, tp=mesh.axis("model"))
+    tokens = torch.from_numpy(prompt[:, :CHUNK]).to(dev)
+    with torch.no_grad():
+        cache = tfm.make_cache(cfg, 1, S_MAX, dev, mesh=mesh)
+        chunk, cache = model.prefill_chunk(params, tokens, cache, 0, **kw)
+        step, _ = model.decode_step(params, tokens[:, -1:], cache,
+                                    torch.tensor([CHUNK], device=dev), **kw)
+    torch.cuda.synchronize()
+    return chunk.cpu(), step.cpu()
+
+
+def _mesh_job(job, mesh=None):
+    """One phase-4r job on one card or over ``mesh``: a batcher's streams
+    and probed decode step (``kind`` "dense" / "paged"), or ``_mesh_logits``
+    ("logits")."""
+    from repro_torch.models import build_model
+    from repro_torch.runtime.kvcache import PagedBatcher
+    from repro_torch.runtime.serving import ContinuousBatcher, ServingConfig
+    cfg, params = job["cfg"], job["params"]
+    prompt = _requests(cfg, 1, GEN)[0].tokens
+    if job["kind"] == "logits":
+        return _mesh_logits(cfg, params, prompt, mesh)
+    if job["kind"] == "paged":
+        cfg = dataclasses.replace(cfg, kv_bits=0)
+        sc = _paged_config(mesh=mesh)
+        batcher = PagedBatcher(build_model(cfg), params, sc)
+    else:
+        sc = ServingConfig(n_slots=N_SLOTS, s_max=S_MAX, chunk_size=CHUNK,
+                           mesh=mesh)
+        batcher = ContinuousBatcher(build_model(cfg), params, sc)
+    return _serve_probed(batcher, _requests(cfg, job["n_req"], job["gen"]),
+                         profile=job.get("profile", False))
+
+
+def _rank_4r(world, small, jobs):
+    """One rank of phase 4r: ``small``'s jobs over the two ranks as a 2,1
+    mesh, then ``jobs`` over ``world`` (1,2), in order."""
+    import torch
+    from repro_torch.launch.mesh import make_mesh
+    m21 = make_mesh(2, 1, device=world.device)
+    out = {"2,1": {name: _mesh_job(job, m21) for name, job in small.items()},
+           "1,2": {name: _mesh_job(job, world) for name, job in jobs.items()}}
+    torch.cuda.synchronize()
+    return out
+
+
+def _expect(label, got: dict, want: dict) -> None:
+    for k, v in want.items():
+        check(got.get(k) == v, f"{label}: {k} = {got.get(k)}, expected {v}")
+
+
+def _split_row_codes(device) -> None:
+    """B7c's given-scale form on the halves of K-split rows at the
+    all-reduced max: codes and scale ``torch.equal`` to the row form's on
+    whole rows (glm4's w_down rows, bf16 and f32)."""
+    import torch
+    from repro_torch.kernels.act_quant import (act_quant_signed_grouped,
+                                               act_quant_signed_rows)
+    gen = torch.Generator(device=device).manual_seed(27)
+    for dtype in (torch.bfloat16, torch.float32):
+        x = (torch.randn((N_SLOTS, 13696), generator=gen, device=device)
+             * 3).to(dtype)
+        codes, scale = act_quant_signed_rows(x, bits=8)
+        halves = x.chunk(2, dim=1)
+        amax = torch.maximum(*(h.abs().amax(dim=1, keepdim=True)
+                               for h in halves)).clamp_min(1e-8)
+        s2 = amax / amax.new_full((), 127)
+        split = torch.cat([act_quant_signed_grouped(h.contiguous(), s2,
+                                                    bits=8,
+                                                    compute_dtype=dtype)
+                           for h in halves], dim=1)
+        torch.cuda.synchronize()
+        check(torch.equal(s2, scale) and torch.equal(split, codes),
+              f"B7c given-scale codes of split {dtype} rows differ from the "
+              "row form's")
+    print("B7c: given-scale codes of K-split rows (bf16, f32) torch.equal "
+          "to the row form's on whole rows")
+
+
+def phase_mesh(device, card) -> None:
+    """4r: the batchers over meshes of two ranks sharing the card (gloo):
+    pure-DP smollm-135m (2,1 and 1,2), tensor-parallel glm4-9b and
+    granite-moe-1b-a400m (1,2), each against its one-rank run."""
+    import torch
+    from repro_torch.launch.mesh import parse_mesh, spawn
+    from repro_torch.parallel.comm import choose_backend
+    t0 = time.time()
+    print("== 4r. serving over a mesh of ranks: two ranks on "
+          f"{torch.cuda.device_count()} card(s), backend "
+          f"{choose_backend('cuda', 2)} (NCCL needs a card a rank; its "
+          "branch is not run here)", flush=True)
+    _split_row_codes(device)
+    jobs, one = {}, {}
+    # glm4 2xT first: its bf16 draw is the phase's largest transient
+    for name, kind, arch, kw in (
+            ("glm4 2xT", "dense", "glm4-9b", dict(precision="2xT",
+                                                   kv_bits=8)),
+            ("glm4 fp32", "logits", "glm4-9b", dict(
+                precision="fp32", kv_bits=0, dtype="float32",
+                n_layers=WIDE_LAYERS)),
+            ("granite fp32", "logits", "granite-moe-1b-a400m", dict(
+                precision="fp32", kv_bits=0, dtype="float32",
+                moe_impl="shard_map")),
+            ("granite 2xT", "dense", "granite-moe-1b-a400m", dict(
+                precision="2xT", kv_bits=8, moe_impl="shard_map"))):
+        model, params = _family_model(arch, device, tp=2, **kw)
+        jobs[name] = {"kind": kind, "cfg": model.cfg, "params": params,
+                      "n_req": MESH_REQ, "gen": MESH_GEN,
+                      "profile": name == "glm4 2xT"}
+    model, params = _family_model("smollm-135m", device, precision="2xT",
+                                  kv_bits=8)
+    small = {f"smollm {k}": {"kind": k, "cfg": model.cfg, "params": params,
+                             "n_req": N_REQ, "gen": GEN}
+             for k in ("dense", "paged")}
+    jobs.update(small)
+    for name, job in jobs.items():
+        one[name] = _mesh_job(job)
+        if job["kind"] != "logits":
+            launches, _, wall, busy, top = one[name][1]
+            print(f"[{card}] 4r {name} one rank: one decode step: launches "
+                  f"{launches}, wall {wall:.2f} ms"
+                  + ("" if busy is None else
+                     f"; the next step's device busy {busy:.3f} ms, largest "
+                     f"device ops {top}"))
+    torch.cuda.synchronize()
+    t_one = time.time() - t0
+    # one spawn of two ranks (after the parent built every library in
+    # phase 2) serves both meshes
+    ranks = spawn(_rank_4r, parse_mesh("1,2"), small, jobs, device="cuda")
+    torch.cuda.ipc_collect()        # the ranks' handles on the params
+    got = {spec: [res[spec] for res in ranks] for spec in ("2,1", "1,2")}
+
+    n30, n40 = 30, 40
+    want = {"smollm dense": ({"ternary_matmul": 7 * n30,
+                              "act_quant_signed_grouped": 7 * n30,
+                              "decode_attention": n30},
+                             {"all_reduce_sum": 0, "all_reduce_max": 0,
+                              "all_gather": 1}),
+            "smollm paged": ({"ternary_matmul": 7 * n30,
+                              "act_quant_signed_grouped": 7 * n30,
+                              "paged_attention": n30},
+                             {"all_reduce_sum": 0, "all_reduce_max": 0,
+                              "all_gather": 0}),
+            # a max and a sum around wo and w_down a layer, the embedding's
+            # sum, the logits' gather (data 1: no next-token gather)
+            "glm4 2xT": ({"ternary_matmul": 7 * n40,
+                          "act_quant_signed_grouped": 7 * n40,
+                          "decode_attention": n40},
+                         {"all_reduce_sum": 2 * n40 + 1,
+                          "all_reduce_max": 2 * n40, "all_gather": 1}),
+            # four attention projections a layer (the experts are plain);
+            # a max and a sum around wo, the experts' partial outputs' sum
+            "granite 2xT": ({"ternary_matmul": 4 * 24,
+                             "act_quant_signed_grouped": 4 * 24,
+                             "decode_attention": 24},
+                            {"all_reduce_sum": 2 * 24 + 1,
+                             "all_reduce_max": 24, "all_gather": 1})}
+    for spec, ranks in got.items():
+        for r, res in enumerate(ranks):
+            for name, (streams, probe) in (
+                    (n, v) for n, v in res.items()
+                    if jobs[n]["kind"] != "logits"):
+                same = streams == one[name][0]
+                n_same = sum(streams[k] == v for k, v in one[name][0].items())
+                launches, colls, wall, busy, top = probe
+                print(f"[{card}] 4r {name} mesh {spec} rank {r}: streams "
+                      f"equal to the one-rank run's: {same} ({n_same} of "
+                      f"{len(streams)} requests); one decode step: launches "
+                      f"{launches}, collectives {colls}, wall {wall:.2f} ms "
+                      f"(one rank: {one[name][1][2]:.2f} ms)"
+                      + ("" if busy is None else
+                         f"; the next step profiled: device busy "
+                         f"{busy:.3f} ms (one rank: {one[name][1][3]:.3f} "
+                         f"ms), largest device ops {top}"))
+                # granite's streams are reported: its top-8 experts' partial
+                # outputs sum in another order over the ranks
+                check(same or name == "granite 2xT",
+                      f"4r {name} on {spec}: streams differ from the "
+                      "one-rank run's")
+                _expect(f"4r {name} {spec} rank {r} launches", launches,
+                        want[name][0])
+                _expect(f"4r {name} {spec} rank {r} collectives", colls,
+                        want[name][1])
+    for name in ("glm4 fp32", "granite fp32"):
+        scale = max(float(t.abs().max()) for t in one[name])
+        for r, res in enumerate(got["1,2"]):
+            gap = max(float((a - b).abs().max())
+                      for a, b in zip(one[name], res[name]))
+            print(f"[{card}] 4r {name} (f32 cache) mesh 1,2 rank {r}: "
+                  f"prefill chunk and decode step logits max |dlogit| "
+                  f"{gap:.3e} (bound {1e-4 * scale:.3e} = 1e-4 of "
+                  f"max|logit| {scale:.3e})")
+            check(gap <= 1e-4 * scale, f"4r {name}: logits gap {gap}")
+    del jobs, small, params
+    torch.cuda.empty_cache()
+    print(f"phase 4r: {time.time() - t0:.1f} s (one-rank runs "
+          f"{t_one:.1f} s)")
+
+
+# ---------------------------------------------------------------------------
 # 4k: the tuning cache
 # ---------------------------------------------------------------------------
 TUNE_PRECISIONS = ("2xT", "4x4", "1x1")
@@ -4645,13 +4923,14 @@ def _paged_probe():
         return out
 
     def plain(q, k, ks, v, vs, extras, *, kv_bits, dtype):
-        page_table, pos, slot_map, wo_p, pcfg = extras
+        page_table, pos, slot_map, wo_p, pcfg, reduce = extras
         ql, ptl, posl = engine._live_rows(q, page_table, pos, slot_map)
         out = paged_attention_ref(ql, k, ks, v, vs, ptl, posl,
                                   kv_bits=kv_bits, out_dtype=torch.float32)
         calls.append((ql.clone(), out))
         return engine._project_wo(out.to(dtype).reshape(ql.shape[0], 1, -1),
-                                  wo_p, pcfg, dtype, engine.BACKEND_TORCH)
+                                  wo_p, pcfg, dtype, engine.BACKEND_TORCH,
+                                  reduce)
 
     engine._paged_attention_kernel = kernel
     engine.register_attention(*key, engine.BACKEND_TORCH)(plain)
@@ -4827,6 +5106,7 @@ def _main(torch, tmp: str) -> None:
     phase_families(device, card)
     phase_encdec(device, card)
     phase_train(device, card, tmp)
+    phase_mesh(device, card)
     launches.update(paged_attention=paged_launches["paged_attention"],
                     fused_decode=fused_launches["fused_decode"],
                     binary_matmul=xnor_launches["binary_matmul"],

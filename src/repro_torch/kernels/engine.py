@@ -51,7 +51,7 @@ from repro_torch.core.quantize import (act_fake_quant, weight_fake_quant,
                                       weight_quant)
 
 from . import _build, ref, tuning
-from .act_quant import act_quant_signed_rows
+from .act_quant import act_quant_signed_grouped, act_quant_signed_rows
 from .binary_matmul import binary_matmul
 from .decode_attention import (_pos_vector,
                                decode_attention as _decode_attention_kernel,
@@ -429,13 +429,54 @@ def _prep_activations(x2: torch.Tensor, pw: PackedWeight, a_bits: int,
     return xq, a_scale
 
 
+def _prep_split_activations(x2: torch.Tensor, pw: PackedWeight, a_bits: int,
+                            backend: str, reduce):
+    """:func:`_prep_activations` for rows whose K axis is split over the
+    ranks of ``reduce`` (a row-parallel projection's input): each row's
+    scale is the whole row's, from this rank's columns and the others'.
+
+    ``amax`` is local, then an all-reduce max (exact), then ``max(amax,
+    1e-8) / qmax`` as the row form computes it, and the codes come from the
+    given-scale form of the same kernel (``act_quant_signed_grouped`` with
+    one group), which divides as the row form does: the codes equal the row
+    form's on the whole row.  At 1 bit the row scale ``mean|x|`` is a local
+    float32 sum, an all-reduce sum and one division, which rounds as the
+    one-rank mean only up to the order of the sum."""
+    if not x2.is_floating_point() or a_bits == 0:
+        return _prep_activations(x2, pw, a_bits, backend)
+    if a_bits == 1:
+        total = reduce.all_reduce_sum(
+            x2.abs().to(torch.float32).sum(dim=1, keepdim=True))
+        a_scale = (total / (x2.shape[1] * reduce.size)).to(x2.dtype
+                                                           ).clamp_min(1e-8)
+        xnor = pw.mode == W_BINARY and pw.wt_packed.dtype == torch.int32
+        xq = torch.where(x2 >= 0, 1, -1).to(torch.int8)
+        return (packing.pack_binary_pm1(xq) if xnor else xq), a_scale
+    bits = min(a_bits, 8)
+    qmax = (1 << (bits - 1)) - 1
+    amax = reduce.all_reduce_max(x2.abs().amax(dim=1, keepdim=True))
+    amax = amax.clamp_min(1e-8)
+    a_scale = amax / amax.new_full((), qmax)
+    if backend == BACKEND_TORCH:
+        return ref.act_quant_signed_grouped_ref(
+            x2, bits, a_scale, compute_dtype=x2.dtype), a_scale
+    xq = act_quant_signed_grouped(x2.contiguous(), a_scale.contiguous(),
+                                  bits=bits, compute_dtype=x2.dtype)
+    _record_dispatch(op="act_quant_signed_grouped", kind="signed_grouped",
+                     requested_backend=backend, impl_backend=backend,
+                     a_bits=bits, w_bits=0, m_rows=int(x2.shape[0]),
+                     a_scale_shape=tuple(a_scale.shape))
+    return xq, a_scale
+
+
 # ---------------------------------------------------------------------------
 # the single public dispatch point
 # ---------------------------------------------------------------------------
 def qmatmul(x: torch.Tensor, pw: PackedWeight, cfg: PrecisionConfig, *,
             bias=None, out_dtype=torch.float32,
             backend: str | None = None,
-            block: tuple[int, int, int] | None = None) -> torch.Tensor:
+            block: tuple[int, int, int] | None = None,
+            reduce=None) -> torch.Tensor:
     """``x @ W`` with quantized/packed ``W`` under ``cfg``.
 
     x       : (..., K) float activations, int8 codes, or (binary) int32
@@ -446,6 +487,15 @@ def qmatmul(x: torch.Tensor, pw: PackedWeight, cfg: PrecisionConfig, *,
               this way); None consults the tuning cache where a CUDA kernel
               runs integer codes or bits (a miss: the automatic choice,
               never a sweep).  The plain versions ignore it.
+    reduce  : a row-parallel projection's model axis
+              (:class:`repro_torch.parallel.comm.Axis`): ``x`` and ``pw``
+              hold this rank's slice of K.  The rows are quantized at the
+              whole row's scale (:func:`_prep_split_activations`), the
+              kernel runs with weight scale 1 and no bias into f32
+              accumulators (integers, exact below 2**24), those are
+              all-reduced, and the epilogue ``acc * w_scale * a_scale +
+              bias`` runs once, in the one-rank order: integer activations
+              give the one-rank result bit for bit.
     """
     if cfg.w_mode == W_FLOAT:
         raise ValueError("qmatmul needs a quantized-weight config; "
@@ -454,7 +504,11 @@ def qmatmul(x: torch.Tensor, pw: PackedWeight, cfg: PrecisionConfig, *,
     a_bits = 0 if (cfg.a_mode == A_FLOAT or cfg.a_bits > 8) else cfg.a_bits
     lead = x.shape[:-1]
     x2 = x.reshape(-1, x.shape[-1])
-    xq, a_scale = _prep_activations(x2, pw, a_bits, backend)
+    split = reduce is not None and reduce.size > 1
+    if split:
+        xq, a_scale = _prep_split_activations(x2, pw, a_bits, backend, reduce)
+    else:
+        xq, a_scale = _prep_activations(x2, pw, a_bits, backend)
     # weight scale (N,) and per-row act scale (M, 1) stay separate: folding
     # them would couple the epilogue to the batch
     scale = pw.scale.reshape(-1).to(torch.float32)
@@ -471,8 +525,19 @@ def qmatmul(x: torch.Tensor, pw: PackedWeight, cfg: PrecisionConfig, *,
                      a_scale_shape=(None if a_scale is None
                                     else tuple(a_scale.shape)),
                      block=None if block is None else tuple(block))
-    out = fn(xq, pw, scale, bias, out_dtype=out_dtype, a_scale=a_scale,
-             block=block)
+    if split:
+        acc = reduce.all_reduce_sum(fn(
+            xq, pw, torch.ones_like(scale), None, out_dtype=torch.float32,
+            a_scale=None, block=block))
+        out = acc * scale[None, :]
+        if a_scale is not None:
+            out = out * a_scale
+        if bias is not None:
+            out = out + bias[None, :]
+        out = out.to(out_dtype)
+    else:
+        out = fn(xq, pw, scale, bias, out_dtype=out_dtype, a_scale=a_scale,
+                 block=block)
     return out.reshape(*lead, out.shape[-1])
 
 
@@ -676,7 +741,8 @@ def flash_attention(q, k, v, *, causal: bool = True, window: int = 0,
 # ---------------------------------------------------------------------------
 # fused ragged decode: paged attention + output projection, live slots only
 # ---------------------------------------------------------------------------
-def _project_wo(x, wo_p: dict, pcfg: PrecisionConfig, model_dtype, backend):
+def _project_wo(x, wo_p: dict, pcfg: PrecisionConfig, model_dtype, backend,
+                reduce=None):
     """The decode output projection, op for op as the model's
     ``qlinear_apply(p["wo"], x, cfg)``: packed serving weights go through
     :func:`qmatmul` (per-row activation scales, so a gathered sub-batch
@@ -684,12 +750,21 @@ def _project_wo(x, wo_p: dict, pcfg: PrecisionConfig, model_dtype, backend):
     plain matmul, and float weights of a quantized config (a QAT
     checkpoint before ``to_serving``) take the fake-quant form: the
     activations fake-quantized with one absmax scale over the whole call,
-    times :func:`fake_quant_dot`."""
+    times :func:`fake_quant_dot`.  With ``reduce`` (the model axis; ``x``
+    and ``wo`` hold this rank's heads) the projection is row-parallel:
+    :func:`qmatmul`'s split form, or the float partial products summed over
+    the axis in f32."""
     if "wt_packed" in wo_p:
         pw = as_packed_weight(wo_p, pcfg)
-        return qmatmul(x, pw, pcfg, backend=backend).to(model_dtype)
+        return qmatmul(x, pw, pcfg, backend=backend,
+                       reduce=reduce).to(model_dtype)
     if pcfg.w_mode == W_FLOAT:
-        return x @ wo_p["qw"].to(x.dtype)
+        out = x @ wo_p["qw"].to(x.dtype)
+        return out if reduce is None else \
+            reduce.all_reduce_sum(out.to(torch.float32)).to(x.dtype)
+    if reduce is not None and reduce.size > 1:
+        raise ValueError("a row-parallel fake-quant (QAT) projection: serve "
+                         "the packed form (to_serving) over a mesh")
     if pcfg.a_mode != A_FLOAT:
         x = act_fake_quant(x.to(torch.float32), pcfg).to(x.dtype)
     return fake_quant_dot(x, wo_p["qw"], pcfg, axis=0)
@@ -708,12 +783,12 @@ def _live_rows(q, page_table, pos, slot_map):
 def _fused_decode_torch(q, k, ks, v, vs, extras, *, kv_bits, dtype):
     """Reference composition: gather the live rows -> the paged-attention
     plain version in the model dtype -> the model's wo projection."""
-    page_table, pos, slot_map, wo_p, pcfg = extras
+    page_table, pos, slot_map, wo_p, pcfg, reduce = extras
     ql, ptl, posl = _live_rows(q, page_table, pos, slot_map)
     attn = paged_attention_ref(ql, k, ks, v, vs, ptl, posl, kv_bits=kv_bits,
                                out_dtype=dtype)
     flat = attn.reshape(ql.shape[0], 1, -1)              # (L, 1, KV*G*Dh)
-    return _project_wo(flat, wo_p, pcfg, dtype, BACKEND_TORCH)
+    return _project_wo(flat, wo_p, pcfg, dtype, BACKEND_TORCH, reduce)
 
 
 @register_attention(ATTN_FUSED, (16, 8, 4), BACKEND_CUDA)
@@ -722,29 +797,38 @@ def _fused_decode_cuda(q, k, ks, v, vs, extras, *, kv_bits, dtype):
     composes the paged-attention kernel with :func:`qmatmul`, so the
     per-row requantization of the projection's input never forks from the
     matmul the rest of the model uses (as the reference's Pallas entry)."""
-    page_table, pos, slot_map, wo_p, pcfg = extras
+    page_table, pos, slot_map, wo_p, pcfg, reduce = extras
     if not _wo_is_float(wo_p, pcfg):
         ql, ptl, posl = _live_rows(q, page_table, pos, slot_map)
         attn = _paged_attention_kernel(ql.contiguous(), k, ks, v, vs,
                                        ptl.contiguous(), posl,
                                        kv_bits=kv_bits).to(dtype)
         flat = attn.reshape(ql.shape[0], 1, -1)
-        return _project_wo(flat, wo_p, pcfg, dtype, BACKEND_CUDA)
+        return _project_wo(flat, wo_p, pcfg, dtype, BACKEND_CUDA, reduce)
     out = _fused_decode_kernel(q.contiguous(), k, ks, v, vs, page_table, pos,
                                slot_map, wo_p["qw"], kv_bits=kv_bits)
+    if reduce is not None:
+        # row-parallel wo: this rank's heads' partial (L, D) f32 sums
+        out = reduce.all_reduce_sum(out.to(torch.float32))
     return out[:, None, :].to(dtype)                      # (L, 1, D)
 
 
 def fused_paged_decode(q, k_pool, k_scale, v_pool, v_scale, page_table, pos,
                        slot_map, wo_p: dict, pcfg: PrecisionConfig, *,
                        kv_bits: int = 8, dtype=torch.float32,
-                       backend: str | None = None) -> torch.Tensor:
+                       backend: str | None = None,
+                       reduce=None) -> torch.Tensor:
     """Fused ragged decode step via the registry: paged attention over the
     slots of ``slot_map`` ((L,) int32 into the padded batch; None = every
     slot) with the ``wo`` projection folded in.  Returns the padded
     (B, 1, D) output: live rows carry the projection, the other rows are
     zeros.  ``slot_map`` may repeat a slot (occupancy padding): duplicates
-    compute identical rows, so the scatter writes identical values."""
+    compute identical rows, so the scatter writes identical values.
+
+    ``reduce`` (the model axis of a tensor-parallel step: ``q``, the pool
+    and ``wo``'s rows hold this rank's heads): ``wo`` stays inside B4 for
+    float weights, whose partial (L, D) sums are all-reduced; a quantized
+    ``wo`` is :func:`qmatmul`'s row-parallel split form after B2."""
     backend = _check_backend(backend, q)
     b = q.shape[0]
     if slot_map is None:
@@ -756,7 +840,7 @@ def fused_paged_decode(q, k_pool, k_scale, v_pool, v_scale, page_table, pos,
                      a_bits=kv_bits, w_bits=8, m_rows=int(slot_map.shape[0]),
                      a_scale_shape=None)
     compact = fn(q, k_pool, k_scale, v_pool, v_scale,
-                 (page_table, pos, slot_map, wo_p, pcfg),
+                 (page_table, pos, slot_map, wo_p, pcfg, reduce),
                  kv_bits=kv_bits, dtype=dtype)             # (L, 1, D)
     out = torch.zeros((b, 1, compact.shape[-1]), dtype=compact.dtype,
                       device=q.device)
@@ -1077,14 +1161,22 @@ def serving_tune_plan(model_cfg, pcfg: PrecisionConfig, *, n_slots: int,
     what :func:`tune_serving_shapes` sweeps: ``chunk_size`` rows per prefill
     chunk, ``n_slots`` rows per decode step and ``extra_m`` (such as the
     paged batcher's occupancy buckets), against the model's (N, K) grid.
-    The per-device shapes of a mesh are not ported (Queue A item 9)."""
-    if mesh is not None:
-        raise ValueError("serving_tune_plan with a mesh: the per-device "
-                         "shard shapes are not ported (ROADMAP Queue A "
-                         "item 9)")
+    With a mesh the plan ADDS each rank's shapes
+    (``parallel.sharding.serving_shard_factors``): the decode batch shards
+    over the data axes (local M = n_slots / dp; the batch-1 admission chunk
+    stays M = chunk_size), and tensor-parallel layers hold local N or K
+    divided by the model-axis size (pure-DP models keep tp = 1)."""
     m_rows = (int(chunk_size), int(n_slots)) + tuple(int(m) for m in extra_m)
-    return sorted({(m, n, k) for (n, k) in model_matmul_shapes(model_cfg)
-                   for m in m_rows})
+    plan = {(m, n, k) for (n, k) in model_matmul_shapes(model_cfg)
+            for m in m_rows}
+    if mesh is not None:
+        from repro_torch.parallel.sharding import serving_shard_factors
+        dp, tp = serving_shard_factors(model_cfg, mesh, n_slots)
+        local_m = (int(chunk_size), max(1, int(n_slots) // dp)) + \
+            tuple(int(m) for m in extra_m)
+        plan |= {(m, n, k) for (n, k) in model_matmul_shapes(model_cfg, tp=tp)
+                 for m in local_m}
+    return sorted(plan)
 
 
 def tune_serving_shapes(model_cfg, pcfg: PrecisionConfig, *, n_slots: int,

@@ -64,6 +64,20 @@ tracing and adaptive flags do not apply):
     PYTHONPATH=src python -m repro_torch.launch.serve --arch whisper-base \
         --precision 2xT --kv-bits 8 --requests 4 --prompt-len 64 --gen 16
 
+``--mesh DP,MP`` serves SPMD over a (data, model) mesh of DP*MP ranks, one
+process each (``launch.mesh.spawn``; rank r on ``cuda:(r % device_count)``,
+or the CPU with ``--device cpu``), as the reference's ``--mesh`` does:
+models with d_model < 1024 are pure data-parallel (params replicated, the
+decode batch split over both axes), larger ones tensor-parallel over
+'model' (packed with ``to_serving(tp=MP)``).  The params are drawn and
+packed once, before the ranks start, and the kernels are built there too.
+The ranks talk over NCCL when each has a card of its own, else over gloo
+(ranks sharing a card, or the CPU); the launcher prints which.  Rank 0
+alone prints the metrics, the launch counts and the collective counts:
+
+    PYTHONPATH=src python -m repro_torch.launch.serve --reduced --device cpu \
+        --mesh 2,1 --requests 4 --slots 4 --gen 8
+
 Runs on the card (``--device cuda``, the default) and refuses to start when
 no card is visible; ``--device cpu`` runs the plain PyTorch versions of the
 kernels instead.
@@ -73,6 +87,7 @@ from __future__ import annotations
 import argparse
 import dataclasses
 import json
+import os
 import time
 
 import numpy as np
@@ -80,10 +95,14 @@ import torch
 
 from repro_torch.configs import ARCH_IDS, get_config
 from repro_torch.core.precision import A_FLOAT, W_FLOAT, get_precision, signed
-from repro_torch.kernels import engine, tuning
+from repro_torch.kernels import _build, engine, tuning
+from repro_torch.launch.mesh import parse_mesh, spawn
 from repro_torch.models import (ShapeConfig, build_model, make_batch,
                                  reduce_for_smoke, to_serving)
 from repro_torch.models.convert import serving_param_bytes
+from repro_torch.models.transformer import attention_only
+from repro_torch.parallel import comm
+from repro_torch.parallel.sharding import pure_dp, serving_shard_factors
 from repro_torch.runtime.adaptive import AdaptiveServer
 from repro_torch.runtime.kvcache import PagedBatcher, paged_block_bytes
 from repro_torch.runtime.serving import (ContinuousBatcher, Request,
@@ -229,6 +248,8 @@ def _legacy_loop(model, params, cfg, args, device) -> np.ndarray:
 
 def serve(args):
     device = resolve_device(args.device)
+    # one process per rank: a mesh asks for no more ranks than host cores
+    mesh = parse_mesh(args.mesh, max_ranks=os.cpu_count())
     # the adaptive server's lanes and the speculative batcher are paged
     args.paged = args.paged or args.brownout or args.speculative
     if args.brownout or args.speculative:
@@ -251,18 +272,29 @@ def serve(args):
                      kv_bits=0 if args.paged else args.kv_bits)
     if args.reduced:
         cfg = reduce_for_smoke(cfg)
+    legacy = cfg.kind != "lm" or cfg.frontend == "embeds"
+    if mesh is not None and legacy:
+        print("--mesh: legacy (embeds/enc-dec) loop is single-device; "
+              "ignoring the mesh")
+        mesh = None
+    if mesh is not None:
+        _check_mesh(args, cfg, mesh)
     model = build_model(cfg)
     # drawn on the serving device: falcon-mamba-7b's ~7e9 draws take
     # minutes on a host generator
     gen = torch.Generator(device=device).manual_seed(args.seed)
     params = model.init(gen, device)
     base_bytes = serving_param_bytes(params)
-    params = to_serving(params, cfg, tp=1)
+    # pack under per-shard K alignment only when TP will shard the params:
+    # pure-DP models replicate (tp=1 keeps the laxer global alignment)
+    pack_tp = 1 if mesh is None or pure_dp(cfg, mesh) \
+        else mesh.shape["model"]
+    params = to_serving(params, cfg, tp=pack_tp)
     packed_bytes = serving_param_bytes(params)
     print(f"weights: {base_bytes/1e6:.1f} MB {cfg.dtype}-form -> "
           f"{packed_bytes/1e6:.1f} MB {args.precision} serving form "
           f"({base_bytes/packed_bytes:.2f}x smaller)")
-    if cfg.kind != "lm" or cfg.frontend == "embeds":
+    if legacy:
         return _legacy_loop(model, params, cfg, args, device)
 
     sc = ServingConfig(n_slots=args.slots or args.requests,
@@ -295,43 +327,97 @@ def serve(args):
             sc, block_size=engine.preferred_kv_block_size(**attn_shape))
         print(f"--kv-block-size 0 -> {sc.block_size} "
               f"({'tuned' if args.autotune else 'tuning-cache'} pick)")
+    if mesh is None:
+        return _serve_batcher(args, cfg, params, sc, device, sweeps0)
+    if device.type == "cuda":
+        _build.build_all()          # once, before the ranks load them
+    backend = comm.choose_backend(device.type, mesh.size)
+    where = (f"{torch.cuda.device_count()} card(s)" if device.type == "cuda"
+             else "the CPU")
+    print(f"mesh: {mesh.size} ranks (data={mesh.shape['data']} "
+          f"model={mesh.shape['model']}) over {backend} on {where}")
+    return spawn(_serve_rank, mesh, args, cfg, params, sc, sweeps0,
+                 device=device.type)[0]
+
+
+def _check_mesh(args, cfg, mesh) -> None:
+    """Refuse what the mesh path does not serve, before drawing weights."""
+    if args.brownout:
+        raise SystemExit("--brownout with --mesh: the adaptive server is "
+                         "served on one device")
+    if args.speculative:
+        raise SystemExit("--speculative with --mesh: speculative decoding "
+                         "is single-host for now (the windowed verify step "
+                         "has no sharded dispatch)")
+    if not pure_dp(cfg, mesh) and mesh.shape["model"] > 1 \
+            and not attention_only(cfg):
+        raise SystemExit(
+            f"--mesh {args.mesh}: {cfg.name} has Mamba layers, which take no "
+            "model axis yet (ROADMAP Queue A item 9b); use a model axis of 1")
+
+
+def _serve_rank(mesh, args, cfg, params, sc, sweeps0):
+    """One rank of ``--mesh``: the batcher over ``mesh`` (on the rank's
+    device); rank 0 reports (the others run silent, and record no
+    trace)."""
+    sc = dataclasses.replace(sc, mesh=mesh,
+                             trace=sc.trace if mesh.rank == 0 else None)
+    return _serve_batcher(args, cfg, params, sc, mesh.device, sweeps0,
+                          verbose=mesh.rank == 0)
+
+
+def _serve_batcher(args, cfg, params, sc, device, sweeps0,
+                   verbose: bool = True):
+    """Build the batcher of the flags, serve the launcher's requests and
+    report; returns the finished requests."""
+    say = print if verbose else (lambda *a, **k: None)
+    model = build_model(cfg)
     if args.brownout:
         batcher = AdaptiveServer(model, params, sc)
-        print(f"adaptive serving: {len(batcher.lanes)} precision lanes "
-              f"(rung 0 {'speculative, ' if sc.speculative else ''}"
-              "kv ladder 16/8/4"
-              + (f", rung 3 = {sc.draft_precision} weights"
-                 if len(batcher.lanes) > 3 else "")
-              + f"); SLO classes: {sorted(batcher.classes)}")
+        say(f"adaptive serving: {len(batcher.lanes)} precision lanes "
+            f"(rung 0 {'speculative, ' if sc.speculative else ''}"
+            "kv ladder 16/8/4"
+            + (f", rung 3 = {sc.draft_precision} weights"
+               if len(batcher.lanes) > 3 else "")
+            + f"); SLO classes: {sorted(batcher.classes)}")
     elif args.paged:
         batcher = PagedBatcher(model, params, sc)
-        print(f"paged KV cache: {batcher.num_blocks - 1} blocks x "
-              f"{batcher.block_size} positions at kv_bits={args.kv_bits} "
-              f"({paged_block_bytes(cfg, batcher.block_size, args.kv_bits)} "
-              f"B/block), prefix cache "
-              f"{'on' if args.prefix_cache else 'off'}, "
-              f"reserve={args.reserve}, preemption={args.preemption}")
+        say(f"paged KV cache: {batcher.num_blocks - 1} blocks x "
+            f"{batcher.block_size} positions at kv_bits={args.kv_bits} "
+            f"({paged_block_bytes(cfg, batcher.block_size, args.kv_bits)} "
+            f"B/block), prefix cache "
+            f"{'on' if args.prefix_cache else 'off'}, "
+            f"reserve={args.reserve}, preemption={args.preemption}")
         if sc.speculative:
-            print(f"self-speculative decoding: {sc.draft_precision} "
-                  f"draft, k={sc.draft_k}, fp-verified (lossless)")
+            say(f"self-speculative decoding: {sc.draft_precision} "
+                f"draft, k={sc.draft_k}, fp-verified (lossless)")
     else:
         batcher = ContinuousBatcher(model, params, sc)
+    mesh = sc.mesh
+    if mesh is not None:
+        dp, tp = serving_shard_factors(cfg, mesh, batcher.n_slots)
+        say(f"SPMD serving on mesh data={mesh.shape['data']} "
+            f"model={mesh.shape['model']}: decode batch sharded {dp}-way, "
+            f"tensor-parallel {tp}-way "
+            f"({'pure-DP (params replicated)' if tp == 1 else 'TP'})"
+            + ("; the paged pool does not split over data: every rank runs "
+               "the whole paged step" if args.paged else ""))
     lanes = getattr(batcher, "lanes", [batcher])
     if args.autotune:
-        print(f"autotune: {sum(len(b.tuned) for b in lanes)} shape classes "
-              f"-> {tuning.cache_path()} (sweeps this run: "
-              f"{tuning.stats()['sweeps'] - sweeps0})")
+        say(f"autotune: {sum(len(b.tuned) for b in lanes)} shape classes "
+            f"-> {tuning.cache_path()} (sweeps this run: "
+            f"{tuning.stats()['sweeps'] - sweeps0})")
     if lanes[0].chunk_size:
-        print(f"chunked prefill: chunk={lanes[0].chunk_size}")
+        say(f"chunked prefill: chunk={lanes[0].chunk_size}")
     else:
         why = ("--chunk-size 0" if supports_chunked_prefill(cfg) else
                "chunked prefill unsupported: recurrent state")
-        print(f"whole-prompt admission ({why}): each prompt is prefilled in "
-              "one call"
-              + (", its full-sequence attention through "
-                 + ("the flash_attention kernel" if device.type == "cuda"
-                    else "the reference's plain attention")
-                 if cfg.has_attention else ""))
+        say(f"whole-prompt admission ({why}): each prompt is prefilled in "
+            "one call"
+            + (", its full-sequence attention through "
+               + ("the flash_attention kernel" if device.type == "cuda"
+                  else "the reference's plain attention")
+               if cfg.has_attention else ""))
 
     rng = np.random.default_rng(1)
     slo_cycle = (["premium", "standard", "batch"] if args.slo == "mixed"
@@ -344,19 +430,25 @@ def serve(args):
                 max_new=args.gen, temperature=args.temperature,
                 top_k=args.top_k, seed=args.seed,
                 slo=slo_cycle[rid % len(slo_cycle)],
-                on_token=stream_cb if args.stream else None)))
+                on_token=stream_cb if args.stream and verbose else None)))
     engine.reset_launch_counts()
+    comm.reset_collective_counts()
     done = batcher.run()
     if device.type == "cuda":
         torch.cuda.synchronize(device)
     if len(done) != args.requests:
         raise RuntimeError(f"served {len(done)} of {args.requests} requests")
+    if not verbose:
+        return done
 
     print(batcher.metrics.format())
     toks = np.array([r.output[:8] for r in sorted(done, key=lambda r: r.rid)])
     print(f"sample generations (first 8 tokens/request):\n{toks}")
     print("kernel launches: " + ", ".join(
         f"{k}={v}" for k, v in engine.launch_counts().items()))
+    if mesh is not None:
+        print("collectives (rank 0): " + ", ".join(
+            f"{k}={v}" for k, v in comm.collective_counts().items()))
     if args.metrics_json:
         with open(args.metrics_json, "w") as f:
             json.dump(batcher.metrics.summary(), f, indent=1)
@@ -466,6 +558,10 @@ def main(argv=None):
                          "cache; serving then never re-tunes)")
     ap.add_argument("--device", default="cuda",
                     help="cuda (default; the hand-written kernels) or cpu")
+    ap.add_argument("--mesh", default=None, metavar="DP,MP",
+                    help="serve SPMD over a (data, model) mesh of DP*MP "
+                         "ranks, one process each, e.g. '2,1' (token-LM "
+                         "batcher path only)")
     return serve(ap.parse_args(argv))
 
 

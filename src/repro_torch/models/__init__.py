@@ -24,7 +24,9 @@ the embeds frontend (whose decode step takes (B, 1, D) embeddings), plus
 {"frames": (B, S_enc, D)} for enc-dec, and {"labels": (B, S)} for
 ``loss``; :func:`make_batch` draws one from a generator.
 Every call takes an optional ``backend`` ("cuda" | "torch"); None picks by
-the device of the inputs.  ``forward`` and ``loss`` are differentiable
+the device of the inputs.  The token-LM calls also take ``shard`` (a
+``parallel.comm.StepSharding``; None on one device), as the batchers pass
+it over a mesh.  ``forward`` and ``loss`` are differentiable
 with float params: ``loss.backward()`` gives the reference's
 ``jax.grad(model.loss)`` (straight-through fake-quant at a quantized
 precision; ``launch.steps.make_train_step`` trains on it).
@@ -95,26 +97,29 @@ def build_model(cfg: ModelConfig) -> Model:
         cfg=cfg,
         init=lambda generator, device: transformer.init_params(
             cfg, generator, device),
-        forward=lambda p, b, backend=None: transformer.forward(
-            p, _lm_inputs(b, cfg), cfg, backend=backend),
-        prefill=lambda p, b, s_max, backend=None: transformer.prefill(
-            p, _lm_inputs(b, cfg), cfg, s_max, backend=backend),
-        decode_step=lambda p, tok, cache, pos, backend=None:
-            transformer.decode_step(p, tok, cache, pos, cfg, backend=backend),
-        prefill_chunk=lambda p, tok, cache, pos, backend=None:
+        forward=lambda p, b, backend=None, shard=None: transformer.forward(
+            p, _lm_inputs(b, cfg), cfg, backend=backend, shard=shard),
+        prefill=lambda p, b, s_max, backend=None, shard=None:
+            transformer.prefill(p, _lm_inputs(b, cfg), cfg, s_max,
+                                backend=backend, shard=shard),
+        decode_step=lambda p, tok, cache, pos, backend=None, shard=None:
+            transformer.decode_step(p, tok, cache, pos, cfg, backend=backend,
+                                    shard=shard),
+        prefill_chunk=lambda p, tok, cache, pos, backend=None, shard=None:
             transformer.prefill_chunk(p, tok, cache, pos, cfg,
-                                      backend=backend),
+                                      backend=backend, shard=shard),
         prefill_chunk_paged=(
-            lambda p, tok, pool, pt, pos, kv_bits, backend=None:
+            lambda p, tok, pool, pt, pos, kv_bits, backend=None, shard=None:
             transformer.prefill_chunk_paged(
-                p, tok, pool, pt, pos, cfg, kv_bits, backend=backend)
+                p, tok, pool, pt, pos, cfg, kv_bits, backend=backend,
+                shard=shard)
         ) if pageable else None,
         decode_step_paged=(
             lambda p, tok, pool, pt, pos, kv_bits, slot_map=None,
-            fused=True, backend=None:
+            fused=True, backend=None, shard=None:
             transformer.decode_step_paged(
                 p, tok, pool, pt, pos, cfg, kv_bits, slot_map=slot_map,
-                fused=fused, backend=backend)
+                fused=fused, backend=backend, shard=shard)
         ) if pageable else None,
         decode_window_paged=(
             lambda p, tok, pool, pt, pos, kv_bits, backend=None:

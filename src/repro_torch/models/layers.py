@@ -30,6 +30,16 @@ recurrent state); the model copies a state into its cache.
 The expert product (``engine.qmatmul_experts``) and the selective scan are
 plain PyTorch on every device: the reference computes both outside any
 Pallas kernel.
+
+Over a mesh (``shard``, a :class:`repro_torch.parallel.comm.StepSharding`,
+passed down with each call as ``backend`` is) the params hold this rank's
+slices under ``parallel.sharding.param_specs``: a column-parallel
+projection (``wq``, ``wk``, ``wv``, ``w_gate``, ``w_up``) yields this
+rank's heads or hidden units, a row-parallel one (``wo``, ``w_down``)
+takes them and ends in one all-reduce over the model axis
+(:func:`qlinear_apply`'s ``reduce``), heads are counted from the weights,
+and the MoE layer computes this rank's experts.  Mamba layers take no
+model axis (ROADMAP Queue A item 9b).
 """
 from __future__ import annotations
 
@@ -68,23 +78,45 @@ def qlinear_init(generator, k: int, n: int, cfg: ModelConfig, device):
                    ).to(pdtype(cfg))}
 
 
-def qlinear_apply(p, x, cfg: ModelConfig, backend: str | None = None):
+def qlinear_apply(p, x, cfg: ModelConfig, backend: str | None = None,
+                  reduce=None):
     """x @ W under the model's PrecisionConfig.  Dispatches on param form:
     packed serving weights go through ``engine.qmatmul``; float weights of a
     float config are a plain matmul; float weights of a quantized config
     take the reference's fake-quant (QAT) forward, plain on every device:
     activations fake-quantized with ONE absmax scale over the whole tensor
     (so a row's result depends on the other rows of the call), times the
-    fake-quantized weights.  Gradients pass straight through (STE)."""
+    fake-quantized weights.  Gradients pass straight through (STE).
+
+    ``reduce``: the model axis of a row-parallel projection (``x`` and the
+    weight hold this rank's slice of K): packed weights take
+    ``engine.qmatmul``'s split form (the one-rank result bit for bit at
+    integer activations), float weights sum their partial products over the
+    axis in f32."""
     pcfg = signed(get_precision(cfg.precision))
     if "wt_packed" in p:
         pw = engine.as_packed_weight(p, pcfg)
-        return engine.qmatmul(x, pw, pcfg, backend=backend).to(pdtype(cfg))
+        return engine.qmatmul(x, pw, pcfg, backend=backend,
+                              reduce=reduce).to(pdtype(cfg))
     if pcfg.w_mode == W_FLOAT:
-        return x @ p["qw"].to(x.dtype)
+        out = x @ p["qw"].to(x.dtype)
+        return out if reduce is None else \
+            reduce.all_reduce_sum(out.to(torch.float32)).to(out.dtype)
+    if reduce is not None and reduce.size > 1:
+        raise ValueError("a row-parallel fake-quant (QAT) projection: serve "
+                         "the packed form (to_serving) over a mesh")
     if pcfg.a_mode != A_FLOAT:
         x = act_fake_quant(x.to(torch.float32), pcfg).to(x.dtype)
     return engine.fake_quant_dot(x, p["qw"], pcfg, axis=0)
+
+
+def _row_parallel(shard, x, full_k: int):
+    """The model axis when ``x`` holds a slice of a row-parallel
+    projection's K of ``full_k`` (its weight K-sharded by ``param_specs``),
+    else None (one device, or the projection replicated)."""
+    if shard is None or shard.tp is None or x.shape[-1] == full_k:
+        return None
+    return shard.tp
 
 
 # ---------------------------------------------------------------------------
@@ -309,9 +341,49 @@ def _attend_all(q, k, v, cfg: ModelConfig, backend: str | None):
     return _attend(q, k, v, mask, cfg)
 
 
+def _project_qkv(p, x, cfg: ModelConfig, positions, backend):
+    """Normed x through wq/wk/wv, with RoPE: q (B, S, H, Dh), k and v
+    (B, S, KV, Dh), with H and KV this rank's heads (every head on one
+    device)."""
+    b, dh = x.shape[0], cfg.dh
+    xn = rmsnorm(p["norm"], x, cfg.norm_eps)
+    q = qlinear_apply(p["wq"], xn, cfg, backend)
+    k = qlinear_apply(p["wk"], xn, cfg, backend)
+    v = qlinear_apply(p["wv"], xn, cfg, backend)
+    q = q.reshape(b, -1, q.shape[-1] // dh, dh)
+    k = k.reshape(b, -1, k.shape[-1] // dh, dh)
+    v = v.reshape(b, -1, v.shape[-1] // dh, dh)
+    return rope(q, positions, cfg.rope_theta), rope(k, positions,
+                                                    cfg.rope_theta), v
+
+
+def _kv_span(shard, cfg: ModelConfig, h: int, kvh: int) -> tuple[int, int]:
+    """[lo, hi) of the KV heads this rank's ``h`` query heads attend with:
+    all ``kvh`` of them, unless tensor parallelism cut the query heads and
+    left the KV heads whole (``param_specs``: heads divide the model axis,
+    KV heads do not); then the KV heads of this rank's GQA groups."""
+    if shard is None or shard.tp is None or h == cfg.n_heads \
+            or kvh != cfg.n_kv_heads:
+        return 0, kvh
+    g = cfg.n_heads // cfg.n_kv_heads
+    first = shard.tp.index * h
+    lo, hi = first // g, (first + h - 1) // g + 1
+    if h % (hi - lo):
+        raise ValueError(f"{cfg.name}: {h} query heads a rank over KV heads "
+                         f"[{lo}, {hi}) do not form whole groups")
+    return lo, hi
+
+
+def _heads(t, lo: int, hi: int):
+    """KV heads [lo, hi) of a (..., KV, Dh) tensor (contiguous when cut)."""
+    if lo == 0 and hi == t.shape[-2]:
+        return t
+    return t[..., lo:hi, :].contiguous()
+
+
 def attn_apply(p, x, cfg: ModelConfig, positions, *, local: bool,
                cache=None, cache_pos=None, return_kv: bool = False,
-               backend: str | None = None):
+               backend: str | None = None, shard=None):
     """Full-sequence prefill or forward when cache is None (positions
     ``arange(S)``), else cached.
 
@@ -322,18 +394,15 @@ def attn_apply(p, x, cfg: ModelConfig, positions, *, local: bool,
     causally over the cache.  With Sq == 1 it is the batched decode step:
     cache_pos is an int or a (B,) per-slot position tensor.
     Returns (out, cache_or_kv)."""
-    b = x.shape[0]
-    h, kvh, dh = cfg.n_heads, cfg.n_kv_heads, cfg.dh
-    xn = rmsnorm(p["norm"], x, cfg.norm_eps)
-    q = qlinear_apply(p["wq"], xn, cfg, backend).reshape(b, -1, h, dh)
-    k = qlinear_apply(p["wk"], xn, cfg, backend).reshape(b, -1, kvh, dh)
-    v = qlinear_apply(p["wv"], xn, cfg, backend).reshape(b, -1, kvh, dh)
-    q = rope(q, positions, cfg.rope_theta)
-    k = rope(k, positions, cfg.rope_theta)
+    b, dh = x.shape[0], cfg.dh
+    q, k, v = _project_qkv(p, x, cfg, positions, backend)
+    h, kvh = q.shape[2], k.shape[2]
+    lo, hi = _kv_span(shard, cfg, h, kvh)
     bits = cfg.kv_bits
 
     if cache is None:
-        out = _attend_full(q, k, v, positions, cfg, local, backend)
+        out = _attend_full(q, _heads(k, lo, hi), _heads(v, lo, hi),
+                           positions, cfg, local, backend)
         new = (k, v) if return_kv else None
     elif x.shape[1] > 1:
         s_max = cache["k"].shape[1]
@@ -353,7 +422,7 @@ def attn_apply(p, x, cfg: ModelConfig, positions, *, local: bool,
         mask = (j <= qpos)[:, None]                                 # (B,1,Sq,S)
         if local:
             mask &= (j > qpos - cfg.window)[:, None]
-        out = _attend(q, kk, vv, mask, cfg)
+        out = _attend(q, _heads(kk, lo, hi), _heads(vv, lo, hi), mask, cfg)
         new = cache
     else:
         s_max = cache["k"].shape[1]
@@ -371,10 +440,10 @@ def attn_apply(p, x, cfg: ModelConfig, positions, *, local: bool,
         if bits and not local and cfg.attn_softcap <= 0:
             # the serving hot path: engine-dispatched flash-decode over the
             # quantized cache (the CUDA kernel for a kv8 cache on the card)
-            q4 = q[:, 0].reshape(b, kvh, h // kvh, dh)
+            q4 = q[:, 0].reshape(b, hi - lo, h // (hi - lo), dh)
             out = engine.decode_attention(
-                q4, cache["k"], cache["ks"], cache["v"], cache["vs"], pos_b,
-                kv_bits=bits, dtype=x.dtype, backend=backend)
+                q4, *(_heads(cache[n], lo, hi) for n in ("k", "ks", "v", "vs")),
+                pos_b, kv_bits=bits, dtype=x.dtype, backend=backend)
             out = out.reshape(b, 1, h * dh)
         else:
             if bits:
@@ -386,14 +455,16 @@ def attn_apply(p, x, cfg: ModelConfig, positions, *, local: bool,
             mask = (j <= pos_b[:, None])[:, None, None]                # (B,1,1,S)
             if local:
                 mask &= (j > pos_b[:, None] - cfg.window)[:, None, None]
-            out = _attend(q, kk, vv, mask, cfg)
+            out = _attend(q, _heads(kk, lo, hi), _heads(vv, lo, hi), mask,
+                          cfg)
 
-    out = qlinear_apply(p["wo"], out, cfg, backend)
+    out = qlinear_apply(p["wo"], out, cfg, backend,
+                        _row_parallel(shard, out, cfg.n_heads * dh))
     return _post_norm(p, out, cfg), new
 
 
 def make_kv_cache(cfg: ModelConfig, b: int, s_max: int, device,
-                  stacked: int = None):
+                  stacked: int | None = None):
     """Cache dict for one layer (or with a stacked leading dim).  Scales
     start at 1e-6 (positions never written stay masked anyway)."""
     kvh, dh = cfg.n_kv_heads, cfg.dh
@@ -415,7 +486,8 @@ def make_kv_cache(cfg: ModelConfig, b: int, s_max: int, device,
 
 def attn_apply_paged(p, x, cfg: ModelConfig, positions, *, local: bool,
                      pool, page_table, kv_bits: int, slot_map=None,
-                     fused: bool = True, backend: str | None = None):
+                     fused: bool = True, backend: str | None = None,
+                     shard=None):
     """Attention over a block-paged KV pool (``runtime.kvcache``) instead
     of a per-slot dense cache.
 
@@ -433,16 +505,14 @@ def attn_apply_paged(p, x, cfg: ModelConfig, positions, *, local: bool,
     one engine dispatch for paged attention and the ``wo`` projection over
     ``slot_map`` (None = all slots).  ``fused=False`` keeps the two-dispatch
     path.  Returns (out, pool)."""
-    b = x.shape[0]
-    h, kvh, dh = cfg.n_heads, cfg.n_kv_heads, cfg.dh
+    b, dh = x.shape[0], cfg.dh
     nb, bs = page_table.shape[1], pool["k"].shape[1]
     s_pad = nb * bs
-    xn = rmsnorm(p["norm"], x, cfg.norm_eps)
-    q = qlinear_apply(p["wq"], xn, cfg, backend).reshape(b, -1, h, dh)
-    k = qlinear_apply(p["wk"], xn, cfg, backend).reshape(b, -1, kvh, dh)
-    v = qlinear_apply(p["wv"], xn, cfg, backend).reshape(b, -1, kvh, dh)
-    q = rope(q, positions, cfg.rope_theta)
-    k = rope(k, positions, cfg.rope_theta)
+    q, k, v = _project_qkv(p, x, cfg, positions, backend)
+    h, kvh = q.shape[2], k.shape[2]
+    lo, hi = _kv_span(shard, cfg, h, kvh)
+    wo_reduce = _row_parallel(shard, q.reshape(b, -1, h * dh),
+                              cfg.n_heads * dh)
     sq = x.shape[1]
 
     # ---- block writes: (b, sq) positions -> (physical block, offset) -----
@@ -468,19 +538,21 @@ def attn_apply_paged(p, x, cfg: ModelConfig, positions, *, local: bool,
 
     pt32 = page_table.to(torch.int32)
     if sq == 1 and not local and cfg.attn_softcap <= 0:
-        q4 = q[:, 0].reshape(b, kvh, h // kvh, dh)
+        q4 = q[:, 0].reshape(b, hi - lo, h // (hi - lo), dh)
+        kv = [None if pool.get(n) is None else _heads(pool[n], lo, hi)
+              for n in ("k", "ks", "v", "vs")]
         if fused:
             # attention + wo in one engine dispatch over the live slots;
             # rows outside slot_map come back as zeros
             pcfg = signed(get_precision(cfg.precision))
             out = engine.fused_paged_decode(
-                q4, pool["k"], pool.get("ks"), pool["v"], pool.get("vs"),
-                pt32, pos[:, 0], slot_map, p["wo"], pcfg, kv_bits=kv_bits,
-                dtype=x.dtype, backend=backend)
+                q4, *kv, pt32, pos[:, 0], slot_map, p["wo"], pcfg,
+                kv_bits=kv_bits, dtype=x.dtype, backend=backend,
+                reduce=wo_reduce)
             return _post_norm(p, out, cfg), pool
         out = engine.paged_attention(
-            q4, pool["k"], pool.get("ks"), pool["v"], pool.get("vs"), pt32,
-            pos[:, 0], kv_bits=kv_bits, dtype=x.dtype, backend=backend)
+            q4, *kv, pt32, pos[:, 0], kv_bits=kv_bits, dtype=x.dtype,
+            backend=backend)
         out = out.reshape(b, 1, h * dh)
     else:
         # prefill-chunk append (or local/softcap attention): attend over the
@@ -499,14 +571,14 @@ def attn_apply_paged(p, x, cfg: ModelConfig, positions, *, local: bool,
         mask = (j <= qpos)[:, None]                                 # (B,1,Sq,S)
         if local:
             mask &= (j > qpos - cfg.window)[:, None]
-        out = _attend(q, kk, vv, mask, cfg)
+        out = _attend(q, _heads(kk, lo, hi), _heads(vv, lo, hi), mask, cfg)
 
-    out = qlinear_apply(p["wo"], out, cfg, backend)
+    out = qlinear_apply(p["wo"], out, cfg, backend, wo_reduce)
     return _post_norm(p, out, cfg), pool
 
 
 def make_kv_pool(cfg: ModelConfig, num_blocks: int, block_size: int,
-                 kv_bits: int, device, stacked: int = None):
+                 kv_bits: int, device, stacked: int | None = None):
     """Block pool for one attention layer (or with a stacked leading dim):
     ``num_blocks`` physical blocks of ``block_size`` positions.  Block 0 is
     the reserved null block (never allocated)."""
@@ -542,7 +614,8 @@ def ffn_init(generator, cfg: ModelConfig, device, gated: bool = True):
     return p
 
 
-def ffn_apply(p, x, cfg: ModelConfig, backend: str | None = None):
+def ffn_apply(p, x, cfg: ModelConfig, backend: str | None = None,
+              shard=None):
     xn = rmsnorm(p["norm"], x, cfg.norm_eps)
     up = qlinear_apply(p["w_up"], xn, cfg, backend)
     if "w_gate" in p:
@@ -550,7 +623,9 @@ def ffn_apply(p, x, cfg: ModelConfig, backend: str | None = None):
                   cfg.act_fn) * up
     else:
         up = _act(up, cfg.act_fn)
-    return _post_norm(p, qlinear_apply(p["w_down"], up, cfg, backend), cfg)
+    down = qlinear_apply(p["w_down"], up, cfg, backend,
+                         _row_parallel(shard, up, cfg.d_ff))
+    return _post_norm(p, down, cfg)
 
 
 # ---------------------------------------------------------------------------
@@ -582,25 +657,31 @@ def _expert_matmul(w, x, cfg: ModelConfig, backend: str | None = None):
     return torch.einsum("eck,ekn->ecn", x, w.to(x.dtype))
 
 
-def moe_apply(p, x, cfg: ModelConfig, backend: str | None = None):
-    """Token-choice top-k MoE with capacity, slot-map dispatch: an
-    (E, cap) slot -> token map gathers each expert's rows, and each token
-    sums its experts' gated outputs.  Returns (out, aux load-balance loss).
+def _n_experts_held(p) -> int:
+    """Experts in this rank's MoE params (all of them on one device)."""
+    w = p["w_gate"]
+    return (w["wt_packed"] if isinstance(w, dict) else w).shape[0]
 
-    Capacity depends on the batch: ``cap = int(T k / E * capacity_factor)``
-    or 1, and entries claim slots in token-major order, so a token's
-    experts depend on the other rows of the call (dead decode slots
-    included).  Over-capacity entries are dropped.  Each token's expert
-    outputs are summed in ascending expert order, one add at a time (the
-    order of the reference's scatter-add on XLA's CPU), never by atomics."""
-    if cfg.moe_impl != "pjit" or cfg.moe_ep_constraints:
-        raise NotImplementedError(
-            f"{cfg.name}: moe_impl={cfg.moe_impl!r}, moe_ep_constraints="
-            f"{cfg.moe_ep_constraints!r} are mesh features; the port serves "
-            "the slot-map path on one card")
+
+def moe_partial(p, x, cfg: ModelConfig, backend: str | None = None, *,
+                first_expert: int = 0):
+    """The slot-map MoE over the experts held in ``p``, numbered from
+    ``first_expert`` (all of them on one device): returns (out, probs,
+    top_i), ``out`` (T, D) f32 the tokens' gated outputs summed over the
+    held experts only (every expert outside the range a zero row), probs
+    (T, E) and top_i (T, k) for the load-balance terms.
+
+    Capacity depends on the call's rows: ``cap = int(T k / E *
+    capacity_factor)`` or 1, and entries claim slots in token-major order,
+    so a token's experts depend on the other rows of the call (dead decode
+    slots included).  Over-capacity entries are dropped.  Each token's
+    expert outputs are summed in ascending expert order, one add at a time
+    (the order of the reference's scatter-add on XLA's CPU), never by
+    atomics."""
     b, s, d = x.shape
     t = b * s
     e, k = cfg.n_experts, cfg.top_k
+    e_held = _n_experts_held(p)
     cap = int(t * k / e * cfg.capacity_factor) or 1
 
     xin = rmsnorm(p["norm"], x, cfg.norm_eps).reshape(t, d)
@@ -622,29 +703,67 @@ def moe_apply(p, x, cfg: ModelConfig, backend: str | None = None):
     tok_map[flat_e[keep], pos[keep]] = tok[keep]
     gate_map = torch.zeros((e, cap), dtype=torch.float32, device=x.device)
     gate_map[flat_e[keep], pos[keep]] = top_p.reshape(-1)[keep]
+    held = slice(first_expert, first_expert + e_held)
 
     x_pad = torch.cat([xin, xin.new_zeros((1, d))])
-    buf = x_pad[tok_map]                                          # (E, cap, D)
+    buf = x_pad[tok_map[held]]                                    # (Eh, cap, D)
     h = _act(_expert_matmul(p["w_gate"], buf, cfg, backend), cfg.act_fn) * \
         _expert_matmul(p["w_up"], buf, cfg, backend)
-    y = _expert_matmul(p["w_down"], h, cfg, backend)              # (E, cap, D)
+    y = _expert_matmul(p["w_down"], h, cfg, backend)              # (Eh, cap, D)
 
     # combine: each token's kept slots in ascending expert order (a zero
-    # row for a dropped entry), summed left to right
-    contrib = torch.cat([(y.to(torch.float32) * gate_map[..., None]
-                          ).reshape(e * cap, d),
-                         torch.zeros((1, d), device=x.device)])
+    # row for a dropped entry or an expert held elsewhere), left to right
+    contrib = torch.zeros((e * cap + 1, d), dtype=torch.float32,
+                          device=x.device)
+    contrib[first_expert * cap:(first_expert + e_held) * cap] = (
+        y.to(torch.float32) * gate_map[held, :, None]).reshape(-1, d)
     slot = torch.where(keep, flat_e * cap + pos, e * cap).reshape(t, k)
     slot = slot.gather(1, torch.argsort(top_i, dim=1))
     parts = contrib[slot]                                         # (T, k, D)
     out = parts[:, 0]
     for j in range(1, k):
         out = out + parts[:, j]
+    return out, probs, top_i
 
+
+def moe_apply(p, x, cfg: ModelConfig, backend: str | None = None,
+              shard=None):
+    """Token-choice top-k MoE with capacity, slot-map dispatch: an
+    (E, cap) slot -> token map gathers each expert's rows, and each token
+    sums its experts' gated outputs (:func:`moe_partial`).  Returns (out,
+    aux load-balance loss).
+
+    ``moe_ep_constraints`` are layout hints of the reference's partitioner
+    (sharding constraints on the dispatch buffers) that change no value:
+    the same slot map computes.  Over a mesh with tensor parallelism
+    (``shard.tp``), ``moe_impl="shard_map"`` takes
+    :func:`repro_torch.parallel.moe_shard_map.moe_apply_shard_map`; the
+    slot-map path keeps the global slot map (the rows of every data shard,
+    gathered first when the call's rows are split), computes this rank's
+    experts and sums the partial outputs over the model axis.  Without
+    tensor parallelism (one device, or pure DP: ``shard.tp`` None) the call
+    routes its own rows, as the reference's shard-local pure-DP step."""
+    tp = None if shard is None else shard.tp
+    if tp is not None and cfg.moe_impl == "shard_map":
+        from repro_torch.parallel.moe_shard_map import moe_apply_shard_map
+        return moe_apply_shard_map(p, x, cfg, shard, backend=backend)
+    e_held = _n_experts_held(p)
+    split = tp is not None and e_held < cfg.n_experts
+    rows = shard.rows if tp is not None else None
+    xg = x if rows is None else rows.all_gather(x, dim=0)
+    out, probs, top_i = moe_partial(
+        p, xg, cfg, backend, first_expert=tp.index * e_held if split else 0)
+    if split:
+        out = tp.all_reduce_sum(out)
+    b, s, d = xg.shape
+    out = out.reshape(b, s, d)
+    if rows is not None:
+        out = out.narrow(0, rows.index * x.shape[0], x.shape[0])
+    e = cfg.n_experts
     me = probs.mean(dim=0)
     ce = F.one_hot(top_i[:, 0], e).to(torch.float32).mean(dim=0)
     aux = e * torch.sum(me * ce)
-    return out.reshape(b, s, d).to(x.dtype), aux
+    return out.to(x.dtype), aux
 
 
 # ---------------------------------------------------------------------------
@@ -735,11 +854,17 @@ def _ssm_scan_chunked(dt, xs, bmat, cmat, a_mat, h0, chunk: int):
 
 
 def mamba_apply(p, x, cfg: ModelConfig, state=None,
-                backend: str | None = None):
+                backend: str | None = None, shard=None):
     """state: None (forward / whole prefill) or {"conv": (B,K-1,Di), "ssm":
     (B,Di,N)}.  Returns (out, new_state): the final state for a prefill
     (S > 1), a chunk or a decode step; None for a forward of one position
-    with no state (the reference's own rule)."""
+    with no state (the reference's own rule).  A model axis (``shard.tp``)
+    is refused: sharding d_inner is not ported (ROADMAP Queue A item 9b)."""
+    if shard is not None and shard.tp is not None and shard.tp.size > 1:
+        raise NotImplementedError(
+            f"{cfg.name}: a Mamba layer on a model axis of "
+            f"{shard.tp.size} (d_inner sharded) is not ported (ROADMAP "
+            "Queue A item 9b); serve it on a pure-DP mesh")
     b = x.shape[0]
     di, n, r = cfg.d_inner, cfg.ssm_state, cfg.dt_rank_
     xn = rmsnorm(p["norm"], x, cfg.norm_eps)
@@ -787,7 +912,8 @@ def mamba_apply(p, x, cfg: ModelConfig, state=None,
     return out, new_state
 
 
-def make_ssm_state(cfg: ModelConfig, b: int, device, stacked: int = None):
+def make_ssm_state(cfg: ModelConfig, b: int, device,
+                   stacked: int | None = None):
     lead = (stacked,) if stacked else ()
     return {"conv": torch.zeros(lead + (b, cfg.ssm_conv - 1, cfg.d_inner),
                                 dtype=pdtype(cfg), device=device),

@@ -23,7 +23,11 @@ Entry points (functions of (params, inputs)):
 The paged entry points take attention-only stacks.  The cached entry
 points update ``cache`` (or the block ``pool``) in place and return it.
 Every entry point takes ``backend`` ("cuda" | "torch" | None = by device),
-which reaches every engine dispatch.
+which reaches every engine dispatch, and ``shard`` (a
+:class:`repro_torch.parallel.comm.StepSharding`, None on one device): over
+a mesh the params, the cache and the pool hold this rank's slices
+(``parallel.sharding``), a vocabulary-sharded embedding is a masked local
+lookup and an all-reduce, and vocabulary-sharded logits are all-gathered.
 """
 from __future__ import annotations
 
@@ -94,12 +98,12 @@ def _period(tree, i: int):
     return None if tree is None else tree[i]
 
 
-def _ffn(lp, x, ffn: str, cfg: ModelConfig, backend):
+def _ffn(lp, x, ffn: str, cfg: ModelConfig, backend, shard=None):
     """x after the layer's FFN and its residual; returns (x, aux)."""
     if ffn == "dense":
-        return x + L.ffn_apply(lp["ffn"], x, cfg, backend), 0.0
+        return x + L.ffn_apply(lp["ffn"], x, cfg, backend, shard), 0.0
     if ffn == "moe":
-        out, aux = L.moe_apply(lp["moe"], x, cfg, backend)
+        out, aux = L.moe_apply(lp["moe"], x, cfg, backend, shard)
         return x + out, aux
     return x, 0.0
 
@@ -111,7 +115,7 @@ def _put_state(cache: dict, key: str, state) -> None:
 
 
 def _apply_period(pp, x, cfg: ModelConfig, positions, *, caches=None,
-                  cache_pos=None, backend=None):
+                  cache_pos=None, backend=None, shard=None):
     """One period.  With ``caches`` (the period's view of the cache) the
     attention KV and the Mamba states are updated in place.  Returns
     (x, aux): the MoE layers' load-balance terms summed (0.0, no device
@@ -124,38 +128,54 @@ def _apply_period(pp, x, cfg: ModelConfig, positions, *, caches=None,
             out, _ = L.attn_apply(lp["attn"], x, cfg, positions,
                                   local=(mixer == "attn_local"),
                                   cache=cache_i, cache_pos=cache_pos,
-                                  backend=backend)
+                                  backend=backend, shard=shard)
         else:
             out, state = L.mamba_apply(lp["mamba"], x, cfg, state=cache_i,
-                                       backend=backend)
+                                       backend=backend, shard=shard)
             if cache_i is not None:
                 _put_state(caches, key, state)
-        x, aux = _ffn(lp, x + out, ffn, cfg, backend)
+        x, aux = _ffn(lp, x + out, ffn, cfg, backend, shard)
         aux_total = aux_total + aux
     return x, aux_total
 
 
-def _embed(params, inputs, cfg: ModelConfig):
+def _embed(params, inputs, cfg: ModelConfig, shard=None):
     """Token ids through the embedding, or (``frontend="embeds"``) the stub
     frontend's (B, S, D) embeddings cast to the model dtype; gemma2
     (``embed_scale``) multiplies by sqrt(d_model) rounded to the model
-    dtype first, as the reference does (68.0, not 67.88, in bf16)."""
+    dtype first, as the reference does (68.0, not 67.88, in bf16).  A
+    vocabulary-sharded table (this rank's rows) looks up the tokens it
+    holds, zeros elsewhere, and sums over the model axis: one nonzero
+    term, so the row comes back exact."""
     if cfg.frontend == "embeds":
         x = inputs.to(L.pdtype(cfg))
     else:
-        x = params["embed"]["w"][inputs]
+        w = params["embed"]["w"]
+        if shard is None or shard.tp is None or \
+                w.shape[0] == cfg.padded_vocab:
+            x = w[inputs]
+        else:
+            tp = shard.tp
+            local = inputs - tp.index * w.shape[0]
+            mine = (local >= 0) & (local < w.shape[0])
+            x = w[local.clamp(0, w.shape[0] - 1)] * mine[..., None].to(w.dtype)
+            x = tp.all_reduce_sum(x.to(torch.float32)).to(w.dtype)
     if cfg.embed_scale:
         x = x * torch.tensor(cfg.d_model ** 0.5, dtype=x.dtype)
     return x
 
 
-def _logits(params, x, cfg: ModelConfig):
+def _logits(params, x, cfg: ModelConfig, shard=None):
     """f32 logits; the classifier stays at full precision (paper/WRPN
     convention), tied to the embedding or a float ``lm_head``; gemma2's
-    final softcap after the f32 cast."""
+    final softcap after the f32 cast.  A vocabulary-sharded classifier's
+    logits are all-gathered over the model axis."""
     xn = L.rmsnorm(params["final_norm"], x, cfg.norm_eps)
     w = params["embed"]["w"].T if cfg.tie_embeddings else params["lm_head"]["qw"]
     logits = (xn @ w.to(xn.dtype)).to(torch.float32)
+    if shard is not None and shard.tp is not None and \
+            logits.shape[-1] != cfg.padded_vocab:
+        logits = shard.tp.all_gather(logits, dim=-1)
     if cfg.final_softcap > 0:
         logits = cfg.final_softcap * torch.tanh(logits / cfg.final_softcap)
     return logits
@@ -164,35 +184,61 @@ def _logits(params, x, cfg: ModelConfig):
 # ---------------------------------------------------------------------------
 # entry points
 # ---------------------------------------------------------------------------
-def make_cache(cfg: ModelConfig, b: int, s_max: int, device):
+def _local_tree(tree, specs, mesh, device):
+    """Leaves of this rank's shapes under ``specs`` for a tree of meta
+    tensors: scales ("ks", "vs") start at 1e-6, everything else at 0."""
+    from repro_torch.parallel.sharding import local_shape
+    out = {}
+    for name, leaf in tree.items():
+        if isinstance(leaf, dict):
+            out[name] = _local_tree(leaf, specs[name], mesh, device)
+        else:
+            out[name] = torch.full(local_shape(leaf.shape, specs[name], mesh),
+                                   1e-6 if name in ("ks", "vs") else 0,
+                                   dtype=leaf.dtype, device=device)
+    return out
+
+
+def make_cache(cfg: ModelConfig, b: int, s_max: int, device, mesh=None):
     """Stacked per-period cache (periods as leading axis): KV for the
-    attention layers, ``{"conv", "ssm"}`` states for the Mamba layers."""
-    return {f"layer_{i}": (L.make_kv_cache(cfg, b, s_max, device,
-                                           stacked=cfg.n_periods)
-                           if mixer.startswith("attn") else
-                           L.make_ssm_state(cfg, b, device,
-                                            stacked=cfg.n_periods))
-            for i, mixer in enumerate(cfg.layer_pattern)}
+    attention layers, ``{"conv", "ssm"}`` states for the Mamba layers.
+    With ``mesh``, leaves take the calling rank's shapes under
+    ``cache_specs(..., b, allow_sp=False)`` (``b`` is the global batch):
+    batch over the data axes, KV heads over 'model' when they divide; the
+    sequence dim stays whole (appends write at dynamic positions)."""
+    dev = "meta" if mesh is not None else device
+    cache = {f"layer_{i}": (L.make_kv_cache(cfg, b, s_max, dev,
+                                            stacked=cfg.n_periods)
+                            if mixer.startswith("attn") else
+                            L.make_ssm_state(cfg, b, dev,
+                                             stacked=cfg.n_periods))
+             for i, mixer in enumerate(cfg.layer_pattern)}
+    if mesh is None:
+        return cache
+    from repro_torch.parallel.sharding import cache_specs
+    return _local_tree(cache, cache_specs(cache, cfg, mesh, b,
+                                          allow_sp=False), mesh, device)
 
 
-def forward(params, tokens, cfg: ModelConfig, backend=None):
+def forward(params, tokens, cfg: ModelConfig, backend=None, shard=None):
     """The forward of a whole sequence (B, S) (or (B, S, D) embeds), no
     cache: logits (B, S, V) f32 and the auxiliary loss (the MoE layers'
     load-balance terms summed, an f32 scalar; 0.0 with no MoE layer).
     Forward value only; gradients come with the training slice."""
     b, s = tokens.shape[:2]
-    x = _embed(params, tokens, cfg)
+    x = _embed(params, tokens, cfg, shard)
     positions = torch.arange(s, device=tokens.device)[None].expand(b, s)
     aux = 0.0
     for per in range(cfg.n_periods):
         x, a = _apply_period(_period(params["blocks"], per), x, cfg,
-                             positions, backend=backend)
+                             positions, backend=backend, shard=shard)
         aux = aux + a
-    return _logits(params, x, cfg), torch.as_tensor(
+    return _logits(params, x, cfg, shard), torch.as_tensor(
         aux, dtype=torch.float32, device=tokens.device)
 
 
-def prefill(params, tokens, cfg: ModelConfig, s_max: int, backend=None):
+def prefill(params, tokens, cfg: ModelConfig, s_max: int, backend=None,
+            shard=None):
     """Process a whole prompt (B, S) (or (B, S, D) embeds), build the
     cache, return the last-position logits (B, 1, V) and the cache.  A
     Mamba layer given one position returns no state (the reference's
@@ -200,9 +246,10 @@ def prefill(params, tokens, cfg: ModelConfig, s_max: int, backend=None):
     from a zero state."""
     b, s = tokens.shape[:2]
     device = tokens.device
-    x = _embed(params, tokens, cfg)
+    x = _embed(params, tokens, cfg, shard)
     positions = torch.arange(s, device=device)[None].expand(b, s)
-    cache = make_cache(cfg, b, s_max, device)
+    cache = make_cache(cfg, b, s_max, device,
+                       mesh=None if shard is None else shard.mesh)
     for per in range(cfg.n_periods):
         pp = _period(params["blocks"], per)
         for i, (mixer, ffn) in enumerate(zip(cfg.layer_pattern,
@@ -211,7 +258,8 @@ def prefill(params, tokens, cfg: ModelConfig, s_max: int, backend=None):
             if mixer.startswith("attn"):
                 out, (k, v) = L.attn_apply(lp["attn"], x, cfg, positions,
                                            local=(mixer == "attn_local"),
-                                           return_kv=True, backend=backend)
+                                           return_kv=True, backend=backend,
+                                           shard=shard)
                 c = _period(cache[key], per)
                 if cfg.kv_bits:
                     kq, ks, vq, vs = L._kv_quantize(k, v, cfg.kv_bits)
@@ -223,45 +271,46 @@ def prefill(params, tokens, cfg: ModelConfig, s_max: int, backend=None):
                     c["v"][:, :s] = v.to(c["v"].dtype)
             else:
                 out, state = L.mamba_apply(lp["mamba"], x, cfg, state=None,
-                                           backend=backend)
+                                           backend=backend, shard=shard)
                 if state is None:
                     cache[key] = None
                 else:
                     _put_state(_period(cache, per), key, state)
-            x, _ = _ffn(lp, x + out, ffn, cfg, backend)
-    return _logits(params, x[:, -1:, :], cfg), cache
+            x, _ = _ffn(lp, x + out, ffn, cfg, backend, shard)
+    return _logits(params, x[:, -1:, :], cfg, shard), cache
 
 
 def prefill_chunk(params, tokens, cache, pos: int, cfg: ModelConfig,
-                  backend=None):
+                  backend=None, shard=None):
     """Process one prompt chunk (B, C) against an existing cache: its KV is
     written at positions [pos, pos + C) and its queries attend causally over
     the cache.  Returns (logits (B, C, V), cache)."""
     b, c = tokens.shape[:2]
     pos = int(pos)
-    x = _embed(params, tokens, cfg)
+    x = _embed(params, tokens, cfg, shard)
     positions = (pos + torch.arange(c, device=tokens.device))[None].expand(b, c)
     for per in range(cfg.n_periods):
         x, _ = _apply_period(_period(params["blocks"], per), x, cfg,
                              positions, caches=_period(cache, per),
-                             cache_pos=pos, backend=backend)
-    return _logits(params, x, cfg), cache
+                             cache_pos=pos, backend=backend, shard=shard)
+    return _logits(params, x, cfg, shard), cache
 
 
-def decode_step(params, token, cache, pos, cfg: ModelConfig, backend=None):
+def decode_step(params, token, cache, pos, cfg: ModelConfig, backend=None,
+                shard=None):
     """One decoding step.  token: (B, 1) (or (B, 1, D) embeds); pos: int or
     (B,) per-slot positions (continuous batching).  Returns (logits
     (B, 1, V), cache)."""
     b = token.shape[0]
     pos_b = torch.as_tensor(pos, device=token.device).to(torch.int64
                                                          ).reshape(-1).expand(b)
-    x = _embed(params, token, cfg)
+    x = _embed(params, token, cfg, shard)
     positions = pos_b[:, None]
     for per in range(cfg.n_periods):
         x, _ = _apply_period(_period(params["blocks"], per), x, cfg,
                              positions, caches=_period(cache, per),
-                             cache_pos=pos_b, backend=backend)
-    return _logits(params, x, cfg), cache
+                             cache_pos=pos_b, backend=backend, shard=shard)
+    return _logits(params, x, cfg, shard), cache
 
 
 # ---------------------------------------------------------------------------
@@ -274,21 +323,28 @@ def attention_only(cfg: ModelConfig) -> bool:
 
 
 def make_pool(cfg: ModelConfig, num_blocks: int, block_size: int,
-              kv_bits: int, device):
+              kv_bits: int, device, mesh=None):
     """Stacked per-period block pool for the paged KV cache: every attention
     layer gets ``num_blocks`` physical blocks of ``block_size`` positions
-    (block 0 reserved as null)."""
+    (block 0 reserved as null).  With ``mesh``, leaves take the calling
+    rank's shapes under ``pool_specs`` (KV heads over 'model' when they
+    divide and TP applies; blocks and positions never split)."""
     if not attention_only(cfg):
         raise ValueError(f"{cfg.name}: paged KV cache needs an attention-only "
                          "stack")
-    return {f"layer_{i}": L.make_kv_pool(cfg, num_blocks, block_size, kv_bits,
-                                         device, stacked=cfg.n_periods)
+    dev = "meta" if mesh is not None else device
+    pool = {f"layer_{i}": L.make_kv_pool(cfg, num_blocks, block_size, kv_bits,
+                                         dev, stacked=cfg.n_periods)
             for i in range(cfg.period)}
+    if mesh is None:
+        return pool
+    from repro_torch.parallel.sharding import pool_specs
+    return _local_tree(pool, pool_specs(pool, cfg, mesh), mesh, device)
 
 
 def _paged_scan(params, x, cfg: ModelConfig, positions, pool, page_table,
                 kv_bits: int, slot_map=None, fused: bool = False,
-                backend=None):
+                backend=None, shard=None):
     for per in range(cfg.n_periods):
         pp, pool_p = _period(params["blocks"], per), _period(pool, per)
         for i, (mixer, ffn) in enumerate(zip(cfg.layer_pattern,
@@ -298,30 +354,31 @@ def _paged_scan(params, x, cfg: ModelConfig, positions, pool, page_table,
                 lp["attn"], x, cfg, positions, local=(mixer == "attn_local"),
                 pool=pool_p[f"layer_{i}"], page_table=page_table,
                 kv_bits=kv_bits, slot_map=slot_map, fused=fused,
-                backend=backend)
-            x, _ = _ffn(lp, x + out, ffn, cfg, backend)
+                backend=backend, shard=shard)
+            x, _ = _ffn(lp, x + out, ffn, cfg, backend, shard)
     return x, pool
 
 
 def prefill_chunk_paged(params, tokens, pool, page_table, pos,
-                        cfg: ModelConfig, kv_bits: int, backend=None):
+                        cfg: ModelConfig, kv_bits: int, backend=None,
+                        shard=None):
     """Paged counterpart of :func:`prefill_chunk`: the chunk's KV is written
     into the pool blocks named by ``page_table`` (B=1 row) at positions
     [pos, pos + C), and queries attend through the page table.  ``pos`` may
     start past 0 (a radix prefix-cache hit covers [0, pos)).  Returns
     (logits (B, C, V), pool)."""
     b, c = tokens.shape
-    x = _embed(params, tokens, cfg)
+    x = _embed(params, tokens, cfg, shard)
     positions = (int(pos) + torch.arange(c, device=tokens.device))[None
                                                                    ].expand(b, c)
     x, pool = _paged_scan(params, x, cfg, positions, pool, page_table,
-                          kv_bits, backend=backend)
-    return _logits(params, x, cfg), pool
+                          kv_bits, backend=backend, shard=shard)
+    return _logits(params, x, cfg, shard), pool
 
 
 def decode_step_paged(params, token, pool, page_table, pos, cfg: ModelConfig,
                       kv_bits: int, slot_map=None, fused: bool = True,
-                      backend=None):
+                      backend=None, shard=None):
     """Paged counterpart of :func:`decode_step`: per-slot page tables
     (B, n_blocks) resolve each slot's blocks; the new token's KV row lands
     in the slot's current block (zeroed rows deflect to the null block).
@@ -331,11 +388,11 @@ def decode_step_paged(params, token, pool, page_table, pos, cfg: ModelConfig,
     b = token.shape[0]
     pos_b = torch.as_tensor(pos, device=token.device).to(torch.int64
                                                          ).reshape(-1).expand(b)
-    x = _embed(params, token, cfg)
+    x = _embed(params, token, cfg, shard)
     x, pool = _paged_scan(params, x, cfg, pos_b[:, None], pool, page_table,
                           kv_bits, slot_map=slot_map, fused=fused,
-                          backend=backend)
-    return _logits(params, x, cfg), pool
+                          backend=backend, shard=shard)
+    return _logits(params, x, cfg, shard), pool
 
 
 def decode_window_paged(params, tokens, pool, page_table, pos,

@@ -127,6 +127,9 @@ class AdaptiveServer:
             raise TypeError("AdaptiveServer: pass a ServingConfig "
                             "(AdaptiveServer(model, params, "
                             "ServingConfig(...)))")
+        if config.mesh is not None:
+            raise ValueError("AdaptiveServer serves on one device: its "
+                             "lanes take no mesh")
         self.config = config
         self.model = model
         self.classes: dict[str, SLOClass] = dict(

@@ -35,7 +35,14 @@ rows, whose noise depends on (seed, rid, n_out) only, so a padding row
 repeats its slot's draw) and makes one device->host copy of them.  The
 flight recorder adds the paged events of the reference (admission and
 re-admission flows, ``evict``, the ``kv_blocks`` counter, ``preempt`` and
-``stall``).  Meshes are not ported.
+``stall``).
+
+Over a mesh (``ServingConfig.mesh``) every rank runs this loop on the same
+requests.  Pure DP replicates the whole step on every rank, as the
+reference's shard-local step does: the pool cannot split over data (its
+blocks are shared by every slot).  Tensor parallelism cuts the params and
+the pool's KV heads over 'model' (``parallel.sharding.pool_specs``).
+Speculative decoding takes no mesh (the reference's rule).
 
 **Self-speculative decoding** (``ServingConfig.speculative``): a low-bit
 variant of the float weights (``draft_precision``, packed by ``to_serving``)
@@ -119,6 +126,8 @@ class PagedBatcher(ContinuousBatcher):
                      variant drafting ``draft_k`` tokens a round
     """
 
+    _split_rows = False
+
     def __init__(self, model, params, config: ServingConfig, *,
                  metrics=None, tracer=None):
         if not isinstance(config, ServingConfig):
@@ -158,6 +167,10 @@ class PagedBatcher(ContinuousBatcher):
         if self.spec:
             from repro_torch.core.precision import (W_FLOAT, get_precision,
                                                     signed)
+            if config.mesh is not None:
+                raise ValueError(
+                    "speculative decoding is single-host for now (the "
+                    "windowed verify step has no sharded dispatch)")
             if self.spec_k < 1:
                 raise ValueError(f"draft_k must be >= 1, got {self.spec_k}")
             if model.decode_window_paged is None:
@@ -216,7 +229,7 @@ class PagedBatcher(ContinuousBatcher):
             if self.prefix_cache else None
         from repro_torch.models import transformer as tfm
         self.pool = tfm.make_pool(cfg, num_blocks, bs, self.kv_bits,
-                                  self.device)
+                                  self.device, mesh=self.mesh)
         self._pt = np.zeros((self.n_slots, self.blocks_per_seq), np.int32)
         self._slot_blocks: list[list[int] | None] = [None] * self.n_slots
         # admission order = preemption priority (earlier admitted wins)
@@ -376,7 +389,8 @@ class PagedBatcher(ContinuousBatcher):
                 "prefill_chunk", lambda: self.model.prefill_chunk_paged(
                     self.params, chunk, self.pool,
                     torch.from_numpy(self._adm_row).to(self.device),
-                    start + adm.next_pos, self.kv_bits))
+                    start + adm.next_pos, self.kv_bits,
+                    **self._shard_kw(self._admit_shard)))
         adm.next_pos += c
         if adm.next_pos >= adm.tokens.shape[1]:
             row = logits[0, (adm.length - 1 - start) % c]
@@ -590,7 +604,8 @@ class PagedBatcher(ContinuousBatcher):
         nb = self.blocks_per_seq
         pt, tok, p = dev[:, :nb].contiguous(), dev[:, nb:nb + 1], dev[:, nb + 1]
         logits, self.pool = model.decode_step_paged(
-            params, tok, self.pool, pt, p, self.kv_bits, fused=self._fused)
+            params, tok, self.pool, pt, p, self.kv_bits, fused=self._fused,
+            **self._shard_kw(self._admit_shard))
         return sm, logits[:, 0]
 
     def _dispatch_decode(self, live: list[int]) -> np.ndarray:

@@ -19,10 +19,30 @@
     (``ServingConfig.trace``: :mod:`.tracing` spans, instants and flows,
     :class:`.profile.StepProfiler` around each step call).
 
+Over a mesh (``ServingConfig.mesh``, a mesh of ranks from
+``launch.mesh``; every rank runs this same host loop on the same requests)
+the batcher is SPMD, as the reference's sharded batcher:
+
+  * **pure DP** (``parallel.sharding.pure_dp``: d_model < 1024 or
+    ``force_pure_dp``): params replicated; the slot cache and the decode
+    batch split over ``_batch_axes(cfg, mesh, n_slots)``; the admission
+    prefill and chunks run replicated on every rank and only the slot's
+    owner copies the result into its local slot cache; each rank decodes
+    its local slots and the next-token vector is all-gathered, so every
+    rank's scheduler holds the same state and makes the same decisions
+    (where no axis set divides the slots, decode runs replicated);
+  * **TP**: params cut by ``param_specs`` (heads, FFN hidden, experts and
+    vocabulary over 'model'), the caches' KV heads over 'model', the decode
+    batch over the data axes; column-parallel projections yield local
+    heads, row-parallel ones end in an all-reduce (``models.layers``).
+
 Exactness contract: greedy generations equal isolated sequential runs for
 attention-only stacks with dense FFNs, and the same schedule gives the same
-streams as the JAX package's batcher.  SSM and hybrid stacks take
-whole-prompt admission (padding tokens would pollute the recurrent state).
+streams as the JAX package's batcher — on any mesh at integer activations
+(per-row scales, exact integer partial sums), within float rounding at
+float activations under TP (partial sums in another order).  SSM and
+hybrid stacks take whole-prompt admission (padding tokens would pollute
+the recurrent state).
 An MoE layer's expert capacity depends on the rows of the call (dead
 decode slots included), so its streams depend on the schedule as the
 reference's do.
@@ -79,7 +99,7 @@ class RequestOptions:
 @dataclasses.dataclass
 class ServingConfig:
     """Batcher configuration: the reference's ``ServingConfig`` fields but
-    its mesh and prompt length, with its names and defaults.  The paged
+    its prompt length, with its names and defaults.  The paged
     fields (``kv_bits`` .. ``ragged_decode``) are read by
     :class:`repro_torch.runtime.kvcache.PagedBatcher` and ignored by
     :class:`ContinuousBatcher`; the adaptive fields (``slo_classes`` ..
@@ -92,6 +112,9 @@ class ServingConfig:
     # pre-tune the kernel choice of every matmul shape class the batcher
     # dispatches (kernels.tuning; persists, so serving only looks up)
     autotune: bool = False
+    # a mesh of ranks (launch.mesh.make_mesh in a process group, or a rank
+    # of launch.mesh.spawn): serve SPMD over it; None: one device
+    mesh: Any = None
     # ---- paged KV cache (PagedBatcher) ----------------------------------
     kv_bits: int = 16
     block_size: int = 16
@@ -302,6 +325,10 @@ class ContinuousBatcher:
     interleaved with batched decode, on the device of the params.  Stacks
     with a Mamba layer admit whole prompts only."""
 
+    # over a mesh, split the decode batch over the batch axes (the paged
+    # batcher's pool cannot split: its steps run on every row)
+    _split_rows = True
+
     def __init__(self, model, params, config: ServingConfig, *,
                  metrics: Metrics | None = None, tracer: Tracer | None = None):
         if not isinstance(config, ServingConfig):
@@ -313,7 +340,14 @@ class ContinuousBatcher:
         self.device = params["embed"]["w"].device
         self.n_slots = n_slots = config.n_slots
         self.s_max = s_max = config.s_max
+        self.mesh = config.mesh
         cfg = model.cfg
+        # the StepSharding of admission calls (rows replicated) and of the
+        # decode step, and the global slots this rank decodes
+        self._admit_shard = self._decode_shard = None
+        self._local = range(n_slots)
+        if self.mesh is not None:
+            self._shard_params(cfg, self.mesh)
         chunk_size = config.chunk_size
         chunkable = supports_chunked_prefill(cfg)
         if chunk_size is None:
@@ -360,18 +394,66 @@ class ContinuousBatcher:
         self._just_finished: list[Request] = []
         self._build_runtime(cfg)
 
+    def _shard_params(self, cfg, mesh):
+        """Over a mesh: cut the params to this rank's slices (replicated
+        under pure DP) on the rank's device, and set the calls' shardings
+        and the local slots."""
+        from repro_torch.models.transformer import attention_only
+        from repro_torch.parallel import sharding as shd
+        from repro_torch.parallel.comm import StepSharding
+        from repro_torch.tree import tree_map
+        tp = None if shd.pure_dp(cfg, mesh) else mesh.axis("model")
+        if tp is not None and tp.size > 1 and not attention_only(cfg):
+            raise NotImplementedError(
+                f"{cfg.name}: Mamba layers on a model axis of {tp.size} are "
+                "not ported (ROADMAP Queue A item 9b); serve on a pure-DP "
+                "mesh (model axis 1)")
+        if mesh.device is not None:
+            self.device = mesh.device
+        self.params = tree_map(
+            lambda t: t.to(self.device),
+            shd.shard_tree(self.params,
+                           shd.param_specs(self.params, cfg, mesh), mesh))
+        baxes = shd._batch_axes(cfg, mesh, self.n_slots) \
+            if self._split_rows else None
+        rows = mesh.axis(baxes) if baxes else None
+        if tp is not None or rows is not None:
+            self._admit_shard = StepSharding(mesh, tp=tp)
+            self._decode_shard = StepSharding(mesh, tp=tp, rows=rows)
+        if rows is not None:
+            n_loc = self.n_slots // rows.size
+            self._local = range(rows.index * n_loc, (rows.index + 1) * n_loc)
+
+    @staticmethod
+    def _shard_kw(shard) -> dict:
+        """The ``shard`` keyword of a model call (none on one device)."""
+        return {} if shard is None else {"shard": shard}
+
     def _autotune(self, cfg, extra_m, chunk_size: int) -> list[dict]:
+        """Tune the batcher's shape classes (with a mesh: the ranks' local
+        shapes too).  Over a mesh only rank 0 sweeps and writes the tuning
+        cache; the other ranks wait for it and read the file."""
         from repro_torch.core.precision import get_precision, signed
-        from repro_torch.kernels import engine
-        return engine.tune_serving_shapes(
-            cfg, signed(get_precision(cfg.precision)), n_slots=self.n_slots,
-            chunk_size=chunk_size, extra_m=extra_m, device=self.device)
+        from repro_torch.kernels import engine, tuning
+        mesh = self.mesh
+        tuned = []
+        if mesh is None or mesh.rank == 0:
+            tuned = engine.tune_serving_shapes(
+                cfg, signed(get_precision(cfg.precision)),
+                n_slots=self.n_slots, chunk_size=chunk_size, extra_m=extra_m,
+                device=self.device, mesh=mesh)
+        if mesh is not None and mesh.size > 1:
+            mesh.barrier()
+            if mesh.rank != 0:
+                tuning.reset(clear_stats=False)
+        return tuned
 
     def _build_runtime(self, cfg):
         """KV state construction: one (n_slots, s_max) slot cache.  The
         paged batcher overrides this with a block pool + page tables."""
         from repro_torch.models import transformer as tfm
-        self._make_cache = lambda b, s: tfm.make_cache(cfg, b, s, self.device)
+        self._make_cache = lambda b, s: tfm.make_cache(cfg, b, s, self.device,
+                                                       mesh=self.mesh)
         self.cache = self._make_cache(self.n_slots, self.s_max)
 
     # ---------------------------------------------------------------- steps
@@ -402,15 +484,21 @@ class ContinuousBatcher:
     def _dispatch_decode(self, live: list[int]) -> np.ndarray:
         """One batched decode step and the next-token selection on the
         device; returns the (n_slots,) next tokens through the step's only
-        device->host copy."""
-        tok = torch.from_numpy(self.tokens).to(self.device)
-        pos_t = torch.from_numpy(self.pos).to(self.device)
+        device->host copy.  Over a mesh whose batch axes split the slots,
+        the step runs this rank's slots and the next tokens are
+        all-gathered."""
+        lo, hi = self._local.start, self._local.stop
+        tok = torch.from_numpy(self.tokens[lo:hi]).to(self.device)
+        pos_t = torch.from_numpy(self.pos[lo:hi]).to(self.device)
+        shard = self._decode_shard
         logits, self.cache = self.model.decode_step(
-            self.params, tok, self.cache, pos_t)
+            self.params, tok, self.cache, pos_t, **self._shard_kw(shard))
         lg = logits[:, 0]
-        rows = [self.slots[i] if i in live else None
-                for i in range(self.n_slots)]
-        return select_tokens(lg, lg.argmax(dim=-1), rows).cpu().numpy()
+        rows = [self.slots[i] if i in live else None for i in self._local]
+        nxt = select_tokens(lg, lg.argmax(dim=-1), rows)
+        if shard is not None and shard.rows is not None:
+            nxt = shard.rows.all_gather(nxt)
+        return nxt.cpu().numpy()
 
     def _decode_call(self, live: list[int]) -> np.ndarray:
         """The decode step of the live slots inside the ``decode`` span and
@@ -534,9 +622,11 @@ class ContinuousBatcher:
         self.done[slot] = False
 
     def _join_slot(self, slot: int, one_cache):
-        """Copy the admission cache into slot ``slot`` (a no-op for the
-        paged batcher, whose prefill chunks write blocks in place)."""
-        write_slot(self.cache, one_cache, slot)
+        """Copy the admission cache into slot ``slot`` — over a mesh on the
+        rank that decodes it only (a no-op for the paged batcher, whose
+        prefill chunks write blocks in place)."""
+        if slot in self._local:
+            write_slot(self.cache, one_cache, slot - self._local.start)
 
     def _admit_request(self) -> tuple[Request, int] | None:
         slot = self._free_slot()
@@ -578,7 +668,8 @@ class ContinuousBatcher:
                 self.tracer.flow("t", adm.req.rid, track=self.trace_track)
             logits, self._adm_cache = self._profiled(
                 "prefill_chunk", lambda: self.model.prefill_chunk(
-                    self.params, chunk, self._adm_cache, adm.next_pos))
+                    self.params, chunk, self._adm_cache, adm.next_pos,
+                    **self._shard_kw(self._admit_shard)))
         adm.next_pos += c
         if adm.next_pos >= adm.tokens.shape[1]:
             # the final chunk always holds the last real position L-1
@@ -598,7 +689,8 @@ class ContinuousBatcher:
             with self._span("prefill", rid=req.rid):
                 logits, one_cache = self._profiled(
                     "prefill", lambda: self.model.prefill(
-                        self.params, {"tokens": tokens}, self.s_adm))
+                        self.params, {"tokens": tokens}, self.s_adm,
+                        **self._shard_kw(self._admit_shard)))
             self._activate(req, slot, one_cache, logits[0, -1])
 
     # ----------------------------------------------------------------- step

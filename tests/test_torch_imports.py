@@ -103,3 +103,33 @@ def test_training_modules_stand_alone():
                           capture_output=True, text=True, timeout=300)
     assert proc.returncode == 0, proc.stderr
     assert proc.stdout.strip() == "[]", proc.stdout
+
+
+MESH_MODULES = ("repro_torch.launch.mesh", "repro_torch.parallel",
+                "repro_torch.parallel.comm", "repro_torch.parallel.sharding",
+                "repro_torch.parallel.moe_shard_map",
+                "repro_torch.launch.serve")
+
+
+def test_mesh_modules_stand_alone():
+    """The mesh slice (the mesh, the sharding rules, the collectives, the
+    expert-parallel MoE, the launcher's ``--mesh``) is among the checked
+    sources; importing it in a fresh interpreter loads no JAX, nothing of
+    ``repro``, starts no process group and builds nothing."""
+    for name in MESH_MODULES:
+        rel = Path("src", *name.split("."))
+        assert any(p in SOURCES for p in (REPO / rel.with_suffix(".py"),
+                                          REPO / rel / "__init__.py")), name
+    code = ("import sys\n"
+            f"for m in {MESH_MODULES!r}: __import__(m)\n"
+            "import torch.distributed as dist\n"
+            "from repro_torch.kernels import _build\n"
+            "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
+            "('jax', 'jaxlib', 'repro', 'ml_dtypes'))\n"
+            "print(bad, dist.is_initialized(), _build._LIBS)\n")
+    proc = subprocess.run([sys.executable, "-c", code], cwd=REPO,
+                          env={**__import__("os").environ,
+                               "PYTHONPATH": str(REPO / "src")},
+                          capture_output=True, text=True, timeout=300)
+    assert proc.returncode == 0, proc.stderr
+    assert proc.stdout.strip() == "[] False {}", proc.stdout

@@ -160,8 +160,16 @@ def test_capacity_drops_never_land_in_slot_zero():
 
 
 def test_mesh_features_refused():
+    """The mesh features are no longer refused off a mesh: with no mesh
+    ``moe_impl="shard_map"`` falls through to the slot map (as the
+    reference does with no mesh context), and ``moe_ep_constraints`` are
+    layout hints that change no value; both equal the plain call.  Over a
+    mesh they are tests/test_torch_spmd.py's."""
     _, tcfg, _, tp = _moe_layer("fp32")
-    x = torch.zeros((1, 2, tcfg.d_model))
-    for over in ({"moe_impl": "shard_map"}, {"moe_ep_constraints": "ep"}):
-        with pytest.raises(NotImplementedError, match="mesh"):
-            TL.moe_apply(tp, x, dataclasses.replace(tcfg, **over))
+    x = torch.from_numpy(np.random.default_rng(3).standard_normal(
+        (2, 5, tcfg.d_model)).astype(np.float32))
+    want, aux_want = TL.moe_apply(tp, x, tcfg)
+    for over in ({"moe_impl": "shard_map"}, {"moe_ep_constraints": "ep"},
+                 {"moe_ep_constraints": "ep_fsdp"}):
+        got, aux = TL.moe_apply(tp, x, dataclasses.replace(tcfg, **over))
+        assert torch.equal(got, want) and torch.equal(aux, aux_want), over

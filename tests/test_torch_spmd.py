@@ -1,0 +1,371 @@
+"""Serving over a mesh of ranks (``ServingConfig.mesh``) against the
+reference's no-mesh streams, on 4 CPU ranks over gloo.
+
+One spawn of 4 ranks (a module fixture: process start-up is the cost)
+runs every multi-rank check of tests/torch_spmd_ranks.py; the reference's
+side runs here, and its expert-parallel MoE in a subprocess on 4 virtual
+CPU devices (as tests/test_moe_shard_map.py runs it).
+
+Contract (the reference's tests/test_serving_spmd.py): greedy streams of
+the sharded dense and paged batchers are identical to the one-rank run's
+and to the reference's no-mesh batcher's — the reduced smollm (pure DP) at
+2xT on meshes 1,1 / 2,1 / 1,2 / 2,2, the ``tp-golden`` model (d 1024,
+tensor parallel) at 2xT on 2,1 / 1,2 / 2,2, a GQA model whose query heads
+split and KV heads do not (1,4).  Bounds: fp32 and 1x1 under tensor
+parallelism within 1e-4 of max|logit| (partial sums in another order; at
+1x1 the row scale mean|x| is a K-sharded float sum); the expert-parallel
+MoE within 1e-5 of max|out| of the reference's ``moe_apply_shard_map``."""
+import concurrent.futures
+import dataclasses
+import os
+import subprocess
+import sys
+
+import numpy as np
+import pytest
+
+torch = pytest.importorskip("torch")
+import jax  # noqa: E402
+
+from repro.configs import get_config as jget_config  # noqa: E402
+from repro.models import build_model as jbuild  # noqa: E402
+from repro.models import reduce_for_smoke as jreduce  # noqa: E402
+from repro.models import to_serving as jto_serving  # noqa: E402
+from repro.models.config import ModelConfig as JModelConfig  # noqa: E402
+from repro.runtime.kvcache import PagedBatcher as JPagedBatcher  # noqa: E402
+from repro.runtime.serving import ContinuousBatcher as JBatcher  # noqa: E402
+from repro.runtime.serving import Request as JRequest  # noqa: E402
+from repro.runtime.serving import RequestOptions as JOptions  # noqa: E402
+from repro.runtime.serving import ServingConfig as JServingConfig  # noqa: E402
+from repro_torch.configs import get_config  # noqa: E402
+from repro_torch.interop import params_from_numpy  # noqa: E402
+from repro_torch.launch import mesh as tmesh  # noqa: E402
+from repro_torch.launch import serve as tserve  # noqa: E402
+from repro_torch.models import build_model, reduce_for_smoke, to_serving  # noqa: E402
+from repro_torch.models.config import ModelConfig  # noqa: E402
+from repro_torch.runtime.adaptive import AdaptiveServer  # noqa: E402
+from repro_torch.runtime.kvcache import PagedBatcher  # noqa: E402
+from repro_torch.runtime.serving import ServingConfig  # noqa: E402
+
+sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
+import torch_spmd_ranks as ranks  # noqa: E402
+
+REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+TP_GOLDEN = dict(name="tp-golden", n_layers=2, d_model=1024, n_heads=8,
+                 n_kv_heads=8, head_dim=128, d_ff=2048, vocab=512,
+                 dtype="float32", layer_pattern=("attn",),
+                 ffn_pattern=("dense",), precision="2xT")
+MIXED = dict(TP_GOLDEN, name="gqa-split", n_kv_heads=2)
+MOE_GOLDEN = dict(TP_GOLDEN, name="moe-golden", n_kv_heads=2, n_experts=4,
+                  top_k=2, moe_d_ff=64, ffn_pattern=("moe",))
+
+MOE_SCRIPT = r"""
+import os, sys
+os.environ["XLA_FLAGS"] = "--xla_force_host_platform_device_count=4"
+import dataclasses
+import jax, jax.numpy as jnp, numpy as np
+from repro.configs import get_config
+from repro.models import reduce_for_smoke
+from repro.parallel.moe_shard_map import moe_apply_shard_map
+
+inp = np.load(sys.argv[1])
+cfg = dataclasses.replace(
+    reduce_for_smoke(get_config("granite-moe-1b-a400m", precision="fp32")),
+    n_experts=8, top_k=2, dtype="float32")
+mesh = jax.make_mesh((2, 2), ("data", "model"))
+p = {"norm": {"g": jnp.asarray(inp["g"])},
+     "w_router": jnp.asarray(inp["w_router"]),
+     "w_gate": jnp.asarray(inp["w_gate"]), "w_up": jnp.asarray(inp["w_up"]),
+     "w_down": jnp.asarray(inp["w_down"])}
+x = jnp.asarray(inp["x"])
+out = {}
+for cap in (64.0, 1.0):
+    c = dataclasses.replace(cfg, capacity_factor=cap)
+    with mesh:
+        got, aux = jax.jit(lambda p_, x_: moe_apply_shard_map(p_, x_, c, mesh))(p, x)
+    out[f"out_{cap}"] = np.asarray(got)
+    out[f"aux_{cap}"] = np.asarray(aux)
+np.savez(sys.argv[2], **out)
+print("REF_MOE_OK")
+"""
+
+
+def _prompts(vocab, n):
+    rng = np.random.default_rng(0)
+    return [rng.integers(0, vocab, (1, 5 + i)) for i in range(n)]
+
+
+def _ref_streams(jcfg, params, kind, n_reqs, n_slots, s_max):
+    """The reference's no-mesh batcher on tests/torch_spmd_ranks.serve's
+    requests."""
+    if kind == "paged":
+        jcfg = dataclasses.replace(jcfg, kv_bits=0)
+        b = JPagedBatcher(jbuild(jcfg), params, JServingConfig(
+            n_slots=n_slots, s_max=s_max, chunk_size=4, kv_bits=8,
+            block_size=4))
+    else:
+        b = JBatcher(jbuild(jcfg), params, JServingConfig(
+            n_slots=n_slots, s_max=s_max, chunk_size=4))
+    for i, t in enumerate(_prompts(jcfg.vocab, n_reqs)):
+        b.submit(JRequest(rid=i, tokens=t.astype(np.int32),
+                          options=JOptions(max_new=4)))
+    return {r.rid: [int(v) for v in r.output] for r in b.run()}
+
+
+def _port_params(cfg, seed, tp):
+    model = build_model(cfg)
+    return to_serving(model.init(torch.Generator().manual_seed(seed), "cpu"),
+                      cfg, tp=tp)
+
+
+def _moe_inputs(d, e, f):
+    rng = np.random.default_rng(7)
+    n = lambda *s: rng.standard_normal(s).astype(np.float32)  # noqa: E731
+    return {"g": 1.0 + 0.1 * n(d), "w_router": n(d, e) * d ** -0.5,
+            "w_gate": n(e, d, f) * d ** -0.5, "w_up": n(e, d, f) * d ** -0.5,
+            "w_down": n(e, f, d) * f ** -0.5, "x": n(4, 8, d)}
+
+
+@pytest.fixture(scope="module")
+def spmd(tmp_path_factory):
+    tmp = tmp_path_factory.mktemp("spmd")
+    saved = os.environ.get("REPRO_TUNING_CACHE")
+    os.environ["REPRO_TUNING_CACHE"] = str(tmp / "tuning.json")
+    try:
+        yield _run_spmd(tmp)
+    finally:
+        if saved is None:
+            os.environ.pop("REPRO_TUNING_CACHE", None)
+        else:
+            os.environ["REPRO_TUNING_CACHE"] = saved
+
+
+def _run_spmd(tmp):
+    # the reference's expert-parallel MoE, alongside everything else
+    moe_cfg = dataclasses.replace(
+        reduce_for_smoke(get_config("granite-moe-1b-a400m",
+                                    precision="fp32")),
+        n_experts=8, top_k=2, dtype="float32")
+    moe_in = _moe_inputs(moe_cfg.d_model, 8, moe_cfg.moe_d_ff)
+    np.savez(tmp / "moe_in.npz", **moe_in)
+    env = dict(os.environ, PYTHONPATH=os.path.join(REPO, "src"),
+               JAX_PLATFORMS="cpu")
+    env.pop("XLA_FLAGS", None)
+    proc = subprocess.Popen(
+        [sys.executable, "-c", MOE_SCRIPT, str(tmp / "moe_in.npz"),
+         str(tmp / "moe_out.npz")], env=env, stdout=subprocess.PIPE,
+        stderr=subprocess.PIPE, text=True)
+
+    payload = {}
+    jcfg = jreduce(jget_config("smollm-135m", precision="2xT"))
+    tcfg = reduce_for_smoke(get_config("smollm-135m", precision="2xT"))
+    jp = jax.jit(lambda k: jto_serving(jbuild(jcfg).init(k), jcfg, tp=1))(
+        jax.random.PRNGKey(0))
+    payload["smollm"] = {"cfg": tcfg, "params": params_from_numpy(
+        jax.tree_util.tree_map(np.asarray, jp), "cpu")}
+    jtp = JModelConfig(**TP_GOLDEN)
+    jpt = jax.jit(lambda k: jto_serving(jbuild(jtp).init(k), jtp, tp=2))(
+        jax.random.PRNGKey(1))
+    payload["tp_golden"] = {"cfg": ModelConfig(**TP_GOLDEN),
+                            "params": params_from_numpy(
+                                jax.tree_util.tree_map(np.asarray, jpt),
+                                "cpu")}
+    f32 = ModelConfig(**dict(TP_GOLDEN, precision="fp32"))
+    payload["tp_fp32"] = {"cfg": f32, "params": _port_params(f32, 2, 1),
+                          "tokens": np.array([[3, 141, 59, 265]], np.int64)}
+    b1 = ModelConfig(**dict(TP_GOLDEN, precision="1x1"))
+    payload["tp_1x1"] = {"cfg": b1, "params": _port_params(b1, 3, 2)}
+    mixed = ModelConfig(**MIXED)
+    payload["mixed"] = {"cfg": mixed, "params": _port_params(mixed, 4, 4)}
+    payload["moe"] = {"cfg": moe_cfg, "x": torch.from_numpy(moe_in["x"]),
+                      "p": {"norm": {"g": torch.from_numpy(moe_in["g"])},
+                            **{k: torch.from_numpy(moe_in[k])
+                               for k in ("w_router", "w_gate", "w_up",
+                                         "w_down")}}}
+    mg = ModelConfig(**MOE_GOLDEN)
+    payload["moe_golden"] = {"cfg": mg, "params": _port_params(mg, 5, 2)}
+    mamba = reduce_for_smoke(get_config("falcon-mamba-7b", precision="2xT"))
+    payload["mamba"] = {"cfg": mamba, "params": _port_params(mamba, 6, 1)}
+    wide = dataclasses.replace(mamba, d_model=1024)
+    payload["mamba_tp"] = {"cfg": wide, "params": _port_params(wide, 6, 2)}
+
+    # the ranks run while this process serves the one-device side
+    with concurrent.futures.ThreadPoolExecutor(1) as pool:
+        fut = pool.submit(tmesh.spawn, ranks.run_checks,
+                          tmesh.Mesh({"data": 2, "model": 2}), payload,
+                          device="cpu")
+        ref = {}
+        for kind in ("dense", "paged"):
+            ref[f"smollm_{kind}"] = _ref_streams(jcfg, jp, kind, 3, 4, 24)
+            ref[f"tp_{kind}"] = _ref_streams(jtp, jpt, kind, 2, 2, 16)
+        # the port on one device, for the configs the reference does not
+        # serve
+        one = {name: ranks.serve(payload[name]["cfg"],
+                                 payload[name]["params"], None, "dense", 2,
+                                 2, s_max=16)[0]
+               for name in ("mixed", "moe_golden", "tp_fp32", "tp_1x1")}
+        one["mixed_paged"] = ranks.serve(mixed, payload["mixed"]["params"],
+                                         None, "paged", 2, 2, s_max=16)[0]
+        one["mamba"] = ranks.serve(mamba, payload["mamba"]["params"], None,
+                                   "dense", 2, 4, chunk=0)[0]
+        results = fut.result()
+    stdout, stderr = proc.communicate(timeout=300)
+    assert proc.returncode == 0, stderr[-3000:]
+    moe_ref = dict(np.load(tmp / "moe_out.npz"))
+    return {"ref": ref, "one": one, "ranks": results, "moe_ref": moe_ref}
+
+
+def test_collectives(spmd):
+    """all_reduce_sum / all_reduce_max over both axes, all_gather along a
+    dim, broadcast from index 1 of the model axis, each counted once; a
+    bfloat16 max round-trips through gloo's float32."""
+    for res in spmd["ranks"]:
+        r, d = res["rank"], res["rank"] // 2
+        total, top, rows, bcast, cols, counts = res["collectives"]
+        assert total == [6.0, -6.0] and top == [3.0, 0.0]
+        assert rows == [[float(i), -float(i)] for i in range(4)]
+        assert bcast == [2.0 * d + 1, -(2.0 * d + 1)]
+        j = r % 2
+        assert cols == [[float(j), -float(j), float(j + 2), -float(j + 2)]]
+        assert counts == {"all_reduce_sum": 1, "all_reduce_max": 1,
+                          "all_gather": 2, "broadcast": 1}
+
+
+@pytest.mark.parametrize("kind", ["dense", "paged"])
+def test_pure_dp_streams_every_mesh(spmd, kind):
+    """Reduced smollm 2xT f32 (pure DP): one-rank, 2,1, 1,2 and 2,2
+    streams equal the reference's no-mesh streams on every rank; a pure-DP
+    step reduces nothing (the dense decode gathers its next tokens, the
+    paged step runs whole on every rank)."""
+    want = spmd["ref"][f"smollm_{kind}"]
+    for res in spmd["ranks"]:
+        for label in ("1,1", "pair", "2,2"):
+            streams, counts, calls = res[f"smollm_{kind}_{label}"]
+            assert streams == want, (res["rank"], label)
+            assert counts["all_reduce_sum"] == counts["all_reduce_max"] == 0
+            if kind == "paged" or label == "1,1":
+                assert counts["all_gather"] == 0
+            else:
+                assert counts["all_gather"] == calls["decode"] > 0
+    assert [r["pair"] for r in spmd["ranks"]] == \
+        [{"data": 2, "model": 1}] * 2 + [{"data": 1, "model": 2}] * 2
+
+
+@pytest.mark.parametrize("kind", ["dense", "paged"])
+def test_tensor_parallel_streams(spmd, kind):
+    """tp-golden 2xT (packed with to_serving(tp=2)) on 2,1, 1,2 and 2,2:
+    streams equal the reference's no-mesh streams.  Per model call and
+    layer, a max and a sum around wo and w_down; one sum for the embedding
+    and one gather for the logits a call; on 2,2 the dense decode also
+    gathers its next tokens over data."""
+    want = spmd["ref"][f"tp_{kind}"]
+    n_layers = TP_GOLDEN["n_layers"]
+    for res in spmd["ranks"]:
+        for label in ("pair", "2,2"):
+            streams, counts, calls = res[f"tp_{kind}_{label}"]
+            assert streams == want, (res["rank"], label, kind)
+            model_split = label == "2,2" or res["pair"]["model"] == 2
+            n = calls["decode"] + calls["chunks"]
+            if not model_split:
+                assert counts["all_reduce_max"] == 0
+                continue
+            assert counts["all_reduce_max"] == 2 * n_layers * n
+            assert counts["all_reduce_sum"] == (2 * n_layers + 1) * n
+            gathers = n + (calls["decode"] if label == "2,2"
+                           and kind == "dense" else 0)
+            assert counts["all_gather"] == gathers
+
+
+def test_gqa_heads_split_kv_whole(spmd):
+    """8 query heads over a model axis of 4, 2 KV heads kept whole: each
+    rank attends with its groups' KV heads; streams equal one rank's,
+    dense and paged."""
+    for res in spmd["ranks"]:
+        assert res["mixed_1,4"][0] == spmd["one"]["mixed"]
+        assert res["mixed_1,4_paged"][0] == spmd["one"]["mixed_paged"]
+
+
+def test_float_and_1x1_tensor_parallel_within_bound(spmd):
+    """fp32 and 1x1 tp-golden on 1,2: a prefill chunk's and a decode
+    step's logits within 1e-4 of max|logit| of the one-rank calls; streams
+    reported beside the one-rank run's (not claimed equal)."""
+    for res in spmd["ranks"][2:]:
+        for name in ("tp_fp32", "tp_1x1"):
+            gap, scale = res[f"{name}_gap"]
+            assert gap <= 1e-4 * scale, (name, gap, scale)
+            got, one = res[f"{name}_streams"], spmd["one"][name]
+            print(f"rank {res['rank']} {name}: logits gap {gap:.3e} of "
+                  f"{scale:.3e}; streams equal to one rank's: {got == one}")
+            assert sorted(got) == sorted(one)
+
+
+def test_moe_shard_map_matches_reference(spmd):
+    """moe_apply_shard_map on a 2,2 mesh (each rank its data shard of the
+    tokens and its 4 of 8 experts) against the reference's on 4 virtual
+    devices: within 1e-5 of max|out|, capacity 64 (no drops) and 1 (per
+    data-shard drops); aux within 1e-6.  The slot-map moe_apply under TP
+    (global slot map) within 1e-5 of the one-device call."""
+    ref = spmd["moe_ref"]
+    for res in spmd["ranks"]:
+        d = res["rank"] // 2                      # data coordinate
+        for cap in (64.0, 1.0):
+            got, aux = res["moe"][f"shard_map_{cap}"]
+            want = ref[f"out_{cap}"][2 * d:2 * d + 2]
+            scale = float(np.abs(want).max())
+            assert float(np.abs(got - want).max()) <= 1e-5 * scale, cap
+            assert abs(aux - float(ref[f"aux_{cap}"])) <= 1e-6 * abs(aux)
+        gap, scale = res["moe"]["pjit_gap"]
+        assert gap <= 1e-5 * scale
+
+
+def test_moe_and_mamba_through_the_batcher(spmd):
+    """An MoE model (d 1024, 4 experts top-2) through the dense batcher:
+    on 1,2 both MoE paths give one rank's streams (two experts a token
+    sum the same two terms); on 2,1 the slot map's (global) too.  The
+    reduced falcon-mamba on pure-DP meshes gives one rank's streams; a
+    Mamba stack on a model axis > 1 is refused (ROADMAP 9b)."""
+    for res in spmd["ranks"]:
+        assert res["moe_golden_pjit"] == spmd["one"]["moe_golden"]
+        if res["pair"]["model"] == 2:
+            assert res["moe_golden_shard_map"] == spmd["one"]["moe_golden"]
+        assert res["mamba_pair"] == spmd["one"]["mamba"]
+        assert "9b" in res["mamba_tp_refusal"]
+
+
+def test_launcher_mesh_cpu(capfd, tmp_path, monkeypatch):
+    """``--mesh 2,1 --device cpu``: the launcher spawns two gloo ranks and
+    prints the reference's SPMD line, the backend and the collectives;
+    its streams are the launcher's one-device streams."""
+    monkeypatch.setenv("REPRO_TUNING_CACHE", str(tmp_path / "t.json"))
+    cli = ["--reduced", "--device", "cpu", "--requests", "3", "--slots",
+           "2", "--prompt-len", "10", "--gen", "4"]
+    base = tserve.main(cli)
+    got = tserve.main(cli + ["--mesh", "2,1"])
+    out = capfd.readouterr().out
+    assert "mesh: 2 ranks (data=2 model=1) over gloo on the CPU" in out
+    assert "SPMD serving on mesh data=2 model=1: decode batch sharded " \
+           "2-way, tensor-parallel 1-way (pure-DP (params replicated))" in out
+    assert "collectives (rank 0): all_reduce_sum=0" in out
+    assert {r.rid: r.output for r in got} == {r.rid: r.output for r in base}
+    with pytest.raises(ValueError, match="needs 4096 ranks"):
+        tserve.main(cli + ["--mesh", "64,64"])
+
+
+def test_mesh_refusals():
+    """Speculative decoding takes no mesh (the reference's ValueError), nor
+    does the adaptive server; a mesh of several ranks built from a shape
+    alone has no groups."""
+    cfg = dataclasses.replace(
+        reduce_for_smoke(get_config("smollm-135m", precision="fp32")),
+        kv_bits=0)
+    params = build_model(cfg).init(torch.Generator().manual_seed(0), "cpu")
+    with pytest.raises(ValueError, match="single-host"):
+        PagedBatcher(build_model(cfg), params, ServingConfig(
+            n_slots=2, s_max=16, chunk_size=4, kv_bits=8, speculative=True,
+            mesh=tmesh.Mesh({"data": 1, "model": 1})))
+    with pytest.raises(ValueError, match="one device"):
+        AdaptiveServer(build_model(cfg), params, ServingConfig(
+            n_slots=2, s_max=16, chunk_size=4,
+            mesh=tmesh.Mesh({"data": 1, "model": 1})))
+    with pytest.raises(ValueError, match="shape alone"):
+        tmesh.Mesh({"data": 2, "model": 1}).axis("data")

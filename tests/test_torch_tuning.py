@@ -105,13 +105,29 @@ def test_serving_tune_plan_matches_reference(extra_m, reduced):
 
 
 def test_serving_tune_plan_refuses_a_mesh():
-    tcfg = _cfgs(True)[1]
-    with pytest.raises(ValueError, match="item 9"):
-        engine.serving_tune_plan(tcfg, signed(get_precision("2xT")),
-                                 n_slots=4, chunk_size=32, mesh=object())
-    with pytest.raises(ValueError, match="item 9"):
-        engine.tune_serving_shapes(tcfg, signed(get_precision("2xT")),
-                                   n_slots=4, chunk_size=32, mesh=object())
+    """A mesh is no longer refused: the plan adds each rank's shapes (the
+    pure-DP decode rows n_slots / dp), equal to the reference's plan on a
+    jax mesh of the same shape; tune_serving_shapes sweeps that plan (the
+    plain versions on the CPU).  tests/test_torch_sharding.py holds the
+    plan on more meshes and configs."""
+    from jax.sharding import Mesh as JMesh
+
+    from repro_torch.launch.mesh import Mesh
+    jcfg, tcfg = _cfgs(True)
+    pj, pt = jsigned(jget_precision("2xT")), signed(get_precision("2xT"))
+    jmesh = JMesh(np.array(jax.devices() * 2)[:2].reshape(2, 1),
+                  ("data", "model"))
+    tmesh = Mesh({"data": 2, "model": 1})
+    want = jengine.serving_tune_plan(jcfg, pj, n_slots=4, chunk_size=32,
+                                     mesh=jmesh)
+    got = engine.serving_tune_plan(tcfg, pt, n_slots=4, chunk_size=32,
+                                   mesh=tmesh)
+    assert got == [tuple(x) for x in want]
+    assert {m for m, _, _ in got} == {2, 4, 32}
+    entries = engine.tune_serving_shapes(tcfg, pt, n_slots=4, chunk_size=32,
+                                         mesh=tmesh, device="cpu",
+                                         candidates=None, iters=1)
+    assert len(entries) == len(got)
 
 
 @pytest.mark.parametrize("bs,s_max", [(None, 128), (32, 128), (128, 128),

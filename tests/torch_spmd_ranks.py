@@ -1,0 +1,173 @@
+"""Rank-side checks of tests/test_torch_spmd.py: run on every rank of one
+spawn of 4 CPU ranks over gloo (``launch.mesh.spawn``).  This module
+imports the port only (the ranks start without JAX); the test module holds
+the reference's side and every assertion.
+
+:func:`run_checks` returns, per rank, plain data: greedy streams, logits
+gaps, collective counts, refusal messages."""
+from __future__ import annotations
+
+import dataclasses
+
+import numpy as np
+import torch
+
+from repro_torch.launch.mesh import make_mesh
+from repro_torch.models import build_model
+from repro_torch.parallel import comm
+from repro_torch.parallel import sharding as shd
+from repro_torch.parallel.comm import StepSharding
+from repro_torch.parallel.moe_shard_map import moe_apply_shard_map
+from repro_torch.runtime.kvcache import PagedBatcher
+from repro_torch.runtime.serving import (ContinuousBatcher, Request,
+                                         RequestOptions, ServingConfig)
+
+
+def serve(cfg, params, mesh, kind: str, n_reqs: int, n_slots: int,
+          max_new: int = 4, s_max: int = 24, chunk: int = 4):
+    """Greedy streams {rid: tokens} of ``n_reqs`` seeded prompts of 5 + i
+    tokens through the dense or paged batcher (kv8 blocks of 4 when
+    paged), with the collectives the run made and its model calls."""
+    rng = np.random.default_rng(0)
+    if kind == "paged":
+        cfg = dataclasses.replace(cfg, kv_bits=0)
+        extra = {"kv_bits": 8, "block_size": 4}
+    else:
+        extra = {}
+    sc = ServingConfig(n_slots=n_slots, s_max=s_max, chunk_size=chunk,
+                       mesh=mesh, **extra)
+    cls = PagedBatcher if kind == "paged" else ContinuousBatcher
+    b = cls(build_model(cfg), params, sc)
+    for i in range(n_reqs):
+        b.submit(Request(i, rng.integers(0, cfg.vocab, (1, 5 + i)
+                                         ).astype(np.int64),
+                         RequestOptions(max_new=max_new)))
+    comm.reset_collective_counts()
+    done = b.run()
+    calls = {"decode": b.metrics.decode_steps,
+             "chunks": b.metrics.prefill_chunks}
+    return ({r.rid: list(r.output) for r in done},
+            comm.collective_counts(), calls)
+
+
+def _logits_gap(cfg, params, mesh, tokens):
+    """max |logit| difference of a 4-token prefill chunk and one decode
+    step over ``mesh`` (tensor parallel) against the same calls on the
+    whole params, and max |logit| of the one-rank run."""
+    from repro_torch.models import transformer as tfm
+    model = build_model(cfg)
+    local = shd.shard_tree(params, shd.param_specs(params, cfg, mesh), mesh)
+    shard = StepSharding(mesh, tp=mesh.axis("model"))
+    out = {}
+    for name, p, kw, m in (("one", params, {}, None),
+                           ("mesh", local, {"shard": shard}, mesh)):
+        cache = tfm.make_cache(cfg, 1, 16, "cpu", mesh=m)
+        lc, cache = model.prefill_chunk(p, tokens, cache, 0, **kw)
+        ld, _ = model.decode_step(p, tokens[:, -1:], cache,
+                                  torch.tensor([4]), **kw)
+        out[name] = (lc, ld)
+    scale = max(float(x.abs().max()) for x in out["one"])
+    gap = max(float((a - b).abs().max())
+              for a, b in zip(out["one"], out["mesh"]))
+    return gap, scale
+
+
+def _moe_checks(mesh, moe):
+    """moe_apply_shard_map on this rank's data shard of x and expert shard
+    of p; and the slot-map moe_apply under TP (the global slot map, rows
+    split over data, experts over model) against the one-device call."""
+    from repro_torch.models import layers as L
+    cfg = moe["cfg"]
+    tp, data = mesh.axis("model"), mesh.axis("data")
+    p, x = moe["p"], moe["x"]
+    e_loc = cfg.n_experts // tp.size
+    b_loc = x.shape[0] // data.size
+    lp = dict(p)
+    for name in ("w_gate", "w_up", "w_down"):
+        lp[name] = p[name][tp.index * e_loc:(tp.index + 1) * e_loc]
+    lx = x[data.index * b_loc:(data.index + 1) * b_loc]
+    shard = StepSharding(mesh, tp=tp, rows=data)
+    out = {}
+    for cap in (64.0, 1.0):
+        c = dataclasses.replace(cfg, capacity_factor=cap)
+        got, aux = moe_apply_shard_map(lp, lx, c, shard)
+        out[f"shard_map_{cap}"] = (got.numpy(), float(aux))
+    c = dataclasses.replace(cfg, capacity_factor=1.0)
+    want, _ = L.moe_apply(p, x, c)
+    got, _ = L.moe_apply(lp, lx, c, shard=shard)
+    want = want[data.index * b_loc:(data.index + 1) * b_loc]
+    out["pjit_gap"] = (float((got - want).abs().max()),
+                       float(want.abs().max()))
+    return out
+
+
+def run_checks(world, payload):
+    """Every rank of a 2x2 world: one-rank meshes, a 2,1 mesh on ranks 0-1
+    beside a 1,2 mesh on ranks 2-3, the 2,2 world and a 1,4 mesh."""
+    r = world.rank
+    # every make_mesh over several ranks is collective: all ranks call each
+    one = make_mesh(1, 1, ranks=[r])
+    m21 = make_mesh(2, 1, ranks=[0, 1])
+    m12 = make_mesh(1, 2, ranks=[2, 3])
+    m14 = make_mesh(1, 4)
+    pair = m21 if r < 2 else m12
+    res = {"rank": r, "pair": dict(pair.shape)}
+
+    # the four collectives on the world's axes (bf16 travels as f32 on gloo)
+    every, model = world.axis(("data", "model")), world.axis("model")
+    x = torch.tensor([float(r), -float(r)])
+    comm.reset_collective_counts()
+    res["collectives"] = (
+        every.all_reduce_sum(x).tolist(),
+        every.all_reduce_max(x.to(torch.bfloat16)).float().tolist(),
+        every.all_gather(x[None], dim=0).tolist(),
+        model.broadcast(x, src=1).tolist(),
+        world.axis("data").all_gather(x[None], dim=1).tolist(),
+        comm.collective_counts())
+
+    small = payload["smollm"]
+    for kind in ("dense", "paged"):
+        for label, mesh in (("1,1", one), ("pair", pair), ("2,2", world)):
+            res[f"smollm_{kind}_{label}"] = serve(
+                small["cfg"], small["params"], mesh, kind, n_reqs=3,
+                n_slots=4)
+
+    tpg = payload["tp_golden"]
+    for kind in ("dense", "paged"):
+        for label, mesh in (("pair", pair), ("2,2", world)):
+            res[f"tp_{kind}_{label}"] = serve(
+                tpg["cfg"], tpg["params"], mesh, kind, n_reqs=2, n_slots=2,
+                s_max=16)
+
+    f32 = payload["tp_fp32"]
+    tokens = torch.from_numpy(f32["tokens"])
+    if r >= 2:
+        for name in ("tp_fp32", "tp_1x1"):
+            c, p = payload[name]["cfg"], payload[name]["params"]
+            res[f"{name}_gap"] = _logits_gap(c, p, m12, tokens)
+            res[f"{name}_streams"] = serve(c, p, m12, "dense", 2, 2,
+                                           s_max=16)[0]
+
+    mixed = payload["mixed"]
+    res["mixed_1,4"] = serve(mixed["cfg"], mixed["params"], m14, "dense",
+                             2, 2, s_max=16)
+    res["mixed_1,4_paged"] = serve(mixed["cfg"], mixed["params"], m14,
+                                   "paged", 2, 2, s_max=16)
+
+    res["moe"] = _moe_checks(world, payload["moe"])
+    mg = payload["moe_golden"]
+    for impl in ("pjit", "shard_map"):
+        cfg = dataclasses.replace(mg["cfg"], moe_impl=impl)
+        res[f"moe_golden_{impl}"] = serve(cfg, mg["params"], pair, "dense",
+                                          2, 2, s_max=16)[0]
+
+    mamba = payload["mamba"]
+    res["mamba_pair"] = serve(mamba["cfg"], mamba["params"], pair, "dense",
+                              2, 4, chunk=0)[0]
+    wide = payload["mamba_tp"]
+    try:
+        serve(wide["cfg"], wide["params"], world, "dense", 1, 2, chunk=0)
+        res["mamba_tp_refusal"] = None
+    except NotImplementedError as e:
+        res["mamba_tp_refusal"] = str(e)
+    return res
