@@ -140,6 +140,18 @@ Phases (each prints its own lines; any failed check exits non-zero):
      reported; per rank, one decode step's kernel launches and collectives
      against the expected counts, its wall beside the one-rank step's
      (glm4's next step under ``torch.profiler``: device busy ms);
+  4s. training over a mesh of ranks (two ranks spawned on the one card,
+     over gloo): smollm-135m 2xT bf16, adamw, batch 8 x 256 on a 2,1 mesh
+     (pure DP): 2 layers for 3 steps from phase 4q's params and batches,
+     the replicas ``torch.equal`` after every step, the loss and the
+     params (in bf16 ulps) against the one-rank run's; the 30-layer step
+     timed; glm4-9b 2xT at 2 layers on 1,2 (tensor parallel), 2 adafactor
+     steps of 2 x 128: collectives per step forward and backward, peak
+     memory per rank; its params saved by both ranks (each its slices),
+     restored on one rank ``torch.equal`` to the gathered params, both
+     packed and served (4 x 8 tokens through B1, B7c and B5, the tokens
+     equal); one ``pipeline_blocks`` call on 2 stages (4 fp32 periods)
+     within 1e-5 of the sequential stack;
   5. decode steps of the dense and the paged 2xT paths, of the dense 1x1
      path and of the paged fp32-weight path (phase 4d's) under
      ``torch.profiler``: device operations per step, device busy time and
@@ -4005,12 +4017,13 @@ def _train_batch(cfg, device):
             for k, v in next(data).items()}
 
 
-def _full_depth_step(device, card) -> None:
+def _full_depth_step(device, card) -> float:
     """smollm-135m at full size (30 layers), 2xT, bf16 params, adamw: the
     train step's wall time (FULL_STEPS steps, each from the same initial
     state, after a warm-up step), tokens/s, peak memory and a profiled
     step.  Its loss is finite; its grad norm is printed (the reference's
-    2xT gradient overflows at this depth, see TRAIN_LAYERS)."""
+    2xT gradient overflows at this depth, see TRAIN_LAYERS).  Returns the
+    wall p50 ms."""
     import numpy as np
     import torch
     from repro_torch.launch.steps import make_train_step
@@ -4052,9 +4065,10 @@ def _full_depth_step(device, card) -> None:
                   lambda: step(params, state, batch))
     del params, state
     torch.cuda.empty_cache()
+    return p50
 
 
-def phase_train(device, card, tmp: str) -> None:
+def phase_train(device, card, tmp: str) -> dict:
     """4q: QAT training of smollm-135m at 2xT, bf16 params, adamw, batch
     TRAIN_B x TRAIN_S: the full-size (30-layer) step timed and profiled
     (``_full_depth_step``); at full width with the depth cut to
@@ -4063,7 +4077,8 @@ def phase_train(device, card, tmp: str) -> None:
     batch against LEARN_MARGIN, the card's step against the CPU's
     (``train_step_vs_cpu``, fp32 and 2xT), a restart from the
     step-TRAIN_FIRST checkpoint; then the trained weights packed and
-    served through the kernels."""
+    served through the kernels.  Returns the 30-layer step's wall p50 ms
+    and the launch.train run's losses, for phase 4s."""
     import numpy as np
     import torch
     from repro_torch.checkpoint import Checkpointer
@@ -4080,7 +4095,7 @@ def phase_train(device, card, tmp: str) -> None:
     print("== 4q. QAT training: smollm-135m 2xT bf16, then serving the "
           "trained weights", flush=True)
     t0 = time.time()
-    _full_depth_step(device, card)
+    full_p50 = _full_depth_step(device, card)
 
     cfg = dataclasses.replace(model_config(precision="2xT"),
                               n_layers=TRAIN_LAYERS)
@@ -4230,6 +4245,7 @@ def phase_train(device, card, tmp: str) -> None:
     print(f"phase 4q: {time.time() - t0:.1f} s")
     del sparams, cache
     torch.cuda.empty_cache()
+    return {"full_p50": full_p50, "losses": losses, "step_p50": p50}
 
 
 # ---------------------------------------------------------------------------
@@ -4495,6 +4511,393 @@ def phase_mesh(device, card) -> None:
     torch.cuda.empty_cache()
     print(f"phase 4r: {time.time() - t0:.1f} s (one-rank runs "
           f"{t_one:.1f} s)")
+
+
+# ---------------------------------------------------------------------------
+# 4s: training over a mesh of ranks
+# ---------------------------------------------------------------------------
+MESH_TRAIN_STEPS = 3                    # smollm 2,1 steps, against one rank
+MESH_FULL_STEPS = 3                     # timed 30-layer 2,1 steps
+TP_B, TP_S, TP_STEPS = 2, 128, 2        # glm4-9b 1,2
+# glm4's optimizer: adafactor's factored state (O(n + m) a matrix, its
+# means over the cut dims all-reduced); adamw's f32 moments, old and new
+# in an update, took a rank to ~39 GB, and two such ranks beside the
+# earlier phases' live tensors ran the card out of memory
+TP_OPTIMIZER = "adafactor"
+PIPE_LAYERS, PIPE_MICRO, PIPE_TOL = 4, 4, 1e-5
+
+
+def _ulps(a, b):
+    """Each entry's distance between two tensors of one dtype (bf16 or f32),
+    in ulps of that dtype (their bit patterns as ordered integers)."""
+    import torch
+    bits, mask = {torch.bfloat16: (torch.int16, 0x7FFF),
+                  torch.float32: (torch.int32, 0x7FFFFFFF)}[a.dtype]
+
+    def ordered(t):
+        i = t.contiguous().view(bits).to(torch.int64)
+        return torch.where(i < 0, -(i & mask), i)
+    return (ordered(a) - ordered(b)).abs()
+
+
+def _replicas_equal(axis, tensors) -> bool:
+    """Every rank of ``axis`` holds the same ``tensors``, bit for bit (the
+    ranks' copies gathered and compared; bf16 travels as its exact f32)."""
+    import torch
+    flat = torch.cat([t.reshape(-1).to(torch.float32) for t in tensors])
+    got = axis.all_gather(flat[None], dim=0)
+    return all(torch.equal(got[0], got[i]) for i in range(1, axis.size))
+
+
+def _timed_steps(step, params, state, batches, mesh=None):
+    """Run ``step`` over ``batches`` (the state carried along): per step the
+    loss, grad norm, wall ms (ending in the loss read back), collectives
+    forward and backward and, with ``mesh``, whether the replicas are
+    equal after it.  Returns (params, state, records)."""
+    import torch
+    from repro_torch.parallel import comm
+    from repro_torch.tree import tree_leaves
+    recs = []
+    for batch in batches:
+        torch.cuda.synchronize()
+        comm.reset_collective_counts()
+        t0 = time.perf_counter()
+        params, state, m = step(params, state, batch)
+        loss = float(m["loss"])
+        wall = (time.perf_counter() - t0) * 1e3
+        rec = {"loss": loss, "grad_norm": float(m["grad_norm"]), "ms": wall,
+               "colls": comm.collective_counts(),
+               "backward": comm.backward_counts()}
+        if mesh is not None:
+            rec["equal"] = _replicas_equal(mesh.axis(mesh.axis_names),
+                                           tree_leaves(params))
+        recs.append(rec)
+    return params, state, recs
+
+
+def _smollm_dp(mesh, cfg, n_steps):
+    """smollm on the pure-DP ``mesh``: the launch.train run's params (seed
+    0) and data, ``n_steps`` steps; the final params on the host."""
+    import torch
+    from repro_torch.launch.steps import make_train_step
+    from repro_torch.models import build_model
+    from repro_torch.optim import make_optimizer
+    from repro_torch.tree import tree_leaves
+    model, opt = build_model(cfg), make_optimizer("adamw", lr=TRAIN_LR)
+    params = model.init(torch.Generator().manual_seed(0), mesh.device)
+    state = opt.init(params)
+    step = make_train_step(model, opt, mesh=mesh)
+    torch.cuda.reset_peak_memory_stats()
+    params, state, recs = _timed_steps(
+        step, params, state, _train_batches(cfg, mesh.device, n_steps), mesh)
+    return {"recs": recs, "peak": torch.cuda.max_memory_allocated(),
+            "params": [t.cpu() for t in tree_leaves(params)]}
+
+
+def _train_batches(cfg, device, n: int):
+    """The data pipeline's first ``n`` batches of TRAIN_B x TRAIN_S tokens
+    (the launch.train run's), on ``device``."""
+    import torch
+    from repro_torch.data import SyntheticLM
+    data = SyntheticLM(vocab=cfg.vocab, seq_len=TRAIN_S, global_batch=TRAIN_B)
+    return [{k: torch.from_numpy(v).to(device, torch.int64)
+             for k, v in next(data).items()} for _ in range(n)]
+
+
+def _smollm_full_depth(mesh, cfg):
+    """The 30-layer step on ``mesh``, each step from the same initial state
+    (as 4q times it): wall ms of a warm-up and MESH_FULL_STEPS steps, the
+    collectives of one, the bucket's bytes, peak memory."""
+    import torch
+    from repro_torch.launch.steps import make_train_step
+    from repro_torch.models import build_model
+    from repro_torch.optim import make_optimizer
+    from repro_torch.tree import tree_leaves
+    model, opt = build_model(cfg), make_optimizer("adamw", lr=TRAIN_LR)
+    params = model.init(torch.Generator().manual_seed(0), mesh.device)
+    state = opt.init(params)
+    step = make_train_step(model, opt, mesh=mesh)
+    batch = _train_batches(cfg, mesh.device, 1)[0]
+    torch.cuda.reset_peak_memory_stats()
+    recs = [_timed_steps(step, params, state, [batch])[2][0]
+            for _ in range(MESH_FULL_STEPS + 1)]
+    n = sum(t.numel() for t in tree_leaves(params))
+    return {"recs": recs, "bucket_bytes": 4 * (n + 1),
+            "peak": torch.cuda.max_memory_allocated()}
+
+
+def _glm4_tp(mesh, cfg, ckpt_dir):
+    """glm4-9b on the tensor-parallel ``mesh``: the params drawn whole on
+    the card from seed 0 (the same on each rank) and cut to this rank's
+    slices, TP_STEPS steps (TP_OPTIMIZER) of TP_B x TP_S tokens, the
+    params saved (each
+    rank its slices) and gathered whole; rank 0 restores the checkpoint on
+    its own, compares it with the gathered params and serves both, packed,
+    through the kernels."""
+    import torch
+    from repro_torch.checkpoint import Checkpointer
+    from repro_torch.data import SyntheticLM
+    from repro_torch.launch.steps import make_train_step
+    from repro_torch.models import build_model
+    from repro_torch.optim import make_optimizer
+    from repro_torch.parallel import sharding as shd
+    from repro_torch.tree import tree_map
+    model, opt = build_model(cfg), make_optimizer(TP_OPTIMIZER, lr=TRAIN_LR)
+    params = model.init(torch.Generator(device=mesh.device).manual_seed(0),
+                        mesh.device)
+    specs = shd.param_specs(params, cfg, mesh)
+    local = tree_map(lambda t: t.clone(), shd.shard_tree(params, specs,
+                                                         mesh))
+    del params
+    torch.cuda.empty_cache()
+    state = opt.init(local)
+    step = make_train_step(model, opt, mesh=mesh)
+    data = SyntheticLM(vocab=cfg.vocab, seq_len=TP_S, global_batch=TP_B)
+    batches = [{k: torch.from_numpy(v).to(mesh.device, torch.int64)
+                for k, v in next(data).items()} for _ in range(TP_STEPS)]
+    torch.cuda.reset_peak_memory_stats()
+    local, state, recs = _timed_steps(step, local, state, batches)
+    peak = torch.cuda.max_memory_allocated()
+    del state
+    t0 = time.perf_counter()
+    Checkpointer(ckpt_dir).save(TP_STEPS, {"params": local},
+                                shardings=shd.TreeSharding(
+                                    {"params": specs}, mesh))
+    save_s = time.perf_counter() - t0
+    model_axis = mesh.axis("model")
+
+    def gather(t, spec):
+        for d, entry in enumerate(spec):
+            if entry == "model":
+                return model_axis.all_gather(t, dim=d)
+        return t
+    whole = tree_map(gather, local, specs)
+    out = {"recs": recs, "peak": peak, "save_s": save_s}
+    del local
+    torch.cuda.empty_cache()
+    if mesh.rank == 0:
+        out.update(_restore_and_serve(cfg, whole, ckpt_dir))
+    mesh.barrier()
+    return out
+
+
+def _restore_and_serve(cfg, whole, ckpt_dir) -> dict:
+    """The tensor-parallel checkpoint restored on this one rank (no
+    shardings) against ``whole`` (the gathered params), and both packed
+    and served (4 x 8 tokens, dense kv8) through the kernels."""
+    import torch
+    from repro_torch.checkpoint import Checkpointer
+    from repro_torch.models import build_model, to_serving
+    from repro_torch.runtime.serving import ContinuousBatcher, ServingConfig
+    from repro_torch.tree import tree_leaves
+    t0 = time.perf_counter()
+    back = Checkpointer(ckpt_dir).restore(TP_STEPS, {"params": whole})
+    restore_s = time.perf_counter() - t0
+    equal = all(a.dtype == b.dtype and torch.equal(a, b) for a, b in
+                zip(tree_leaves(back["params"]), tree_leaves(whole)))
+    scfg = dataclasses.replace(cfg, kv_bits=8)
+    smodel = build_model(scfg)
+    sc = ServingConfig(n_slots=N_SLOTS, s_max=S_MAX, chunk_size=CHUNK)
+    served = {}
+    for name, p in (("restored", back["params"]), ("gathered", whole)):
+        sp = to_serving(p, scfg, tp=1)
+        served[name] = _serve_probed(ContinuousBatcher(smodel, sp, sc),
+                                     _requests(scfg, MESH_REQ, MESH_GEN))
+        del sp
+    del back
+    torch.cuda.empty_cache()
+    return {"restore_s": restore_s, "restored_equal": equal,
+            "streams": {k: v[0] for k, v in served.items()},
+            "launches": served["restored"][1][0]}
+
+
+def _pipeline(mesh, cfg):
+    """One ``pipeline_blocks`` call over the model axis (2 stages, fp32,
+    PIPE_LAYERS periods, PIPE_MICRO microbatches) and the sequential
+    period stack on the same blocks and input: the largest gap, the
+    sends and receives."""
+    import torch
+    from repro_torch.models import build_model
+    from repro_torch.models import transformer as tfm
+    from repro_torch.parallel import comm
+    from repro_torch.parallel.pipeline import pipeline_blocks
+    gen = torch.Generator(device=mesh.device).manual_seed(28)
+    blocks = build_model(cfg).init(gen, mesh.device)["blocks"]
+    x = torch.randn((TRAIN_B, TRAIN_S, cfg.d_model), generator=gen,
+                    device=mesh.device)
+    comm.reset_collective_counts()
+    with torch.no_grad():
+        y = pipeline_blocks(blocks, x, cfg, mesh, axis="model",
+                            n_micro=PIPE_MICRO)
+        p2p = comm.p2p_counts()
+        pos = torch.arange(TRAIN_S, device=x.device)[None].expand(TRAIN_B,
+                                                                 TRAIN_S)
+        h = x
+        for i in range(cfg.n_periods):
+            h, _ = tfm._apply_period(tfm._period(blocks, i), h, cfg, pos)
+    torch.cuda.synchronize()
+    return {"gap": float((y - h).abs().max()), "scale": float(h.abs().max()),
+            "close": bool(torch.allclose(y, h, rtol=PIPE_TOL, atol=PIPE_TOL)),
+            "p2p": p2p}
+
+
+def _rank_4s(world, jobs):
+    """One rank of phase 4s: smollm on a 2,1 mesh of the two ranks (2
+    layers checked, 30 timed), then glm4-9b and the pipeline on ``world``
+    (1,2)."""
+    import torch
+    from repro_torch.launch.mesh import make_mesh
+    m21 = make_mesh(2, 1, device=world.device)
+    out = {"dp": _smollm_dp(m21, jobs["smollm"], MESH_TRAIN_STEPS)}
+    if world.rank:
+        out["dp"].pop("params")
+    torch.cuda.empty_cache()
+    out["full"] = _smollm_full_depth(m21, jobs["smollm30"])
+    torch.cuda.empty_cache()
+    out["tp"] = _glm4_tp(world, jobs["glm4"], jobs["ckpt"])
+    torch.cuda.empty_cache()
+    out["pipe"] = _pipeline(world, jobs["pipe"])
+    torch.cuda.synchronize()
+    return out
+
+
+def phase_mesh_train(device, card, tmp: str, trained: dict) -> None:
+    """4s: training over meshes of two ranks sharing the card (gloo):
+    pure-DP smollm-135m 2xT (2,1: 2 layers against the one-rank run on the
+    same batches, replicas equal after every step; 30 layers timed),
+    tensor-parallel glm4-9b 2xT (1,2: 2 layers, its checkpoint restored on
+    one rank and served), the GPipe stack on 2 stages."""
+    import numpy as np
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.launch.mesh import parse_mesh, spawn
+    from repro_torch.launch.steps import make_train_step
+    from repro_torch.models import build_model
+    from repro_torch.optim import make_optimizer
+    from repro_torch.tree import tree_leaves
+    t0 = time.time()
+    print("== 4s. training over a mesh of ranks: two ranks on "
+          f"{torch.cuda.device_count()} card(s) over gloo", flush=True)
+    small = dataclasses.replace(model_config(precision="2xT"),
+                                n_layers=TRAIN_LAYERS)
+    # the one-rank run: launch.train's params and batches (phase 4q's)
+    model, opt = build_model(small), make_optimizer("adamw", lr=TRAIN_LR)
+    params = model.init(torch.Generator().manual_seed(0), device)
+    state = opt.init(params)
+    params, _, one = _timed_steps(make_train_step(model, opt), params, state,
+                                  _train_batches(small, device,
+                                                 MESH_TRAIN_STEPS))
+    one_params = [t.cpu() for t in tree_leaves(params)]
+    del params, state, _
+    same = [r["loss"] for r in one] == trained["losses"][:MESH_TRAIN_STEPS]
+    print(f"4s one-rank run (phase 4q's params and batches): losses "
+          f"{[r['loss'] for r in one]}, equal to phase 4q's launch.train "
+          f"run's first {MESH_TRAIN_STEPS}: {same}")
+    glm4 = dataclasses.replace(get_config("glm4-9b", precision="2xT"),
+                               n_layers=WIDE_LAYERS)
+    jobs = {"smollm": small, "smollm30": model_config(precision="2xT"),
+            "glm4": glm4, "ckpt": str(Path(tmp) / "tp_ckpt"),
+            "pipe": dataclasses.replace(model_config(precision="fp32"),
+                                        n_layers=PIPE_LAYERS,
+                                        dtype="float32")}
+    torch.cuda.empty_cache()
+    # the ranks' caching allocators share the card: segments that grow in
+    # place keep the two from stranding each other's free memory
+    alloc = os.environ.get("PYTORCH_CUDA_ALLOC_CONF")
+    os.environ["PYTORCH_CUDA_ALLOC_CONF"] = "expandable_segments:True"
+    try:
+        ranks = spawn(_rank_4s, parse_mesh("1,2"), jobs, device="cuda")
+    finally:
+        if alloc is None:
+            os.environ.pop("PYTORCH_CUDA_ALLOC_CONF")
+        else:
+            os.environ["PYTORCH_CUDA_ALLOC_CONF"] = alloc
+
+    # pure DP
+    dp = [r["dp"] for r in ranks]
+    for i in range(MESH_TRAIN_STEPS):
+        r0, o = dp[0]["recs"][i], one[i]
+        losses = [d["recs"][i]["loss"] for d in dp]
+        print(f"[{card}] 4s smollm 2xT 2,1 step {i}: loss {losses} (one rank "
+              f"{o['loss']:.6f}, gap {abs(r0['loss'] - o['loss']) / abs(o['loss']):.3e} "
+              f"rel), grad norm {r0['grad_norm']:.6g} (one rank "
+              f"{o['grad_norm']:.6g}); replicas torch.equal: "
+              f"{[d['recs'][i]['equal'] for d in dp]}; wall per rank "
+              f"{[round(d['recs'][i]['ms'], 2) for d in dp]} ms (one rank "
+              f"{o['ms']:.2f}); collectives {r0['colls']}, backward "
+              f"{r0['backward']}")
+        check(all(d["recs"][i]["equal"] for d in dp),
+              f"4s smollm 2,1 step {i}: the replicas differ")
+        check(len(set(losses)) == 1 and np.isfinite(losses[0]),
+              f"4s smollm 2,1 step {i}: losses {losses}")
+    ulps = torch.cat([_ulps(a, b).reshape(-1)
+                      for a, b in zip(dp[0]["params"], one_params)])
+    n_small = ulps.numel()
+    absgap = max(float((a.float() - b.float()).abs().max())
+                 for a, b in zip(dp[0]["params"], one_params))
+    within = {u: float((ulps <= u).sum()) / n_small for u in (0, 1, 4)}
+    print(f"[{card}] 4s smollm 2,1 after {MESH_TRAIN_STEPS} steps, params "
+          f"against the one-rank run's, in ulps of each leaf's dtype (bf16; "
+          f"f32 norm gains): largest "
+          f"{int(ulps.max())} ({absgap:.3e} absolute), 99.9th percentile "
+          f"{int(torch.quantile(ulps[::97].float(), 0.999))}; the share of "
+          f"entries within 0 / 1 / 4 ulps "
+          f"{' / '.join(f'{v:.4f}' for v in within.values())}; "
+          "gradient bucket "
+          f"{4 * (n_small + 1) / 1e6:.1f} MB ({n_small} f32 values + the "
+          f"loss); peak per rank {[round(d['peak'] / 1e9, 3) for d in dp]} "
+          "GB (max_memory_allocated)")
+    full = [r["full"] for r in ranks]
+    p50s = [statistics.median(x["ms"] for x in f["recs"][1:]) for f in full]
+    print(f"[{card}] 4s smollm-135m 2xT 30 layers on 2,1 ({TRAIN_B // 2} x "
+          f"{TRAIN_S} a rank): step wall p50 per rank "
+          f"{[round(p, 2) for p in p50s]} ms over {MESH_FULL_STEPS} steps "
+          f"(one rank, 4q: {trained['full_p50']:.2f} ms at {TRAIN_B} x "
+          f"{TRAIN_S}); collectives a step {full[0]['recs'][1]['colls']}; "
+          f"bucket {full[0]['bucket_bytes'] / 1e6:.1f} MB; peak per rank "
+          f"{[round(f['peak'] / 1e9, 3) for f in full]} GB")
+    check(all(np.isfinite(f["recs"][1]["loss"]) for f in full),
+          "4s 30-layer loss")
+
+    # tensor parallel
+    tp = [r["tp"] for r in ranks]
+    for i in range(TP_STEPS):
+        recs = [t["recs"][i] for t in tp]
+        print(f"[{card}] 4s glm4-9b 2xT {WIDE_LAYERS} layers 1,2 step {i} "
+              f"({TP_B} x {TP_S}, {TP_OPTIMIZER}): loss {[r['loss'] for r in recs]}, grad "
+              f"norm {recs[0]['grad_norm']:.6g}; wall per rank "
+              f"{[round(r['ms'], 2) for r in recs]} ms; collectives "
+              f"{recs[0]['colls']}, of them backward {recs[0]['backward']}")
+        check(len({r["loss"] for r in recs}) == 1
+              and np.isfinite(recs[0]["loss"]),
+              f"4s glm4 step {i}: losses {[r['loss'] for r in recs]}")
+    t_ = tp[0]
+    print(f"[{card}] 4s glm4 1,2: peak per rank "
+          f"{[round(t['peak'] / 1e9, 3) for t in tp]} GB; checkpoint saved "
+          f"in {t_['save_s']:.1f} s (each rank its slices), restored on one "
+          f"rank in {t_['restore_s']:.1f} s, torch.equal to the gathered "
+          f"params: {t_['restored_equal']}; served {MESH_REQ} x {MESH_GEN}, "
+          f"tokens equal to the gathered params': "
+          f"{t_['streams']['restored'] == t_['streams']['gathered']}; "
+          f"launches a decode step {t_['launches']}")
+    check(t_["restored_equal"], "4s: the restored checkpoint differs from "
+          "the gathered params")
+    check(t_["streams"]["restored"] == t_["streams"]["gathered"],
+          "4s: the restored checkpoint serves other tokens")
+    _check_counts("4s restored glm4 decode step", t_["launches"],
+                  {"ternary_matmul": 7 * WIDE_LAYERS,
+                   "act_quant_signed_grouped": 7 * WIDE_LAYERS,
+                   "decode_attention": WIDE_LAYERS})
+
+    # the pipeline
+    for r, res in enumerate(ranks):
+        p = res["pipe"]
+        print(f"[{card}] 4s pipeline_blocks, 2 stages, {PIPE_LAYERS} fp32 "
+              f"periods of smollm, {PIPE_MICRO} microbatches, rank {r}: max "
+              f"|y - sequential| {p['gap']:.3e} (max|y| {p['scale']:.3e}, "
+              f"bound {PIPE_TOL}); {p['p2p']}")
+        check(p["close"], f"4s pipeline rank {r}: gap {p['gap']}")
+    print(f"phase 4s: {time.time() - t0:.1f} s")
 
 
 # ---------------------------------------------------------------------------
@@ -5105,8 +5508,9 @@ def _main(torch, tmp: str) -> None:
     phase_speculative(device, card)
     phase_families(device, card)
     phase_encdec(device, card)
-    phase_train(device, card, tmp)
+    trained = phase_train(device, card, tmp)
     phase_mesh(device, card)
+    phase_mesh_train(device, card, tmp, trained)
     launches.update(paged_attention=paged_launches["paged_attention"],
                     fused_decode=fused_launches["fused_decode"],
                     binary_matmul=xnor_launches["binary_matmul"],

@@ -73,11 +73,16 @@ def _round_ste(x: torch.Tensor) -> torch.Tensor:
     return x + (torch.round(x) - x).detach()
 
 
-def act_fake_quant(x: torch.Tensor, cfg: PrecisionConfig) -> torch.Tensor:
+def act_fake_quant(x: torch.Tensor, cfg: PrecisionConfig,
+                   reduce=None) -> torch.Tensor:
     """Fake-quantized activations with STE, for QAT and the plain paths:
     unsigned eq. (4) levels, signed k-bit with a per-tensor absmax scale
     (no gradient through the scale), or sign(x) at 1 bit, whose gradient
-    is zero, as the reference's ``sign(x) + stop_gradient(0 x)``."""
+    is zero, as the reference's ``sign(x) + stop_gradient(0 x)``.
+
+    ``reduce``: the mesh axis (``parallel.comm.Axis``) ``x`` is split over
+    (its rows, or its K): the absmax is the max over the axis of each
+    rank's, so the scale is the whole tensor's."""
     if cfg.a_mode == A_FLOAT:
         return x
     bits = cfg.a_bits
@@ -88,7 +93,10 @@ def act_fake_quant(x: torch.Tensor, cfg: PrecisionConfig) -> torch.Tensor:
         if bits == 1:
             return torch.sign(x) + 0.0 * x          # XNOR-net binary activations
         qmax = (1 << (bits - 1)) - 1
-        scale = x.abs().amax().clamp_min(1e-8).detach() / qmax
+        amax = x.abs().amax().detach()
+        if reduce is not None:
+            amax = reduce.all_reduce_max(amax)
+        scale = amax.clamp_min(1e-8) / qmax
         return _round_ste(_clip(x / scale, -qmax, qmax)) * scale
     raise ValueError(cfg.a_mode)
 
@@ -121,11 +129,44 @@ def int_quant(w: torch.Tensor, bits: int, axis=0) -> tuple[torch.Tensor, torch.T
     return codes, scale.to(torch.float32)
 
 
-def weight_quant(w: torch.Tensor, cfg: PrecisionConfig, axis=0
+def _split_quant(w: torch.Tensor, cfg: PrecisionConfig, axis: int, reduce
                  ) -> tuple[torch.Tensor, torch.Tensor]:
-    """Dispatch by config.  Returns (int8 codes, float32 per-channel scale)."""
+    """:func:`weight_quant` of a weight whose reduction ``axis`` (its K) is
+    split over the mesh axis ``reduce``: each per-channel statistic is the
+    sum (the max for ints) over the axis of each rank's, so codes and scale
+    are the whole weight's (within the sums' rounding)."""
+    a = w.abs()
+    n = w.shape[axis] * reduce.size
+    if cfg.w_mode == W_INT:
+        qmax = (1 << (cfg.w_bits - 1)) - 1
+        absmax = reduce.all_reduce_max(a.amax(dim=axis, keepdim=True))
+        scale = absmax.clamp_min(1e-8) / qmax
+        codes = torch.clamp(torch.round(w / scale), -qmax, qmax)
+        return codes.to(torch.int8), scale.to(torch.float32)
+    mean = reduce.all_reduce_sum(a.sum(dim=axis, keepdim=True)) / n
+    if cfg.w_mode == W_BINARY:
+        return torch.where(w >= 0, 1, -1).to(torch.int8), \
+            mean.to(torch.float32)
+    if cfg.w_mode != W_TERNARY:
+        raise ValueError(cfg.w_mode)
+    mask = a > 0.7 * mean
+    sums = reduce.all_reduce_sum(torch.stack([
+        mask.sum(dim=axis, keepdim=True).to(a.dtype),
+        (a * mask).sum(dim=axis, keepdim=True)]))
+    alpha = sums[1] / sums[0].clamp_min(1)
+    codes = torch.where(mask, torch.sign(w), torch.zeros_like(w))
+    return codes.to(torch.int8), alpha.to(torch.float32)
+
+
+def weight_quant(w: torch.Tensor, cfg: PrecisionConfig, axis=0, reduce=None
+                 ) -> tuple[torch.Tensor, torch.Tensor]:
+    """Dispatch by config.  Returns (int8 codes, float32 per-channel scale).
+    ``reduce``: the mesh axis ``w``'s reduction ``axis`` is split over
+    (:func:`_split_quant`)."""
     if cfg.w_mode == W_FLOAT:
         raise ValueError("float weights are not quantized")
+    if reduce is not None and reduce.size > 1:
+        return _split_quant(w, cfg, axis, reduce)
     if cfg.w_mode == W_TERNARY:
         return ternary_quant(w, axis=axis)
     if cfg.w_mode == W_BINARY:
@@ -135,12 +176,13 @@ def weight_quant(w: torch.Tensor, cfg: PrecisionConfig, axis=0
     raise ValueError(cfg.w_mode)
 
 
-def weight_fake_quant(w: torch.Tensor, cfg: PrecisionConfig, axis=0
-                      ) -> torch.Tensor:
+def weight_fake_quant(w: torch.Tensor, cfg: PrecisionConfig, axis=0,
+                      reduce=None) -> torch.Tensor:
     """Quantize -> dequantize weights with STE (the QAT forward, identity
-    gradient; float configs pass through)."""
+    gradient; float configs pass through).  ``reduce``: as
+    :func:`weight_quant`'s."""
     if cfg.w_mode == W_FLOAT:
         return w
-    codes, alpha = weight_quant(w.detach(), cfg, axis=axis)
+    codes, alpha = weight_quant(w.detach(), cfg, axis=axis, reduce=reduce)
     wq = codes.to(w.dtype) * alpha.to(w.dtype)
     return w + (wq - w).detach()

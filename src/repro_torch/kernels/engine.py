@@ -586,14 +586,17 @@ def record_plain(op: str, kind: str, x: torch.Tensor,
 
 
 def fake_quant_dot(x: torch.Tensor, w: torch.Tensor, cfg: PrecisionConfig, *,
-                   axis=0) -> torch.Tensor:
+                   axis=0, reduce=None) -> torch.Tensor:
     """QAT-form ``x @ fake_quant(w)`` — the float counterpart of
     :func:`qmatmul`: a float matmul of STE-quantized weights, whose
     gradient reaches ``w`` as the identity (plain PyTorch on every
-    device, as the reference's jnp form)."""
+    device, as the reference's jnp form).  ``reduce``: the mesh axis
+    ``w``'s K is split over (a row-parallel projection's partial product;
+    the caller sums it), whose statistics the quantizer takes whole."""
     if cfg.w_mode == W_FLOAT:
         return x @ w.to(x.dtype)
-    wq = weight_fake_quant(w.to(torch.float32), cfg, axis=axis).to(x.dtype)
+    wq = weight_fake_quant(w.to(torch.float32), cfg, axis=axis,
+                           reduce=reduce).to(x.dtype)
     return x @ wq
 
 

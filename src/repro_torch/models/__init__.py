@@ -5,7 +5,7 @@ stub frontend's embeddings) and the enc-dec backbone:
 
     model.init(generator, device)                      -> params
     model.forward(params, batch)                       -> (logits, aux)
-    model.loss(params, batch)                          -> scalar
+    model.loss(params, batch, shard=None)              -> scalar
     model.prefill(params, batch, s_max)                -> (logits, cache)
     model.prefill_chunk(params, tokens, cache, pos)    -> (logits, cache)
     model.decode_step(params, token, cache, pos)       -> (logits, cache)
@@ -25,11 +25,12 @@ the embeds frontend (whose decode step takes (B, 1, D) embeddings), plus
 ``loss``; :func:`make_batch` draws one from a generator.
 Every call takes an optional ``backend`` ("cuda" | "torch"); None picks by
 the device of the inputs.  The token-LM calls also take ``shard`` (a
-``parallel.comm.StepSharding``; None on one device), as the batchers pass
-it over a mesh.  ``forward`` and ``loss`` are differentiable
-with float params: ``loss.backward()`` gives the reference's
-``jax.grad(model.loss)`` (straight-through fake-quant at a quantized
-precision; ``launch.steps.make_train_step`` trains on it).
+``parallel.comm.StepSharding``; None on one device), as the batchers and
+the train step pass it over a mesh.  ``forward`` and ``loss`` are
+differentiable with float params: ``loss.backward()`` gives the
+reference's ``jax.grad(model.loss)`` (straight-through fake-quant at a
+quantized precision; ``launch.steps.make_train_step`` trains on it, on
+one device or over a mesh).
 """
 from __future__ import annotations
 
@@ -63,14 +64,41 @@ class Model:
     # page_table, pos (B,), kv_bits) -> (logits (B, W, V), pool)
     decode_window_paged: Callable | None = None
 
-    def loss(self, params, batch, backend=None):
+    def loss(self, params, batch, backend=None, shard=None):
         """Next-token NLL of ``batch["labels"]`` under the forward's logits,
-        averaged over (B, S-1), plus 0.01 * aux."""
-        logits, aux = self.forward(params, batch, backend=backend)
-        logp = torch.log_softmax(logits[:, :-1].to(torch.float32), dim=-1)
+        averaged over (B, S-1), plus 0.01 * aux.
+
+        ``shard`` (a token LM over a mesh): ``batch`` holds this rank's
+        rows, whose NLL mean this is (a train step averages the ranks');
+        vocabulary-sharded logits stay this rank's slice, the NLL taken
+        vocabulary-parallel (:func:`_vocab_parallel_nll`)."""
+        kw = {} if shard is None else {"shard": shard, "gather": False}
+        logits, aux = self.forward(params, batch, backend=backend, **kw)
         tgt = batch["labels"][:, 1:].to(torch.int64)
-        nll = -torch.gather(logp, -1, tgt[..., None])[..., 0]
+        logits = logits[:, :-1].to(torch.float32)
+        if logits.shape[-1] != self.cfg.padded_vocab:
+            nll = _vocab_parallel_nll(logits, tgt, shard.tp)
+        else:
+            logp = torch.log_softmax(logits, dim=-1)
+            nll = -torch.gather(logp, -1, tgt[..., None])[..., 0]
         return nll.mean() + 0.01 * aux
+
+
+def _vocab_parallel_nll(logits, tgt, tp):
+    """-log softmax(logits)[tgt] of logits cut over the vocabulary (this
+    rank's ``logits.shape[-1]`` columns at ``tp.index``) without gathering
+    them: the rows' max over the axis (a stabilizer, no gradient), then the
+    sum of exp and the target's logit summed over the axis in one
+    all-reduce."""
+    v = logits.shape[-1]
+    m = tp.all_reduce_max(logits.detach().amax(dim=-1, keepdim=True))
+    local = tgt - tp.index * v
+    mine = (local >= 0) & (local < v)
+    picked = torch.gather(logits, -1, local.clamp(0, v - 1)[..., None])[..., 0]
+    sumexp, target = tp.all_reduce_sum(torch.stack([
+        torch.exp(logits - m).sum(dim=-1),
+        torch.where(mine, picked, torch.zeros_like(picked))]))
+    return torch.log(sumexp) + m[..., 0] - target
 
 
 def _lm_inputs(batch, cfg: ModelConfig):
@@ -97,8 +125,9 @@ def build_model(cfg: ModelConfig) -> Model:
         cfg=cfg,
         init=lambda generator, device: transformer.init_params(
             cfg, generator, device),
-        forward=lambda p, b, backend=None, shard=None: transformer.forward(
-            p, _lm_inputs(b, cfg), cfg, backend=backend, shard=shard),
+        forward=lambda p, b, backend=None, shard=None, gather=True:
+            transformer.forward(p, _lm_inputs(b, cfg), cfg, backend=backend,
+                                shard=shard, gather=gather),
         prefill=lambda p, b, s_max, backend=None, shard=None:
             transformer.prefill(p, _lm_inputs(b, cfg), cfg, s_max,
                                 backend=backend, shard=shard),

@@ -65,7 +65,11 @@ def pdtype(cfg: ModelConfig) -> torch.dtype:
 
 
 def _randn(generator: torch.Generator, shape, device) -> torch.Tensor:
-    """Standard normal f32 drawn on the generator's device, then moved."""
+    """Standard normal f32 drawn on the generator's device, then moved; on
+    the meta device an empty tensor of the shape, nothing drawn (the
+    params' global shapes: ``init(generator, "meta")``)."""
+    if torch.device(device).type == "meta":
+        return torch.empty(shape, dtype=torch.float32, device="meta")
     return torch.randn(shape, generator=generator, dtype=torch.float32,
                        device=generator.device).to(device)
 
@@ -79,7 +83,7 @@ def qlinear_init(generator, k: int, n: int, cfg: ModelConfig, device):
 
 
 def qlinear_apply(p, x, cfg: ModelConfig, backend: str | None = None,
-                  reduce=None):
+                  reduce=None, shard=None):
     """x @ W under the model's PrecisionConfig.  Dispatches on param form:
     packed serving weights go through ``engine.qmatmul``; float weights of a
     float config are a plain matmul; float weights of a quantized config
@@ -92,7 +96,11 @@ def qlinear_apply(p, x, cfg: ModelConfig, backend: str | None = None,
     weight hold this rank's slice of K): packed weights take
     ``engine.qmatmul``'s split form (the one-rank result bit for bit at
     integer activations), float weights sum their partial products over the
-    axis in f32."""
+    axis in f32 (the fake-quant form with the weight's per-channel
+    statistics and the activation scale taken over the whole K).
+    ``shard``: the call's :class:`~repro_torch.parallel.comm.StepSharding`;
+    in a train step (``global_rows``) the fake-quant activation scale is
+    the max over every rank, the whole global batch's."""
     pcfg = signed(get_precision(cfg.precision))
     if "wt_packed" in p:
         pw = engine.as_packed_weight(p, pcfg)
@@ -100,14 +108,24 @@ def qlinear_apply(p, x, cfg: ModelConfig, backend: str | None = None,
                               reduce=reduce).to(pdtype(cfg))
     if pcfg.w_mode == W_FLOAT:
         out = x @ p["qw"].to(x.dtype)
-        return out if reduce is None else \
-            reduce.all_reduce_sum(out.to(torch.float32)).to(out.dtype)
-    if reduce is not None and reduce.size > 1:
-        raise ValueError("a row-parallel fake-quant (QAT) projection: serve "
-                         "the packed form (to_serving) over a mesh")
-    if pcfg.a_mode != A_FLOAT:
-        x = act_fake_quant(x.to(torch.float32), pcfg).to(x.dtype)
-    return engine.fake_quant_dot(x, p["qw"], pcfg, axis=0)
+    else:
+        if pcfg.a_mode != A_FLOAT:
+            every = shard.every() if shard is not None and \
+                shard.global_rows else reduce
+            kw = {} if every is None else {"reduce": every}
+            x = act_fake_quant(x.to(torch.float32), pcfg, **kw).to(x.dtype)
+        out = engine.fake_quant_dot(x, p["qw"], pcfg, axis=0, reduce=reduce)
+    return out if reduce is None else \
+        reduce.all_reduce_sum(out.to(torch.float32)).to(out.dtype)
+
+
+def _column_split(shard, p, full_n: int):
+    """The model axis when projection ``p`` holds a column slice of its
+    ``full_n`` outputs (``param_specs`` cut its N), else None."""
+    if shard is None or shard.tp is None or shard.tp.size == 1:
+        return None
+    n = p["qw"].shape[-1] if "qw" in p else p["wt_packed"].shape[-2]
+    return shard.tp if n != full_n else None
 
 
 def _row_parallel(shard, x, full_k: int):
@@ -341,15 +359,24 @@ def _attend_all(q, k, v, cfg: ModelConfig, backend: str | None):
     return _attend(q, k, v, mask, cfg)
 
 
-def _project_qkv(p, x, cfg: ModelConfig, positions, backend):
+def _project_qkv(p, x, cfg: ModelConfig, positions, backend, shard=None):
     """Normed x through wq/wk/wv, with RoPE: q (B, S, H, Dh), k and v
     (B, S, KV, Dh), with H and KV this rank's heads (every head on one
-    device)."""
+    device).  Under tensor parallelism the normed x enters the
+    column-parallel projections (``Axis.enter``); where the query heads are
+    cut and the KV heads whole, k and v enter instead (this rank's groups
+    use some of their heads)."""
     b, dh = x.shape[0], cfg.dh
     xn = rmsnorm(p["norm"], x, cfg.norm_eps)
-    q = qlinear_apply(p["wq"], xn, cfg, backend)
-    k = qlinear_apply(p["wk"], xn, cfg, backend)
-    v = qlinear_apply(p["wv"], xn, cfg, backend)
+    q_split = _column_split(shard, p["wq"], cfg.n_heads * dh)
+    kv_split = _column_split(shard, p["wk"], cfg.n_kv_heads * dh)
+    xs = q_split.enter(xn) if q_split is not None else xn
+    q = qlinear_apply(p["wq"], xs, cfg, backend, shard=shard)
+    xkv = xs if kv_split is not None else xn
+    k = qlinear_apply(p["wk"], xkv, cfg, backend, shard=shard)
+    v = qlinear_apply(p["wv"], xkv, cfg, backend, shard=shard)
+    if q_split is not None and kv_split is None:
+        k, v = q_split.enter(k), q_split.enter(v)
     q = q.reshape(b, -1, q.shape[-1] // dh, dh)
     k = k.reshape(b, -1, k.shape[-1] // dh, dh)
     v = v.reshape(b, -1, v.shape[-1] // dh, dh)
@@ -395,7 +422,7 @@ def attn_apply(p, x, cfg: ModelConfig, positions, *, local: bool,
     cache_pos is an int or a (B,) per-slot position tensor.
     Returns (out, cache_or_kv)."""
     b, dh = x.shape[0], cfg.dh
-    q, k, v = _project_qkv(p, x, cfg, positions, backend)
+    q, k, v = _project_qkv(p, x, cfg, positions, backend, shard)
     h, kvh = q.shape[2], k.shape[2]
     lo, hi = _kv_span(shard, cfg, h, kvh)
     bits = cfg.kv_bits
@@ -459,7 +486,8 @@ def attn_apply(p, x, cfg: ModelConfig, positions, *, local: bool,
                           cfg)
 
     out = qlinear_apply(p["wo"], out, cfg, backend,
-                        _row_parallel(shard, out, cfg.n_heads * dh))
+                        _row_parallel(shard, out, cfg.n_heads * dh),
+                        shard=shard)
     return _post_norm(p, out, cfg), new
 
 
@@ -617,14 +645,17 @@ def ffn_init(generator, cfg: ModelConfig, device, gated: bool = True):
 def ffn_apply(p, x, cfg: ModelConfig, backend: str | None = None,
               shard=None):
     xn = rmsnorm(p["norm"], x, cfg.norm_eps)
-    up = qlinear_apply(p["w_up"], xn, cfg, backend)
+    split = _column_split(shard, p["w_up"], cfg.d_ff)
+    if split is not None:
+        xn = split.enter(xn)
+    up = qlinear_apply(p["w_up"], xn, cfg, backend, shard=shard)
     if "w_gate" in p:
-        up = _act(qlinear_apply(p["w_gate"], xn, cfg, backend),
+        up = _act(qlinear_apply(p["w_gate"], xn, cfg, backend, shard=shard),
                   cfg.act_fn) * up
     else:
         up = _act(up, cfg.act_fn)
     down = qlinear_apply(p["w_down"], up, cfg, backend,
-                         _row_parallel(shard, up, cfg.d_ff))
+                         _row_parallel(shard, up, cfg.d_ff), shard=shard)
     return _post_norm(p, down, cfg)
 
 
@@ -664,7 +695,7 @@ def _n_experts_held(p) -> int:
 
 
 def moe_partial(p, x, cfg: ModelConfig, backend: str | None = None, *,
-                first_expert: int = 0):
+                first_expert: int = 0, enter=None):
     """The slot-map MoE over the experts held in ``p``, numbered from
     ``first_expert`` (all of them on one device): returns (out, probs,
     top_i), ``out`` (T, D) f32 the tokens' gated outputs summed over the
@@ -677,7 +708,13 @@ def moe_partial(p, x, cfg: ModelConfig, backend: str | None = None, *,
     slots included).  Over-capacity entries are dropped.  Each token's
     expert outputs are summed in ascending expert order, one add at a time
     (the order of the reference's scatter-add on XLA's CPU), never by
-    atomics."""
+    atomics.
+
+    ``enter``: the model axis the experts are cut over, under autograd:
+    the normed tokens and the gate weights (replicated) enter the held
+    experts through ``Axis.enter``, whose backward sums their cotangents
+    over the axis (each rank holds its experts' part); the router's
+    load-balance path stays replicated."""
     b, s, d = x.shape
     t = b * s
     e, k = cfg.n_experts, cfg.top_k
@@ -706,6 +743,8 @@ def moe_partial(p, x, cfg: ModelConfig, backend: str | None = None, *,
     held = slice(first_expert, first_expert + e_held)
 
     x_pad = torch.cat([xin, xin.new_zeros((1, d))])
+    if enter is not None:
+        x_pad, gate_map = enter.enter(x_pad), enter.enter(gate_map)
     buf = x_pad[tok_map[held]]                                    # (Eh, cap, D)
     h = _act(_expert_matmul(p["w_gate"], buf, cfg, backend), cfg.act_fn) * \
         _expert_matmul(p["w_up"], buf, cfg, backend)
@@ -742,17 +781,28 @@ def moe_apply(p, x, cfg: ModelConfig, backend: str | None = None,
     gathered first when the call's rows are split), computes this rank's
     experts and sums the partial outputs over the model axis.  Without
     tensor parallelism (one device, or pure DP: ``shard.tp`` None) the call
-    routes its own rows, as the reference's shard-local pure-DP step."""
+    routes its own rows, as the reference's shard-local pure-DP step; in a
+    train step (``shard.global_rows``) every mesh gathers the rows, so the
+    capacity and the load-balance terms are the global batch's, as the
+    reference's one-device step computes them (the gather's backward sums
+    the rows' cotangents over the row axes)."""
     tp = None if shard is None else shard.tp
     if tp is not None and cfg.moe_impl == "shard_map":
+        if shard.global_rows:
+            raise NotImplementedError(
+                f"{cfg.name}: training over a mesh routes through the global "
+                "slot map (moe_impl='pjit'); the expert-parallel shard_map "
+                "MoE's per-shard capacity is not the one-device step's")
         from repro_torch.parallel.moe_shard_map import moe_apply_shard_map
         return moe_apply_shard_map(p, x, cfg, shard, backend=backend)
     e_held = _n_experts_held(p)
     split = tp is not None and e_held < cfg.n_experts
-    rows = shard.rows if tp is not None else None
-    xg = x if rows is None else rows.all_gather(x, dim=0)
+    rows = shard.rows if tp is not None or \
+        (shard is not None and shard.global_rows) else None
+    xg = x if rows is None else rows.all_gather(x, dim=0, reduce_grad=True)
     out, probs, top_i = moe_partial(
-        p, xg, cfg, backend, first_expert=tp.index * e_held if split else 0)
+        p, xg, cfg, backend, first_expert=tp.index * e_held if split else 0,
+        enter=tp if split else None)
     if split:
         out = tp.all_reduce_sum(out)
     b, s, d = xg.shape
@@ -868,7 +918,7 @@ def mamba_apply(p, x, cfg: ModelConfig, state=None,
     b = x.shape[0]
     di, n, r = cfg.d_inner, cfg.ssm_state, cfg.dt_rank_
     xn = rmsnorm(p["norm"], x, cfg.norm_eps)
-    xz = qlinear_apply(p["w_in"], xn, cfg, backend)
+    xz = qlinear_apply(p["w_in"], xn, cfg, backend, shard=shard)
     xs, z = xz.chunk(2, dim=-1)                                # (B,S,Di) each
 
     conv_state = state["conv"] if state is not None else None
@@ -876,10 +926,11 @@ def mamba_apply(p, x, cfg: ModelConfig, state=None,
                                 p["conv_b"], conv_state)
     xs = F.silu(xs.to(torch.float32)).to(x.dtype)
 
-    dbc = qlinear_apply(p["w_x"], xs, cfg, backend)
+    dbc = qlinear_apply(p["w_x"], xs, cfg, backend, shard=shard)
     dt_r, b_, c_ = torch.split(dbc, [r, n, n], dim=-1)
-    dt = F.softplus(qlinear_apply(p["w_dt"], dt_r, cfg, backend
-                                  ).to(torch.float32) + p["dt_bias"])
+    dt = F.softplus(qlinear_apply(p["w_dt"], dt_r, cfg, backend,
+                                  shard=shard).to(torch.float32)
+                    + p["dt_bias"])
     a_mat = -torch.exp(p["A_log"])                             # (Di,N)
 
     scan = state is None or xs.shape[1] > 1
@@ -902,7 +953,7 @@ def mamba_apply(p, x, cfg: ModelConfig, state=None,
 
     y = y + p["D"] * xs.to(torch.float32)
     y = (y * F.silu(z.to(torch.float32))).to(x.dtype)
-    out = qlinear_apply(p["w_out"], y, cfg, backend)
+    out = qlinear_apply(p["w_out"], y, cfg, backend, shard=shard)
     new_state = None
     if state is not None or xs.shape[1] > 1:
         new_state = {"conv": new_conv if new_conv is not None else

@@ -165,16 +165,20 @@ def _embed(params, inputs, cfg: ModelConfig, shard=None):
     return x
 
 
-def _logits(params, x, cfg: ModelConfig, shard=None):
+def _logits(params, x, cfg: ModelConfig, shard=None, gather: bool = True):
     """f32 logits; the classifier stays at full precision (paper/WRPN
     convention), tied to the embedding or a float ``lm_head``; gemma2's
     final softcap after the f32 cast.  A vocabulary-sharded classifier's
-    logits are all-gathered over the model axis."""
+    logits are all-gathered over the model axis (this rank's vocabulary
+    slice without ``gather``), the normed x entering it (``Axis.enter``)."""
     xn = L.rmsnorm(params["final_norm"], x, cfg.norm_eps)
     w = params["embed"]["w"].T if cfg.tie_embeddings else params["lm_head"]["qw"]
+    split = shard is not None and shard.tp is not None and \
+        w.shape[-1] != cfg.padded_vocab
+    if split:
+        xn = shard.tp.enter(xn)
     logits = (xn @ w.to(xn.dtype)).to(torch.float32)
-    if shard is not None and shard.tp is not None and \
-            logits.shape[-1] != cfg.padded_vocab:
+    if split and gather:
         logits = shard.tp.all_gather(logits, dim=-1)
     if cfg.final_softcap > 0:
         logits = cfg.final_softcap * torch.tanh(logits / cfg.final_softcap)
@@ -220,11 +224,14 @@ def make_cache(cfg: ModelConfig, b: int, s_max: int, device, mesh=None):
                                           allow_sp=False), mesh, device)
 
 
-def forward(params, tokens, cfg: ModelConfig, backend=None, shard=None):
+def forward(params, tokens, cfg: ModelConfig, backend=None, shard=None,
+            gather: bool = True):
     """The forward of a whole sequence (B, S) (or (B, S, D) embeds), no
     cache: logits (B, S, V) f32 and the auxiliary loss (the MoE layers'
     load-balance terms summed, an f32 scalar; 0.0 with no MoE layer).
-    Forward value only; gradients come with the training slice."""
+    Differentiable, over a mesh too (the collectives carry gradients);
+    ``gather=False`` leaves vocabulary-sharded logits as this rank's
+    slice (``Model.loss``'s vocabulary-parallel form)."""
     b, s = tokens.shape[:2]
     x = _embed(params, tokens, cfg, shard)
     positions = torch.arange(s, device=tokens.device)[None].expand(b, s)
@@ -233,7 +240,7 @@ def forward(params, tokens, cfg: ModelConfig, backend=None, shard=None):
         x, a = _apply_period(_period(params["blocks"], per), x, cfg,
                              positions, backend=backend, shard=shard)
         aux = aux + a
-    return _logits(params, x, cfg, shard), torch.as_tensor(
+    return _logits(params, x, cfg, shard, gather), torch.as_tensor(
         aux, dtype=torch.float32, device=tokens.device)
 
 

@@ -1,28 +1,52 @@
-"""The collectives of sharded serving — what XLA's SPMD partitioner inserts
-into the reference's sharded step functions, written out and counted.
+"""The collectives of sharded serving and training — what XLA's SPMD
+partitioner inserts into the reference's sharded step functions (and into
+their ``jax.grad``), written out and counted.
 
 A rank's view of one mesh axis (or of several, flattened row-major) is an
 :class:`Axis`: its size, the rank's index along it and the process group of
 the ranks that share every other coordinate.  A model call learns how its
 work is split from a :class:`StepSharding` (the model axis where tensor
 parallelism applies, the axes its rows are split over), which the batchers
-pass down with each call as they pass ``backend``.
+and the train step pass down with each call as they pass ``backend``.
 
-Four operations, each counted in :func:`collective_counts` (beside the
+Four collectives, each counted in :func:`collective_counts` (beside the
 kernels' ``engine.launch_counts``) where it crosses ranks; an axis of size
 1 is the identity and counts nothing:
 
   * ``all_reduce_sum`` — the row-parallel projections' partial products,
-    the vocabulary-sharded embedding lookup, the MoE partial outputs;
-  * ``all_reduce_max`` — a K-sharded row's activation scale;
+    the vocabulary-sharded embedding lookup, the MoE partial outputs, a
+    train step's gradient bucket;
+  * ``all_reduce_max`` — an activation scale over a split tensor;
   * ``all_gather`` — vocabulary-sharded logits, the next-token vector of a
-    batch split over data;
-  * ``broadcast``.
+    batch split over data, the rows of the MoE's global slot map;
+  * ``broadcast``;
+
+and point-to-point ``send`` / ``recv`` (the pipeline's stage-to-stage
+activations), counted in :func:`p2p_counts`.
+
+Under autograd the collectives carry gradients, Megatron's f/g pair (what
+XLA's partitioner puts into the reference's ``jax.grad`` of a sharded
+step).  The ranks of a model axis compute one replicated objective, so the
+cotangent of a tensor replicated over that axis is the same on each rank:
+
+  * ``all_reduce_sum`` (g): backward is the identity;
+  * ``all_gather``: backward takes this rank's slice of the cotangent, or,
+    with ``reduce_grad`` (ranks that each hold their own objective: a train
+    step's rows), the slice of its sum over the axis;
+  * :meth:`Axis.enter` (f): the identity, whose backward sums the
+    cotangent over the axis — where a replicated tensor enters a region
+    split over the axis (a column-parallel projection, the experts held
+    here), whose cotangent each rank holds only its part of.
+
+``all_reduce_max`` and ``broadcast`` carry no gradient (the activation
+scale they serve is detached in both packages).  A collective made in a
+backward pass is counted in :func:`collective_counts` and also in
+:func:`backward_counts`.
 
 Backends: NCCL when every rank has a card of its own, gloo when ranks share
 a card or run on the CPU (:func:`choose_backend`).  gloo collectives on a
 card's tensors are staged through host memory, one copy each way: gloo has
-no CUDA all-gather, and one staged path serves all four operations.  gloo
+no CUDA all-gather, and one staged path serves every operation.  gloo
 reduces no bfloat16, so bfloat16 tensors travel as float32 there (exact for
 the max and the gather; the sums of this package are float32 already).
 """
@@ -35,20 +59,35 @@ import torch
 import torch.distributed as dist
 
 OPS = ("all_reduce_sum", "all_reduce_max", "all_gather", "broadcast")
+P2P = ("send", "recv")
 
 # collectives since the last reset, by operation: each Axis method adds one
-# where it crosses ranks, and nowhere else
+# where it crosses ranks, and nowhere else; BACKWARD holds those made in a
+# backward pass (counted in COUNTS too)
 COUNTS: collections.Counter = collections.Counter()
+BACKWARD: collections.Counter = collections.Counter()
 
 
 def collective_counts() -> dict[str, int]:
     """Collectives since the last :func:`reset_collective_counts`, by
-    operation."""
+    operation, forward and backward."""
     return {op: COUNTS[op] for op in OPS}
+
+
+def backward_counts() -> dict[str, int]:
+    """The collectives of :func:`collective_counts` made in backward
+    passes."""
+    return {op: BACKWARD[op] for op in OPS}
+
+
+def p2p_counts() -> dict[str, int]:
+    """Point-to-point sends and receives since the last reset."""
+    return {op: COUNTS[op] for op in P2P}
 
 
 def reset_collective_counts() -> None:
     COUNTS.clear()
+    BACKWARD.clear()
 
 
 def choose_backend(device_type: str, n_ranks: int) -> str:
@@ -90,31 +129,52 @@ class Axis:
     def _back(self, w: torch.Tensor, like: torch.Tensor) -> torch.Tensor:
         return w.to(like.device, like.dtype)
 
-    def _reduce(self, t: torch.Tensor, op, name: str) -> torch.Tensor:
-        if self.size == 1:
-            return t
+    def _reduce(self, t: torch.Tensor, op, name: str,
+                backward: bool = False) -> torch.Tensor:
         w = self._wire(t)
         dist.all_reduce(w, op=op, group=self.group)
-        COUNTS[name] += 1
+        _count(name, backward)
         return self._back(w, t)
 
-    def all_reduce_sum(self, t: torch.Tensor) -> torch.Tensor:
-        """Elementwise sum of ``t`` over the axis (a new tensor)."""
-        return self._reduce(t, dist.ReduceOp.SUM, "all_reduce_sum")
-
-    def all_reduce_max(self, t: torch.Tensor) -> torch.Tensor:
-        """Elementwise max of ``t`` over the axis (a new tensor)."""
-        return self._reduce(t, dist.ReduceOp.MAX, "all_reduce_max")
-
-    def all_gather(self, t: torch.Tensor, dim: int = 0) -> torch.Tensor:
-        """The ranks' ``t`` concatenated along ``dim`` in index order."""
-        if self.size == 1:
-            return t
+    def _gather(self, t: torch.Tensor, dim: int) -> torch.Tensor:
         w = self._wire(t)
         parts = [torch.empty_like(w) for _ in range(self.size)]
         dist.all_gather(parts, w, group=self.group)
-        COUNTS["all_gather"] += 1
+        _count("all_gather")
         return self._back(torch.cat(parts, dim=dim), t)
+
+    def all_reduce_sum(self, t: torch.Tensor) -> torch.Tensor:
+        """Elementwise sum of ``t`` over the axis (a new tensor); under
+        autograd the output is replicated over the axis and the backward
+        is the identity (g)."""
+        if self.size == 1:
+            return t
+        return _AllReduceSum.apply(t, self)
+
+    def all_reduce_max(self, t: torch.Tensor) -> torch.Tensor:
+        """Elementwise max of ``t`` over the axis (a new tensor, no
+        gradient)."""
+        if self.size == 1:
+            return t
+        return self._reduce(t, dist.ReduceOp.MAX, "all_reduce_max")
+
+    def all_gather(self, t: torch.Tensor, dim: int = 0, *,
+                   reduce_grad: bool = False) -> torch.Tensor:
+        """The ranks' ``t`` concatenated along ``dim`` in index order.
+        Backward: this rank's slice of the cotangent, or with
+        ``reduce_grad`` the slice of its sum over the axis."""
+        if self.size == 1:
+            return t
+        return _AllGather.apply(t, self, dim, reduce_grad)
+
+    def enter(self, t: torch.Tensor) -> torch.Tensor:
+        """``t`` (replicated over the axis) where it enters a region split
+        over the axis: the identity, whose backward sums the cotangent over
+        the axis (f)."""
+        if self.size == 1 or not torch.is_grad_enabled() or \
+                not t.requires_grad:
+            return t
+        return _Enter.apply(t, self)
 
     def broadcast(self, t: torch.Tensor, src: int = 0) -> torch.Tensor:
         """The value of ``t`` at index ``src`` on every rank (a new
@@ -124,8 +184,79 @@ class Axis:
         w = self._wire(t)
         dist.broadcast(w, dist.get_global_rank(self.group, src),
                        group=self.group)
-        COUNTS["broadcast"] += 1
+        _count("broadcast")
         return self._back(w, t)
+
+    def isend(self, t: torch.Tensor, dst: int):
+        """Start sending ``t`` to the rank at index ``dst`` of the axis (no
+        gradient); returns the work, to ``wait()`` on (it holds the staged
+        copy until then)."""
+        w = self._wire(t)
+        work = dist.isend(w, dist.get_global_rank(self.group, dst),
+                          group=self.group)
+        _count("send")
+        return _Sent(work, w)
+
+    def recv(self, like: torch.Tensor, src: int) -> torch.Tensor:
+        """A tensor of ``like``'s shape, dtype and device received from the
+        rank at index ``src`` of the axis."""
+        w = self._wire(torch.empty_like(like))
+        dist.recv(w, dist.get_global_rank(self.group, src), group=self.group)
+        _count("recv")
+        return self._back(w, like)
+
+
+class _Sent(NamedTuple):
+    """An asynchronous send and the buffer it reads."""
+    work: Any
+    buffer: torch.Tensor
+
+    def wait(self) -> None:
+        self.work.wait()
+
+
+def _count(name: str, backward: bool = False) -> None:
+    COUNTS[name] += 1
+    if backward:
+        BACKWARD[name] += 1
+
+
+class _AllReduceSum(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, t, axis):
+        return axis._reduce(t, dist.ReduceOp.SUM, "all_reduce_sum")
+
+    @staticmethod
+    def backward(ctx, g):
+        return g, None
+
+
+class _AllGather(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, t, axis, dim, reduce_grad):
+        ctx.axis, ctx.dim, ctx.reduce_grad = axis, dim, reduce_grad
+        ctx.n = t.shape[dim]
+        return axis._gather(t, dim)
+
+    @staticmethod
+    def backward(ctx, g):
+        axis = ctx.axis
+        if ctx.reduce_grad:
+            g = axis._reduce(g, dist.ReduceOp.SUM, "all_reduce_sum",
+                             backward=True)
+        return g.narrow(ctx.dim, axis.index * ctx.n, ctx.n), None, None, None
+
+
+class _Enter(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, t, axis):
+        ctx.axis = axis
+        return t.view_as(t)
+
+    @staticmethod
+    def backward(ctx, g):
+        return ctx.axis._reduce(g, dist.ReduceOp.SUM, "all_reduce_sum",
+                                backward=True), None
 
 
 class StepSharding(NamedTuple):
@@ -135,7 +266,16 @@ class StepSharding(NamedTuple):
     ``parallel.sharding.param_specs``; of size 1 on a mesh with no model
     split), else None (one device, or pure DP).  ``rows``: the axes the
     call's rows (its batch) are split over, else None (every rank holds
-    every row)."""
+    every row).  ``global_rows``: the call is one rank's share of a train
+    step's global batch, so what the reference computes over the whole
+    batch is computed over every rank's rows — the fake-quant activation
+    scale (one absmax over the tensor), the MoE's routing (its capacity
+    and load-balance terms over the global slot map)."""
     mesh: Any
     tp: Axis | None = None
     rows: Axis | None = None
+    global_rows: bool = False
+
+    def every(self) -> Axis:
+        """This rank's view of every axis of the mesh (flattened)."""
+        return self.mesh.axis(self.mesh.axis_names)

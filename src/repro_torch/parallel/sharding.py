@@ -20,7 +20,7 @@ cuts each leaf to the calling rank's slice.
 """
 from __future__ import annotations
 
-from typing import Any
+from typing import Any, NamedTuple
 
 # names whose OUTPUT (N) dim is model-sharded
 _N_SHARDED = ("wq", "wk", "wv", "w_gate", "w_up", "w_in", "w_dt", "lm_head")
@@ -313,6 +313,58 @@ def shard_leaf(t, spec, mesh):
         n = t.shape[d] // size
         out = out.narrow(d, index * n, n)
     return out if out is t else out.contiguous()
+
+
+def global_shape(shape, spec, mesh) -> tuple[int, ...]:
+    """The global shape of a leaf whose calling rank's slice under ``spec``
+    has ``shape`` (the inverse of :func:`local_shape`)."""
+    out = []
+    for dim, entry in zip(shape, spec):
+        for a in _entry_axes(entry):
+            dim *= _axis(mesh, a)
+        out.append(int(dim))
+    return tuple(out)
+
+
+def slice_index(shape, spec, mesh) -> list[list[int]]:
+    """[start, stop) a dim of the calling rank's slice of a leaf of global
+    ``shape`` under ``spec`` (the index of :func:`shard_leaf`'s cut)."""
+    out = []
+    for dim, entry in zip(shape, spec):
+        size, index = 1, 0
+        for a in _entry_axes(entry):
+            size *= _axis(mesh, a)
+            index = index * _axis(mesh, a) + mesh.coords[a]
+        n = dim // size
+        out.append([index * n, (index + 1) * n])
+    return out
+
+
+def cut_axes(spec, mesh) -> tuple:
+    """The axes of ``mesh`` of size > 1 that a leaf of ``spec`` is cut
+    over, in mesh order (() on one device, or with no spec)."""
+    if mesh is None or spec is None:
+        return ()
+    named = {a for entry in spec for a in _entry_axes(entry)}
+    return tuple(a for a in mesh.axis_names
+                 if a in named and _axis(mesh, a) > 1)
+
+
+def holds_first_copy(spec, mesh) -> bool:
+    """True on the one rank of each set that holds the same slice of a
+    leaf under ``spec``: coordinate 0 on every axis the leaf is not cut
+    over (a checkpoint writes each slice once)."""
+    named = {a for entry in spec for a in _entry_axes(entry)}
+    return all(mesh.coords[a] == 0 for a in mesh.axis_names
+               if a not in named)
+
+
+class TreeSharding(NamedTuple):
+    """A tree cut over a mesh: its specs (a tree matching it) and the
+    rank's mesh — what the reference's tree of ``NamedSharding`` says of a
+    state (``Checkpointer.save`` / ``restore``'s ``shardings``)."""
+    specs: Any
+    mesh: Any
 
 
 def shard_tree(tree, specs, mesh):

@@ -24,10 +24,9 @@ helpers (``repro.runtime``'s, as far as they are ported).
     exceeding mean + k*sigma, and recommends replacement after repeated
     offenses;
   * ``ElasticTrainer``   — the restart driver: resolve the latest
-    checkpoint, restore the state and the data position, continue; step
-    granularity recovery.  On one device ``build`` returns no mesh and no
-    shardings; rebuilding a mesh for however many devices are healthy
-    waits for the multi-device slice (ROADMAP Queue A item 9);
+    checkpoint, restore the state (re-sharded onto whatever mesh ``build``
+    returns, which may differ from the saving one) and the data position,
+    continue; step granularity recovery;
   * ``retry_with_backoff`` — transient-error wrapper for host I/O.
 """
 from __future__ import annotations
@@ -134,14 +133,18 @@ def retry_with_backoff(fn: Callable, retries: int = 3, base_s: float = 0.1,
 
 
 class ElasticTrainer:
-    """Restart driver: checkpoint-resume.
+    """Restart driver: checkpoint-resume onto whatever mesh is available.
 
     ``build`` = (n_data, n_model) -> (mesh, state_like, shardings, step_fn),
-    ``step_fn(state, batch) -> (state, metrics)``; the port's ``build``
-    returns ``mesh`` and ``shardings`` None (one device).  On each
-    (re)start: restore the latest checkpoint and the data iterator's
-    position (``load_state_dict({"step": N})``), run until preempted or
-    done, checkpoint on exit.
+    ``step_fn(state, batch) -> (state, metrics)``: ``mesh`` the rank's mesh
+    and ``shardings`` the state's ``parallel.sharding.TreeSharding``
+    (``state_like`` holds this rank's slices), or both None on one device.
+    On each (re)start: restore the latest checkpoint (elastic re-shard)
+    and the data iterator's position (``load_state_dict({"step": N})``),
+    run until preempted or done, checkpoint on exit.  Over a mesh every
+    rank runs the loop; a preemption signal on any rank stops them all at
+    the same step boundary (the flag is max-reduced over the mesh each
+    step), and the checkpoints are the ranks' joint saves.
     """
 
     def __init__(self, ckpt, build: Callable, save_every: int = 50):
@@ -168,9 +171,20 @@ class ElasticTrainer:
                 if monitor is not None:
                     monitor.record(step, wall)
                 metrics_log.append(metrics)
-                if guard.requested or (step + 1) % self.save_every == 0:
-                    self.ckpt.save(step + 1, state)
-                if guard.requested:
+                stop = _agreed(guard.requested, mesh)
+                if stop or (step + 1) % self.save_every == 0:
+                    self.ckpt.save(step + 1, state, shardings=shardings)
+                if stop:
                     return state, metrics_log, "preempted"
-        self.ckpt.save(n_steps, state)
+        self.ckpt.save(n_steps, state, shardings=shardings)
         return state, metrics_log, "done"
+
+
+def _agreed(flag: bool, mesh) -> bool:
+    """``flag`` on any rank of ``mesh`` (itself with no mesh)."""
+    if mesh is None or mesh.size == 1:
+        return flag
+    import torch
+    every = mesh.axis(mesh.axis_names)
+    return bool(every.all_reduce_max(
+        torch.tensor([float(flag)], device=mesh.device)) > 0)

@@ -15,6 +15,19 @@ def tree_leaves(tree) -> list:
     return [] if tree is None else [tree]
 
 
+def tree_leaves_along(tree, other) -> list:
+    """The subtrees of ``other`` at the places of ``tree``'s leaves, in
+    :func:`tree_leaves` order (``other`` may hold a whole subtree, a spec
+    tuple, where ``tree`` has a leaf)."""
+    if isinstance(tree, dict):
+        return [x for k in sorted(tree)
+                for x in tree_leaves_along(tree[k], other[k])]
+    if isinstance(tree, (list, tuple)):
+        return [x for i, v in enumerate(tree)
+                for x in tree_leaves_along(v, other[i])]
+    return [] if tree is None else [other]
+
+
 def tree_map(fn, tree, *rest):
     """``fn`` over the leaves of ``tree``; the trees in ``rest`` are walked
     along ``tree``'s structure, so where ``tree`` has a leaf they may hold

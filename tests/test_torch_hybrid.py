@@ -46,30 +46,48 @@ GRID = [(a, p, k) for a in ARCHS for p, k in CASES]
 GRID_IDS = [f"{a.split('-')[0]}-{p}-kv{k}" for a, p, k in GRID]
 
 
+@pytest.fixture(scope="module", autouse=True)
+def _one_thread():
+    """The port's side is many small ops: one intra-op thread keeps them
+    from contending with the other test workers' threads."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 @pytest.fixture(autouse=True)
 def _tuning_cache(tmp_path, monkeypatch):
     monkeypatch.setenv("REPRO_TUNING_CACHE", str(tmp_path / "tuning.json"))
 
 
 _MODELS = {}
+_PARAMS = {}
 
 
 def _pair(arch, precision, kv_bits):
     """(jax model, jax serving params, port model, port serving params).
-    The reference model's prefill and decode step are jitted (eager, the
-    reduced jamba takes seconds a call)."""
+    The reference model's prefill, decode step, forward (and so its loss)
+    and prefill chunk are jitted (eager, the reduced jamba takes seconds a
+    call, and an eager scan compiles its body on every call).  The serving
+    params do not depend on the KV cache's bits: one draw and packing
+    serves every kv_bits of a precision."""
     key = (arch, precision, kv_bits)
     if key not in _MODELS:
         jcfg = jreduce(jget_config(arch, precision=precision, kv_bits=kv_bits))
         tcfg = reduce_for_smoke(get_config(arch, precision=precision,
                                            kv_bits=kv_bits))
         jm = jbuild(jcfg)
-        jsv = jax.jit(lambda k: jto_serving(jm.init(k), jcfg))(
-            jax.random.PRNGKey(0))
+        if (arch, precision) not in _PARAMS:
+            jsv = jax.jit(lambda k: jto_serving(jm.init(k), jcfg))(
+                jax.random.PRNGKey(0))
+            _PARAMS[arch, precision] = (jsv, params_from_numpy(
+                jax.tree_util.tree_map(np.array, jsv), "cpu"))
+        jsv, tp = _PARAMS[arch, precision]
         jm = dataclasses.replace(
             jm, prefill=jax.jit(jm.prefill, static_argnums=2),
-            decode_step=jax.jit(jm.decode_step))
-        tp = params_from_numpy(jax.tree_util.tree_map(np.array, jsv), "cpu")
+            decode_step=jax.jit(jm.decode_step), forward=jax.jit(jm.forward),
+            prefill_chunk=jm.prefill_chunk and jax.jit(jm.prefill_chunk))
         _MODELS[key] = (jm, jsv, build_model(tcfg), tp)
     return _MODELS[key]
 

@@ -133,3 +133,33 @@ def test_mesh_modules_stand_alone():
                           capture_output=True, text=True, timeout=300)
     assert proc.returncode == 0, proc.stderr
     assert proc.stdout.strip() == "[] False {}", proc.stdout
+
+
+MESH_TRAINING_MODULES = ("repro_torch.parallel.pipeline",
+                         "repro_torch.launch.steps", "repro_torch.optim",
+                         "repro_torch.checkpoint")
+
+
+@pytest.mark.parametrize("name", MESH_TRAINING_MODULES)
+def test_mesh_training_modules_stand_alone(name):
+    """Training over a mesh (the GPipe stack, the mesh train step, the
+    optimizers' ``state_specs``, checkpoints cut over a mesh) is among the
+    checked sources; importing each module in a fresh interpreter loads no
+    JAX, nothing of ``repro``, starts no process group and builds
+    nothing."""
+    rel = Path("src", *name.split("."))
+    assert any(p in SOURCES for p in (REPO / rel.with_suffix(".py"),
+                                      REPO / rel / "__init__.py")), name
+    code = ("import sys\n"
+            f"__import__({name!r})\n"
+            "import torch.distributed as dist\n"
+            "from repro_torch.kernels import _build\n"
+            "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
+            "('jax', 'jaxlib', 'repro', 'ml_dtypes'))\n"
+            "print(bad, dist.is_initialized(), _build._LIBS)\n")
+    proc = subprocess.run([sys.executable, "-c", code], cwd=REPO,
+                          env={**__import__("os").environ,
+                               "PYTHONPATH": str(REPO / "src")},
+                          capture_output=True, text=True, timeout=300)
+    assert proc.returncode == 0, proc.stderr
+    assert proc.stdout.strip() == "[] False {}", proc.stdout

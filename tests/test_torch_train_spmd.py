@@ -1,0 +1,544 @@
+"""Training over a mesh of ranks (``launch.steps.make_train_step(mesh=)``,
+the optimizers' ``state_specs``, checkpoints saved and restored across
+meshes, ``runtime.ElasticTrainer``'s re-shard, ``launch.train.train(mesh=)``
+and ``parallel.pipeline``) against the reference, on 4 CPU ranks over gloo.
+
+One spawn of 4 ranks (a module fixture: process start-up is the cost) runs
+every multi-rank check of tests/torch_train_spmd_ranks.py; the reference's
+side runs here meanwhile.  Sharding the work does not change the function
+a step computes, so the oracle of a mesh step is the reference's
+one-device ``make_train_step`` on the same global batch, from the same
+params (the port's draw, through ``interop``): the reference's own
+multi-device tests (tests/test_spmd_integration.py,
+tests/test_pipeline.py) do not run under this jax.
+
+Bounds (reduce_for_smoke shapes, or the serving tests' ``tp-golden``,
+d_model 1024: tensor parallel; f32, lr 1e-3, global batch 8 x 16, two
+steps): every rank's loss and grad norm within 1e-5 relative of the
+reference's at each step; every param leaf assembled from the ranks'
+slices within 1e-4 of the reference's, but for at most one entry in
+10^4 of a leaf, within 2.2 lr a step.  An Adam step moves an entry by
+~lr g / (|g| + eps), near +-lr whatever the summation order, except where
+g is itself at the ulps' level (a leaf's rarely reached entries) or a
+code of the int8 gradient channel rounds the other way: there the step
+follows the ulps, up to a flipped sign.  The port's own one-device step
+on tests/test_torch_spmd.py's ``moe-golden`` is 1.6e-4 from the
+reference's after two steps; every job's largest gap and count of such
+entries are printed.  adam8bit's params are held after its first step:
+from the second on, an entry whose int8 second-moment code rounds to 0 in
+one package and 1 in the other takes a step of m / eps in one of them
+(both packages' one-device steps are ~1 apart there).  The MoE configs'
+rarely routed experts make such entries (moe-tp: nine, within 1.44e-3).
+On every rank and after every step, the leaves
+(params and optimizer state) that several ranks hold the same slice of
+are bit-equal across those ranks.  The sharded optimizers alone, fed the
+reference's gradients: params and float moments within 1e-6 of their
+largest magnitude, adam8bit's codes equal (tests/test_torch_optim.py's
+bounds).  The pipeline within 1e-5 of the reference's sequential stack;
+checkpoints bit-equal."""
+import concurrent.futures
+import contextlib
+import dataclasses
+import multiprocessing
+import os
+import sys
+
+import numpy as np
+import pytest
+
+torch = pytest.importorskip("torch")
+import jax  # noqa: E402
+import jax.numpy as jnp  # noqa: E402
+from jax.sharding import Mesh as JMesh  # noqa: E402
+
+from repro.checkpoint import Checkpointer as JCheckpointer  # noqa: E402
+from repro.configs import get_config as jget_config  # noqa: E402
+from repro.launch.steps import make_train_step as jmake_train_step  # noqa: E402
+from repro.models import build_model as jbuild  # noqa: E402
+from repro.models import reduce_for_smoke as jreduce  # noqa: E402
+from repro.models.config import ModelConfig as JModelConfig  # noqa: E402
+from repro.models.transformer import _apply_period as j_apply_period  # noqa: E402
+from repro.optim import make_optimizer as jmake_optimizer  # noqa: E402
+from repro.parallel import sharding as jsh  # noqa: E402
+from repro.parallel.pipeline import bubble_fraction as jbubble  # noqa: E402
+from repro_torch.checkpoint import Checkpointer  # noqa: E402
+from repro_torch.configs import get_config  # noqa: E402
+from repro_torch.interop import params_to_numpy  # noqa: E402
+from repro_torch.launch import mesh as tmesh  # noqa: E402
+from repro_torch.launch import train as tlaunch  # noqa: E402
+from repro_torch.models import build_model, reduce_for_smoke  # noqa: E402
+from repro_torch.models.config import ModelConfig  # noqa: E402
+from repro_torch.optim import OPTIMIZERS, make_optimizer  # noqa: E402
+from repro_torch.parallel import sharding as tsh  # noqa: E402
+from repro_torch.parallel.comm import StepSharding  # noqa: E402
+from repro_torch.parallel.pipeline import bubble_fraction, pipeline_blocks  # noqa: E402
+from repro_torch.tree import tree_leaves, tree_leaves_along  # noqa: E402
+
+sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
+import torch_train_spmd_ranks as ranks  # noqa: E402
+
+LR = ranks.LR
+METRIC_RTOL = 1e-5
+PARAM_ATOL = 1e-4
+FLIP_FRACTION, FLIP_LR_PER_STEP = 1e-4, 2.2
+B, S, N_STEPS = 8, 16, 2
+TP_GOLDEN = dict(name="tp-golden", n_layers=2, d_model=1024, n_heads=8,
+                 n_kv_heads=8, head_dim=128, d_ff=2048, vocab=512,
+                 dtype="float32", layer_pattern=("attn",),
+                 ffn_pattern=("dense",), precision="fp32")
+# tensor-parallel MoE: 2 of 4 experts and 1 of 2 KV heads a rank on 2,2
+# (tests/test_torch_spmd.py's moe-golden with heads of 32)
+MOE_TP = dict(TP_GOLDEN, name="moe-tp", head_dim=32, n_kv_heads=2,
+              n_experts=4, top_k=2, moe_d_ff=64, ffn_pattern=("moe",))
+# name: (arch or config dict, precision, optimizer, accum, bits, meshes)
+JOBS = {
+    "smollm fp32": ("smollm-135m", "fp32", "adamw", 1, 0,
+                    ("2,1", "4,1", "2,2")),
+    "smollm 2xT": ("smollm-135m", "2xT", "adamw", 1, 0,
+                   ("2,1", "4,1", "2,2")),
+    "smollm fp32 accum 2 adam8bit": ("smollm-135m", "fp32", "adam8bit", 2,
+                                     0, ("4,1", "2,2")),
+    "smollm 2xT int8 grads adafactor": ("smollm-135m", "2xT", "adafactor", 1,
+                                        8, ("2,2",)),
+    "smollm fp32 accum 2 int8 grads": ("smollm-135m", "fp32", "adamw", 2, 8,
+                                       ("4,1",)),
+    "tp-golden fp32": (TP_GOLDEN, "fp32", "adamw", 1, 0, ("1,2", "2,2")),
+    "tp-golden 2xT": (TP_GOLDEN, "2xT", "adamw", 1, 0, ("1,2", "2,2")),
+    "granite": ("granite-moe-1b-a400m", "fp32", "adamw", 1, 0, ("1,2",)),
+    "moe-tp": (MOE_TP, "fp32", "adamw", 1, 0, ("2,2",)),
+}
+# the sharded optimizers alone: leaves cut over N, over K, over E (an
+# expert stack), over both axes, and one replicated; gradients small
+# enough that the clip scales by exactly 1 (adam8bit's codes compare equal)
+OPT_SHAPES = {"a": ((8, 12), (None, "model")), "b": ((12, 8), ("model", None)),
+              "c": ((3, 8, 6), (None, ("data", "model"), None)),
+              "e": ((4, 6, 10), ("model", None, None)), "g": ((6,), (None,))}
+OPT_KW = {"adamw": dict(lr=1e-2, weight_decay=0.1),
+          "adafactor": dict(lr=1e-2),
+          "adam8bit": dict(lr=1e-2, weight_decay=0.05)}
+MESH_SHAPES = {"2,2": {"data": 2, "model": 2}, "4,1": {"data": 4, "model": 1},
+               "2,1": {"data": 2, "model": 1}, "1,2": {"data": 1, "model": 2}}
+ELASTIC = ["--reduced", "--device", "cpu", "--precision", "fp32", "--steps",
+           "6", "--batch", "8", "--seq", "16", "--lr", str(LR),
+           "--save-every", "100"]
+
+
+def _configs(what, precision):
+    if isinstance(what, dict):
+        d = dict(what, precision=precision)
+        return JModelConfig(**d), ModelConfig(**d)
+    return (jreduce(jget_config(what, precision=precision)),
+            reduce_for_smoke(get_config(what, precision=precision)))
+
+
+def _job(i, name):
+    what, precision, opt, accum, bits, meshes = JOBS[name]
+    jcfg, tcfg = _configs(what, precision)
+    rng = np.random.default_rng(100 + i)
+    batches = [{k: rng.integers(0, tcfg.vocab, (B, S)).astype(np.int32)
+                for k in ("tokens", "labels")} for _ in range(N_STEPS)]
+    # adam8bit's params are held after its first step (the docstring)
+    held = 1 if opt == "adam8bit" else N_STEPS
+    return jcfg, {"cfg": tcfg, "opt": opt, "accum": accum, "bits": bits,
+                  "meshes": meshes, "seed": i, "batches": batches,
+                  "held": held}
+
+
+def _reference(jcfg, job):
+    """The reference's one-device steps: per step (loss, grad norm), and
+    the params' leaves after step ``job["held"]``."""
+    jm = jbuild(jcfg)
+    jo = jmake_optimizer(job["opt"], lr=LR)
+    step = jax.jit(jmake_train_step(jm, jo, grad_compress_bits=job["bits"],
+                                    accum_steps=job["accum"]))
+    p = jax.tree_util.tree_map(jnp.asarray, params_to_numpy(ranks.draw(job)))
+    s, metrics = jo.init(p), []
+    for i, b in enumerate(job["batches"]):
+        p, s, m = step(p, s, {k: jnp.asarray(v) for k, v in b.items()})
+        metrics.append((float(m["loss"]), float(m["grad_norm"])))
+        if i + 1 == job["held"]:
+            held = [np.asarray(x) for x in jax.tree_util.tree_leaves(p)]
+    return metrics, held
+
+
+@contextlib.contextmanager
+def _fast_compile():
+    """XLA without most of its optimization passes while the reference's
+    steps compile (compiling is most of this side's time; the functions
+    are the same), restored after."""
+    before = jax.config.read("jax_disable_most_optimizations")
+    jax.config.update("jax_disable_most_optimizations", True)
+    try:
+        yield
+    finally:
+        jax.config.update("jax_disable_most_optimizations", before)
+
+
+def _reference_fast(jcfg, job):
+    with _fast_compile():
+        return _reference(jcfg, job)
+
+
+def _optim_payload():
+    rng = np.random.default_rng(60)
+
+    def tree(scale):
+        return {k: (rng.standard_normal(shape) * scale).astype(np.float32)
+                for k, (shape, _) in OPT_SHAPES.items()}
+    return {"params": tree(1.0), "grads": [tree(0.03) for _ in range(3)],
+            "specs": {k: spec for k, (_, spec) in OPT_SHAPES.items()},
+            "optimizers": OPT_KW}
+
+
+def _optim_reference(optim):
+    out = {}
+    for name, kw in optim["optimizers"].items():
+        jo = jmake_optimizer(name, **kw)
+        update = jax.jit(jo.update)
+        p = jax.tree_util.tree_map(jnp.asarray, optim["params"])
+        s, norms = jo.init(p), []
+        for g in optim["grads"]:
+            p, s, n = update(jax.tree_util.tree_map(jnp.asarray, g), s, p)
+            norms.append(float(n))
+        out[name] = (norms, [np.asarray(x) for x in
+                             jax.tree_util.tree_leaves({"params": p,
+                                                        "opt": s})])
+    return out
+
+
+def _pipeline_payload():
+    cfg = dataclasses.replace(reduce_for_smoke(get_config("glm4-9b")),
+                              n_layers=4, dtype="float32")
+    jcfg = dataclasses.replace(jreduce(jget_config("glm4-9b")), n_layers=4,
+                               dtype="float32")
+    blocks = params_to_numpy(build_model(cfg).init(
+        torch.Generator().manual_seed(50), "cpu"))["blocks"]
+    x = np.random.default_rng(51).standard_normal(
+        (8, 16, cfg.d_model)).astype(np.float32)
+    return jcfg, {"cfg": cfg, "blocks": blocks, "x": x, "n_micro": 4}
+
+
+def _sequential(jcfg, blocks, x):
+    """The reference test's sequential stack: ``_apply_period`` scanned
+    over the periods."""
+    positions = jnp.broadcast_to(jnp.arange(x.shape[1], dtype=jnp.int32)[None],
+                                 x.shape[:2])
+
+    def run(bl, h):
+        def body(h, pp):
+            y, _, _ = j_apply_period(pp, h, jcfg, positions)
+            return y, None
+        return jax.lax.scan(body, h, bl)[0]
+    bl = jax.tree_util.tree_map(jnp.asarray, blocks)
+    return np.asarray(jax.jit(run)(bl, jnp.asarray(x)))
+
+
+@pytest.fixture(scope="module")
+def spmd(tmp_path_factory):
+    tmp = tmp_path_factory.mktemp("train_spmd")
+    saved = os.environ.get("REPRO_TUNING_CACHE")
+    os.environ["REPRO_TUNING_CACHE"] = str(tmp / "tuning.json")
+    try:
+        yield _run(tmp)
+    finally:
+        if saved is None:
+            os.environ.pop("REPRO_TUNING_CACHE", None)
+        else:
+            os.environ["REPRO_TUNING_CACHE"] = saved
+
+
+def _run(tmp):
+    jcfgs, jobs = {}, {}
+    for i, name in enumerate(JOBS):
+        jcfgs[name], jobs[name] = _job(i, name)
+    jpipe, pipe = _pipeline_payload()
+    optim = _optim_payload()
+    payload = {"jobs": jobs, "pipeline": pipe, "optim": optim,
+               "checkpoint": {"job": "tp-golden fp32",
+                              "dir": str(tmp / "ckpt")},
+               "elastic": ELASTIC + ["--ckpt-dir", str(tmp / "elastic")],
+               "preempt_dir": str(tmp / "preempt")}
+    names = list(JOBS)
+    spawn_ctx = multiprocessing.get_context("spawn")
+    with concurrent.futures.ThreadPoolExecutor(1) as pool, \
+            concurrent.futures.ProcessPoolExecutor(2, spawn_ctx) as workers:
+        fut = pool.submit(tmesh.spawn, ranks.run_checks,
+                          tmesh.Mesh({"data": 2, "model": 2}), payload,
+                          device="cpu")
+        # the reference's steps in three processes: compiling them is most
+        # of this side's time
+        far = {n: workers.submit(_reference_fast, jcfgs[n], jobs[n])
+               for n in names[1::3] + names[2::3]}
+        with _fast_compile():
+            ref = {n: _reference(jcfgs[n], jobs[n]) for n in names[::3]}
+            seq = _sequential(jpipe, pipe["blocks"], pipe["x"])
+            optim_ref = _optim_reference(optim)
+        one = tlaunch.train(tlaunch.parse_args(
+            ELASTIC + ["--ckpt-dir", str(tmp / "one")]))
+        ref.update({n: f.result() for n, f in far.items()})
+        results = fut.result()
+    return {"ref": ref, "jobs": jobs, "ranks": results, "seq": seq,
+            "optim": optim, "optim_ref": optim_ref,
+            "one": one, "tmp": tmp}
+
+
+def _param_gap(got, want, steps: int, what) -> tuple[float, int]:
+    """(largest |got - want|, entries beyond PARAM_ATOL), asserting the
+    module docstring's bound."""
+    d = np.abs(got - want)
+    n_out = int((d > PARAM_ATOL).sum())
+    assert n_out <= max(1, int(d.size * FLIP_FRACTION)), (what, n_out)
+    assert float(d.max()) <= FLIP_LR_PER_STEP * LR * steps, (what, d.max())
+    return float(d.max()), n_out
+
+
+def _assembled(spmd, name, label):
+    """The job's params on ``label`` after step ``held``, assembled from
+    the ranks' slices (numpy leaves in tree order)."""
+    job = spmd["jobs"][name]
+    mesh = tmesh.Mesh(MESH_SHAPES[label])
+    shapes = build_model(job["cfg"]).init(torch.Generator(), "meta")
+    specs = tree_leaves_along(shapes, tsh.param_specs(shapes, job["cfg"],
+                                                      mesh))
+    got = [res["jobs"][(name, label)] for res in spmd["ranks"]]
+    # a pair mesh (2,1 / 1,2) runs on ranks 0-1 and again on ranks 2-3
+    groups = [got[:2], got[2:]] if label in ("2,1", "1,2") else [got]
+    out = []
+    for g in groups:
+        out.append(ranks.assemble(
+            [tree_leaves(x["params"]) for x in g], specs,
+            [tuple(t.shape) for t in tree_leaves(shapes)],
+            MESH_SHAPES[label], [x["coords"] for x in g]))
+    return out
+
+
+@pytest.mark.parametrize("name", list(JOBS))
+def test_mesh_step_matches_the_reference_one_device_step(spmd, name):
+    """Every rank's loss and grad norm at each step within 1e-5 relative
+    of the reference's one-device step on the same global batch; the
+    params, assembled from the ranks' slices, within the module
+    docstring's bound (gaps printed)."""
+    ref_metrics, ref_params = spmd["ref"][name]
+    for label in JOBS[name][5]:
+        worst = [0.0, 0.0]
+        for res in spmd["ranks"]:
+            got = res["jobs"][(name, label)]["metrics"]
+            for i, ((lt, gt), (lw, gw)) in enumerate(zip(got, ref_metrics)):
+                for k, (a, w) in enumerate(((lt, lw), (gt, gw))):
+                    rel = abs(a - w) / abs(w)
+                    worst[k] = max(worst[k], rel)
+                    assert rel <= METRIC_RTOL, (label, res["rank"], i, k, a,
+                                                w)
+        gap, n_out = 0.0, 0
+        for params in _assembled(spmd, name, label):
+            for j, (a, w) in enumerate(zip(params, ref_params)):
+                err, n = _param_gap(a, w, spmd["jobs"][name]["held"],
+                                    (label, j))
+                gap, n_out = max(gap, err), n_out + n
+        print(f"{name} on {label}: loss rel gap {worst[0]:.2e}, grad norm "
+              f"{worst[1]:.2e}, params {gap:.2e} ({n_out} entries beyond "
+              f"{PARAM_ATOL})")
+
+
+def test_replicated_leaves_bit_equal_after_every_step(spmd):
+    """After every step of every job, the ranks that hold the same slice
+    of a leaf (params and optimizer state) hold the same bits."""
+    for name, job in spmd["jobs"].items():
+        shapes = build_model(job["cfg"]).init(torch.Generator(), "meta")
+        for label in job["meshes"]:
+            mesh = tmesh.Mesh(MESH_SHAPES[label])
+            pspecs = tsh.param_specs(shapes, job["cfg"], mesh)
+            like = {"params": shapes,
+                    "opt": make_optimizer(job["opt"]).init(shapes)}
+            specs = tree_leaves_along(like, {
+                "params": pspecs,
+                "opt": make_optimizer(job["opt"]).state_specs(pspecs)})
+            got = [r["jobs"][(name, label)] for r in spmd["ranks"]]
+            n_shared = 0
+            for step in range(N_STEPS):
+                held = {}
+                for g in got:
+                    for leaf, (spec, dig) in enumerate(
+                            zip(specs, g["digests"][step])):
+                        key = (leaf, tuple(sorted(
+                            (a, g["coords"][a]) for a in mesh.axis_names
+                            if any(a == e or (isinstance(e, tuple) and a in e)
+                                   for e in spec))))
+                        held.setdefault(key, set()).add(dig)
+                n_shared += sum(len(v) == 1 for v in held.values())
+                bad = [k for k, v in held.items() if len(v) > 1]
+                assert not bad, (name, label, step, bad[:3])
+            assert n_shared > 0
+
+
+def test_tensor_parallel_step_collectives(spmd):
+    """tp-golden fp32, one step: forward, an all-reduce sum for the
+    embedding, around wo and w_down a layer and one for the loss's sums
+    (and the loss's max); backward, one a layer where the normed x enters
+    the attention and the FFN and one for the logits; the global norm's
+    sum over the model axis; on 2,2 the gradient bucket over data."""
+    n_layers = TP_GOLDEN["n_layers"]
+    for label in ("1,2", "2,2"):
+        for res in spmd["ranks"]:
+            counts, backward = res["jobs"][("tp-golden fp32", label)][
+                "counts"][0]
+            bwd = 2 * n_layers + 1
+            want = 1 + 2 * n_layers + 1 + bwd + 1 + (label == "2,2")
+            assert backward == {"all_reduce_sum": bwd, "all_reduce_max": 0,
+                                "all_gather": 0, "broadcast": 0}
+            assert counts == {"all_reduce_sum": want, "all_reduce_max": 1,
+                              "all_gather": 0, "broadcast": 0}, (label,
+                                                                 counts)
+
+
+@pytest.mark.parametrize("opt", sorted(OPTIMIZERS))
+def test_state_specs_match_reference(opt):
+    """``state_specs`` of the three optimizers over tp-golden's and
+    smollm's param specs equal the reference's, on meshes of one device
+    repeated."""
+    from test_torch_sharding import _meshes, _same
+    for mesh_key in ("2x4", "1x8", "pod2x2x2"):
+        jm, tm = _meshes(mesh_key)
+        for what in (TP_GOLDEN, "smollm-135m"):
+            jcfg, tcfg = _configs(what, "fp32")
+            shapes = build_model(tcfg).init(torch.Generator(), "meta")
+            jspecs = jsh.param_specs(shapes, jcfg, jm)
+            got = make_optimizer(opt).state_specs(
+                tsh.param_specs(shapes, tcfg, tm))
+            want = jmake_optimizer(opt).state_specs(jspecs, shapes)
+            _same(want, got)
+
+
+@pytest.mark.parametrize("opt", sorted(OPTIMIZERS))
+def test_sharded_optimizer_matches_reference(spmd, opt):
+    """Three updates on 2,2 of leaves cut over N, K, E, both axes and
+    none, from the reference's gradients: the grad norm within 1e-6
+    relative, params and float state within 1e-6 of their largest
+    magnitude, adam8bit's int8 codes equal (the global absmax an
+    all-reduce max, the norm's squares summed over the cut axes)."""
+    optim = spmd["optim"]
+    want_norms, want = spmd["optim_ref"][opt]
+    pspecs = optim["specs"]
+    shapes = {k: torch.empty(shape, device="meta")
+              for k, (shape, _) in OPT_SHAPES.items()}
+    like = {"params": shapes, "opt": make_optimizer(opt).init(shapes)}
+    specs = tree_leaves_along(like, {
+        "params": pspecs, "opt": make_optimizer(opt).state_specs(pspecs)})
+    got = [r["optim"][opt] for r in spmd["ranks"]]
+    for norms, _ in got:
+        for a, w in zip(norms, want_norms):
+            assert abs(a - w) <= 1e-6 * abs(w)
+    leaves = ranks.assemble([tree_leaves(g[1]) for g in got], specs,
+                            [tuple(t.shape) for t in tree_leaves(like)],
+                            MESH_SHAPES["2,2"],
+                            [r["rank_coords"] for r in spmd["ranks"]])
+    assert len(leaves) == len(want)
+    for i, (a, w) in enumerate(zip(leaves, want)):
+        if w.dtype == np.int8:
+            assert np.array_equal(a, w), (opt, i)
+        else:
+            tol = 1e-6 * max(float(np.abs(w).max()), 1e-30)
+            assert float(np.abs(a - w).max()) <= tol, (opt, i)
+
+
+def test_checkpoint_saved_on_a_mesh_restores_anywhere(spmd):
+    """tp-golden's state after two steps on 2,2, saved by the four ranks
+    (each its slices): restored on 4,1 and on 1,2 each rank's slices are
+    the whole restore's cut; restored whole by the port and by the
+    reference, the params equal the ranks' slices assembled, bit for
+    bit."""
+    for res in spmd["ranks"]:
+        assert res["restores"] == {"4,1": True, "1,2": True}
+    path = str(spmd["tmp"] / "ckpt")
+    hosts = sorted(os.listdir(os.path.join(path, "step_2")))
+    assert hosts == ["COMPLETE"] + [f"host_{r}" for r in range(4)]
+    job = spmd["jobs"]["tp-golden fp32"]
+    params = ranks.draw(job)
+    like = {"params": params, "opt": make_optimizer("adamw").init(params)}
+    whole = Checkpointer(path).restore(2, like)
+    want = _assembled(spmd, "tp-golden fp32", "2,2")[0]
+    got = tree_leaves(whole["params"])
+    assert all(np.array_equal(a.numpy(), w) for a, w in zip(got, want))
+    assert int(whole["opt"]["count"]) == 2
+    jlike = jax.tree_util.tree_map(jnp.asarray, params_to_numpy(like))
+    jgot = JCheckpointer(path).restore(2, jlike)
+    for a, b in zip(jax.tree_util.tree_leaves(jgot), tree_leaves(whole)):
+        assert np.array_equal(np.asarray(a), b.numpy())
+
+
+def test_elastic_resume_on_a_smaller_mesh(spmd):
+    """``launch.train.train(args, mesh=)`` with ``--device cpu``: reduced
+    smollm fp32 on 4,1, rank 0 preempted during step 3 (every rank stops
+    there and checkpoints), resumed on 2,1 to step 6 from the step-3
+    checkpoint and data position; the six steps' metrics within 1e-5 and
+    the final params within the module docstring's bound of an
+    uninterrupted one-rank run's."""
+    one = spmd["one"]
+    want_p = [t.numpy() for t in tree_leaves(one.state["params"])]
+    for res in spmd["ranks"]:
+        status, first = res["elastic"]["first"]
+        assert status == "preempted" and len(first) == 3
+        if res["rank"] >= 2:
+            continue
+        status, second, data, params = res["elastic"]["second"]
+        assert status == "done" and len(second) == 3 and data == {"step": 6}
+        for got, want in zip(first + second, one.metrics):
+            for k in ("loss", "grad_norm"):
+                assert abs(got[k] - want[k]) <= METRIC_RTOL * abs(want[k])
+        gaps = [_param_gap(a, w, 6, j) for j, (a, w) in
+                enumerate(zip(tree_leaves(params), want_p))]
+        print(f"elastic 4,1 -> 2,1 against one rank: params gap "
+              f"{max(g for g, _ in gaps):.2e} "
+              f"({sum(n for _, n in gaps)} entries beyond {PARAM_ATOL})")
+    assert Checkpointer(str(spmd["tmp"] / "elastic")).all_steps() == [3, 6]
+
+
+def test_preemption_is_agreed_across_ranks(spmd):
+    """SIGTERM on one rank of four during step 1: all four stop after
+    step 2 with a joint checkpoint at 2."""
+    for res in spmd["ranks"]:
+        assert res["preempt"] == ("preempted", 2, 2, [2])
+
+
+def test_pipeline_matches_sequential_stack(spmd):
+    """``pipeline_blocks`` on 2 stages (4 periods of reduced glm4 in f32,
+    n_micro 4, each model-axis pair of ranks its own pipeline) within 1e-5
+    of the reference's sequential period scan; each stage's sends and
+    receives are its microbatches; one broadcast of the result.
+    ``bubble_fraction`` equals the reference's."""
+    for res in spmd["ranks"]:
+        y, p2p, bcast = res["pipeline"]
+        np.testing.assert_allclose(y, spmd["seq"], rtol=1e-5, atol=1e-5)
+        stage = res["rank"] // 2
+        assert p2p == ({"send": 4, "recv": 0} if stage == 0
+                       else {"send": 0, "recv": 4}) and bcast == 1
+    for s_, m in ((1, 8), (4, 4), (2, 16), (2, 4)):
+        assert bubble_fraction(s_, m) == jbubble(s_, m)
+
+
+def test_refusals():
+    """A shape-only mesh of several ranks trains nowhere; the pipeline
+    refuses gradients; the expert-parallel shard_map MoE is not a train
+    step's MoE."""
+    with pytest.raises(ValueError, match="shape alone"):
+        tlaunch.train(tlaunch.parse_args(ELASTIC + ["--ckpt-dir", "x"]),
+                      mesh=tmesh.Mesh({"data": 2, "model": 1}))
+    cfg = dataclasses.replace(reduce_for_smoke(get_config("glm4-9b")),
+                              n_layers=2, dtype="float32")
+    blocks = build_model(cfg).init(torch.Generator().manual_seed(0),
+                                   "cpu")["blocks"]
+    x = torch.zeros((2, 4, cfg.d_model), requires_grad=True)
+    with pytest.raises(NotImplementedError, match="forward pass"):
+        pipeline_blocks(blocks, x, cfg, tmesh.Mesh({"data": 1, "model": 1}),
+                        axis="data")
+    from repro_torch.models import layers as L
+    mcfg = dataclasses.replace(ModelConfig(**MOE_TP),
+                               moe_impl="shard_map")
+    mesh = tmesh.Mesh({"data": 1, "model": 1})
+    shard = StepSharding(mesh, tp=mesh.axis("model"), global_rows=True)
+    p = build_model(mcfg).init(torch.Generator().manual_seed(0), "cpu")
+    lp = {k: v[0] for k, v in p["blocks"]["layer_0"]["moe"].items()
+          if not isinstance(v, dict)}
+    lp["norm"] = {"g": p["blocks"]["layer_0"]["moe"]["norm"]["g"][0]}
+    with pytest.raises(NotImplementedError, match="global slot map"):
+        L.moe_apply(lp, torch.zeros((1, 2, mcfg.d_model)), mcfg, shard=shard)
