@@ -3021,8 +3021,8 @@ def _falcon(device, card, layers: int) -> dict:
     _warm(ContinuousBatcher(model, params, sc), cfg)
     batcher = ContinuousBatcher(model, params, sc)
     check(batcher.chunk_size == 0, "falcon-mamba: chunked admission chosen")
-    _, launches = _run(batcher, _requests(cfg, FALCON_REQ, FALCON_GEN), card,
-                       "falcon-mamba 2xT")
+    streams, launches = _run(batcher, _requests(cfg, FALCON_REQ, FALCON_GEN),
+                             card, "falcon-mamba 2xT")
     m = batcher.metrics
     check(m.prefill_full == FALCON_REQ and m.prefill_chunks == 0,
           f"falcon-mamba: {m.prefill_full} whole prefills, "
@@ -3052,9 +3052,11 @@ def _falcon(device, card, layers: int) -> dict:
         del p
     phase_profile(card, "falcon-mamba 2xT dense",
                   ContinuousBatcher(model, params, sc))
-    del batcher, params
+    del batcher
     torch.cuda.empty_cache()
     out["cfg"] = cfg
+    # phase 4t serves the same weights and requests over a mesh
+    out["serving"] = {"model": model, "params": params, "streams": streams}
     return out
 
 
@@ -3139,10 +3141,11 @@ def _reduced_stack(device, card, arch: str, label: str, steps: int,
     return out
 
 
-def phase_families(device, card) -> dict:
+def phase_families(device, card) -> tuple[dict, dict]:
     """4m: the MoE, Mamba and hybrid stacks (granite at full size,
     falcon-mamba at full width, jamba reduced).  Returns the launches of
-    their runs by kernel, summed."""
+    their runs by kernel, summed, and falcon-mamba's model, serving params
+    and streams (phase 4t's one-rank run)."""
     import torch
     from repro_torch.kernels import engine
     print("== 4m. MoE, Mamba and hybrid stacks", flush=True)
@@ -3163,6 +3166,7 @@ def phase_families(device, card) -> dict:
                 add(n)
             elif isinstance(n, int) and name in engine.KERNELS:
                 total[name] = total.get(name, 0) + n
+    serving = falcon.pop("serving")
     for runs in (granite, falcon, jamba):
         add(runs)
     print(f"phase 4m launches by kernel: {total}")
@@ -3171,7 +3175,7 @@ def phase_families(device, card) -> dict:
                  "fused_decode"):
         check(total.get(name, 0) > 0, f"phase 4m never launched {name}")
     print(f"phase 4m: {time.time() - t0:.1f} s")
-    return total
+    return total, serving
 
 
 # ---------------------------------------------------------------------------
@@ -4901,6 +4905,223 @@ def phase_mesh_train(device, card, tmp: str, trained: dict) -> None:
 
 
 # ---------------------------------------------------------------------------
+# 4t: Mamba and hybrid stacks over a mesh
+# ---------------------------------------------------------------------------
+MAMBA_FP32_LAYERS = 2                   # falcon-mamba fp32 at full width
+# jamba tensor parallel: d_model 1024 (the reduced 128 is pure DP), one
+# period of its 8 layers, the other reduced shapes kept but the scan chunk:
+# the reduced 16 refuses the 62-token prompts (ROADMAP, reference caveats)
+JAMBA_TP = dict(d_model=1024, n_layers=8, ssm_chunk=64)
+
+
+def _mamba_logits(cfg, params, prompt, mesh=None):
+    """f32 logits of one whole-prompt prefill and one decode step from its
+    state, on one card or (``mesh``) this rank's tensor-parallel share."""
+    import torch
+    from repro_torch.models import transformer as tfm
+    from repro_torch.parallel import sharding as shd
+    from repro_torch.parallel.comm import StepSharding
+    from repro_torch.tree import tree_map
+    kw = {}
+    dev = params["embed"]["w"].device
+    if mesh is not None:
+        dev = mesh.device
+        params = tree_map(lambda t: t.to(dev), shd.shard_tree(
+            params, shd.param_specs(params, cfg, mesh), mesh))
+        kw["shard"] = StepSharding(mesh, tp=mesh.axis("model"))
+    tokens = torch.from_numpy(prompt).to(dev)
+    with torch.no_grad():
+        pre, cache = tfm.prefill(params, tokens, cfg, tokens.shape[1] + 1,
+                                 **kw)
+        step, _ = tfm.decode_step(params, tokens[:, -1:], cache,
+                                  torch.tensor([tokens.shape[1]], device=dev),
+                                  cfg, **kw)
+    torch.cuda.synchronize()
+    return pre.cpu(), step.cpu()
+
+
+def _mamba_job(job, mesh=None):
+    """One phase-4t job on one card or over ``mesh``: the dense batcher's
+    streams, probed decode step, peak memory (GB) and wall (s) over the
+    job's requests, whole prompts; or ``_mamba_logits`` ("logits")."""
+    import torch
+    from repro_torch.models import build_model
+    from repro_torch.runtime.serving import ContinuousBatcher, ServingConfig
+    cfg, params = job["cfg"], job["params"]
+    if job["kind"] == "logits":
+        return _mamba_logits(cfg, params, _requests(cfg, 1, 1)[0].tokens,
+                             mesh)
+    sc = ServingConfig(n_slots=N_SLOTS, s_max=PROMPT + job["gen"], mesh=mesh)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    batcher = ContinuousBatcher(build_model(cfg), params, sc)
+    streams, probe = _serve_probed(batcher, _requests(cfg, job["n_req"],
+                                                      job["gen"]))
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    check(batcher.metrics.prefill_full == job["n_req"]
+          and batcher.metrics.prefill_chunks == 0,
+          f"4t {cfg.name}: not {job['n_req']} whole-prompt admissions")
+    return streams, probe, torch.cuda.max_memory_allocated() / 1e9, wall
+
+
+def _rank_4t(world, jobs):
+    import torch
+    out = {name: _mamba_job(job, world) for name, job in jobs.items()}
+    torch.cuda.synchronize()
+    return out
+
+
+def _mamba_collectives(cfg) -> dict:
+    """Collectives of one decode step on a model axis of 2 (data 1):
+    per Mamba layer a gather of the xz rows and a max and a sum around w_x
+    and around w_out; per attention layer and dense FFN a max and a sum;
+    per MoE layer the partial outputs' sum; the embedding's sum and the
+    logits' gather."""
+    n_per = cfg.n_periods
+    n_mamba = cfg.layer_pattern.count("mamba") * n_per
+    n_split = (len(cfg.layer_pattern) * n_per - n_mamba) + \
+        cfg.ffn_pattern.count("dense") * n_per
+    n_moe = cfg.ffn_pattern.count("moe") * n_per
+    return {"all_reduce_sum": 2 * n_mamba + n_split + n_moe + 1,
+            "all_reduce_max": 2 * n_mamba + n_split,
+            "all_gather": n_mamba + 1, "broadcast": 0}
+
+
+def phase_mesh_mamba(device, card, falcon) -> None:
+    """4t: falcon-mamba-7b (phase 4m's weights and requests, full width and
+    depth, 2xT bf16) and jamba (tensor-parallel widths, 2xT kv8) served
+    over a 1,2 mesh of two ranks sharing the card (gloo), d_inner cut over
+    the model axis; falcon-mamba fp32 at 2 layers of full width, one
+    prefill and decode step against one rank's."""
+    import torch
+    from repro_torch.launch.mesh import parse_mesh, spawn
+    t0 = time.time()
+    print("== 4t. Mamba and hybrid stacks over a 1,2 mesh of two ranks on "
+          f"{torch.cuda.device_count()} card(s), gloo", flush=True)
+    fcfg = falcon["model"].cfg
+    jobs = {"falcon 2xT": {"kind": "dense", "cfg": fcfg,
+                           "params": falcon["params"], "n_req": FALCON_REQ,
+                           "gen": FALCON_GEN}}
+    model, params = _family_model("falcon-mamba-7b", device, precision="fp32",
+                                  dtype="float32", n_layers=MAMBA_FP32_LAYERS)
+    jobs["falcon fp32"] = {"kind": "logits", "cfg": model.cfg,
+                           "params": params}
+    model, params = _family_model("jamba-v0.1-52b", device, reduced=True,
+                                  reduced_kw=JAMBA_TP, tp=2, precision="2xT",
+                                  kv_bits=8)
+    jobs["jamba 2xT"] = {"kind": "dense", "cfg": model.cfg,
+                         "params": params, "n_req": FALCON_REQ,
+                         "gen": FALCON_GEN}
+    one = {name: _mamba_job(job) for name, job in jobs.items()}
+    check(one["falcon 2xT"][0] == falcon["streams"],
+          "4t falcon-mamba: the one-rank rerun's streams differ from phase "
+          "4m's")
+    torch.cuda.synchronize()
+    t_one = time.time() - t0
+    ranks = spawn(_rank_4t, parse_mesh("1,2"), jobs, device="cuda")
+    torch.cuda.ipc_collect()        # the ranks' handles on the params
+    for name in ("falcon 2xT", "jamba 2xT"):
+        cfg = jobs[name]["cfg"]
+        want = _mamba_collectives(cfg)
+        streams1, probe1, peak1, wall1 = one[name]
+        for r, (streams, probe, peak, wall) in enumerate(
+                res[name] for res in ranks):
+            n_same = sum(streams.get(k) == v for k, v in streams1.items())
+            launches, colls, step_ms = probe[:3]
+            launches = {k: v for k, v in launches.items() if v}
+            print(f"[{card}] 4t {name} mesh 1,2 rank {r}: streams equal to "
+                  f"the one-rank run's: {n_same} of {len(streams1)} requests;"
+                  f" one decode step: launches {launches} (one rank "
+                  f"{ {k: v for k, v in probe1[0].items() if v} }), collectives {colls} (predicted {want}), "
+                  f"wall {step_ms:.2f} ms (one rank {probe1[2]:.2f} ms); "
+                  f"run wall {wall:.2f} s (one rank {wall1:.2f} s); peak "
+                  f"{peak:.2f} GB (one rank {peak1:.2f} GB)")
+            check(n_same == len(streams1),
+                  f"4t {name} rank {r}: streams differ from one rank's")
+            check(colls == want, f"4t {name} rank {r}: collectives {colls}, "
+                                 f"predicted {want}")
+            for k in ("ternary_matmul", "act_quant_signed_grouped",
+                      "decode_attention"):
+                check(launches.get(k, 0) == probe1[0].get(k, 0),
+                      f"4t {name} rank {r}: {k} launched "
+                      f"{launches.get(k, 0)} times, one rank "
+                      f"{probe1[0].get(k, 0)}")
+    pre1, step1 = one["falcon fp32"]
+    scale = max(float(pre1.abs().max()), float(step1.abs().max()))
+    for r, res in enumerate(ranks):
+        pre, step = res["falcon fp32"]
+        gp = float((pre - pre1).abs().max())
+        gs = float((step - step1).abs().max())
+        print(f"[{card}] 4t falcon fp32 ({MAMBA_FP32_LAYERS} layers, f32) "
+              f"mesh 1,2 rank {r}: prefill max |dlogit| {gp:.3e}, decode "
+              f"step max |dlogit| {gs:.3e} (bound {1e-4 * scale:.3e} = 1e-4 "
+              f"of max|logit| {scale:.3e})")
+        check(gs <= 1e-4 * scale, f"4t falcon fp32 decode step gap {gs}")
+    del jobs, params, model
+    torch.cuda.empty_cache()
+    print(f"phase 4t: {time.time() - t0:.1f} s (one-rank runs "
+          f"{t_one:.1f} s)")
+
+
+# ---------------------------------------------------------------------------
+# 4u: the invariant auditor on the card
+# ---------------------------------------------------------------------------
+def phase_audit(device, card) -> None:
+    """4u: ``repro_torch.analysis`` on the card: the seven cells on a 1,1
+    mesh (zero findings; the card-only rules and the fused decode's bound),
+    one seeded violation (the ``torch`` backend forced on CUDA tensors:
+    ``cuda_kernel_launched`` alone fires), ``tp-d1024`` on 1,2 as two
+    ranks."""
+    import torch
+    from repro_torch.analysis import rules as R
+    from repro_torch.analysis.report import CARD_ONLY_RULES, Report
+    from repro_torch.analysis.steps import (CELLS, audit_cell,
+                                            build_cell_steps, cell_by_name)
+    from repro_torch.launch.mesh import make_mesh
+    t0 = time.time()
+    print("== 4u. the invariant auditor on the card", flush=True)
+    report, cache = Report(), {}
+    for cell in CELLS:
+        findings, checked = audit_cell(cell, (1, 1), device="cuda",
+                                       _cache=cache)
+        report.extend(findings, cell=f"{cell.name}@(1, 1)")
+        report.checked.extend(checked)
+    t_cells = time.time() - t0
+    findings, checked = audit_cell(cell_by_name("tp-d1024"), (1, 2),
+                                   device="cuda")
+    report.extend(findings, cell="tp-d1024@(1, 2)")
+    report.checked.extend(checked)
+    bound = {}
+    for c in report.checked:
+        for r in c["rules"]:
+            bound[r] = bound.get(r, 0) + 1
+    print(f"[{card}] 4u audit: {len(report.checked)} steps (seven cells on "
+          f"1,1 in {t_cells:.1f} s, tp-d1024 on 1,2 as 2 ranks), rules "
+          f"applied {bound}, not bound "
+          f"{sum(len(c['not_bound']) for c in report.checked)}, findings "
+          f"{len(report.findings)}")
+    for f in report.findings:
+        print(f"  {f}")
+    check(report.ok, f"4u: {len(report.findings)} audit finding(s)")
+    for r in CARD_ONLY_RULES + ("fused_decode_single_dispatch",):
+        check(bound.get(r, 0) > 0, f"4u: {r} never bound")
+    spec = next(s for s in build_cell_steps(cell_by_name("smollm-2xT"),
+                                            make_mesh(1, 1), device="cuda")
+                if s.name == "decode")
+    seeded, _ = R.audit_step(dataclasses.replace(spec, run_backend="torch"))
+    fired = sorted({f.rule for f in seeded})
+    print(f"[{card}] 4u seeded violation (backend 'torch' forced on CUDA "
+          f"tensors, smollm-2xT decode): fired {fired}, "
+          f"{len(seeded)} finding(s); first: {seeded[0] if seeded else None}")
+    check(fired == ["cuda_kernel_launched"],
+          f"4u: the seeded violation fired {fired}")
+    torch.cuda.empty_cache()
+    print(f"phase 4u: {time.time() - t0:.1f} s")
+
+
+# ---------------------------------------------------------------------------
 # 4k: the tuning cache
 # ---------------------------------------------------------------------------
 TUNE_PRECISIONS = ("2xT", "4x4", "1x1")
@@ -5506,7 +5727,10 @@ def _main(torch, tmp: str) -> None:
     core_launches = phase_core_quant(device, card)
     phase_sampling(device, card, served, (paged_model, paged_streams))
     phase_speculative(device, card)
-    phase_families(device, card)
+    _, falcon = phase_families(device, card)
+    phase_mesh_mamba(device, card, falcon)
+    del falcon
+    torch.cuda.empty_cache()
     phase_encdec(device, card)
     trained = phase_train(device, card, tmp)
     phase_mesh(device, card)
@@ -5525,6 +5749,7 @@ def _main(torch, tmp: str) -> None:
     phase_profile(card, "fp32 paged kv8",
                   PagedBatcher(*fused_served, _paged_config()))
     phase_tuning(device, card, served, tmp)
+    phase_audit(device, card)
     for rec in records:
         rec["launches"] = launches[rec["name"]]
     replaces = {

@@ -258,14 +258,43 @@ def set_dispatch_listener(cb) -> None:
     _DISPATCH_LISTENER = cb
 
 
-def _record_dispatch(**kw) -> None:
+_ACTIVE: list[DispatchEvent] = []     # the dispatches whose work is running
+_UNRECORDED = contextlib.nullcontext()
+
+
+class _Active:
+    """Marks its event as running for the ``with`` block of the work."""
+
+    def __init__(self, ev: DispatchEvent):
+        self.ev = ev
+
+    def __enter__(self):
+        _ACTIVE.append(self.ev)
+
+    def __exit__(self, *exc):
+        _ACTIVE.pop()
+
+
+def active_dispatch() -> DispatchEvent | None:
+    """The innermost recorded dispatch whose work is running now (the
+    ``with`` block of its dispatch site), else None.  The auditor's op
+    walker reads it to attribute an op to the dispatch it ran in."""
+    return _ACTIVE[-1] if _ACTIVE else None
+
+
+def _record_dispatch(**kw):
+    """Emit one :class:`DispatchEvent`; returns a context manager for the
+    dispatch's work (``with _record_dispatch(...): fn(...)``), during which
+    :func:`active_dispatch` names the event.  With nothing recording, a
+    shared no-op context."""
     if _DISPATCH_SINK is None and _DISPATCH_LISTENER is None:
-        return
+        return _UNRECORDED
     ev = DispatchEvent(**kw)
     if _DISPATCH_SINK is not None:
         _DISPATCH_SINK.append(ev)
     if _DISPATCH_LISTENER is not None:
         _DISPATCH_LISTENER(ev)
+    return _Active(ev)
 
 
 def launch_counts() -> dict[str, int]:
@@ -421,12 +450,12 @@ def _prep_activations(x2: torch.Tensor, pw: PackedWeight, a_bits: int,
     bits = min(a_bits, 8)
     if backend == BACKEND_TORCH:
         return ref.act_quant_signed_rows_ref(x2, bits)
-    xq, a_scale = act_quant_signed_rows(x2.contiguous(), bits=bits)
-    _record_dispatch(op="act_quant_signed_grouped", kind="signed_grouped",
-                     requested_backend=backend, impl_backend=backend,
-                     a_bits=bits, w_bits=0, m_rows=int(x2.shape[0]),
-                     a_scale_shape=tuple(a_scale.shape))
-    return xq, a_scale
+    m = int(x2.shape[0])
+    with _record_dispatch(op="act_quant_signed_grouped",
+                          kind="signed_grouped", requested_backend=backend,
+                          impl_backend=backend, a_bits=bits, w_bits=0,
+                          m_rows=m, a_scale_shape=(m, 1)):
+        return act_quant_signed_rows(x2.contiguous(), bits=bits)
 
 
 def _prep_split_activations(x2: torch.Tensor, pw: PackedWeight, a_bits: int,
@@ -460,12 +489,13 @@ def _prep_split_activations(x2: torch.Tensor, pw: PackedWeight, a_bits: int,
     if backend == BACKEND_TORCH:
         return ref.act_quant_signed_grouped_ref(
             x2, bits, a_scale, compute_dtype=x2.dtype), a_scale
-    xq = act_quant_signed_grouped(x2.contiguous(), a_scale.contiguous(),
-                                  bits=bits, compute_dtype=x2.dtype)
-    _record_dispatch(op="act_quant_signed_grouped", kind="signed_grouped",
-                     requested_backend=backend, impl_backend=backend,
-                     a_bits=bits, w_bits=0, m_rows=int(x2.shape[0]),
-                     a_scale_shape=tuple(a_scale.shape))
+    with _record_dispatch(op="act_quant_signed_grouped",
+                          kind="signed_grouped", requested_backend=backend,
+                          impl_backend=backend, a_bits=bits, w_bits=0,
+                          m_rows=int(x2.shape[0]),
+                          a_scale_shape=tuple(a_scale.shape)):
+        xq = act_quant_signed_grouped(x2.contiguous(), a_scale.contiguous(),
+                                      bits=bits, compute_dtype=x2.dtype)
     return xq, a_scale
 
 
@@ -519,25 +549,25 @@ def qmatmul(x: torch.Tensor, pw: PackedWeight, cfg: PrecisionConfig, *,
         block = tuning.get_block_sizes(
             x2.shape[0], int(scale.shape[0]), pw.k, kind=kind, a_bits=a_bits,
             w_bits=pw.bits, backend=backend)
-    _record_dispatch(op="qmatmul", kind=kind, requested_backend=backend,
-                     impl_backend=matched[3], a_bits=a_bits, w_bits=pw.bits,
-                     m_rows=int(x2.shape[0]),
-                     a_scale_shape=(None if a_scale is None
-                                    else tuple(a_scale.shape)),
-                     block=None if block is None else tuple(block))
-    if split:
-        acc = reduce.all_reduce_sum(fn(
-            xq, pw, torch.ones_like(scale), None, out_dtype=torch.float32,
-            a_scale=None, block=block))
-        out = acc * scale[None, :]
-        if a_scale is not None:
-            out = out * a_scale
-        if bias is not None:
-            out = out + bias[None, :]
-        out = out.to(out_dtype)
-    else:
-        out = fn(xq, pw, scale, bias, out_dtype=out_dtype, a_scale=a_scale,
-                 block=block)
+    with _record_dispatch(op="qmatmul", kind=kind, requested_backend=backend,
+                          impl_backend=matched[3], a_bits=a_bits,
+                          w_bits=pw.bits, m_rows=int(x2.shape[0]),
+                          a_scale_shape=(None if a_scale is None
+                                         else tuple(a_scale.shape)),
+                          block=None if block is None else tuple(block)):
+        if split:
+            acc = reduce.all_reduce_sum(fn(
+                xq, pw, torch.ones_like(scale), None,
+                out_dtype=torch.float32, a_scale=None, block=block))
+            out = acc * scale[None, :]
+            if a_scale is not None:
+                out = out * a_scale
+            if bias is not None:
+                out = out + bias[None, :]
+            out = out.to(out_dtype)
+        else:
+            out = fn(xq, pw, scale, bias, out_dtype=out_dtype,
+                     a_scale=a_scale, block=block)
     return out.reshape(*lead, out.shape[-1])
 
 
@@ -561,28 +591,31 @@ def qmatmul_experts(x: torch.Tensor, p: dict, cfg: PrecisionConfig, *,
                  else packing.unpack(wt, bits, signed=True))       # (E, N, K)
     else:
         codes = wt                                                 # int8 codes
-    _record_dispatch(op="qmatmul_experts",
-                     kind=cfg.w_mode if wt.dtype == torch.int32 else K_CODES,
-                     requested_backend=backend, impl_backend=BACKEND_TORCH,
-                     a_bits=0, w_bits=bits,
-                     m_rows=int(x.shape[0] * x.shape[1]), a_scale_shape=None)
-    acc = torch.einsum("eck,enk->ecn", x.to(torch.float32),
-                       codes.to(torch.float32))
-    return (acc * p["scale"][:, None, :]).to(x.dtype)
+    with _record_dispatch(
+            op="qmatmul_experts",
+            kind=cfg.w_mode if wt.dtype == torch.int32 else K_CODES,
+            requested_backend=backend, impl_backend=BACKEND_TORCH, a_bits=0,
+            w_bits=bits, m_rows=int(x.shape[0] * x.shape[1]),
+            a_scale_shape=None):
+        acc = torch.einsum("eck,enk->ecn", x.to(torch.float32),
+                           codes.to(torch.float32))
+        return (acc * p["scale"][:, None, :]).to(x.dtype)
 
 
 def record_plain(op: str, kind: str, x: torch.Tensor,
-                 backend: str | None = None) -> None:
+                 backend: str | None = None):
     """Record a dispatch that runs plain PyTorch on every device by the
     reference's design (the Mamba layer's selective scan, ``op``
     "ssm_scan"; full-sequence attention under autograd, ``op``
     "flash_attention"): ``impl_backend="torch"`` whatever was requested, so the
     trace shows the plain piece on the card.  ``x`` gives the device and
-    the rows (all but its last axis)."""
-    _record_dispatch(op=op, kind=kind,
-                     requested_backend=_check_backend(backend, x),
-                     impl_backend=BACKEND_TORCH, a_bits=0, w_bits=0,
-                     m_rows=int(x.numel() // x.shape[-1]), a_scale_shape=None)
+    the rows (all but its last axis).  Use it as ``with record_plain(...):``
+    around the plain work, as the engine's own dispatch sites do."""
+    return _record_dispatch(op=op, kind=kind,
+                            requested_backend=_check_backend(backend, x),
+                            impl_backend=BACKEND_TORCH, a_bits=0, w_bits=0,
+                            m_rows=int(x.numel() // x.shape[-1]),
+                            a_scale_shape=None)
 
 
 def fake_quant_dot(x: torch.Tensor, w: torch.Tensor, cfg: PrecisionConfig, *,
@@ -667,12 +700,12 @@ def decode_attention(q, k_codes, k_scale, v_codes, v_scale, pos, *,
         block = tuning.resolve(b * g, dh, k_codes.shape[1],
                                kind=tuning.ATTN_DECODE, a_bits=kv_bits,
                                w_bits=8, backend=backend)
-    _record_dispatch(op="decode_attention", kind=ATTN_DECODE,
-                     requested_backend=backend, impl_backend=matched[2],
-                     a_bits=kv_bits, w_bits=8, m_rows=int(q.shape[0]),
-                     a_scale_shape=None, block=block)
-    return fn(q, k_codes, k_scale, v_codes, v_scale, pos, kv_bits=kv_bits,
-              dtype=dtype, block=block)
+    with _record_dispatch(op="decode_attention", kind=ATTN_DECODE,
+                          requested_backend=backend, impl_backend=matched[2],
+                          a_bits=kv_bits, w_bits=8, m_rows=int(q.shape[0]),
+                          a_scale_shape=None, block=block):
+        return fn(q, k_codes, k_scale, v_codes, v_scale, pos,
+                  kv_bits=kv_bits, dtype=dtype, block=block)
 
 
 @register_attention(ATTN_PAGED, (16, 8, 4), BACKEND_TORCH)
@@ -697,12 +730,12 @@ def paged_attention(q, k_pool, k_scale, v_pool, v_scale, page_table, pos, *,
     int32; pos (B,).  Returns (B, KV, G, Dh) in ``dtype``."""
     backend = _check_backend(backend, q)
     fn, matched = resolve_attention_entry(ATTN_PAGED, kv_bits, backend)
-    _record_dispatch(op="paged_attention", kind=ATTN_PAGED,
-                     requested_backend=backend, impl_backend=matched[2],
-                     a_bits=kv_bits, w_bits=8, m_rows=int(q.shape[0]),
-                     a_scale_shape=None)
-    return fn(q, k_pool, k_scale, v_pool, v_scale, (page_table, pos),
-              kv_bits=kv_bits, dtype=dtype)
+    with _record_dispatch(op="paged_attention", kind=ATTN_PAGED,
+                          requested_backend=backend, impl_backend=matched[2],
+                          a_bits=kv_bits, w_bits=8, m_rows=int(q.shape[0]),
+                          a_scale_shape=None):
+        return fn(q, k_pool, k_scale, v_pool, v_scale, (page_table, pos),
+                  kv_bits=kv_bits, dtype=dtype)
 
 
 # ---------------------------------------------------------------------------
@@ -734,11 +767,12 @@ def flash_attention(q, k, v, *, causal: bool = True, window: int = 0,
     masks, f32 softmax.  Returns (B, Sq, KV, G, Dh) float32."""
     backend = _check_backend(backend, q)
     fn, matched = resolve_attention_entry(ATTN_FLASH, 16, backend)
-    _record_dispatch(op="flash_attention", kind=ATTN_FLASH,
-                     requested_backend=backend, impl_backend=matched[2],
-                     a_bits=16, w_bits=16,
-                     m_rows=int(q.shape[0] * q.shape[1]), a_scale_shape=None)
-    return fn(q, k, v, causal=causal, window=window, softcap=softcap)
+    with _record_dispatch(op="flash_attention", kind=ATTN_FLASH,
+                          requested_backend=backend, impl_backend=matched[2],
+                          a_bits=16, w_bits=16,
+                          m_rows=int(q.shape[0] * q.shape[1]),
+                          a_scale_shape=None):
+        return fn(q, k, v, causal=causal, window=window, softcap=softcap)
 
 
 # ---------------------------------------------------------------------------
@@ -838,13 +872,13 @@ def fused_paged_decode(q, k_pool, k_scale, v_pool, v_scale, page_table, pos,
         slot_map = torch.arange(b, dtype=torch.int32, device=q.device)
     slot_map = torch.as_tensor(slot_map, dtype=torch.int32, device=q.device)
     fn, matched = resolve_attention_entry(ATTN_FUSED, kv_bits, backend)
-    _record_dispatch(op="fused_paged_decode", kind=ATTN_FUSED,
-                     requested_backend=backend, impl_backend=matched[2],
-                     a_bits=kv_bits, w_bits=8, m_rows=int(slot_map.shape[0]),
-                     a_scale_shape=None)
-    compact = fn(q, k_pool, k_scale, v_pool, v_scale,
-                 (page_table, pos, slot_map, wo_p, pcfg, reduce),
-                 kv_bits=kv_bits, dtype=dtype)             # (L, 1, D)
+    with _record_dispatch(op="fused_paged_decode", kind=ATTN_FUSED,
+                          requested_backend=backend, impl_backend=matched[2],
+                          a_bits=kv_bits, w_bits=8,
+                          m_rows=int(slot_map.shape[0]), a_scale_shape=None):
+        compact = fn(q, k_pool, k_scale, v_pool, v_scale,
+                     (page_table, pos, slot_map, wo_p, pcfg, reduce),
+                     kv_bits=kv_bits, dtype=dtype)         # (L, 1, D)
     out = torch.zeros((b, 1, compact.shape[-1]), dtype=compact.dtype,
                       device=q.device)
     out[slot_map.long()] = compact

@@ -78,6 +78,13 @@ alone prints the metrics, the launch counts and the collective counts:
     PYTHONPATH=src python -m repro_torch.launch.serve --reduced --device cpu \
         --mesh 2,1 --requests 4 --slots 4 --gen 8
 
+The Mamba and hybrid stacks take a model axis too (d_inner cut over it;
+one gather of the xz rows a Mamba layer, see ``models.layers.mamba_apply``)
+and still admit whole prompts:
+
+    PYTHONPATH=src python -m repro_torch.launch.serve \
+        --arch falcon-mamba-7b --mesh 1,2 --requests 4 --gen 8
+
 Runs on the card (``--device cuda``, the default) and refuses to start when
 no card is visible; ``--device cpu`` runs the plain PyTorch versions of the
 kernels instead.
@@ -100,7 +107,6 @@ from repro_torch.launch.mesh import parse_mesh, spawn
 from repro_torch.models import (ShapeConfig, build_model, make_batch,
                                  reduce_for_smoke, to_serving)
 from repro_torch.models.convert import serving_param_bytes
-from repro_torch.models.transformer import attention_only
 from repro_torch.parallel import comm
 from repro_torch.parallel.sharding import pure_dp, serving_shard_factors
 from repro_torch.runtime.adaptive import AdaptiveServer
@@ -349,11 +355,6 @@ def _check_mesh(args, cfg, mesh) -> None:
         raise SystemExit("--speculative with --mesh: speculative decoding "
                          "is single-host for now (the windowed verify step "
                          "has no sharded dispatch)")
-    if not pure_dp(cfg, mesh) and mesh.shape["model"] > 1 \
-            and not attention_only(cfg):
-        raise SystemExit(
-            f"--mesh {args.mesh}: {cfg.name} has Mamba layers, which take no "
-            "model axis yet (ROADMAP Queue A item 9b); use a model axis of 1")
 
 
 def _serve_rank(mesh, args, cfg, params, sc, sweeps0):

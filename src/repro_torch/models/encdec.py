@@ -29,6 +29,7 @@ encoder and the cross-attention (Sq 1 against S_enc at a decode step).
 from __future__ import annotations
 
 import torch
+import torch.nn.functional as F
 
 from . import layers as L
 from .config import ModelConfig
@@ -122,7 +123,7 @@ def forward(params, tokens, frames, cfg: ModelConfig, backend=None):
     only)."""
     enc_out = encode(params, frames, cfg, backend)
     b, s = tokens.shape
-    x = params["embed"]["w"][tokens]
+    x = F.embedding(tokens, params["embed"]["w"])
     positions = _positions(b, s, tokens.device)
     for i in range(cfg.n_layers):
         lp = _period(params["decoder"], i)
@@ -145,7 +146,7 @@ def prefill(params, tokens, frames, cfg: ModelConfig, s_max: int,
     enc_out = encode(params, frames, cfg, backend)
     b, s = tokens.shape
     device = tokens.device
-    x = params["embed"]["w"][tokens]
+    x = F.embedding(tokens, params["embed"]["w"])
     positions = _positions(b, s, device)
     self_cache = L.make_kv_cache(cfg, b, s_max, device, stacked=cfg.n_layers)
     cross_k, cross_v = [], []

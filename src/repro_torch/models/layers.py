@@ -43,6 +43,7 @@ model axis (ROADMAP Queue A item 9b).
 """
 from __future__ import annotations
 
+import contextlib
 import math
 
 import torch
@@ -293,15 +294,21 @@ def _attend_flash(q, k, v, pos_q, pos_k, cfg: ModelConfig, *, causal: bool,
     return out.permute(0, 3, 1, 2, 4).reshape(b, sq, h * dh).to(q.dtype)
 
 
-def _training(q, k, v, backend: str | None) -> bool:
+def _training(q, k, v) -> bool:
     """True when autograd records this attention call (gradients enabled
     and an input requires one): it then runs the reference's training
     attention, on the card too, recorded as a plain dispatch."""
-    if not (torch.is_grad_enabled()
-            and (q.requires_grad or k.requires_grad or v.requires_grad)):
-        return False
-    engine.record_plain("flash_attention", engine.ATTN_FLASH, q, backend)
-    return True
+    return torch.is_grad_enabled() and (q.requires_grad or k.requires_grad
+                                        or v.requires_grad)
+
+
+def _plain_on_card(q, backend: str | None):
+    """The recorded plain ``flash_attention`` dispatch of a training
+    attention on the card (a ``with`` around its work); nothing on the
+    host, where the plain attention is the path itself."""
+    return engine.record_plain("flash_attention", engine.ATTN_FLASH, q,
+                               backend) if q.is_cuda else \
+        contextlib.nullcontext()
 
 
 def _attend_full(q, k, v, positions, cfg: ModelConfig, local: bool,
@@ -315,7 +322,7 @@ def _attend_full(q, k, v, positions, cfg: ModelConfig, local: bool,
     Sq > ATTN_KV_CHUNK in whole chunks, else ``_attend``."""
     b, sq, h, dh = q.shape
     kvh = k.shape[2]
-    if q.is_cuda and not _training(q, k, v, backend):
+    if q.is_cuda and not _training(q, k, v):
         if cfg.attn_probs_bf16:
             raise NotImplementedError(
                 "attn_probs_bf16: no kernel computes bf16 probabilities; the "
@@ -325,15 +332,16 @@ def _attend_full(q, k, v, positions, cfg: ModelConfig, local: bool,
             window=cfg.window if local else 0, softcap=cfg.attn_softcap,
             backend=backend)
         return out.reshape(b, sq, h * dh).to(q.dtype)
-    if sq > ATTN_KV_CHUNK and sq % ATTN_KV_CHUNK == 0:
-        return _attend_flash(q, k, v, positions, positions, cfg, causal=True,
-                             local=local)
-    i = positions[:, :, None]                   # (B,Sq,1) query pos
-    j = positions[:, None, :]                   # (B,1,Sk) key pos
-    mask = j <= i
-    if local:
-        mask &= j > i - cfg.window
-    return _attend(q, k, v, mask[:, None], cfg)
+    with _plain_on_card(q, backend):
+        if sq > ATTN_KV_CHUNK and sq % ATTN_KV_CHUNK == 0:
+            return _attend_flash(q, k, v, positions, positions, cfg,
+                                 causal=True, local=local)
+        i = positions[:, :, None]               # (B,Sq,1) query pos
+        j = positions[:, None, :]               # (B,1,Sk) key pos
+        mask = j <= i
+        if local:
+            mask &= j > i - cfg.window
+        return _attend(q, k, v, mask[:, None], cfg)
 
 
 def _attend_all(q, k, v, cfg: ModelConfig, backend: str | None):
@@ -345,18 +353,19 @@ def _attend_all(q, k, v, cfg: ModelConfig, backend: str | None):
     chunks, else ``_attend`` with an all-true mask."""
     b, sq, h, dh = q.shape
     kvh, sk = k.shape[2], k.shape[1]
-    if q.is_cuda and not _training(q, k, v, backend):
+    if q.is_cuda and not _training(q, k, v):
         out = engine.flash_attention(
             q.reshape(b, sq, kvh, h // kvh, dh), k, v, causal=False,
             softcap=cfg.attn_softcap, backend=backend)
         return out.reshape(b, sq, h * dh).to(q.dtype)
-    if sk > ATTN_KV_CHUNK and sk % ATTN_KV_CHUNK == 0:
-        pos_q, pos_k = (torch.zeros((b, n), dtype=torch.int64,
-                                    device=q.device) for n in (sq, sk))
-        return _attend_flash(q, k, v, pos_q, pos_k, cfg, causal=False,
-                             local=False)
-    mask = torch.ones((1, 1, sq, sk), dtype=torch.bool, device=q.device)
-    return _attend(q, k, v, mask, cfg)
+    with _plain_on_card(q, backend):
+        if sk > ATTN_KV_CHUNK and sk % ATTN_KV_CHUNK == 0:
+            pos_q, pos_k = (torch.zeros((b, n), dtype=torch.int64,
+                                        device=q.device) for n in (sq, sk))
+            return _attend_flash(q, k, v, pos_q, pos_k, cfg, causal=False,
+                                 local=False)
+        mask = torch.ones((1, 1, sq, sk), dtype=torch.bool, device=q.device)
+        return _attend(q, k, v, mask, cfg)
 
 
 def _project_qkv(p, x, cfg: ModelConfig, positions, backend, shard=None):
@@ -745,7 +754,9 @@ def moe_partial(p, x, cfg: ModelConfig, backend: str | None = None, *,
     x_pad = torch.cat([xin, xin.new_zeros((1, d))])
     if enter is not None:
         x_pad, gate_map = enter.enter(x_pad), enter.enter(gate_map)
-    buf = x_pad[tok_map[held]]                                    # (Eh, cap, D)
+    # F.embedding: its backward adds a token's k slots in slot order (an
+    # indexing's backward adds them with atomics on several CPU threads)
+    buf = F.embedding(tok_map[held], x_pad)                       # (Eh, cap, D)
     h = _act(_expert_matmul(p["w_gate"], buf, cfg, backend), cfg.act_fn) * \
         _expert_matmul(p["w_up"], buf, cfg, backend)
     y = _expert_matmul(p["w_down"], h, cfg, backend)              # (Eh, cap, D)
@@ -908,25 +919,45 @@ def mamba_apply(p, x, cfg: ModelConfig, state=None,
     """state: None (forward / whole prefill) or {"conv": (B,K-1,Di), "ssm":
     (B,Di,N)}.  Returns (out, new_state): the final state for a prefill
     (S > 1), a chunk or a decode step; None for a forward of one position
-    with no state (the reference's own rule).  A model axis (``shard.tp``)
-    is refused: sharding d_inner is not ported (ROADMAP Queue A item 9b)."""
-    if shard is not None and shard.tp is not None and shard.tp.size > 1:
-        raise NotImplementedError(
-            f"{cfg.name}: a Mamba layer on a model axis of "
-            f"{shard.tp.size} (d_inner sharded) is not ported (ROADMAP "
-            "Queue A item 9b); serve it on a pure-DP mesh")
+    with no state (the reference's own rule).
+
+    On a model axis (``shard.tp``, the d_inner leaves cut by
+    ``param_specs``) rank r computes channels [r Di/tp, (r+1) Di/tp):
+    ``w_in`` is column-parallel, but ``param_specs`` cuts its 2 Di columns
+    contiguously (on tp 2 rank 0 holds the x half, rank 1 the z half), so
+    the xz rows are all-gathered over the axis (one gather a layer) and
+    the rank takes its channels of x and of z; ``w_x`` and ``w_out`` are
+    row-parallel (split qmatmul: a max for the row scale and a sum of the
+    partial products, the one-device result bit for bit at integer
+    activations), so (dt_r, B, C) is whole on every rank; ``w_dt`` is
+    column-parallel from the whole dt_r; the conv, the scan and the state
+    (``cache_specs``' local shapes) are the rank's channels.  Under
+    autograd the whole tensors entering a split region (the normed x,
+    (dt_r, B, C)) sum their cotangents over the axis."""
     b = x.shape[0]
     di, n, r = cfg.d_inner, cfg.ssm_state, cfg.dt_rank_
+    di_loc = p["D"].shape[-1]
+    tp = shard.tp if di_loc != di else None
     xn = rmsnorm(p["norm"], x, cfg.norm_eps)
+    if tp is not None:
+        xn = tp.enter(xn)
     xz = qlinear_apply(p["w_in"], xn, cfg, backend, shard=shard)
-    xs, z = xz.chunk(2, dim=-1)                                # (B,S,Di) each
+    if tp is None:
+        xs, z = xz.chunk(2, dim=-1)                            # (B,S,Di) each
+    else:
+        xz = tp.all_gather(xz, dim=-1, reduce_grad=True)       # (B,S,2Di)
+        lo = tp.index * di_loc
+        xs, z = xz[..., lo:lo + di_loc], xz[..., di + lo:di + lo + di_loc]
 
     conv_state = state["conv"] if state is not None else None
     xs, new_conv = _causal_conv(xs, p["conv_w"].to(torch.float32),
                                 p["conv_b"], conv_state)
     xs = F.silu(xs.to(torch.float32)).to(x.dtype)
 
-    dbc = qlinear_apply(p["w_x"], xs, cfg, backend, shard=shard)
+    dbc = qlinear_apply(p["w_x"], xs, cfg, backend,
+                        _row_parallel(shard, xs, di), shard=shard)
+    if tp is not None:
+        dbc = tp.enter(dbc)
     dt_r, b_, c_ = torch.split(dbc, [r, n, n], dim=-1)
     dt = F.softplus(qlinear_apply(p["w_dt"], dt_r, cfg, backend,
                                   shard=shard).to(torch.float32)
@@ -934,30 +965,31 @@ def mamba_apply(p, x, cfg: ModelConfig, state=None,
     a_mat = -torch.exp(p["A_log"])                             # (Di,N)
 
     scan = state is None or xs.shape[1] > 1
-    engine.record_plain("ssm_scan", "chunked" if scan else "step", dt,
-                        backend)
-    if scan:
-        h0 = state["ssm"] if state is not None else \
-            torch.zeros((b, di, n), dtype=torch.float32, device=x.device)
-        y, h_last = _ssm_scan_chunked(dt, xs.to(torch.float32),
-                                      b_.to(torch.float32),
-                                      c_.to(torch.float32), a_mat, h0,
-                                      cfg.ssm_chunk)
-    else:                                                       # one-step decode
-        decay = torch.exp(dt[:, 0, :, None] * a_mat[None])      # (B,Di,N)
-        drive = (dt[:, 0] * xs[:, 0].to(torch.float32))[..., None] * \
-            b_[:, 0].to(torch.float32)[:, None, :]
-        h_last = decay * state["ssm"] + drive
-        y = torch.einsum("bdn,bn->bd", h_last,
-                         c_[:, 0].to(torch.float32))[:, None]   # (B,1,Di)
+    with engine.record_plain("ssm_scan", "chunked" if scan else "step", dt,
+                             backend):
+        if scan:
+            h0 = state["ssm"] if state is not None else torch.zeros(
+                (b, di_loc, n), dtype=torch.float32, device=x.device)
+            y, h_last = _ssm_scan_chunked(dt, xs.to(torch.float32),
+                                          b_.to(torch.float32),
+                                          c_.to(torch.float32), a_mat, h0,
+                                          cfg.ssm_chunk)
+        else:                                                   # one-step decode
+            decay = torch.exp(dt[:, 0, :, None] * a_mat[None])  # (B,Di,N)
+            drive = (dt[:, 0] * xs[:, 0].to(torch.float32))[..., None] * \
+                b_[:, 0].to(torch.float32)[:, None, :]
+            h_last = decay * state["ssm"] + drive
+            y = torch.einsum("bdn,bn->bd", h_last,
+                             c_[:, 0].to(torch.float32))[:, None]  # (B,1,Di)
 
     y = y + p["D"] * xs.to(torch.float32)
     y = (y * F.silu(z.to(torch.float32))).to(x.dtype)
-    out = qlinear_apply(p["w_out"], y, cfg, backend, shard=shard)
+    out = qlinear_apply(p["w_out"], y, cfg, backend,
+                        _row_parallel(shard, y, di), shard=shard)
     new_state = None
     if state is not None or xs.shape[1] > 1:
         new_state = {"conv": new_conv if new_conv is not None else
-                     torch.zeros((b, cfg.ssm_conv - 1, di), dtype=x.dtype,
+                     torch.zeros((b, cfg.ssm_conv - 1, di_loc), dtype=x.dtype,
                                  device=x.device),
                      "ssm": h_last}
     return out, new_state

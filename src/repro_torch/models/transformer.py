@@ -32,6 +32,7 @@ lookup and an all-reduce, and vocabulary-sharded logits are all-gathered.
 from __future__ import annotations
 
 import torch
+import torch.nn.functional as F
 
 from . import layers as L
 from .config import ModelConfig
@@ -146,19 +147,24 @@ def _embed(params, inputs, cfg: ModelConfig, shard=None):
     dtype first, as the reference does (68.0, not 67.88, in bf16).  A
     vocabulary-sharded table (this rank's rows) looks up the tokens it
     holds, zeros elsewhere, and sums over the model axis: one nonzero
-    term, so the row comes back exact."""
+    term, so the row comes back exact.  The lookup is ``F.embedding``,
+    whose backward adds a row's repeated tokens in token order on every
+    thread count (an indexing ``w[ids]``'s backward adds them with
+    atomics on several CPU threads: replicas would differ in the last
+    bits)."""
     if cfg.frontend == "embeds":
         x = inputs.to(L.pdtype(cfg))
     else:
         w = params["embed"]["w"]
         if shard is None or shard.tp is None or \
                 w.shape[0] == cfg.padded_vocab:
-            x = w[inputs]
+            x = F.embedding(inputs, w)
         else:
             tp = shard.tp
             local = inputs - tp.index * w.shape[0]
             mine = (local >= 0) & (local < w.shape[0])
-            x = w[local.clamp(0, w.shape[0] - 1)] * mine[..., None].to(w.dtype)
+            x = F.embedding(local.clamp(0, w.shape[0] - 1), w) * \
+                mine[..., None].to(w.dtype)
             x = tp.all_reduce_sum(x.to(torch.float32)).to(w.dtype)
     if cfg.embed_scale:
         x = x * torch.tensor(cfg.d_model ** 0.5, dtype=x.dtype)

@@ -765,6 +765,82 @@ class PagedBatcher(ContinuousBatcher):
         self._gauge()
 
     # ---------------------------------------------------------- invariants
+    # --------------------------------------------------------------- audit
+    def audit_steps(self, backend: str | None = None) -> list:
+        """The paged step functions for the contract checker, under the
+        reference's names: ``paged:decode`` (every slot's row, as a
+        decode step without ragged occupancy runs) and ``paged:chunk`` over
+        a scratch copy of the block pool, ``paged:draft_decode`` and
+        ``paged:verify`` when speculation is on, and ``paged:select``.  The
+        fused single-dispatch contract binds where the fused kernel runs:
+        fused wiring, the ``cuda`` contract, float weights (a quantized
+        ``wo`` takes the engine's two-dispatch composition)."""
+        from repro_torch.analysis.report import StepSpec
+        from repro_torch.core.precision import (A_FLOAT, W_FLOAT,
+                                                get_precision, signed)
+        flags = self._audit_flags(backend)
+        dev, n, nb = self.device, self.n_slots, self.blocks_per_seq
+        pt = torch.from_numpy(self._pt).to(dev)
+        pos = torch.from_numpy(self.pos.astype(np.int32)).to(dev)
+        toks = torch.from_numpy(self.tokens).to(dev)
+        kw_shard = self._shard_kw(self._admit_shard)
+        pcfg = signed(get_precision(self.model.cfg.precision))
+        fused_layers = self.model.cfg.n_layers \
+            if (self._fused and flags["backend"] == "cuda"
+                and pcfg.w_mode == W_FLOAT) else None
+
+        def paged_decode(model, fused):
+            def fn(p, t, pool, table, ps, **kw):
+                return model.decode_step_paged(p, t, pool, table, ps,
+                                               self.kv_bits, fused=fused,
+                                               **kw_shard, **kw)
+            return fn
+        m = self.model
+        steps = [
+            StepSpec(name="paged:decode",
+                     fn=paged_decode(m, self._fused),
+                     args=(self.params, toks, self._scratch(self.pool), pt,
+                           pos),
+                     inplace=(2,), fused_layers=fused_layers, **flags),
+            StepSpec(name="paged:chunk",
+                     fn=lambda p, t, pool, row, start, **kw:
+                     m.prefill_chunk_paged(p, t, pool, row, start,
+                                           self.kv_bits, **kw_shard, **kw),
+                     args=(self.params,
+                           torch.zeros((1, self.chunk_size),
+                                       dtype=torch.int64, device=dev),
+                           self._scratch(self.pool),
+                           # the admission's page-table row shape (writes
+                           # land in the null block under an all-zero row)
+                           torch.zeros((1, nb), dtype=torch.int32,
+                                       device=dev), 0),
+                     inplace=(2,), **flags),
+        ]
+        if self.spec:
+            draft = signed(get_precision(self.draft_precision))
+            draft_flags = dict(
+                flags, quantized_weights=draft.w_mode != W_FLOAT,
+                quantized_acts=draft.w_mode != W_FLOAT
+                and draft.a_mode != A_FLOAT and draft.a_bits <= 8)
+            steps.append(StepSpec(
+                name="paged:draft_decode",
+                fn=paged_decode(self._draft_model, self._fused),
+                args=(self._draft_params, toks, self._scratch(self.pool), pt,
+                      pos),
+                inplace=(2,), **draft_flags))
+            w = self.spec_k + 1
+            steps.append(StepSpec(
+                name="paged:verify",
+                fn=lambda p, win, pool, table, ps, **kw:
+                m.decode_window_paged(p, win, pool, table, ps, self.kv_bits,
+                                      **kw),
+                args=(self.params,
+                      torch.zeros((n, w), dtype=torch.int64, device=dev),
+                      self._scratch(self.pool), pt, pos),
+                inplace=(2,), **flags))
+        steps.append(self._select_audit_step("paged:select", flags, n))
+        return steps
+
     def check_pool(self):
         """Cross-check the pool against every live holder (the slots' and
         the mid-flight admission's block lists, plus the radix tree)."""

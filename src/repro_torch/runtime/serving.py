@@ -398,16 +398,10 @@ class ContinuousBatcher:
         """Over a mesh: cut the params to this rank's slices (replicated
         under pure DP) on the rank's device, and set the calls' shardings
         and the local slots."""
-        from repro_torch.models.transformer import attention_only
         from repro_torch.parallel import sharding as shd
         from repro_torch.parallel.comm import StepSharding
         from repro_torch.tree import tree_map
         tp = None if shd.pure_dp(cfg, mesh) else mesh.axis("model")
-        if tp is not None and tp.size > 1 and not attention_only(cfg):
-            raise NotImplementedError(
-                f"{cfg.name}: Mamba layers on a model axis of {tp.size} are "
-                "not ported (ROADMAP Queue A item 9b); serve on a pure-DP "
-                "mesh (model axis 1)")
         if mesh.device is not None:
             self.device = mesh.device
         self.params = tree_map(
@@ -763,6 +757,102 @@ class ContinuousBatcher:
     @property
     def idle(self) -> bool:
         return not self.queue and self._adm is None and bool(all(self.done))
+
+    # ---------------------------------------------------------------- audit
+    def _audit_flags(self, backend: str | None) -> dict:
+        """Shared StepSpec fields for this batcher's serving contracts:
+        precision flags, the contract's backend (``backend``, else this
+        device's: the kernels on a card, the plain versions on the host),
+        what the steps run (the contract's backend on a card; the device
+        decides on the host, where the engine refuses ``cuda``) and
+        pure-DP-ness (a batcher with no mesh is collective-free)."""
+        from repro_torch.core.precision import (A_FLOAT, W_FLOAT,
+                                                get_precision, signed)
+        from repro_torch.parallel import sharding as shd
+        pcfg = signed(get_precision(self.model.cfg.precision))
+        qw = pcfg.w_mode != W_FLOAT
+        on_card = self.device.type == "cuda"
+        backend = backend or ("cuda" if on_card else "torch")
+        return {
+            "quantized_weights": qw,
+            "quantized_acts": qw and pcfg.a_mode != A_FLOAT
+            and pcfg.a_bits <= 8,
+            "backend": backend,
+            "run_backend": backend if on_card else None,
+            "pure_dp": self.mesh is None
+            or shd.pure_dp(self.model.cfg, self.mesh),
+        }
+
+    def _scratch(self, tree):
+        """A copy of a cache or pool tree for an audit step to write into
+        (the live batcher's state is never touched)."""
+        from repro_torch.tree import tree_map
+        return tree_map(lambda t: t.clone(), tree)
+
+    def audit_steps(self, backend: str | None = None) -> list:
+        """This batcher's step functions as
+        :class:`repro_torch.analysis.report.StepSpec`\\ s, the reference's
+        step names (``decode``, ``prefill``, ``chunk`` with chunked
+        admission, ``select``) with example arguments shaped as the hot
+        loop passes them: this rank's decode rows, scratch copies of the
+        slot cache and the admission cache.  ``backend``: the engine
+        backend of the contract ("cuda" | "torch"; None: this device's)."""
+        from repro_torch.analysis.report import StepSpec
+        flags = self._audit_flags(backend)
+        m = self.model
+        lo, hi = self._local.start, self._local.stop
+        dev = self.device
+        decode_kw = self._shard_kw(self._decode_shard)
+        admit_kw = self._shard_kw(self._admit_shard)
+        steps = [
+            StepSpec(name="decode",
+                     fn=lambda p, t, c, pos, **kw: m.decode_step(
+                         p, t, c, pos, **decode_kw, **kw),
+                     args=(self.params,
+                           torch.from_numpy(self.tokens[lo:hi]).to(dev),
+                           self._scratch(self.cache),
+                           torch.from_numpy(self.pos[lo:hi]).to(dev)),
+                     inplace=(2,), **flags),
+            StepSpec(name="prefill",
+                     fn=lambda p, batch, **kw: m.prefill(
+                         p, batch, self.s_adm, **admit_kw, **kw),
+                     args=(self.params, {"tokens": torch.zeros(
+                         (1, min(8, self.s_adm)), dtype=torch.int64,
+                         device=dev)}),
+                     **flags),
+        ]
+        if self.chunk_size:
+            adm = self._adm_cache if self._adm_cache is not None \
+                else self._make_cache(1, self.s_adm)
+            steps.append(StepSpec(
+                name="chunk",
+                fn=lambda p, t, c, pos, **kw: m.prefill_chunk(
+                    p, t, c, pos, **admit_kw, **kw),
+                args=(self.params,
+                      torch.zeros((1, self.chunk_size), dtype=torch.int64,
+                                  device=dev), self._scratch(adm), 0),
+                inplace=(2,), **flags))
+        steps.append(self._select_audit_step("select", flags, hi - lo))
+        return steps
+
+    def _select_audit_step(self, name: str, flags: dict, n_rows: int):
+        """The next-token selection of a decode step's rows (greedy argmax
+        and, for sampled rows, :func:`sample_core`), every row sampled at
+        temperature 1, top-k 5.  It runs no matmul, so the precision flags are off:
+        it is audited for collective-freedom under pure DP."""
+        from repro_torch.analysis.report import StepSpec
+        v = self.model.cfg.padded_vocab
+        rows = [Request(i, np.zeros((1, 1), np.int64),
+                        RequestOptions(temperature=1.0, top_k=5))
+                for i in range(n_rows)]
+
+        def select(lg, **kw):
+            return select_tokens(lg, lg.argmax(dim=-1), rows)
+        return StepSpec(
+            name=name, fn=select,
+            args=(torch.zeros((n_rows, v), dtype=torch.float32,
+                              device=self.device),),
+            **dict(flags, quantized_weights=False, quantized_acts=False))
 
     def run(self, max_steps: int = 10_000):
         """Drain the queue; returns all finished requests.  On any exception

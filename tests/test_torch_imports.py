@@ -163,3 +163,37 @@ def test_mesh_training_modules_stand_alone(name):
                           capture_output=True, text=True, timeout=300)
     assert proc.returncode == 0, proc.stderr
     assert proc.stdout.strip() == "[] False {}", proc.stdout
+
+
+ANALYSIS_MODULES = ("repro_torch.analysis", "repro_torch.analysis.report",
+                    "repro_torch.analysis.op_walker",
+                    "repro_torch.analysis.rules",
+                    "repro_torch.analysis.steps",
+                    "repro_torch.analysis.astlint",
+                    "repro_torch.analysis.cli")
+
+
+def test_analysis_modules_stand_alone():
+    """The auditor (``repro_torch.analysis``) is among the checked sources
+    and keeps its own copies of what it takes from ``repro.analysis``: in
+    a fresh interpreter, importing every module and running the linter
+    (``python -m repro_torch.analysis lint``: exit 0, no finding) loads no
+    JAX and nothing of ``repro``, and builds nothing."""
+    for name in ANALYSIS_MODULES:
+        rel = Path("src", *name.split("."))
+        assert any(p in SOURCES for p in (REPO / rel.with_suffix(".py"),
+                                          REPO / rel / "__init__.py")), name
+    code = ("import sys\n"
+            f"for m in {ANALYSIS_MODULES!r}: __import__(m)\n"
+            "from repro_torch.analysis import cli\n"
+            "from repro_torch.kernels import _build\n"
+            "rc = cli.main(['lint'])\n"
+            "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
+            "('jax', 'jaxlib', 'repro', 'ml_dtypes'))\n"
+            "print(rc, bad, _build._LIBS)\n")
+    proc = subprocess.run([sys.executable, "-c", code], cwd=REPO,
+                          env={**__import__("os").environ,
+                               "PYTHONPATH": str(REPO / "src")},
+                          capture_output=True, text=True, timeout=300)
+    assert proc.returncode == 0, proc.stderr
+    assert proc.stdout.strip().splitlines()[-1] == "0 [] {}", proc.stdout

@@ -14,7 +14,16 @@ tensor parallel) at 2xT on 2,1 / 1,2 / 2,2, a GQA model whose query heads
 split and KV heads do not (1,4).  Bounds: fp32 and 1x1 under tensor
 parallelism within 1e-4 of max|logit| (partial sums in another order; at
 1x1 the row scale mean|x| is a K-sharded float sum); the expert-parallel
-MoE within 1e-5 of max|out| of the reference's ``moe_apply_shard_map``."""
+MoE within 1e-5 of max|out| of the reference's ``moe_apply_shard_map``.
+
+Mamba and hybrid stacks on a model axis (d_inner cut over it): falcon-mamba
+(reduced, d_model 1024) at 2xT on 2,1 / 1,2 / 2,2 and jamba (one period at
+d_model 1024) at 2xT on 1,2 give the reference's one-device streams (the
+integer partial sums are exact and the scan is per channel); at fp32 a
+whole-prompt prefill's and a decode step's logits on 1,2 within 1e-4 of
+max|logit| of the one-rank calls, and the streams the reference's.  jamba
+is held on a pure model axis only: its MoE capacity depends on the
+call's rows (ROADMAP Queue C)."""
 import concurrent.futures
 import dataclasses
 import os
@@ -58,6 +67,14 @@ TP_GOLDEN = dict(name="tp-golden", n_layers=2, d_model=1024, n_heads=8,
 MIXED = dict(TP_GOLDEN, name="gqa-split", n_kv_heads=2)
 MOE_GOLDEN = dict(TP_GOLDEN, name="moe-golden", n_kv_heads=2, n_experts=4,
                   top_k=2, moe_d_ff=64, ffn_pattern=("moe",))
+# Mamba stacks on a model axis: (payload, arch, precision, cut of the
+# reduced config, seed).  d_model 1024 makes them tensor parallel (the
+# reduced 128 is pure DP); jamba keeps one period of its 8 layers (seven
+# Mamba layers, one attention, four dense FFNs and four MoE)
+MAMBA_TP = (("mamba_tp", "falcon-mamba-7b", "2xT", {"d_model": 1024}, 6),
+            ("jamba_tp", "jamba-v0.1-52b", "2xT",
+             {"d_model": 1024, "n_layers": 8}, 7),
+            ("mamba_fp32", "falcon-mamba-7b", "fp32", {"d_model": 1024}, 8))
 
 MOE_SCRIPT = r"""
 import os, sys
@@ -95,17 +112,17 @@ def _prompts(vocab, n):
     return [rng.integers(0, vocab, (1, 5 + i)) for i in range(n)]
 
 
-def _ref_streams(jcfg, params, kind, n_reqs, n_slots, s_max):
+def _ref_streams(jcfg, params, kind, n_reqs, n_slots, s_max, chunk=4):
     """The reference's no-mesh batcher on tests/torch_spmd_ranks.serve's
     requests."""
     if kind == "paged":
         jcfg = dataclasses.replace(jcfg, kv_bits=0)
         b = JPagedBatcher(jbuild(jcfg), params, JServingConfig(
-            n_slots=n_slots, s_max=s_max, chunk_size=4, kv_bits=8,
+            n_slots=n_slots, s_max=s_max, chunk_size=chunk, kv_bits=8,
             block_size=4))
     else:
         b = JBatcher(jbuild(jcfg), params, JServingConfig(
-            n_slots=n_slots, s_max=s_max, chunk_size=4))
+            n_slots=n_slots, s_max=s_max, chunk_size=chunk))
     for i, t in enumerate(_prompts(jcfg.vocab, n_reqs)):
         b.submit(JRequest(rid=i, tokens=t.astype(np.int32),
                           options=JOptions(max_new=4)))
@@ -186,8 +203,20 @@ def _run_spmd(tmp):
     payload["moe_golden"] = {"cfg": mg, "params": _port_params(mg, 5, 2)}
     mamba = reduce_for_smoke(get_config("falcon-mamba-7b", precision="2xT"))
     payload["mamba"] = {"cfg": mamba, "params": _port_params(mamba, 6, 1)}
-    wide = dataclasses.replace(mamba, d_model=1024)
-    payload["mamba_tp"] = {"cfg": wide, "params": _port_params(wide, 6, 2)}
+    # Mamba stacks on a model axis, drawn by the reference: the mamba_tp
+    # and jamba_tp streams are held to its one-device batcher's
+    jmamba = {}
+    for name, arch, precision, cut, seed in MAMBA_TP:
+        jcfg_m = dataclasses.replace(
+            jreduce(jget_config(arch, precision=precision)), **cut)
+        jmp = jax.jit(lambda k, c=jcfg_m: jto_serving(
+            jbuild(c).init(k), c, tp=2))(jax.random.PRNGKey(seed))
+        jmamba[name] = (jcfg_m, jmp)
+        payload[name] = {"cfg": dataclasses.replace(
+            reduce_for_smoke(get_config(arch, precision=precision)), **cut),
+            "params": params_from_numpy(
+                jax.tree_util.tree_map(np.asarray, jmp), "cpu")}
+    payload["mamba_ckpt"] = str(tmp / "mamba_ckpt")
 
     # the ranks run while this process serves the one-device side
     with concurrent.futures.ThreadPoolExecutor(1) as pool:
@@ -208,11 +237,14 @@ def _run_spmd(tmp):
                                          None, "paged", 2, 2, s_max=16)[0]
         one["mamba"] = ranks.serve(mamba, payload["mamba"]["params"], None,
                                    "dense", 2, 4, chunk=0)[0]
+        for name, (jcfg_m, jmp) in jmamba.items():
+            ref[name] = _ref_streams(jcfg_m, jmp, "dense", 2, 4, 24, chunk=0)
         results = fut.result()
     stdout, stderr = proc.communicate(timeout=300)
     assert proc.returncode == 0, stderr[-3000:]
     moe_ref = dict(np.load(tmp / "moe_out.npz"))
-    return {"ref": ref, "one": one, "ranks": results, "moe_ref": moe_ref}
+    return {"ref": ref, "one": one, "ranks": results, "moe_ref": moe_ref,
+            "cfg": {name: payload[name]["cfg"] for name, *_ in MAMBA_TP}}
 
 
 def test_collectives(spmd):
@@ -322,14 +354,111 @@ def test_moe_and_mamba_through_the_batcher(spmd):
     """An MoE model (d 1024, 4 experts top-2) through the dense batcher:
     on 1,2 both MoE paths give one rank's streams (two experts a token
     sum the same two terms); on 2,1 the slot map's (global) too.  The
-    reduced falcon-mamba on pure-DP meshes gives one rank's streams; a
-    Mamba stack on a model axis > 1 is refused (ROADMAP 9b)."""
+    reduced falcon-mamba on pure-DP meshes gives one rank's streams, and
+    at d_model 1024 on a model axis > 1 (2,2) the reference's one-device
+    streams."""
     for res in spmd["ranks"]:
         assert res["moe_golden_pjit"] == spmd["one"]["moe_golden"]
         if res["pair"]["model"] == 2:
             assert res["moe_golden_shard_map"] == spmd["one"]["moe_golden"]
         assert res["mamba_pair"] == spmd["one"]["mamba"]
-        assert "9b" in res["mamba_tp_refusal"]
+        assert res["mamba_tp_2,2"][0] == spmd["ref"]["mamba_tp"]
+
+
+def _mamba_runs(spmd):
+    """(name, label, rank result, (streams, counts, calls), cache shapes)
+    of every Mamba-stack run on a mesh."""
+    for res in spmd["ranks"]:
+        pair = "1,2" if res["pair"]["model"] == 2 else "2,1"
+        yield ("mamba_tp", pair, res, res["mamba_tp_pair"],
+               res["mamba_tp_cache_pair"])
+        yield ("mamba_tp", "2,2", res, res["mamba_tp_2,2"],
+               res["mamba_tp_cache_2,2"])
+        if "jamba_tp" in res:
+            yield "jamba_tp", "1,2", res, res["jamba_tp"], \
+                res["jamba_tp_cache"]
+
+
+@pytest.mark.parametrize("job", ["mamba_tp 2,1", "mamba_tp 1,2",
+                                 "mamba_tp 2,2", "jamba_tp 1,2"])
+def test_mamba_tensor_parallel_streams(spmd, job):
+    """falcon-mamba and jamba at 2xT over a mesh: greedy streams equal the
+    reference's one-device streams on every rank.  On a model axis of 2,
+    per model call and Mamba layer one gather of the xz rows, and a max
+    and a sum around w_x and around w_out; per call a sum for the
+    embedding and a gather for the logits; jamba's attention layer and
+    dense FFNs a max and a sum each, its MoE layers a sum (no model axis:
+    2,1 is pure DP, nothing is reduced)."""
+    name, label = job.split()
+    cfg = get_config("jamba-v0.1-52b" if name == "jamba_tp"
+                     else "falcon-mamba-7b")
+    n_layers = 8 if name == "jamba_tp" else 2
+    pattern = (cfg.layer_pattern * n_layers)[:n_layers]
+    ffns = (cfg.ffn_pattern * n_layers)[:n_layers]
+    n_mamba = pattern.count("mamba")
+    n_split = (n_layers - n_mamba) + ffns.count("dense")
+    seen = 0
+    for got_name, got_label, res, (streams, counts, calls), _ in \
+            _mamba_runs(spmd):
+        if (got_name, got_label) != (name, label):
+            continue
+        seen += 1
+        assert streams == spmd["ref"][name], (res["rank"], job)
+        n = calls["decode"] + calls["prefills"]
+        assert calls["chunks"] == 0 and calls["prefills"] == 2
+        if label == "2,1":
+            assert counts["all_reduce_sum"] == counts["all_reduce_max"] == 0
+            continue
+        assert counts["all_reduce_max"] == (2 * n_mamba + n_split) * n
+        assert counts["all_reduce_sum"] == \
+            (2 * n_mamba + n_split + ffns.count("moe") + 1) * n
+        gathers = (n_mamba + 1) * n + (calls["decode"] if label == "2,2"
+                                       else 0)
+        assert counts["all_gather"] == gathers, (job, counts, calls)
+    assert seen == (2 if label != "2,2" else 4)
+
+
+def test_mamba_cache_shapes_follow_cache_specs(spmd):
+    """The batcher's slot cache over a mesh (4 slots) holds this rank's
+    slices under ``cache_specs``: the conv (P, B / data, K-1, Di / model)
+    and ssm (P, B / data, Di / model, N) states; jamba's attention KV
+    (P, B, S, KV / model, Dh)."""
+    for name, label, res, _, shapes in _mamba_runs(spmd):
+        cfg = spmd["cfg"][name]
+        dp, mp = (int(v) for v in label.split(","))
+        di, n_per = cfg.d_inner, cfg.n_periods
+        for i, mixer in enumerate(cfg.layer_pattern):
+            key = f"layer_{i}"
+            if mixer == "mamba":
+                assert shapes[(key, "conv")] == \
+                    (n_per, 4 // dp, cfg.ssm_conv - 1, di // mp), (name, label)
+                assert shapes[(key, "ssm")] == \
+                    (n_per, 4 // dp, di // mp, cfg.ssm_state)
+            else:
+                assert shapes[(key, "k")] == \
+                    (n_per, 4 // dp, 24, cfg.n_kv_heads // mp, cfg.head_dim)
+
+
+def test_mamba_fp32_tensor_parallel_within_bound(spmd):
+    """falcon-mamba fp32 on 1,2: a whole-prompt prefill's and a decode
+    step's logits within 1e-4 of max|logit| of the one-rank calls (the
+    partial products of w_x and w_out summed in another order); the
+    streams equal the reference's one-device streams."""
+    for res in spmd["ranks"][:2]:
+        gap, scale = res["mamba_fp32_gap"]
+        print(f"rank {res['rank']} mamba fp32 on 1,2: logits gap {gap:.3e} "
+              f"of {scale:.3e}")
+        assert gap <= 1e-4 * scale, (gap, scale)
+        assert res["mamba_fp32_streams"] == spmd["ref"]["mamba_fp32"]
+
+
+def test_mamba_checkpoint_of_a_model_axis_restores_on_one_rank(spmd):
+    """A checkpoint of falcon-mamba's 2xT serving params written from 1,2
+    (each rank its slices: w_in cut contiguously over its 2 Di columns, as
+    ``param_specs`` cuts it) restores on a 1,1 mesh ``torch.equal`` to the
+    whole params."""
+    assert spmd["ranks"][0]["mamba_tp_restore"] is True
+    assert spmd["ranks"][1]["mamba_tp_restore"] is None
 
 
 def test_launcher_mesh_cpu(capfd, tmp_path, monkeypatch):
@@ -369,3 +498,18 @@ def test_mesh_refusals():
             mesh=tmesh.Mesh({"data": 1, "model": 1})))
     with pytest.raises(ValueError, match="shape alone"):
         tmesh.Mesh({"data": 2, "model": 1}).axis("data")
+
+
+def test_launcher_takes_mamba_on_a_model_axis():
+    """``--mesh 1,2`` with a tensor-parallel Mamba stack (d_model 1024)
+    passes the launcher's mesh check, as the reference's launcher serves
+    it; ``--brownout`` on a mesh is still refused."""
+    import argparse
+    cfg = dataclasses.replace(reduce_for_smoke(get_config("falcon-mamba-7b")),
+                              d_model=1024)
+    mesh = tmesh.Mesh({"data": 1, "model": 2})
+    args = argparse.Namespace(brownout=False, speculative=False, mesh="1,2")
+    assert tserve._check_mesh(args, cfg, mesh) is None
+    with pytest.raises(SystemExit, match="brownout"):
+        tserve._check_mesh(argparse.Namespace(
+            brownout=True, speculative=False, mesh="1,2"), cfg, mesh)

@@ -12,8 +12,8 @@ params (the port's draw, through ``interop``): the reference's own
 multi-device tests (tests/test_spmd_integration.py,
 tests/test_pipeline.py) do not run under this jax.
 
-Bounds (reduce_for_smoke shapes, or the serving tests' ``tp-golden``,
-d_model 1024: tensor parallel; f32, lr 1e-3, global batch 8 x 16, two
+Bounds (reduce_for_smoke shapes, or the serving tests' ``tp-golden``
+and a falcon-mamba stack ``mamba-tp``, d_model 1024: tensor parallel; f32, lr 1e-3, global batch 8 x 16, two
 steps): every rank's loss and grad norm within 1e-5 relative of the
 reference's at each step; every param leaf assembled from the ranks'
 slices within 1e-4 of the reference's, but for at most one entry in
@@ -90,6 +90,13 @@ TP_GOLDEN = dict(name="tp-golden", n_layers=2, d_model=1024, n_heads=8,
 # (tests/test_torch_spmd.py's moe-golden with heads of 32)
 MOE_TP = dict(TP_GOLDEN, name="moe-tp", head_dim=32, n_kv_heads=2,
               n_experts=4, top_k=2, moe_d_ff=64, ffn_pattern=("moe",))
+# a Mamba stack on a model axis: d_inner 2048 cut over it (the reduced
+# falcon-mamba at d_model 1024, as tests/test_torch_spmd.py serves it)
+MAMBA_TP = dict(name="mamba-tp", n_layers=2, d_model=1024, d_ff=0,
+                vocab=512, n_heads=0, n_kv_heads=0, head_dim=0,
+                layer_pattern=("mamba",), ffn_pattern=("none",), ssm_state=16,
+                ssm_conv=4, ssm_expand=2, dt_rank=8, ssm_chunk=16,
+                dtype="float32")
 # name: (arch or config dict, precision, optimizer, accum, bits, meshes)
 JOBS = {
     "smollm fp32": ("smollm-135m", "fp32", "adamw", 1, 0,
@@ -106,6 +113,7 @@ JOBS = {
     "tp-golden 2xT": (TP_GOLDEN, "2xT", "adamw", 1, 0, ("1,2", "2,2")),
     "granite": ("granite-moe-1b-a400m", "fp32", "adamw", 1, 0, ("1,2",)),
     "moe-tp": (MOE_TP, "fp32", "adamw", 1, 0, ("2,2",)),
+    "mamba-tp": (MAMBA_TP, "fp32", "adamw", 1, 0, ("1,2",)),
 }
 # the sharded optimizers alone: leaves cut over N, over K, over E (an
 # expert stack), over both axes, and one replicated; gradients small
@@ -369,6 +377,42 @@ def test_replicated_leaves_bit_equal_after_every_step(spmd):
                 bad = [k for k, v in held.items() if len(v) > 1]
                 assert not bad, (name, label, step, bad[:3])
             assert n_shared > 0
+
+
+@pytest.mark.parametrize("what", ["embedding", "moe"])
+def test_token_gathers_backward_bit_equal_run_to_run(what):
+    """The gathers whose backward adds repeated rows (the embedding lookup,
+    the MoE's slot-map gather of token rows) give the same gradient bits
+    in every run on several CPU threads: the replicas of
+    test_replicated_leaves_bit_equal_after_every_step depend on it (an
+    indexing's backward adds repeated rows with atomics in any order)."""
+    import hashlib
+    from repro_torch.models import layers as L
+    from repro_torch.models import transformer as tfm
+    cfg = ModelConfig(**dict(MOE_TP, d_model=256, vocab=64))
+    gen = torch.Generator().manual_seed(0)
+    tokens = torch.randint(0, 4, (16, 64), generator=gen)   # many repeats
+    emb = torch.randn(64, 256, generator=gen)
+    moe = L.moe_init(gen, dataclasses.replace(cfg, top_k=4), "cpu")
+    x = torch.randn(16, 64, 256, generator=gen)
+    cot = torch.randn(16, 64, 256, generator=gen)
+    threads = torch.get_num_threads()
+    torch.set_num_threads(4)
+    try:
+        digests = set()
+        for _ in range(12):
+            if what == "embedding":
+                leaf = emb.clone().requires_grad_()
+                out = tfm._embed({"embed": {"w": leaf}}, tokens, cfg)
+            else:
+                leaf = x.clone().requires_grad_()
+                c = dataclasses.replace(cfg, top_k=4, capacity_factor=2.0)
+                out = L.moe_partial(moe, leaf, c)[0].reshape(cot.shape)
+            (out * cot).sum().backward()
+            digests.add(hashlib.sha1(leaf.grad.numpy().tobytes()).hexdigest())
+    finally:
+        torch.set_num_threads(threads)
+    assert len(digests) == 1
 
 
 def test_tensor_parallel_step_collectives(spmd):

@@ -4,7 +4,7 @@ imports the port only (the ranks start without JAX); the test module holds
 the reference's side and every assertion.
 
 :func:`run_checks` returns, per rank, plain data: greedy streams, logits
-gaps, collective counts, refusal messages."""
+gaps, collective counts, cache shapes, a checkpoint restore's equality."""
 from __future__ import annotations
 
 import dataclasses
@@ -12,6 +12,7 @@ import dataclasses
 import numpy as np
 import torch
 
+from repro_torch.checkpoint import Checkpointer
 from repro_torch.launch.mesh import make_mesh
 from repro_torch.models import build_model
 from repro_torch.parallel import comm
@@ -21,6 +22,7 @@ from repro_torch.parallel.moe_shard_map import moe_apply_shard_map
 from repro_torch.runtime.kvcache import PagedBatcher
 from repro_torch.runtime.serving import (ContinuousBatcher, Request,
                                          RequestOptions, ServingConfig)
+from repro_torch.tree import tree_leaves
 
 
 def serve(cfg, params, mesh, kind: str, n_reqs: int, n_slots: int,
@@ -45,15 +47,17 @@ def serve(cfg, params, mesh, kind: str, n_reqs: int, n_slots: int,
     comm.reset_collective_counts()
     done = b.run()
     calls = {"decode": b.metrics.decode_steps,
-             "chunks": b.metrics.prefill_chunks}
+             "chunks": b.metrics.prefill_chunks,
+             "prefills": b.metrics.prefill_full}
     return ({r.rid: list(r.output) for r in done},
             comm.collective_counts(), calls)
 
 
 def _logits_gap(cfg, params, mesh, tokens):
-    """max |logit| difference of a 4-token prefill chunk and one decode
-    step over ``mesh`` (tensor parallel) against the same calls on the
-    whole params, and max |logit| of the one-rank run."""
+    """max |logit| difference of a 4-token prefill chunk (a whole-prompt
+    prefill for a stack with Mamba layers) and one decode step over
+    ``mesh`` (tensor parallel) against the same calls on the whole params,
+    and max |logit| of the one-rank run."""
     from repro_torch.models import transformer as tfm
     model = build_model(cfg)
     local = shd.shard_tree(params, shd.param_specs(params, cfg, mesh), mesh)
@@ -61,8 +65,11 @@ def _logits_gap(cfg, params, mesh, tokens):
     out = {}
     for name, p, kw, m in (("one", params, {}, None),
                            ("mesh", local, {"shard": shard}, mesh)):
-        cache = tfm.make_cache(cfg, 1, 16, "cpu", mesh=m)
-        lc, cache = model.prefill_chunk(p, tokens, cache, 0, **kw)
+        if tfm.attention_only(cfg):
+            cache = tfm.make_cache(cfg, 1, 16, "cpu", mesh=m)
+            lc, cache = model.prefill_chunk(p, tokens, cache, 0, **kw)
+        else:
+            lc, cache = tfm.prefill(p, tokens, cfg, 16, **kw)
         ld, _ = model.decode_step(p, tokens[:, -1:], cache,
                                   torch.tensor([4]), **kw)
         out[name] = (lc, ld)
@@ -70,6 +77,34 @@ def _logits_gap(cfg, params, mesh, tokens):
     gap = max(float((a - b).abs().max())
               for a, b in zip(out["one"], out["mesh"]))
     return gap, scale
+
+
+def cache_shapes(cfg, params, mesh, n_slots: int = 4) -> dict:
+    """The dense batcher's slot-cache leaf shapes over ``mesh`` (this
+    rank's), by layer and leaf."""
+    b = ContinuousBatcher(build_model(cfg), params, ServingConfig(
+        n_slots=n_slots, s_max=24, chunk_size=0, mesh=mesh))
+    return {(layer, name): tuple(leaf.shape)
+            for layer, leaves in b.cache.items() for name, leaf in
+            leaves.items()}
+
+
+def _checkpoint_restore(cfg, params, mesh, one, ckpt_dir) -> bool | None:
+    """Save ``params``' slices over ``mesh`` (every rank of it writes its
+    own); the first rank restores the checkpoint on its one-rank mesh
+    ``one``: True when every leaf is ``torch.equal`` to the whole
+    params (None on the other ranks)."""
+    specs = shd.param_specs(params, cfg, mesh)
+    ck = Checkpointer(ckpt_dir)
+    ck.save(1, shd.shard_tree(params, specs, mesh),
+            shardings=shd.TreeSharding(specs, mesh))
+    mesh.barrier()
+    if mesh.axis("model").index != 0:
+        return None
+    got = ck.restore(1, params, shd.TreeSharding(
+        shd.param_specs(params, cfg, one), one))
+    return all(a.dtype == b.dtype and torch.equal(a, b) for a, b in
+               zip(tree_leaves(got), tree_leaves(params)))
 
 
 def _moe_checks(mesh, moe):
@@ -109,6 +144,7 @@ def run_checks(world, payload):
     one = make_mesh(1, 1, ranks=[r])
     m21 = make_mesh(2, 1, ranks=[0, 1])
     m12 = make_mesh(1, 2, ranks=[2, 3])
+    m12_low = make_mesh(1, 2, ranks=[0, 1])
     m14 = make_mesh(1, 4)
     pair = m21 if r < 2 else m12
     res = {"rank": r, "pair": dict(pair.shape)}
@@ -164,10 +200,25 @@ def run_checks(world, payload):
     mamba = payload["mamba"]
     res["mamba_pair"] = serve(mamba["cfg"], mamba["params"], pair, "dense",
                               2, 4, chunk=0)[0]
+    # Mamba and hybrid stacks on a model axis: d_inner cut over it
     wide = payload["mamba_tp"]
-    try:
-        serve(wide["cfg"], wide["params"], world, "dense", 1, 2, chunk=0)
-        res["mamba_tp_refusal"] = None
-    except NotImplementedError as e:
-        res["mamba_tp_refusal"] = str(e)
+    for label, mesh in (("pair", pair), ("2,2", world)):
+        res[f"mamba_tp_{label}"] = serve(wide["cfg"], wide["params"], mesh,
+                                         "dense", 2, 4, chunk=0)
+        res[f"mamba_tp_cache_{label}"] = cache_shapes(
+            wide["cfg"], wide["params"], mesh)
+    if r >= 2:
+        jam = payload["jamba_tp"]
+        res["jamba_tp"] = serve(jam["cfg"], jam["params"], m12, "dense", 2,
+                                4, chunk=0)
+        res["jamba_tp_cache"] = cache_shapes(jam["cfg"], jam["params"], m12)
+    else:
+        mf = payload["mamba_fp32"]
+        res["mamba_fp32_gap"] = _logits_gap(mf["cfg"], mf["params"],
+                                            m12_low, tokens)
+        res["mamba_fp32_streams"] = serve(mf["cfg"], mf["params"], m12_low,
+                                          "dense", 2, 4, chunk=0)[0]
+        res["mamba_tp_restore"] = _checkpoint_restore(
+            wide["cfg"], wide["params"], m12_low, one,
+            payload["mamba_ckpt"])
     return res
