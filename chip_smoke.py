@@ -5122,6 +5122,363 @@ def phase_audit(device, card) -> None:
 
 
 # ---------------------------------------------------------------------------
+# 4v: the dry run beside the card, sequence-parallel decode, FSDP
+# ---------------------------------------------------------------------------
+# (arch, shape, keywords) of the dry-run cells beside the card, on rank 0 of
+# 16x16; the two train cells cut to 1 layer at full width (a whole kimi-k2
+# train cell traces for minutes)
+DRY_CELLS = (("smollm-135m", "decode_32k", {"precision": "2xT",
+                                            "kv_bits": 8}),
+             ("glm4-9b", "decode_32k", {"precision": "2xT", "kv_bits": 8,
+                                        "kv_seq_shard": True}),
+             ("jamba-v0.1-52b", "long_500k", {}),
+             ("internvl2-76b", "train_4k", {"n_layers": 1}),
+             ("kimi-k2-1t-a32b", "train_4k", {"n_layers": 1}))
+# glm4-9b 2xT kv8, the decode step of phase 4r on 1,2 (its slots), depth
+# cut, against its dry run
+DRY_LAYERS, DRY_S = 4, 1024
+# smollm B = 1, the cache over 2,1: 16 greedy tokens at 2xT kv8, one step
+# at fp32 (its logits against one rank's)
+SP_S, SP_NEW = 8192, {"2xT kv8": 16, "fp32": 1}
+FSDP_ARCH, FSDP_LAYERS, FSDP_B, FSDP_S, FSDP_STEPS = (
+    "granite-moe-1b-a400m", 2, 4, 64, 3)
+FSDP_LR = 1e-3
+
+
+def _dry_vs_real(mesh, cfg):
+    """One glm4 decode step on this rank of the 1,2 ``mesh`` (a warm-up
+    first): launches by kernel, collective counts and wire bytes, the
+    arguments' bytes, the bytes allocated above the arguments at the peak
+    (``max_memory_allocated``); and the dry run of the same step on this
+    rank of a dry 1,2 mesh."""
+    import torch
+    from repro_torch.kernels import engine
+    from repro_torch.launch import dryrun
+    from repro_torch.launch.mesh import Mesh
+    from repro_torch.launch.steps import make_decode_fn, step_sharding
+    from repro_torch.models import build_model, to_serving
+    from repro_torch.models import transformer as tfm
+    from repro_torch.parallel import comm
+    from repro_torch.parallel import sharding as shd
+    from repro_torch.tree import tree_leaves
+    dev, b = mesh.device, N_SLOTS
+    model = build_model(cfg)
+    whole = to_serving(model.init(torch.Generator(device=dev).manual_seed(0),
+                                  dev), cfg, tp=2)
+    params = shd.shard_tree(whole, shd.param_specs(whole, cfg, mesh), mesh)
+    del whole
+    cache = tfm.make_cache(cfg, b, DRY_S, dev, mesh=mesh)
+    cspecs = shd.cache_specs(tfm.make_cache(cfg, b, DRY_S, "meta"), cfg,
+                             mesh, b)
+    step = make_decode_fn(model, step_sharding(cfg, mesh, b, cspecs))
+    token = torch.randint(0, cfg.vocab, (b, 1), device=dev,
+                          generator=torch.Generator(device=dev).manual_seed(1))
+    pos = torch.tensor(DRY_S // 2, device=dev)
+    args = (params, token, cache, pos)
+    with torch.no_grad():
+        step(*args)                                      # warm-up
+        torch.cuda.synchronize()
+        comm.reset_collective_counts()
+        engine.reset_launch_counts()
+        torch.cuda.reset_peak_memory_stats()
+        before = torch.cuda.memory_allocated()
+        step(*args)
+        torch.cuda.synchronize()
+    real = {"launches": {k: v for k, v in engine.launch_counts().items()
+                         if v},
+            "counts": comm.collective_counts(),
+            "bytes": comm.collective_bytes(),
+            "args": sum(t.numel() * t.element_size()
+                        for t in tree_leaves(args)),
+            "peak": torch.cuda.max_memory_allocated() - before}
+    shapes = to_serving(build_model(cfg).init(torch.Generator(), "meta"),
+                        cfg, tp=2)
+    rec = dryrun.trace(dryrun.decode_cell(
+        cfg, Mesh(mesh.shape, rank=mesh.rank, dry=True), shapes, b, DRY_S))
+    dry = {"launches": {k: v["launches"] for k, v in rec["kernels"].items()},
+           "counts": rec["collectives"]["counts"],
+           "bytes": rec["collectives"]["bytes"],
+           "args": rec["memory_analysis"]["argument_size_in_bytes"],
+           "peak": rec["peak_live_bytes"]}
+    del params, cache, args
+    torch.cuda.empty_cache()
+    return {"real": real, "dry": dry}
+
+
+def _sp_stream(cfg, prompt, dev, n_new: int, mesh=None):
+    """smollm (seed 0) on ``dev``: a prefill of ``prompt`` into a cache of
+    SP_S, then ``n_new`` greedy decode steps, on one card or with the cache
+    cut over ``mesh``'s data axis (B = 1: sequence-parallel); the stream,
+    the first step's f32 logits and the steps' launches by kernel."""
+    import torch
+    from repro_torch.kernels import engine
+    from repro_torch.launch.steps import make_decode_fn, step_sharding
+    from repro_torch.models import build_model, to_serving
+    from repro_torch.parallel import sharding as shd
+    model = build_model(cfg)
+    params = to_serving(model.init(torch.Generator(device=dev).manual_seed(0),
+                                   dev), cfg, tp=1)
+    tokens = torch.from_numpy(prompt).to(dev)
+    with torch.no_grad():
+        logits, cache = model.prefill(params, {"tokens": tokens}, SP_S)
+        shard = None
+        if mesh is not None:
+            cspecs = shd.cache_specs(cache, cfg, mesh, 1)
+            cache = shd.shard_tree(cache, cspecs, mesh)
+            shard = step_sharding(cfg, mesh, 1, cspecs)
+        step = make_decode_fn(model, shard)
+        tok = logits[:, -1].argmax(-1)
+        stream, first = [int(tok)], None
+        engine.reset_launch_counts()
+        for i in range(n_new):
+            out, cache = step(params, tok[:, None], cache,
+                              torch.tensor([prompt.shape[1] + i], device=dev))
+            if first is None:
+                first = out[:, -1].float().cpu()
+            tok = out[:, -1].argmax(-1)
+            stream.append(int(tok))
+        torch.cuda.synchronize()
+    return {"stream": stream, "first": first,
+            "launches": {k: v for k, v in engine.launch_counts().items()
+                         if v}}
+
+
+def _fsdp_steps(cfg, dev, mesh=None, fsdp=True):
+    """FSDP_STEPS adamw steps of ``cfg`` (seed 0) on FSDP_B x FSDP_S token
+    batches, on one card or over ``mesh`` (with ``fsdp``, or plain data
+    parallel): per step the loss, grad norm and collectives (forward and
+    backward) and whether the replicated leaves are equal on every rank;
+    the final params whole on the host (the FSDP leaves gathered)."""
+    import numpy as np
+    import torch
+    from repro_torch.launch.steps import make_train_step
+    from repro_torch.models import build_model
+    from repro_torch.optim import make_optimizer
+    from repro_torch.parallel import comm
+    from repro_torch.parallel import sharding as shd
+    from repro_torch.tree import tree_leaves, tree_leaves_along, tree_map
+    model, opt = build_model(cfg), make_optimizer("adamw", lr=FSDP_LR)
+    params = model.init(torch.Generator(device=dev).manual_seed(0), dev)
+    specs = None
+    if mesh is not None:
+        specs = shd.param_specs(params, cfg, mesh, fsdp=fsdp)
+        params = shd.shard_tree(params, specs, mesh)
+    state = opt.init(params)
+    step = make_train_step(model, opt, mesh=mesh, fsdp=fsdp and mesh is not None)
+    rng = np.random.default_rng(5)
+    recs = []
+    for _ in range(FSDP_STEPS):
+        batch = {k: torch.from_numpy(rng.integers(
+            0, cfg.vocab, (FSDP_B, FSDP_S))).to(dev) for k in ("tokens",
+                                                            "labels")}
+        comm.reset_collective_counts()
+        params, state, m = step(params, state, batch)
+        rec = {"loss": float(m["loss"]), "grad_norm": float(m["grad_norm"]),
+               "colls": comm.collective_counts(),
+               "backward": comm.backward_counts()}
+        if mesh is not None:
+            whole = [t for t, s in zip(tree_leaves(params),
+                                       tree_leaves_along(params, specs))
+                     if not shd.cut_axes(s, mesh)]
+            rec["equal"] = _replicas_equal(mesh.axis("data"), whole)
+        recs.append(rec)
+    if mesh is not None:
+        data = mesh.axis("data")
+        params = tree_map(lambda t, s: data.all_gather(t, dim=-2)
+                          if "data" in shd.cut_axes(s, mesh) else t,
+                          params, specs)
+    return {"recs": recs, "params": [t.cpu() for t in tree_leaves(params)]}
+
+
+def _rank_4v(world, jobs):
+    """One rank of phase 4v's spawn of two ranks on the card: glm4's 1,2
+    decode step against its dry run, then on 2,1 the sequence-parallel
+    smollm streams (2xT kv8, fp32) and the steps with and without FSDP."""
+    import torch
+    from repro_torch.launch.mesh import make_mesh
+    m21 = make_mesh(2, 1, device=world.device)
+    out = {"dry": _dry_vs_real(world, jobs["glm4"]),
+           "sp": {k: _sp_stream(cfg, jobs["prompt"], world.device,
+                                SP_NEW[k], m21)
+                  for k, cfg in jobs["sp"].items()},
+           "fsdp": _fsdp_steps(jobs["fsdp"], world.device, m21),
+           "dp": _fsdp_steps(jobs["fsdp"], world.device, m21, fsdp=False)}
+    torch.cuda.synchronize()
+    return out
+
+
+def _lse_record(device, card) -> None:
+    """B5 with its log-sum-exp at phase 3's shapes (B 4, KV 3, G 3, Dh 64,
+    S 80 and 2048): the output ``torch.equal`` with the lse on and off, the
+    lse within 1e-5 max(1, |lse|) of the plain version's; both timed."""
+    import torch
+    from repro_torch.kernels.decode_attention import (decode_attention,
+                                                      decode_attention_ref)
+    gen = torch.Generator().manual_seed(41)
+    b, kv, g, dh = N_SLOTS, KV_HEADS, GROUP, DH
+    for s, pos_list in DECODE_CASES:
+        q = torch.randn((b, kv, g, dh), generator=gen).to(device,
+                                                          torch.bfloat16)
+        kc, vc = (torch.randint(-127, 128, (b, s, kv, dh), generator=gen,
+                                dtype=torch.int8).to(device) for _ in "kv")
+        ks, vs = ((torch.rand((b, s, kv, 1), generator=gen) * 0.02 + 1e-3)
+                  .to(device) for _ in "kv")
+        pos = torch.tensor(pos_list, dtype=torch.int32, device=device)
+        args = (q, kc, ks, vc, vs, pos)
+        off = decode_attention(*args)
+        on, lse = decode_attention(*args, lse=True)
+        _, want = decode_attention_ref(*(a.cpu() for a in args), lse=True)
+        torch.cuda.synchronize()
+        err = float(((lse.cpu() - want).abs()
+                     / want.abs().clamp_min(1.0)).max())
+        t_off, _ = time_ms(lambda: decode_attention(*args))
+        t_on, _ = time_ms(lambda: decode_attention(*args, lse=True))
+        print(f"[{card}] 4v B5 S={s} pos={pos_list}: lse on / off "
+              f"{t_on:.5f} / {t_off:.5f} ms; output torch.equal on and off: "
+              f"{torch.equal(on, off)}; lse max |diff| / max(1, |lse|) "
+              f"{err:.3e} (bound 1e-5)")
+        check(torch.equal(on, off), f"4v B5 S={s}: the output changes with "
+              "the lse on")
+        check(err <= 1e-5, f"4v B5 S={s}: lse off by {err}")
+
+
+def phase_dryrun(device, card) -> None:
+    """4v: the dry run at production scale beside the card, against a real
+    step, sequence-parallel decode and FSDP training on two ranks."""
+    import numpy as np
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.launch import dryrun
+    from repro_torch.launch.mesh import parse_mesh, spawn
+    from repro_torch.models import build_model
+    t0 = time.time()
+    print("== 4v. the dry run at production scale, sequence-parallel "
+          "decode, FSDP", flush=True)
+    _lse_record(device, card)
+    mem = torch.cuda.get_device_properties(0).total_memory
+    print(f"[{card}] 4v the card's memory (total_memory): {mem} bytes "
+          f"(launch.dryrun.H100_MEMORY: {dryrun.H100_MEMORY})")
+    with tempfile.TemporaryDirectory() as out:
+        for arch, shape, kw in DRY_CELLS:
+            rec = dryrun.run_cell(arch, shape, out_dir=out, verbose=False,
+                                  **kw)
+            check(rec["status"] == "ok", f"4v dry run {arch} {shape}: "
+                  f"{rec.get('error')}")
+            ma = rec["memory_analysis"]
+            print(f"[{card}] 4v dry run {arch} {shape} {kw} on rank 0 of "
+                  f"16x16: {ma['total_bytes'] / 1e9:.3f} GB a rank "
+                  f"(arguments {ma['argument_size_in_bytes'] / 1e9:.3f}, "
+                  f"temp {ma['temp_size_in_bytes'] / 1e9:.3f}), fits "
+                  f"{rec['fits']}, {rec['cost_analysis']['flops']:.4e} "
+                  f"FLOPs, collectives {rec['collectives']['total_bytes'] / 1e9:.4f} "
+                  f"GB {rec['collectives']['counts']}, launches "
+                  f"{ {k: v['launches'] for k, v in rec['kernels'].items()} }, "
+                  f"trace {rec['trace_s']} s")
+    t_dry = time.time() - t0
+
+    glm4 = dataclasses.replace(get_config("glm4-9b", precision="2xT",
+                                          kv_bits=8), n_layers=DRY_LAYERS)
+    small = {"2xT kv8": model_config(precision="2xT", kv_bits=8),
+             "fp32": model_config(precision="fp32", kv_bits=0,
+                                  dtype="float32")}
+    fsdp = dataclasses.replace(get_config(FSDP_ARCH, precision="fp32"),
+                               n_layers=FSDP_LAYERS, dtype="float32")
+    prompt = np.random.default_rng(9).integers(0, small["fp32"].vocab,
+                                               (1, PROMPT))
+    one = {k: _sp_stream(cfg, prompt, device, SP_NEW[k])
+           for k, cfg in small.items()}
+    one_fsdp = _fsdp_steps(fsdp, device)
+    torch.cuda.empty_cache()
+    ranks = spawn(_rank_4v, parse_mesh("1,2"), {"glm4": glm4, "sp": small,
+                                                "prompt": prompt,
+                                                "fsdp": fsdp},
+                  device="cuda")
+
+    # the dry run against the real glm4 step
+    for r, res in enumerate(ranks):
+        real, dry = res["dry"]["real"], res["dry"]["dry"]
+        ratio = dry["peak"] / real["peak"]
+        print(f"[{card}] 4v glm4-9b 2xT kv8 {DRY_LAYERS} layers, "
+              f"{N_SLOTS} x {DRY_S} decode step on 1,2 rank {r}: launches "
+              f"real {real['launches']} / dry {dry['launches']}; "
+              f"collectives real {real['counts']} {real['bytes']} B / dry "
+              f"{dry['counts']} {dry['bytes']} B; argument bytes real "
+              f"{real['args']} / dry {dry['args']}; bytes above the "
+              f"arguments at the peak: dry {dry['peak']} / real "
+              f"{real['peak']} (max_memory_allocated), ratio {ratio:.4f}")
+        for key in ("launches", "counts", "bytes", "args"):
+            check(real[key] == dry[key], f"4v dry run rank {r}: {key} "
+                  f"{dry[key]} != the real step's {real[key]}")
+
+    # sequence-parallel decode
+    want_b5 = model_config().n_layers * SP_NEW["2xT kv8"]
+    for name in small:
+        for r, res in enumerate(ranks):
+            got = res["sp"][name]
+            gap = float((got["first"] - one[name]["first"]).abs().max())
+            scale = float(one[name]["first"].abs().max())
+            print(f"[{card}] 4v smollm {name} B=1, cache of {SP_S} cut over "
+                  f"2,1, rank {r}: {SP_NEW[name]} tokens equal to one rank's: "
+                  f"{got['stream'] == one[name]['stream']}; first step's "
+                  f"logits max |diff| {gap:.3e} (max|logit| {scale:.3e}); "
+                  f"launches {got['launches']} (one rank "
+                  f"{one[name]['launches']})")
+            if name == "fp32":
+                check(gap <= 1e-4 * scale, f"4v SP fp32 rank {r}: {gap}")
+            else:
+                check(got["stream"] == one[name]["stream"],
+                      f"4v SP 2xT rank {r}: the stream differs")
+                check(got["launches"].get("decode_attention") == want_b5,
+                      f"4v SP rank {r}: B5 launches {got['launches']}, "
+                      f"predicted {want_b5}")
+
+    # FSDP: against the same mesh's plain data-parallel steps (bit-equal:
+    # the same sums) and against one rank's (f32 rounding: at 128 tokens a
+    # row the step's rounding flipped a near-tied top-8 routing, PERF.md)
+    n_moe = FSDP_LAYERS
+    for i in range(FSDP_STEPS):
+        o = one_fsdp["recs"][i]
+        for r, res in enumerate(ranks):
+            g, d = res["fsdp"]["recs"][i], res["dp"]["recs"][i]
+            rel = abs(g["loss"] - d["loss"]) / abs(d["loss"])
+            rel_one = abs(g["loss"] - o["loss"]) / abs(o["loss"])
+            print(f"[{card}] 4v {FSDP_ARCH} fp32 {FSDP_LAYERS} layers FSDP "
+                  f"on 2,1 step {i} rank {r}: loss {g['loss']:.7f} (data "
+                  f"parallel on 2,1 {d['loss']:.7f}, {rel:.2e} rel; one rank "
+                  f"{o['loss']:.7f}, {rel_one:.2e} rel), grad norm "
+                  f"{g['grad_norm']:.6g} ({d['grad_norm']:.6g}, "
+                  f"{o['grad_norm']:.6g}); replicated leaves equal: "
+                  f"{g['equal']}; collectives {g['colls']}, backward "
+                  f"{g['backward']} (data parallel {d['colls']})")
+            check(rel <= 1e-5, f"4v FSDP step {i} rank {r}: loss {rel} from "
+                  "the data-parallel step's")
+            check(rel_one <= 1e-5, f"4v FSDP step {i} rank {r}: loss "
+                  f"{rel_one} from one rank's")
+            check(g["equal"], f"4v FSDP step {i} rank {r}: replicas differ")
+            check(g["colls"]["all_gather"] == 7 * n_moe,
+                  f"4v FSDP gathers {g['colls']}, predicted {7 * n_moe}")
+            check(g["backward"]["all_reduce_sum"] == 4 * n_moe,
+                  f"4v FSDP reduce-scatters {g['backward']}, predicted "
+                  f"{4 * n_moe}")
+    for r, res in enumerate(ranks):
+        for label, want in (("data parallel", res["dp"]["params"]),
+                            ("one rank", one_fsdp["params"])):
+            d = np.concatenate([(a.float() - b.float()).abs().reshape(-1)
+                                .numpy() for a, b in
+                                zip(res["fsdp"]["params"], want)])
+            n_out = int((d > 1e-4).sum())
+            print(f"[{card}] 4v FSDP rank {r} after {FSDP_STEPS} steps: "
+                  f"params max |diff| {d.max():.3e} from the {label} run's, "
+                  f"{n_out} of {d.size} entries beyond 1e-4")
+            check(n_out <= max(1, d.size // 10000)
+                  and d.max() <= 2.2 * FSDP_LR * FSDP_STEPS,
+                  f"4v FSDP rank {r}: params {d.max()} from the {label} "
+                  f"run's ({n_out} beyond 1e-4)")
+    torch.cuda.empty_cache()
+    print(f"phase 4v: {time.time() - t0:.1f} s (dry runs {t_dry:.1f} s)")
+
+
+# ---------------------------------------------------------------------------
 # 4k: the tuning cache
 # ---------------------------------------------------------------------------
 TUNE_PRECISIONS = ("2xT", "4x4", "1x1")
@@ -5750,6 +6107,7 @@ def _main(torch, tmp: str) -> None:
                   PagedBatcher(*fused_served, _paged_config()))
     phase_tuning(device, card, served, tmp)
     phase_audit(device, card)
+    phase_dryrun(device, card)
     for rec in records:
         rec["launches"] = launches[rec["name"]]
     replaces = {

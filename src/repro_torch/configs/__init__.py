@@ -1,11 +1,12 @@
 """Config registry: ``get_config(arch_id)`` for every LM architecture of the
-reference, in its order."""
+reference, in its order, and the dry run's grid of (arch x shape) cells
+(``iter_cells``)."""
 from __future__ import annotations
 
 import dataclasses
 import importlib
 
-from repro_torch.models.config import ModelConfig
+from repro_torch.models.config import SHAPES, ModelConfig, ShapeConfig  # noqa: F401
 
 ARCH_IDS = [
     "jamba-v0.1-52b",
@@ -47,3 +48,16 @@ def get_config(arch_id: str, precision: str = None, kv_bits: int = None,
     if overrides:
         cfg = dataclasses.replace(cfg, **overrides)
     return cfg
+
+
+def iter_cells():
+    """All (arch, shape, skip) dry-run cells, in the reference's order:
+    ``skip`` is None, or why the cell is not run (pure full attention at
+    the 524k context)."""
+    for arch_id in ARCH_IDS:
+        cfg = get_config(arch_id)
+        for shape in SHAPES.values():
+            skip = None
+            if shape.name == "long_500k" and not cfg.sub_quadratic:
+                skip = "pure full attention at 524k ctx (DESIGN.md §4)"
+            yield arch_id, shape, skip

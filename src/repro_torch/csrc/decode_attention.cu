@@ -8,6 +8,11 @@
 //   k/v_scale(B, S, KV, 1)   f32 per-(position, head) scales
 //   pos      (B,)            int32; position s attends iff s <= pos[b]
 //   out      (B, KV, G, Dh)  f32
+//   lse      (B, KV, G)      f32, optional (null: not written): each
+//                            head's log-sum-exp m + log l of the scores,
+//                            -inf (and out 0) where no position is valid
+//                            (pos[b] < 0: a rank's slice of a cache cut
+//                            over its sequence that ends before pos)
 //
 // Semantics as the Pallas kernel: K/V are dequantized in f32 (code *
 // scale; K's scale multiplies the row's code dot product, V's is folded
@@ -40,21 +45,22 @@ __global__ void __launch_bounds__(PA_THREADS, 1)
 decode_attn_kernel(const QT* __restrict__ q, const int8_t* __restrict__ kc,
                    const float* __restrict__ ks, const int8_t* __restrict__ vc,
                    const float* __restrict__ vs, const int32_t* __restrict__ pos,
-                   float* __restrict__ out, int B, int S, int KV, int G, int Dh, int span) {
+                   float* __restrict__ out, float* __restrict__ lse, int B, int S, int KV, int G,
+                   int Dh, int span) {
   extern __shared__ __align__(16) float smem[];
   pa_attend<QT, KV_INT8, VEC, true>(smem, q, kc, ks, vc, vs, nullptr, pos, out, B, S, 1, KV, G,
-                                    Dh, span);
+                                    Dh, span, lse);
 }
 
 template <typename QT, bool VEC>
 cudaError_t launch(int C, int span, int smem, cudaStream_t stream, const void* q,
                    const void* k, const void* k_scale, const void* v, const void* v_scale,
-                   const void* pos, void* out, int B, int S, int KV, int G, int Dh) {
+                   const void* pos, void* out, void* lse, int B, int S, int KV, int G, int Dh) {
   return pa_launch(decode_attn_kernel<QT, VEC>, B * KV * C, C, smem, stream,
                    static_cast<const QT*>(q), static_cast<const int8_t*>(k),
                    static_cast<const float*>(k_scale), static_cast<const int8_t*>(v),
                    static_cast<const float*>(v_scale), static_cast<const int32_t*>(pos),
-                   static_cast<float*>(out), B, S, KV, G, Dh, span);
+                   static_cast<float*>(out), static_cast<float*>(lse), B, S, KV, G, Dh, span);
 }
 
 }  // namespace
@@ -74,12 +80,13 @@ extern "C" int decode_attention_plan(int B, int S, int KV, int G, int Dh, const 
 
 // The kernel with an explicit cluster size (1..8) and span limit (1..32);
 // 0 takes the automatic choice (decode_attention_plan).  The tuning cache's
-// B5 plans launch through here; decode_attention_int8() is this with 0, 0.
+// B5 plans launch through here; decode_attention_int8() is this with 0, 0
+// and no lse.  `lse` may be null (not written).
 extern "C" cudaError_t decode_attention_config(const void* q, int q_kind, const void* k,
                                                const void* k_scale, const void* v,
                                                const void* v_scale, const void* pos, void* out,
-                                               int B, int S, int KV, int G, int Dh, int cluster,
-                                               int span_max, cudaStream_t stream) {
+                                               void* lse, int B, int S, int KV, int G, int Dh,
+                                               int cluster, int span_max, cudaStream_t stream) {
   // cudaErrorInvalidValue: bad shapes or plan; cudaErrorLaunchOutOfResources:
   // the plan's block needs more than PA_SMEM_LIMIT bytes of shared memory
   if (B <= 0 || !pa_shapes_ok(KV_INT8, B, S, 1, KV, G, Dh)) return cudaErrorInvalidValue;
@@ -99,14 +106,14 @@ extern "C" cudaError_t decode_attention_config(const void* q, int q_kind, const 
   switch (q_kind) {
     case KIND_F32:
       return vec ? launch<float, true>(C, span, smem, stream, q, k, k_scale, v, v_scale, pos, out,
-                                       B, S, KV, G, Dh)
+                                       lse, B, S, KV, G, Dh)
                  : launch<float, false>(C, span, smem, stream, q, k, k_scale, v, v_scale, pos,
-                                        out, B, S, KV, G, Dh);
+                                        out, lse, B, S, KV, G, Dh);
     case KIND_BF16:
       return vec ? launch<__nv_bfloat16, true>(C, span, smem, stream, q, k, k_scale, v, v_scale,
-                                               pos, out, B, S, KV, G, Dh)
+                                               pos, out, lse, B, S, KV, G, Dh)
                  : launch<__nv_bfloat16, false>(C, span, smem, stream, q, k, k_scale, v,
-                                                v_scale, pos, out, B, S, KV, G, Dh);
+                                                v_scale, pos, out, lse, B, S, KV, G, Dh);
     default:
       return cudaErrorInvalidValue;
   }
@@ -117,6 +124,6 @@ extern "C" cudaError_t decode_attention_int8(const void* q, int q_kind, const vo
                                              const void* v_scale, const void* pos, void* out,
                                              int B, int S, int KV, int G, int Dh,
                                              cudaStream_t stream) {
-  return decode_attention_config(q, q_kind, k, k_scale, v, v_scale, pos, out, B, S, KV, G, Dh,
-                                 0, 0, stream);
+  return decode_attention_config(q, q_kind, k, k_scale, v, v_scale, pos, out, nullptr, B, S, KV,
+                                 G, Dh, 0, 0, stream);
 }

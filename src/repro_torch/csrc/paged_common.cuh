@@ -521,7 +521,11 @@ __device__ inline void pa_push(cg::cluster_group& cl, const float* src, float* d
 // Element i (of G*Dh) of the normalised output merged from n partials
 // (PaPart layout, `stride` floats apart from `parts` on) in ascending order:
 // M = max m_p; A = sum acc_p exp(m_p - M); L likewise; A / max(L, 1e-30).
-__device__ inline float pa_merge(const float* parts, int stride, int n, int G, int Dh, int i) {
+// With `lse` (non-null) the caller of element g*Dh also writes head g's
+// log-sum-exp M + log L to lse[g]: -inf when no position was valid (L = 0;
+// the output is then 0).
+__device__ inline float pa_merge(const float* parts, int stride, int n, int G, int Dh, int i,
+                                 float* __restrict__ lse = nullptr) {
   const int g = i / Dh;
   float M = -1e30f;
   for (int p = 0; p < n; ++p)
@@ -533,6 +537,8 @@ __device__ inline float pa_merge(const float* parts, int stride, int n, int G, i
     A = fmaf(pp.acc[i], f, A);
     L = fmaf(pp.l[g], f, L);
   }
+  if (lse != nullptr && i % Dh == 0)
+    lse[g] = L > 0.f ? M + logf(L) : __int_as_float(0xff800000);   // -inf
   return A / fmaxf(L, 1e-30f);
 }
 
@@ -582,7 +588,9 @@ inline void pa_plan(int kv_kind, bool vec, int B, int KV, int G, int Dh, int n_c
 // merge in the block; with a cluster each block pushes its merged partial
 // to every rank, and rank r writes its slice of the output, merged in
 // ascending rank order.  DENSE (B5): sequence b's positions are block b of
-// the pool and pt is not read.
+// the pool and pt is not read.  `lse` (B5's optional output, else null):
+// each head's log-sum-exp, (B, KV, G) f32, written with the output element
+// g*Dh of its head (pa_merge).
 template <typename QT, int KIND, bool VEC, bool DENSE>
 __device__ __forceinline__ void pa_attend(float* smem, const QT* __restrict__ q,
                                           const typename KvStore<KIND>::T* __restrict__ kp,
@@ -592,7 +600,7 @@ __device__ __forceinline__ void pa_attend(float* smem, const QT* __restrict__ q,
                                           const int32_t* __restrict__ pt,
                                           const int32_t* __restrict__ pos, float* __restrict__ out,
                                           int NB, int bs, int n_blocks, int KV, int G, int Dh,
-                                          int span) {
+                                          int span, float* __restrict__ lse = nullptr) {
   cg::cluster_group cl = cg::this_cluster();
   const int C = static_cast<int>(cl.num_blocks());
   const int rank = static_cast<int>(cl.block_rank());
@@ -619,8 +627,10 @@ __device__ __forceinline__ void pa_attend(float* smem, const QT* __restrict__ q,
   __syncthreads();
   pa_cta_merge(warps, KIND, VEC, G, Dh, span, PaPart(part, G, Dh));
   __syncthreads();
+  float* lse_u = lse == nullptr ? nullptr : lse + static_cast<size_t>(unit) * G;
   if (C == 1) {
-    for (int i = threadIdx.x; i < gd; i += PA_THREADS) out[head + i] = pa_merge(part, pf, 1, G, Dh, i);
+    for (int i = threadIdx.x; i < gd; i += PA_THREADS)
+      out[head + i] = pa_merge(part, pf, 1, G, Dh, i, lse_u);
     return;
   }
   // every rank's partial into every rank's inbox; rank r then writes
@@ -631,7 +641,7 @@ __device__ __forceinline__ void pa_attend(float* smem, const QT* __restrict__ q,
   const int ch = (gd + C - 1) / C;
   const int hi = min(gd, (rank + 1) * ch);
   for (int i = rank * ch + threadIdx.x; i < hi; i += PA_THREADS)
-    out[head + i] = pa_merge(inbox, pf, C, G, Dh, i);
+    out[head + i] = pa_merge(inbox, pf, C, G, Dh, i, lse_u);
 }
 
 // Shape checks shared by the launchers.

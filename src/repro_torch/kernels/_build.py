@@ -83,9 +83,10 @@ SIGNATURES = {
         #  B, S, KV, G, Dh, stream)
         "decode_attention_int8": (P, I, P, P, P, P, P, P,
                                   I, I, I, I, I, P),
-        # the tuning cache's plans: (..., B, S, KV, G, Dh, cluster,
-        #  span_max, stream); 0 takes the automatic choice
-        "decode_attention_config": (P, I, P, P, P, P, P, P,
+        # the tuning cache's plans and the optional log-sum-exp: (q,
+        #  q_kind, k, k_scale, v, v_scale, pos, out, lse or null, B, S, KV,
+        #  G, Dh, cluster, span_max, stream); 0 takes the automatic choice
+        "decode_attention_config": (P, I, P, P, P, P, P, P, P,
                                     I, I, I, I, I, I, I, P),
         # (B, S, KV, G, Dh, k, v, plan[4]) -> 0; plan = (vector loads,
         # cluster size, span, shared-memory bytes of one block)

@@ -11,6 +11,10 @@ per-(position, head) f32 scales; G = H/KV query heads share each KV head.
   v_scale  : (B, S, KV, 1)    f32
   pos      : int scalar or (B,) positions (mask: s <= pos[b])
   out      : (B, KV, G, Dh)   f32
+  lse      : (B, KV, G)       f32, with ``lse=True``: each head's
+             log-sum-exp of its masked scores (-inf, and out 0, where no
+             position is valid), what a sequence-parallel decode step
+             combines the ranks' partial outputs by
 
 On a CUDA tensor :func:`decode_attention` launches the hand-written kernel
 in ``csrc/decode_attention.cu`` (it replaces the TPU kernel
@@ -71,12 +75,14 @@ def launch_plan(q, k_codes, v_codes) -> dict:
 
 
 def decode_attention(q, k_codes, k_scale, v_codes, v_scale, pos, *,
-                     plan: tuple[int, int] | None = None) -> torch.Tensor:
-    """Kernel wrapper: (B, KV, G, Dh) float32 attention output.  ``plan``
-    is (cluster size 0..8, span limit 0..32), 0 the automatic value (None:
-    both automatic); the plain version ignores it."""
+                     plan: tuple[int, int] | None = None, lse: bool = False):
+    """Kernel wrapper: (B, KV, G, Dh) float32 attention output, and with
+    ``lse`` the (B, KV, G) float32 log-sum-exp beside it (a tuple).
+    ``plan`` is (cluster size 0..8, span limit 0..32), 0 the automatic
+    value (None: both automatic); the plain version ignores it."""
     if not q.is_cuda:
-        return decode_attention_ref(q, k_codes, k_scale, v_codes, v_scale, pos)
+        return decode_attention_ref(q, k_codes, k_scale, v_codes, v_scale,
+                                    pos, lse=lse)
     b, kv, g, dh = q.shape
     s = k_codes.shape[1]
     if q.dtype not in _Q_KINDS:
@@ -96,10 +102,13 @@ def decode_attention(q, k_codes, k_scale, v_codes, v_scale, pos, *,
     if not (0 <= cluster <= 8 and 0 <= span_max <= 32):
         raise ValueError(f"plan {plan}: cluster 0..8, span limit 0..32")
     out = torch.empty((b, kv, g, dh), dtype=torch.float32, device=q.device)
+    lse_t = torch.empty((b, kv, g), dtype=torch.float32, device=q.device) \
+        if lse else None
     err = _build.library("decode_attention").decode_attention_config(
         q.data_ptr(), _Q_KINDS[q.dtype], k_codes.data_ptr(), k_scale.data_ptr(),
         v_codes.data_ptr(), v_scale.data_ptr(), pos_v.data_ptr(), out.data_ptr(),
-        b, s, kv, g, dh, cluster, span_max, _build.stream_ptr(q))
+        None if lse_t is None else lse_t.data_ptr(), b, s, kv, g, dh, cluster,
+        span_max, _build.stream_ptr(q))
     if err == _OUT_OF_SMEM:
         if cluster or span_max:
             raise ValueError(f"plan {plan} needs more than {SMEM_LIMIT} B of "
@@ -108,12 +117,26 @@ def decode_attention(q, k_codes, k_scale, v_codes, v_scale, pos, *,
                    f"G={g}, Dh={dh}, S={s}")
     _build.check(err, "decode_attention")
     _build.LAUNCHES["decode_attention"] += 1
-    return out
+    return (out, lse_t) if lse else out
 
 
-def decode_attention_ref(q, k_codes, k_scale, v_codes, v_scale, pos):
+def masked_lse(scores, mask, out):
+    """(``out`` with rows of no valid position zeroed, the log-sum-exp of
+    ``scores`` over ``mask``'s true entries along the last dim, -inf where
+    there is none): the kernel's lse output in plain PyTorch.  ``out`` has
+    the scores' leading dims and one more."""
+    lse = torch.logsumexp(torch.where(mask, scores, torch.full_like(
+        scores, float("-inf"))), dim=-1)
+    out = torch.where(torch.isneginf(lse)[..., None], torch.zeros_like(out),
+                      out)
+    return out, lse
+
+
+def decode_attention_ref(q, k_codes, k_scale, v_codes, v_scale, pos, *,
+                         lse: bool = False):
     """Plain version of the kernel: f32 dequant, masked softmax, weighted
-    sum (the semantics of the Pallas kernel and its oracle)."""
+    sum (the semantics of the Pallas kernel and its oracle); with ``lse``
+    also the log-sum-exp (:func:`masked_lse`)."""
     b, kv, g, dh = q.shape
     s = k_codes.shape[1]
     pos_b = _pos_vector(pos, b, q.device)
@@ -123,20 +146,23 @@ def decode_attention_ref(q, k_codes, k_scale, v_codes, v_scale, pos):
         * (dh ** -0.5)
     mask = (torch.arange(s, device=q.device)[None, :]
             <= pos_b[:, None])[:, None, None, :]
-    scores = torch.where(mask, scores, torch.full_like(scores, -1e30))
-    probs = torch.softmax(scores, dim=-1)
-    return torch.einsum("bkgs,bskd->bkgd", probs, v)
+    probs = torch.softmax(torch.where(mask, scores,
+                                      torch.full_like(scores, -1e30)), dim=-1)
+    out = torch.einsum("bkgs,bskd->bkgd", probs, v)
+    return masked_lse(scores, mask, out) if lse else out
 
 
 def decode_attention_serving_ref(q, k_codes, k_scale, v_codes, v_scale,
                                  pos, *, kv_bits: int = 8,
-                                 dtype=torch.float32):
+                                 dtype=torch.float32, lse: bool = False):
     """The serving model's dense one-step decode attention, op-for-op as
     ``repro.kernels.decode_attention.decode_attention_serving_ref``: K/V are
     dequantized to the MODEL dtype, the grouped einsum and ``/ sqrt(dh)``
     follow ``layers._attend``, -1e30 mask fill, f32 softmax.  kv_bits=4
     nibble-unpacks the codes; the scales are None iff kv_bits=16 (raw
-    model-dtype storage).  Returns (B, KV, G, Dh) in ``dtype``."""
+    model-dtype storage).  Returns (B, KV, G, Dh) in ``dtype``; with
+    ``lse`` (the partial of a sequence-parallel step) the output in f32
+    and the (B, KV, G) log-sum-exp (:func:`masked_lse`)."""
     b, kv, g, dh = q.shape
     if kv_bits == 4:
         k_codes, v_codes = unpack_nibbles(k_codes), unpack_nibbles(v_codes)
@@ -152,7 +178,10 @@ def decode_attention_serving_ref(q, k_codes, k_scale, v_codes, v_scale,
                           kk.to(torch.float32)) / (dh ** 0.5)
     mask = (torch.arange(s, device=q.device)[None, :]
             <= pos_b[:, None])[:, None, None, None, :]
-    scores = torch.where(mask, scores, torch.full_like(scores, -1e30))
-    probs = torch.softmax(scores, dim=-1)
+    probs = torch.softmax(torch.where(mask, scores,
+                                      torch.full_like(scores, -1e30)), dim=-1)
     out = torch.einsum("bkgqs,bskd->bqkgd", probs, vv.to(torch.float32))
+    if lse:
+        o, l = masked_lse(scores[:, :, :, 0], mask[:, :, :, 0], out[:, 0])
+        return o, l
     return out[:, 0].to(dtype)

@@ -34,6 +34,15 @@ causal attention (:func:`flash_attention`, prefill and forward).
 ``weight_kind`` is the *storage* kind: "int" / "ternary" / "binary" for
 bit-packed int32 words, "codes" for the unpacked int8 fallback (3-bit,
 misaligned K).  ``act_bits == 0`` means float activations.
+
+The dry run (``launch.dryrun``) traces a step on ``meta`` tensors (no
+data, no data pointer) inside :func:`trace_as_card`, where they take the
+card's routes.  Each CUDA route then returns an empty result of its
+kernel's shape and dtype and adds one launch and the kernel's work
+(:mod:`.costs`) to :func:`traced_work`, in place of the launch: nothing
+is built or loaded, no stream is touched, and the dispatch trace says
+``cuda`` as it does on the card.  A tensor with data never takes that
+branch.
 """
 from __future__ import annotations
 
@@ -50,7 +59,7 @@ from repro_torch.core.precision import (A_FLOAT, PrecisionConfig, W_BINARY,
 from repro_torch.core.quantize import (act_fake_quant, weight_fake_quant,
                                       weight_quant)
 
-from . import _build, ref, tuning
+from . import _build, costs, ref, tuning
 from .act_quant import act_quant_signed_grouped, act_quant_signed_rows
 from .binary_matmul import binary_matmul
 from .decode_attention import (_pos_vector,
@@ -189,19 +198,26 @@ def available_kernels() -> dict[KernelKey, str]:
     return {k: fn.__name__ for k, fn in sorted(_REGISTRY.items())}
 
 
+def on_card(t: torch.Tensor) -> bool:
+    """True for a CUDA tensor, and inside :func:`trace_as_card` for a meta
+    tensor (the dry run's stand-in for the card's)."""
+    return t.is_cuda or (_AS_CARD[0] and t.is_meta)
+
+
 def default_backend(t: torch.Tensor) -> str:
     """The kernel for a CUDA tensor, the plain version for a CPU tensor."""
-    return BACKEND_CUDA if t.is_cuda else BACKEND_TORCH
+    return BACKEND_CUDA if on_card(t) else BACKEND_TORCH
 
 
 def _check_backend(backend: str | None, t: torch.Tensor) -> str:
     """The backend for an input on ``t``'s device: the device decides when
     ``backend`` is None; ``"cuda"`` is refused for a host tensor, so a
-    dispatch recorded as ``cuda`` always ran on the card."""
+    dispatch recorded as ``cuda`` always ran on the card (or, in a dry
+    run, stood in for a launch on it)."""
     backend = backend or default_backend(t)
     if backend not in BACKENDS:
         raise ValueError(f"unknown backend {backend!r}; known: {BACKENDS}")
-    if backend == BACKEND_CUDA and not t.is_cuda:
+    if backend == BACKEND_CUDA and not on_card(t):
         raise ValueError(f"backend='cuda' needs CUDA tensors, got one on "
                          f"{t.device} (pass backend='torch' or None)")
     return backend
@@ -308,6 +324,51 @@ def reset_launch_counts() -> None:
 
 
 # ---------------------------------------------------------------------------
+# the dry run's stand-in for a launch (meta tensors)
+# ---------------------------------------------------------------------------
+_TRACED: dict[str, list[int]] = {}     # kernel -> [launches, flops, bytes]
+_AS_CARD = [False]
+
+
+@contextlib.contextmanager
+def trace_as_card():
+    """Inside: ``meta`` tensors take the card's routes (:func:`on_card`),
+    each kernel's launch stood in for (the dry run).  Tensors with data
+    are not affected."""
+    prev, _AS_CARD[0] = _AS_CARD[0], True
+    try:
+        yield
+    finally:
+        _AS_CARD[0] = prev
+
+
+def _traced(name: str, work: tuple[int, int], *outs):
+    """Count one traced launch of kernel ``name`` and its (flops, bytes);
+    returns ``outs`` (one tensor, or a tuple of several)."""
+    rec = _TRACED.setdefault(name, [0, 0, 0])
+    rec[0] += 1
+    rec[1] += int(work[0])
+    rec[2] += int(work[1])
+    return outs[0] if len(outs) == 1 else outs
+
+
+def traced_work() -> dict[str, dict[str, int]]:
+    """The launches a trace on meta tensors stood in for since the last
+    :func:`reset_traced_work`, by kernel: ``launches``, ``flops`` and
+    ``bytes`` (:mod:`.costs`)."""
+    return {name: dict(zip(("launches", "flops", "bytes"), rec))
+            for name, rec in sorted(_TRACED.items())}
+
+
+def reset_traced_work() -> None:
+    _TRACED.clear()
+
+
+def _empty(shape, dtype, like: torch.Tensor) -> torch.Tensor:
+    return torch.empty(tuple(shape), dtype=dtype, device=like.device)
+
+
+# ---------------------------------------------------------------------------
 # implementations.  Signature:
 #     fn(x, pw, scale, bias, *, out_dtype, a_scale=None, block=None) -> (M, N)
 # ``x`` is prepared by qmatmul (int8 codes or float); ``scale`` is the (N,)
@@ -327,8 +388,15 @@ def _row_epilogue(out, a_scale, bias, out_dtype):
 
 def _kernel_call(kernel, x, pw, scale, bias, out_dtype, a_scale, block,
                  **kw):
-    out = kernel(x.contiguous(), pw.wt_packed, scale,
-                 bias if a_scale is None else None, block=block, **kw)
+    if x.is_meta:
+        m, n = x.shape[0], scale.shape[0]
+        work = costs.binary_matmul(m, n, pw.k) if kernel is binary_matmul \
+            else costs.qmatmul(m, n, pw.k, pw.bits, x.element_size())
+        out = _traced(kernel.__name__, work,
+                      _empty((m, n), torch.float32, x))
+    else:
+        out = kernel(x.contiguous(), pw.wt_packed, scale,
+                     bias if a_scale is None else None, block=block, **kw)
     if a_scale is not None:
         return _row_epilogue(out, a_scale, bias, out_dtype)
     return out.to(out_dtype)
@@ -455,6 +523,11 @@ def _prep_activations(x2: torch.Tensor, pw: PackedWeight, a_bits: int,
                           kind="signed_grouped", requested_backend=backend,
                           impl_backend=backend, a_bits=bits, w_bits=0,
                           m_rows=m, a_scale_shape=(m, 1)):
+        if x2.is_meta:
+            return _traced("act_quant_signed_grouped", costs.act_quant_rows(
+                m, x2.shape[1], x2.element_size()),
+                _empty(x2.shape, torch.int8, x2),
+                _empty((m, 1), x2.dtype, x2))
         return act_quant_signed_rows(x2.contiguous(), bits=bits)
 
 
@@ -494,8 +567,14 @@ def _prep_split_activations(x2: torch.Tensor, pw: PackedWeight, a_bits: int,
                           impl_backend=backend, a_bits=bits, w_bits=0,
                           m_rows=int(x2.shape[0]),
                           a_scale_shape=tuple(a_scale.shape)):
-        xq = act_quant_signed_grouped(x2.contiguous(), a_scale.contiguous(),
-                                      bits=bits, compute_dtype=x2.dtype)
+        if x2.is_meta:
+            xq = _traced("act_quant_signed_grouped", costs.act_quant_rows(
+                x2.shape[0], x2.shape[1], x2.element_size()),
+                _empty(x2.shape, torch.int8, x2))
+        else:
+            xq = act_quant_signed_grouped(x2.contiguous(),
+                                          a_scale.contiguous(), bits=bits,
+                                          compute_dtype=x2.dtype)
     return xq, a_scale
 
 
@@ -670,25 +749,40 @@ def resolve_attention_entry(kind: str, kv_bits: int,
 
 
 @register_attention(ATTN_DECODE, (8, 4), BACKEND_TORCH)
-def _decode_attn_torch(q, k, ks, v, vs, pos, *, kv_bits, dtype, block=None):
+def _decode_attn_torch(q, k, ks, v, vs, pos, *, kv_bits, dtype, block=None,
+                       lse=False):
     return decode_attention_serving_ref(q, k, ks, v, vs, pos,
-                                        kv_bits=kv_bits, dtype=dtype)
+                                        kv_bits=kv_bits, dtype=dtype, lse=lse)
 
 
 @register_attention(ATTN_DECODE, 8, BACKEND_CUDA)
-def _decode_attn_cuda(q, k, ks, v, vs, pos, *, kv_bits, dtype, block=None):
+def _decode_attn_cuda(q, k, ks, v, vs, pos, *, kv_bits, dtype, block=None,
+                      lse=False):
+    if q.is_meta:
+        b, kv, g, dh = q.shape
+        work = costs.decode_attention(b, k.shape[1], kv, g, dh,
+                                      q.element_size(), lse)
+        if lse:
+            return _traced("decode_attention", work,
+                           _empty(q.shape, torch.float32, q),
+                           _empty((b, kv, g), torch.float32, q))
+        return _traced("decode_attention", work, _empty(q.shape, dtype, q))
     plan = None if block is None else (block[0], block[2])
-    return _decode_attention_kernel(q.contiguous(), k, ks, v, vs, pos,
-                                    plan=plan).to(dtype)
+    out = _decode_attention_kernel(q.contiguous(), k, ks, v, vs, pos,
+                                   plan=plan, lse=lse)
+    return out if lse else out.to(dtype)
 
 
 def decode_attention(q, k_codes, k_scale, v_codes, v_scale, pos, *,
                      kv_bits: int = 8, dtype=torch.float32,
-                     backend: str | None = None) -> torch.Tensor:
+                     backend: str | None = None, lse: bool = False):
     """One-step dense-cache decode attention via the registry.
 
     q: (B, KV, G, Dh); codes (B, S, KV, Dh'); scales (B, S, KV, 1);
-    pos scalar or (B,).  Returns (B, KV, G, Dh) in ``dtype``.  The kernel
+    pos scalar or (B,).  Returns (B, KV, G, Dh) in ``dtype``; with ``lse``
+    (a sequence-parallel step's partial) the output in float32 and the
+    (B, KV, G) float32 log-sum-exp of each head's masked scores (-inf, and
+    a zero output, where no position <= pos is in the cache).  The kernel
     reads its launch plan from the tuning cache
     (:func:`autotune_decode_attention` sweeps it offline; a miss runs the
     automatic plan)."""
@@ -704,8 +798,10 @@ def decode_attention(q, k_codes, k_scale, v_codes, v_scale, pos, *,
                           requested_backend=backend, impl_backend=matched[2],
                           a_bits=kv_bits, w_bits=8, m_rows=int(q.shape[0]),
                           a_scale_shape=None, block=block):
+        # the lse keyword only when asked: an entry may take no such option
         return fn(q, k_codes, k_scale, v_codes, v_scale, pos,
-                  kv_bits=kv_bits, dtype=dtype, block=block)
+                  kv_bits=kv_bits, dtype=dtype, block=block,
+                  **({"lse": True} if lse else {}))
 
 
 @register_attention(ATTN_PAGED, (16, 8, 4), BACKEND_TORCH)
@@ -715,9 +811,21 @@ def _paged_attn_torch(q, k, ks, v, vs, pt_pos, *, kv_bits, dtype):
                                kv_bits=kv_bits, out_dtype=dtype)
 
 
+def _paged_work(q, k, ks, page_table) -> tuple[int, int]:
+    """B2's work for ``q``'s rows over every position of their page-table
+    rows (:func:`costs.paged_attention`)."""
+    rows, kv, g, dh = q.shape
+    return costs.paged_attention(
+        rows, page_table.shape[1] * k.shape[1], kv, g, dh, q.element_size(),
+        k.shape[-1] * k.element_size(), ks is not None, page_table.numel())
+
+
 @register_attention(ATTN_PAGED, (16, 8, 4), BACKEND_CUDA)
 def _paged_attn_cuda(q, k, ks, v, vs, pt_pos, *, kv_bits, dtype):
     page_table, pos = pt_pos
+    if q.is_meta:
+        return _traced("paged_attention", _paged_work(q, k, ks, page_table),
+                       _empty(q.shape, dtype, q))
     return _paged_attention_kernel(q.contiguous(), k, ks, v, vs, page_table,
                                    pos, kv_bits=kv_bits).to(dtype)
 
@@ -752,6 +860,11 @@ def _flash_attn_torch(q, k, v, *, causal, window, softcap):
 
 @register_attention(ATTN_FLASH, 16, BACKEND_CUDA)
 def _flash_attn_cuda(q, k, v, *, causal, window, softcap):
+    if q.is_meta:
+        b, sq, kv, g, dh = q.shape
+        return _traced("flash_attention", costs.flash_attention(
+            b, sq, k.shape[1], kv, g, dh, q.element_size(), causal, window),
+            _empty(q.shape, torch.float32, q))
     return _flash_attention_kernel(q.contiguous(), k.contiguous(),
                                    v.contiguous(), causal=causal,
                                    window=window, softcap=softcap)
@@ -837,13 +950,27 @@ def _fused_decode_cuda(q, k, ks, v, vs, extras, *, kv_bits, dtype):
     page_table, pos, slot_map, wo_p, pcfg, reduce = extras
     if not _wo_is_float(wo_p, pcfg):
         ql, ptl, posl = _live_rows(q, page_table, pos, slot_map)
-        attn = _paged_attention_kernel(ql.contiguous(), k, ks, v, vs,
-                                       ptl.contiguous(), posl,
-                                       kv_bits=kv_bits).to(dtype)
+        if q.is_meta:
+            attn = _traced("paged_attention", _paged_work(ql, k, ks, ptl),
+                           _empty(ql.shape, dtype, q))
+        else:
+            attn = _paged_attention_kernel(ql.contiguous(), k, ks, v, vs,
+                                           ptl.contiguous(), posl,
+                                           kv_bits=kv_bits).to(dtype)
         flat = attn.reshape(ql.shape[0], 1, -1)
         return _project_wo(flat, wo_p, pcfg, dtype, BACKEND_CUDA, reduce)
-    out = _fused_decode_kernel(q.contiguous(), k, ks, v, vs, page_table, pos,
-                               slot_map, wo_p["qw"], kv_bits=kv_bits)
+    if q.is_meta:
+        rows, (_, kv, g, dh) = slot_map.shape[0], q.shape
+        wo = wo_p["qw"]
+        flops, nbytes = costs.fused_decode(
+            rows, page_table.shape[1] * k.shape[1], kv, g, dh, wo.shape[-1],
+            q.element_size(), k.shape[-1] * k.element_size(), ks is not None,
+            rows * page_table.shape[1], wo.element_size())
+        out = _traced("fused_decode", (flops, nbytes),
+                      _empty((rows, wo.shape[-1]), torch.float32, q))
+    else:
+        out = _fused_decode_kernel(q.contiguous(), k, ks, v, vs, page_table,
+                                   pos, slot_map, wo_p["qw"], kv_bits=kv_bits)
     if reduce is not None:
         # row-parallel wo: this rank's heads' partial (L, D) f32 sums
         out = reduce.all_reduce_sum(out.to(torch.float32))

@@ -15,8 +15,12 @@ file store in a temporary directory), runs ``fn(mesh, *args)`` on each and
 returns their results; rank r takes ``cuda:(r % device_count)``, or the
 CPU.  A rank that raises fails the whole call.
 
-``make_production_mesh`` (the reference's 256/512-chip pod) belongs to the
-dry run and is not ported.
+:func:`make_production_mesh` is the reference's production pod (16 x 16,
+or 2 x 16 x 16 with ``multi_pod``) as one rank sees it with no process
+group: a *dry* mesh, whose axes (``parallel.comm.Axis`` with ``dry``)
+count their collectives and communicate nothing.  The dry run
+(``launch.dryrun``) traces one rank's step on it.  A mesh of several ranks
+built from a shape alone and not marked dry refuses to give an axis.
 """
 from __future__ import annotations
 
@@ -44,8 +48,9 @@ class Mesh:
 
     def __init__(self, shape: dict[str, int], *, rank: int = 0,
                  groups: dict | None = None, backend: str | None = None,
-                 device=None):
+                 device=None, dry: bool = False):
         self.shape = dict(shape)
+        self.dry = dry
         self.axis_names = tuple(self.shape)
         self.size = math.prod(self.shape.values())
         if not 0 <= rank < self.size:
@@ -58,11 +63,12 @@ class Mesh:
 
     def __repr__(self) -> str:
         dims = ", ".join(f"{a}={n}" for a, n in self.shape.items())
-        return f"Mesh({dims}; rank {self.rank} on {self.device})"
+        where = "dry" if self.dry else f"on {self.device}"
+        return f"Mesh({dims}; rank {self.rank} {where})"
 
     def barrier(self) -> None:
-        """Wait for every rank of the mesh."""
-        if self.size > 1:
+        """Wait for every rank of the mesh (a dry mesh waits for none)."""
+        if self.size > 1 and not self.dry:
             dist.barrier(group=self.groups[self.axis_names])
 
     def axis(self, names) -> Axis:
@@ -75,12 +81,15 @@ class Mesh:
         for a in names:
             index = index * self.shape[a] + self.coords[a]
         group = None
-        if size > 1:
+        if size > 1 and not self.dry:
             if self.groups is None:
-                raise ValueError(f"{self!r} was built from a shape alone: "
-                                 "it has no process groups")
+                raise ValueError(
+                    f"{self!r} was built from a shape alone: it has no "
+                    "process groups (one rank of a mesh that no group backs "
+                    "is a dry mesh: make_production_mesh, or Mesh(shape, "
+                    "rank=r, dry=True))")
             group = self.groups[names]
-        return Axis(names, size, index, group, self.backend)
+        return Axis(names, size, index, group, self.backend, dry=self.dry)
 
 
 def _unravel(rank: int, shape: dict[str, int]) -> tuple[int, ...]:
@@ -139,6 +148,21 @@ def make_mesh(n_data: int, n_model: int, n_pod: int = 1, *, ranks=None,
         return None
     return Mesh(shape, rank=ranks.index(me), groups=groups,
                 backend=dist.get_backend(), device=device)
+
+
+# the reference's production pod: 16 x 16 chips, two of them multi-pod
+PRODUCTION_SHAPE = {"data": 16, "model": 16}
+
+
+def make_production_mesh(multi_pod: bool = False, rank: int = 0) -> Mesh:
+    """Rank ``rank`` of the reference's production mesh, ``{"data": 16,
+    "model": 16}`` or with ``multi_pod`` ``{"pod": 2, "data": 16, "model":
+    16}`` (the reference's axes and sizes, so the two packages' dry-run
+    records compare cell for cell), as a dry mesh: no process group, its
+    axes count their collectives and communicate nothing."""
+    shape = _mesh_shape(PRODUCTION_SHAPE["data"], PRODUCTION_SHAPE["model"],
+                        2 if multi_pod else 1)
+    return Mesh(shape, rank=rank, dry=True)
 
 
 def data_axes(mesh) -> tuple:

@@ -111,12 +111,15 @@ def build_model(cfg: ModelConfig) -> Model:
             cfg=cfg,
             init=lambda generator, device: encdec.init_params(
                 cfg, generator, device),
-            forward=lambda p, b, backend=None: encdec.forward(
-                p, b["tokens"], b["frames"], cfg, backend=backend),
-            prefill=lambda p, b, s_max, backend=None: encdec.prefill(
-                p, b["tokens"], b["frames"], cfg, s_max, backend=backend),
-            decode_step=lambda p, tok, cache, pos, backend=None:
-                encdec.decode_step(p, tok, cache, pos, cfg, backend=backend),
+            forward=lambda p, b, backend=None, shard=None, gather=True:
+                encdec.forward(p, b["tokens"], b["frames"], cfg,
+                               backend=backend, shard=shard),
+            prefill=lambda p, b, s_max, backend=None, shard=None:
+                encdec.prefill(p, b["tokens"], b["frames"], cfg, s_max,
+                               backend=backend, shard=shard),
+            decode_step=lambda p, tok, cache, pos, backend=None, shard=None:
+                encdec.decode_step(p, tok, cache, pos, cfg, backend=backend,
+                                   shard=shard),
         )
     if cfg.kind != "lm":
         raise ValueError(cfg.kind)

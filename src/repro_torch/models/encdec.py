@@ -65,22 +65,25 @@ def init_params(cfg: ModelConfig, generator: torch.Generator, device):
     }
 
 
-def _cross_attend(p, x, enc_k, enc_v, cfg: ModelConfig, backend=None):
+def _cross_attend(p, x, enc_k, enc_v, cfg: ModelConfig, backend=None,
+                  shard=None):
     """Cross-attention: queries from the decoder's x, the encoder's fixed
     K/V, no mask and no RoPE."""
     b = x.shape[0]
     xn = L.rmsnorm(p["norm"], x, cfg.norm_eps)
-    q = L.qlinear_apply(p["wq"], xn, cfg, backend).reshape(
+    q = L.qlinear_apply(p["wq"], xn, cfg, backend, shard=shard).reshape(
         b, -1, cfg.n_heads, cfg.dh)
     out = L._attend_all(q, enc_k, enc_v, cfg, backend)
-    return L.qlinear_apply(p["wo"], out, cfg, backend)
+    return L.qlinear_apply(p["wo"], out, cfg, backend, shard=shard)
 
 
-def _cross_kv(p, enc_out, cfg: ModelConfig, backend=None):
+def _cross_kv(p, enc_out, cfg: ModelConfig, backend=None, shard=None):
     b = enc_out.shape[0]
     kvh, dh = cfg.n_kv_heads, cfg.dh
-    k = L.qlinear_apply(p["wk"], enc_out, cfg, backend).reshape(b, -1, kvh, dh)
-    v = L.qlinear_apply(p["wv"], enc_out, cfg, backend).reshape(b, -1, kvh, dh)
+    k = L.qlinear_apply(p["wk"], enc_out, cfg, backend, shard=shard
+                        ).reshape(b, -1, kvh, dh)
+    v = L.qlinear_apply(p["wv"], enc_out, cfg, backend, shard=shard
+                        ).reshape(b, -1, kvh, dh)
     return k, v
 
 
@@ -88,7 +91,7 @@ def _positions(b: int, s: int, device):
     return torch.arange(s, device=device)[None].expand(b, s)
 
 
-def encode(params, frames, cfg: ModelConfig, backend=None):
+def encode(params, frames, cfg: ModelConfig, backend=None, shard=None):
     """frames: (B, S_enc, D) stub-frontend embeddings -> encoder states."""
     b, s, _ = frames.shape
     h, kvh, dh = cfg.n_heads, cfg.n_kv_heads, cfg.dh
@@ -97,52 +100,70 @@ def encode(params, frames, cfg: ModelConfig, backend=None):
     for i in range(cfg.n_enc_layers):
         lp = _period(params["encoder"], i)
         xn = L.rmsnorm(lp["attn"]["norm"], x, cfg.norm_eps)
-        q = L.qlinear_apply(lp["attn"]["wq"], xn, cfg, backend
+        q = L.qlinear_apply(lp["attn"]["wq"], xn, cfg, backend, shard=shard
                             ).reshape(b, -1, h, dh)
-        k = L.qlinear_apply(lp["attn"]["wk"], xn, cfg, backend
+        k = L.qlinear_apply(lp["attn"]["wk"], xn, cfg, backend, shard=shard
                             ).reshape(b, -1, kvh, dh)
-        v = L.qlinear_apply(lp["attn"]["wv"], xn, cfg, backend
+        v = L.qlinear_apply(lp["attn"]["wv"], xn, cfg, backend, shard=shard
                             ).reshape(b, -1, kvh, dh)
         q = L.rope(q, positions, cfg.rope_theta)
         k = L.rope(k, positions, cfg.rope_theta)
         out = L._attend_all(q, k, v, cfg, backend)     # bidirectional
-        x = x + L.qlinear_apply(lp["attn"]["wo"], out, cfg, backend)
-        x = x + L.ffn_apply(lp["ffn"], x, cfg, backend)
+        x = x + L.qlinear_apply(lp["attn"]["wo"], out, cfg, backend,
+                                shard=shard)
+        x = x + L.ffn_apply(lp["ffn"], x, cfg, backend, shard)
     return L.rmsnorm(params["enc_norm"], x, cfg.norm_eps)
 
 
-def _classify(params, x, cfg: ModelConfig, backend=None):
+def _classify(params, x, cfg: ModelConfig, backend=None, shard=None):
     xn = L.rmsnorm(params["final_norm"], x, cfg.norm_eps)
-    return L.qlinear_apply(params["lm_head"], xn, cfg, backend
+    return L.qlinear_apply(params["lm_head"], xn, cfg, backend, shard=shard
                            ).to(torch.float32)
 
 
-def forward(params, tokens, frames, cfg: ModelConfig, backend=None):
+def _rows_only(shard):
+    """``shard`` for the enc-dec backbone, which is pure data-parallel on
+    every mesh (``parallel.sharding.pure_dp``: d_model < 1024): its rows
+    and train step's global rows, no model or sequence axis."""
+    if shard is not None and (shard.tp is not None or shard.seq is not None
+                              or shard.fsdp is not None):
+        raise ValueError("the enc-dec backbone is pure data-parallel: no "
+                         "model, sequence or FSDP axis")
+    return shard
+
+
+def forward(params, tokens, frames, cfg: ModelConfig, backend=None,
+            shard=None):
     """The encoder on ``frames``, then the teacher-forced decoder on
-    ``tokens`` (B, S): logits (B, S, V) f32 and a zero aux (forward value
-    only)."""
-    enc_out = encode(params, frames, cfg, backend)
+    ``tokens`` (B, S): logits (B, S, V) f32 and a zero aux.  ``shard``: a
+    pure data-parallel rank's StepSharding (in a train step the fake-quant
+    activation scale is the global batch's)."""
+    shard = _rows_only(shard)
+    enc_out = encode(params, frames, cfg, backend, shard)
     b, s = tokens.shape
     x = F.embedding(tokens, params["embed"]["w"])
     positions = _positions(b, s, tokens.device)
     for i in range(cfg.n_layers):
         lp = _period(params["decoder"], i)
         out, _ = L.attn_apply(lp["self_attn"], x, cfg, positions, local=False,
-                              backend=backend)
+                              backend=backend, shard=shard)
         x = x + out
-        ck, cv = _cross_kv(lp["cross_attn"], enc_out, cfg, backend)
-        x = x + _cross_attend(lp["cross_attn"], x, ck, cv, cfg, backend)
-        x = x + L.ffn_apply(lp["ffn"], x, cfg, backend)
-    return _classify(params, x, cfg, backend), torch.zeros(
+        ck, cv = _cross_kv(lp["cross_attn"], enc_out, cfg, backend, shard)
+        x = x + _cross_attend(lp["cross_attn"], x, ck, cv, cfg, backend,
+                              shard)
+        x = x + L.ffn_apply(lp["ffn"], x, cfg, backend, shard)
+    return _classify(params, x, cfg, backend, shard), torch.zeros(
         (), dtype=torch.float32, device=tokens.device)
 
 
 def prefill(params, tokens, frames, cfg: ModelConfig, s_max: int,
-            backend=None):
+            backend=None, shard=None):
     """Encode, then the teacher-forced decoder over the prompt (B, S),
     building the cache: the self-attention K/V at [0, S) of ``s_max``
     (quantized when ``cfg.kv_bits``), the cross K/V of every layer.
-    Returns (last-position logits (B, 1, V), cache)."""
+    Returns (last-position logits (B, 1, V), cache).  ``shard``: as
+    :func:`forward`'s (a rank's rows)."""
+    _rows_only(shard)
     enc_out = encode(params, frames, cfg, backend)
     b, s = tokens.shape
     device = tokens.device
@@ -174,10 +195,13 @@ def prefill(params, tokens, frames, cfg: ModelConfig, s_max: int,
     return _classify(params, x[:, -1:, :], cfg, backend), cache
 
 
-def decode_step(params, token, cache, pos, cfg: ModelConfig, backend=None):
+def decode_step(params, token, cache, pos, cfg: ModelConfig, backend=None,
+                shard=None):
     """One decoding step.  token: (B, 1); pos: int or (B,) per-slot
     positions.  The self cache is written in place; the cross K/V are
-    read.  Returns (logits (B, 1, V), cache)."""
+    read.  Returns (logits (B, 1, V), cache).  ``shard``: as
+    :func:`forward`'s (a rank's rows)."""
+    _rows_only(shard)
     b = token.shape[0]
     pos_b = torch.as_tensor(pos, device=token.device).to(torch.int64
                                                          ).reshape(-1).expand(b)

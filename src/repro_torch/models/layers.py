@@ -38,8 +38,12 @@ projection (``wq``, ``wk``, ``wv``, ``w_gate``, ``w_up``) yields this
 rank's heads or hidden units, a row-parallel one (``wo``, ``w_down``)
 takes them and ends in one all-reduce over the model axis
 (:func:`qlinear_apply`'s ``reduce``), heads are counted from the weights,
-and the MoE layer computes this rank's experts.  Mamba layers take no
-model axis (ROADMAP Queue A item 9b).
+the MoE layer computes this rank's experts and a Mamba layer its slice of
+d_inner.  A decode step over a cache cut over its sequence
+(``shard.seq``) attends this rank's positions and combines the partials
+by their log-sum-exp (:func:`_decode_seq_parallel`); expert weights whose
+K the FSDP rule cuts over data (``shard.fsdp``) are gathered where they
+are used, and gathered again in the backward (:func:`_fsdp_experts`).
 """
 from __future__ import annotations
 
@@ -53,6 +57,7 @@ from repro_torch.core.packing import pack_nibbles, unpack_nibbles
 from repro_torch.core.precision import A_FLOAT, W_FLOAT, get_precision, signed
 from repro_torch.core.quantize import act_fake_quant, weight_fake_quant
 from repro_torch.kernels import engine
+from repro_torch.kernels.decode_attention import masked_lse
 from repro_torch.kernels.paged_attention import gather_pool
 
 from .config import ModelConfig
@@ -307,7 +312,7 @@ def _plain_on_card(q, backend: str | None):
     attention on the card (a ``with`` around its work); nothing on the
     host, where the plain attention is the path itself."""
     return engine.record_plain("flash_attention", engine.ATTN_FLASH, q,
-                               backend) if q.is_cuda else \
+                               backend) if engine.on_card(q) else \
         contextlib.nullcontext()
 
 
@@ -322,7 +327,7 @@ def _attend_full(q, k, v, positions, cfg: ModelConfig, local: bool,
     Sq > ATTN_KV_CHUNK in whole chunks, else ``_attend``."""
     b, sq, h, dh = q.shape
     kvh = k.shape[2]
-    if q.is_cuda and not _training(q, k, v):
+    if engine.on_card(q) and not _training(q, k, v):
         if cfg.attn_probs_bf16:
             raise NotImplementedError(
                 "attn_probs_bf16: no kernel computes bf16 probabilities; the "
@@ -353,7 +358,7 @@ def _attend_all(q, k, v, cfg: ModelConfig, backend: str | None):
     chunks, else ``_attend`` with an all-true mask."""
     b, sq, h, dh = q.shape
     kvh, sk = k.shape[2], k.shape[1]
-    if q.is_cuda and not _training(q, k, v):
+    if engine.on_card(q) and not _training(q, k, v):
         out = engine.flash_attention(
             q.reshape(b, sq, kvh, h // kvh, dh), k, v, causal=False,
             softcap=cfg.attn_softcap, backend=backend)
@@ -460,6 +465,10 @@ def attn_apply(p, x, cfg: ModelConfig, positions, *, local: bool,
             mask &= (j > qpos - cfg.window)[:, None]
         out = _attend(q, _heads(kk, lo, hi), _heads(vv, lo, hi), mask, cfg)
         new = cache
+    elif shard is not None and shard.seq is not None:
+        out = _decode_seq_parallel(q, k, v, cache, cache_pos, cfg, local,
+                                   lo, hi, backend, shard)
+        new = cache
     else:
         s_max = cache["k"].shape[1]
         pos_b = torch.as_tensor(cache_pos, device=x.device).to(
@@ -498,6 +507,101 @@ def attn_apply(p, x, cfg: ModelConfig, positions, *, local: bool,
                         _row_parallel(shard, out, cfg.n_heads * dh),
                         shard=shard)
     return _post_norm(p, out, cfg), new
+
+
+def _attend_partial(q, k, v, mask, cfg: ModelConfig):
+    """:func:`_attend` of one query token over a slice of the positions,
+    as a partial of a sequence-parallel step: q (B, 1, H, Dh), k/v
+    (B, S, KV, Dh), mask (B, 1, 1, S).  Returns the f32 output (B, KV, G,
+    Dh) normalized over the slice and the (B, KV, G) log-sum-exp of its
+    masked scores (-inf, and a zero output, where the slice holds no
+    valid position)."""
+    b, _, h, dh = q.shape
+    kv = k.shape[2]
+    qg = q[:, 0].reshape(b, kv, h // kv, dh)
+    scores = torch.einsum("bkgd,bskd->bkgs", qg.to(torch.float32),
+                          k.to(torch.float32)) / (dh ** 0.5)
+    scores = _softcap(scores, cfg.attn_softcap)
+    probs = torch.softmax(torch.where(mask, scores,
+                                      torch.full_like(scores, -1e30)), dim=-1)
+    out = torch.einsum("bkgs,bskd->bkgd", probs, v.to(torch.float32))
+    return masked_lse(scores, mask, out)
+
+
+def _decode_seq_parallel(q, k, v, cache, cache_pos, cfg: ModelConfig,
+                         local: bool, lo: int, hi: int, backend, shard):
+    """One decode step over a cache whose SEQUENCE is cut over
+    ``shard.seq`` (``cache_specs``: this rank holds the S_local positions
+    [index S_local, (index + 1) S_local)).
+
+    The new token's K/V goes to the rank that holds ``pos``: every rank
+    writes at its clamped local position, keeping the old row where it
+    does not hold it (a static-shape masked write).  Each rank attends its
+    own positions under the global mask (gemma2's window may straddle
+    ranks): the kv8 cache through ``engine.decode_attention`` with the
+    log-sum-exp (B5 on the card), the float cache, windowed and softcap
+    layers through :func:`_attend_partial`.  The partials combine as
+    flash-decode does: M = the all-reduced max of the lse, then one
+    all-reduce sum of ``exp(lse - M) o`` and ``exp(lse - M)`` packed
+    together.  Where the sequence axis is also the tensor-parallel axis
+    (``kv_seq_shard``: the query heads cut over 'model', the KV heads and
+    the cache's positions not), this rank's query heads are all-gathered
+    first, every head attends, and the rank keeps its own heads' output.
+    Returns (B, 1, H_local Dh) in q's dtype."""
+    seq, tp = shard.seq, shard.tp
+    b, _, h, dh = q.shape
+    s_loc, bits = cache["k"].shape[1], cfg.kv_bits
+    pos_b = torch.as_tensor(cache_pos, device=q.device).to(
+        torch.int64).reshape(-1).expand(b)
+    first = seq.index * s_loc
+    at = pos_b - first
+    mine = (at >= 0) & (at < s_loc)
+    at = at.clamp(0, s_loc - 1)
+    bidx = torch.arange(b, device=q.device)
+    if bits:
+        kq, ks, vq, vs = _kv_quantize(k, v, bits)
+        upd = {"k": kq, "v": vq, "ks": ks, "vs": vs}
+    else:
+        upd = {"k": k.to(cache["k"].dtype), "v": v.to(cache["v"].dtype)}
+    for name, val in upd.items():
+        old = cache[name][bidx, at]
+        cache[name][bidx, at] = torch.where(
+            mine.view(-1, *(1,) * (old.dim() - 1)), val[:, 0], old)
+
+    gather = tp is not None and tp.size > 1 and bool(
+        set(seq.names) & set(tp.names))
+    if gather:
+        q = tp.all_gather(q, dim=2)
+        lo, hi = 0, cache["k"].shape[2]
+    hq = q.shape[2]
+    if bits == 8 and not local and cfg.attn_softcap <= 0:
+        q4 = q[:, 0].reshape(b, hi - lo, hq // (hi - lo), dh)
+        o, lse = engine.decode_attention(
+            q4, *(_heads(cache[n], lo, hi) for n in ("k", "ks", "v", "vs")),
+            pos_b - first, kv_bits=bits, dtype=q.dtype, backend=backend,
+            lse=True)
+    else:
+        if bits:
+            kk = _kv_dequant(cache["k"], cache["ks"], q.dtype, bits)
+            vv = _kv_dequant(cache["v"], cache["vs"], q.dtype, bits)
+        else:
+            kk, vv = cache["k"], cache["v"]
+        j = first + torch.arange(s_loc, device=q.device)[None, :]     # (1,S)
+        mask = j <= pos_b[:, None]
+        if local:
+            mask &= j > pos_b[:, None] - cfg.window
+        o, lse = _attend_partial(q, _heads(kk, lo, hi), _heads(vv, lo, hi),
+                                 mask[:, None, None], cfg)
+    top = seq.all_reduce_max(lse)
+    w = torch.exp(lse - top)
+    both = seq.all_reduce_sum(torch.cat(
+        [(o * w[..., None]).reshape(b, -1), w.reshape(b, -1)], dim=1))
+    n = o[0].numel()
+    out = (both[:, :n].view(o.shape) / both[:, n:].view(w.shape)[..., None]
+           ).reshape(b, 1, hq * dh).to(q.dtype)
+    if gather:
+        out = out.narrow(2, tp.index * h * dh, h * dh)
+    return out
 
 
 def make_kv_cache(cfg: ModelConfig, b: int, s_max: int, device,
@@ -697,6 +801,25 @@ def _expert_matmul(w, x, cfg: ModelConfig, backend: str | None = None):
     return torch.einsum("eck,ekn->ecn", x, w.to(x.dtype))
 
 
+def _fsdp_experts(w, x, cfg: ModelConfig, backend, fsdp):
+    """:func:`_expert_matmul` with float weights ``w`` of which this rank
+    holds a slice of K over ``fsdp`` (the FSDP rule of ``param_specs``):
+    the weight is all-gathered here, where its layer uses it, and under
+    autograd gathered again in the backward (``torch.utils.checkpoint``
+    around gather-and-use): the gathered weight is not kept for the
+    backward, so one layer's full weights are live at a time, not every
+    layer's.  Its gradient is this rank's slice of the gradient summed over
+    ``fsdp`` (the gather's ``reduce_grad``: a reduce-scatter)."""
+    def use(w_local, x_):
+        return _expert_matmul(fsdp.all_gather(w_local, dim=-2,
+                                              reduce_grad=True),
+                              x_, cfg, backend)
+    if torch.is_grad_enabled() and (w.requires_grad or x.requires_grad):
+        from torch.utils.checkpoint import checkpoint
+        return checkpoint(use, w, x, use_reentrant=False)
+    return use(w, x)
+
+
 def _n_experts_held(p) -> int:
     """Experts in this rank's MoE params (all of them on one device)."""
     w = p["w_gate"]
@@ -704,7 +827,7 @@ def _n_experts_held(p) -> int:
 
 
 def moe_partial(p, x, cfg: ModelConfig, backend: str | None = None, *,
-                first_expert: int = 0, enter=None):
+                first_expert: int = 0, enter=None, fsdp=None):
     """The slot-map MoE over the experts held in ``p``, numbered from
     ``first_expert`` (all of them on one device): returns (out, probs,
     top_i), ``out`` (T, D) f32 the tokens' gated outputs summed over the
@@ -723,7 +846,11 @@ def moe_partial(p, x, cfg: ModelConfig, backend: str | None = None, *,
     the normed tokens and the gate weights (replicated) enter the held
     experts through ``Axis.enter``, whose backward sums their cotangents
     over the axis (each rank holds its experts' part); the router's
-    load-balance path stays replicated."""
+    load-balance path stays replicated.
+
+    ``fsdp``: the data axis whose ranks each hold a slice of the expert
+    weights' K (``param_specs(fsdp=True)``); such a weight is gathered
+    where it is used (:func:`_fsdp_experts`)."""
     b, s, d = x.shape
     t = b * s
     e, k = cfg.n_experts, cfg.top_k
@@ -744,11 +871,18 @@ def moe_partial(p, x, cfg: ModelConfig, backend: str | None = None, *,
     keep = pos < cap
     tok = torch.arange(t, device=x.device).repeat_interleave(k)
 
-    # (E, cap) slot maps: token index (t = the zero row) and gate weight
-    tok_map = torch.full((e, cap), t, dtype=torch.int64, device=x.device)
-    tok_map[flat_e[keep], pos[keep]] = tok[keep]
-    gate_map = torch.zeros((e, cap), dtype=torch.float32, device=x.device)
-    gate_map[flat_e[keep], pos[keep]] = top_p.reshape(-1)[keep]
+    # (E, cap) slot maps: token index (t = the zero row) and gate weight;
+    # a kept entry's slot is its own, a dropped entry writes the spare slot
+    # e * cap, cut off after (static shapes, no host read: a dry run traces
+    # this)
+    slot_of = torch.where(keep, flat_e * cap + pos, e * cap)
+    tok_map = torch.full((e * cap + 1,), t, dtype=torch.int64,
+                         device=x.device).scatter(0, slot_of, tok)
+    tok_map = tok_map[:e * cap].view(e, cap)
+    gate_map = torch.zeros((e * cap + 1,), dtype=torch.float32,
+                           device=x.device).scatter(0, slot_of,
+                                                    top_p.reshape(-1))
+    gate_map = gate_map[:e * cap].view(e, cap)
     held = slice(first_expert, first_expert + e_held)
 
     x_pad = torch.cat([xin, xin.new_zeros((1, d))])
@@ -757,9 +891,14 @@ def moe_partial(p, x, cfg: ModelConfig, backend: str | None = None, *,
     # F.embedding: its backward adds a token's k slots in slot order (an
     # indexing's backward adds them with atomics on several CPU threads)
     buf = F.embedding(tok_map[held], x_pad)                       # (Eh, cap, D)
-    h = _act(_expert_matmul(p["w_gate"], buf, cfg, backend), cfg.act_fn) * \
-        _expert_matmul(p["w_up"], buf, cfg, backend)
-    y = _expert_matmul(p["w_down"], h, cfg, backend)              # (Eh, cap, D)
+
+    def experts(w, xe):
+        if fsdp is not None and not isinstance(w, dict) and \
+                w.shape[-2] != xe.shape[-1]:
+            return _fsdp_experts(w, xe, cfg, backend, fsdp)
+        return _expert_matmul(w, xe, cfg, backend)
+    h = _act(experts(p["w_gate"], buf), cfg.act_fn) * experts(p["w_up"], buf)
+    y = experts(p["w_down"], h)                                   # (Eh, cap, D)
 
     # combine: each token's kept slots in ascending expert order (a zero
     # row for a dropped entry or an expert held elsewhere), left to right
@@ -813,7 +952,8 @@ def moe_apply(p, x, cfg: ModelConfig, backend: str | None = None,
     xg = x if rows is None else rows.all_gather(x, dim=0, reduce_grad=True)
     out, probs, top_i = moe_partial(
         p, xg, cfg, backend, first_expert=tp.index * e_held if split else 0,
-        enter=tp if split else None)
+        enter=tp if split else None,
+        fsdp=None if shard is None else shard.fsdp)
     if split:
         out = tp.all_reduce_sum(out)
     b, s, d = xg.shape

@@ -171,19 +171,35 @@ def _embed(params, inputs, cfg: ModelConfig, shard=None):
     return x
 
 
-def _logits(params, x, cfg: ModelConfig, shard=None, gather: bool = True):
+def _logits(params, x, cfg: ModelConfig, shard=None, gather: bool = True,
+            backend=None):
     """f32 logits; the classifier stays at full precision (paper/WRPN
-    convention), tied to the embedding or a float ``lm_head``; gemma2's
-    final softcap after the f32 cast.  A vocabulary-sharded classifier's
-    logits are all-gathered over the model axis (this rank's vocabulary
-    slice without ``gather``), the normed x entering it (``Axis.enter``)."""
+    convention), tied to the embedding or a float ``lm_head``, unless
+    ``cfg.quantize_lm_head``: then the ``lm_head`` runs as a projection
+    (``layers.qlinear_apply``: packed through the engine once
+    ``to_serving`` packed it, the fake-quant form in float), as the
+    reference's; gemma2's final softcap after the f32 cast.  A
+    vocabulary-sharded classifier's logits are all-gathered over the model
+    axis (this rank's vocabulary slice without ``gather``), the normed x
+    entering it (``Axis.enter``)."""
     xn = L.rmsnorm(params["final_norm"], x, cfg.norm_eps)
-    w = params["embed"]["w"].T if cfg.tie_embeddings else params["lm_head"]["qw"]
-    split = shard is not None and shard.tp is not None and \
-        w.shape[-1] != cfg.padded_vocab
-    if split:
-        xn = shard.tp.enter(xn)
-    logits = (xn @ w.to(xn.dtype)).to(torch.float32)
+    head = None if cfg.tie_embeddings else params["lm_head"]
+    if head is not None and (cfg.quantize_lm_head or "qw" not in head):
+        n = head["qw"].shape[-1] if "qw" in head else \
+            head["wt_packed"].shape[-2]
+        split = shard is not None and shard.tp is not None and \
+            n != cfg.padded_vocab
+        if split:
+            xn = shard.tp.enter(xn)
+        logits = L.qlinear_apply(head, xn, cfg, backend,
+                                 shard=shard).to(torch.float32)
+    else:
+        w = params["embed"]["w"].T if head is None else head["qw"]
+        split = shard is not None and shard.tp is not None and \
+            w.shape[-1] != cfg.padded_vocab
+        if split:
+            xn = shard.tp.enter(xn)
+        logits = (xn @ w.to(xn.dtype)).to(torch.float32)
     if split and gather:
         logits = shard.tp.all_gather(logits, dim=-1)
     if cfg.final_softcap > 0:
@@ -246,7 +262,7 @@ def forward(params, tokens, cfg: ModelConfig, backend=None, shard=None,
         x, a = _apply_period(_period(params["blocks"], per), x, cfg,
                              positions, backend=backend, shard=shard)
         aux = aux + a
-    return _logits(params, x, cfg, shard, gather), torch.as_tensor(
+    return _logits(params, x, cfg, shard, gather, backend), torch.as_tensor(
         aux, dtype=torch.float32, device=tokens.device)
 
 
@@ -290,7 +306,7 @@ def prefill(params, tokens, cfg: ModelConfig, s_max: int, backend=None,
                 else:
                     _put_state(_period(cache, per), key, state)
             x, _ = _ffn(lp, x + out, ffn, cfg, backend, shard)
-    return _logits(params, x[:, -1:, :], cfg, shard), cache
+    return _logits(params, x[:, -1:, :], cfg, shard, backend=backend), cache
 
 
 def prefill_chunk(params, tokens, cache, pos: int, cfg: ModelConfig,
@@ -306,7 +322,7 @@ def prefill_chunk(params, tokens, cache, pos: int, cfg: ModelConfig,
         x, _ = _apply_period(_period(params["blocks"], per), x, cfg,
                              positions, caches=_period(cache, per),
                              cache_pos=pos, backend=backend, shard=shard)
-    return _logits(params, x, cfg, shard), cache
+    return _logits(params, x, cfg, shard, backend=backend), cache
 
 
 def decode_step(params, token, cache, pos, cfg: ModelConfig, backend=None,
@@ -323,7 +339,7 @@ def decode_step(params, token, cache, pos, cfg: ModelConfig, backend=None,
         x, _ = _apply_period(_period(params["blocks"], per), x, cfg,
                              positions, caches=_period(cache, per),
                              cache_pos=pos_b, backend=backend, shard=shard)
-    return _logits(params, x, cfg, shard), cache
+    return _logits(params, x, cfg, shard, backend=backend), cache
 
 
 # ---------------------------------------------------------------------------
@@ -386,7 +402,7 @@ def prefill_chunk_paged(params, tokens, pool, page_table, pos,
                                                                    ].expand(b, c)
     x, pool = _paged_scan(params, x, cfg, positions, pool, page_table,
                           kv_bits, backend=backend, shard=shard)
-    return _logits(params, x, cfg, shard), pool
+    return _logits(params, x, cfg, shard, backend=backend), pool
 
 
 def decode_step_paged(params, token, pool, page_table, pos, cfg: ModelConfig,
@@ -405,7 +421,7 @@ def decode_step_paged(params, token, pool, page_table, pos, cfg: ModelConfig,
     x, pool = _paged_scan(params, x, cfg, pos_b[:, None], pool, page_table,
                           kv_bits, slot_map=slot_map, fused=fused,
                           backend=backend, shard=shard)
-    return _logits(params, x, cfg, shard), pool
+    return _logits(params, x, cfg, shard, backend=backend), pool
 
 
 def decode_window_paged(params, tokens, pool, page_table, pos,
@@ -431,5 +447,6 @@ def decode_window_paged(params, tokens, pool, page_table, pos,
     # one (B, 1) classifier call per window row, the sequential step's
     # shape: a matmul against the transposed tied embedding sums in an
     # order that depends on its row count
-    return torch.cat([_logits(params, x[:, j:j + 1].contiguous(), cfg)
+    return torch.cat([_logits(params, x[:, j:j + 1].contiguous(), cfg,
+                              backend=backend)
                       for j in range(w)], dim=1), pool

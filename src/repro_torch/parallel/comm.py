@@ -22,7 +22,18 @@ kernels' ``engine.launch_counts``) where it crosses ranks; an axis of size
   * ``broadcast``;
 
 and point-to-point ``send`` / ``recv`` (the pipeline's stage-to-stage
-activations), counted in :func:`p2p_counts`.
+activations), counted in :func:`p2p_counts`.  Each also adds its wire bytes
+a rank to :func:`collective_bytes`, by the ring algorithms' count (the
+tensor's own dtype): an all-reduce 2 (n-1)/n of the tensor's bytes, an
+all-gather (n-1) times the rank's part, a broadcast, a send or a receive
+the tensor's bytes.
+
+A *dry* axis (``Axis(..., dry=True)``, the axes of a dry mesh: one rank of
+a mesh that no process group backs, ``launch.mesh.make_production_mesh``)
+communicates nothing: each collective counts itself and its bytes as the
+real one does and returns a tensor of the real result's shape and dtype
+(this rank's values, repeated for a gather), under autograd the same
+graph.  The dry run (``launch.dryrun``) traces one rank's step with it.
 
 Under autograd the collectives carry gradients, Megatron's f/g pair (what
 XLA's partitioner puts into the reference's ``jax.grad`` of a sharded
@@ -66,12 +77,20 @@ P2P = ("send", "recv")
 # backward pass (counted in COUNTS too)
 COUNTS: collections.Counter = collections.Counter()
 BACKWARD: collections.Counter = collections.Counter()
+# wire bytes a rank since the last reset, by operation (COUNTS' operations)
+BYTES: collections.Counter = collections.Counter()
 
 
 def collective_counts() -> dict[str, int]:
     """Collectives since the last :func:`reset_collective_counts`, by
     operation, forward and backward."""
     return {op: COUNTS[op] for op in OPS}
+
+
+def collective_bytes() -> dict[str, int]:
+    """Wire bytes a rank of the collectives of :func:`collective_counts`,
+    by operation (the module docstring's count)."""
+    return {op: BYTES[op] for op in OPS}
 
 
 def backward_counts() -> dict[str, int]:
@@ -88,6 +107,7 @@ def p2p_counts() -> dict[str, int]:
 def reset_collective_counts() -> None:
     COUNTS.clear()
     BACKWARD.clear()
+    BYTES.clear()
 
 
 def choose_backend(device_type: str, n_ranks: int) -> str:
@@ -103,20 +123,23 @@ class Axis:
     ranks, this rank at ``index``, joined by ``group`` (None for size 1)."""
 
     def __init__(self, names: tuple[str, ...], size: int, index: int,
-                 group, backend: str | None):
+                 group, backend: str | None, dry: bool = False):
         self.names = names
         self.size = size
         self.index = index
         self.group = group
         self.backend = backend
-        if size > 1 and group is None:
+        self.dry = dry
+        if size > 1 and group is None and not dry:
             raise ValueError(f"axes {names} of size {size} have no process "
                              "group: build the mesh with launch.mesh."
-                             "make_mesh inside an initialized process group")
+                             "make_mesh inside an initialized process group, "
+                             "or, for one rank of a mesh with no group, a dry "
+                             "mesh (launch.mesh.make_production_mesh)")
 
     def __repr__(self) -> str:
         return f"Axis({'x'.join(self.names)}, size={self.size}, " \
-               f"index={self.index})"
+               f"index={self.index}{', dry' if self.dry else ''})"
 
     def _wire(self, t: torch.Tensor) -> torch.Tensor:
         """A fresh contiguous copy of ``t`` in the form the backend reduces:
@@ -131,16 +154,20 @@ class Axis:
 
     def _reduce(self, t: torch.Tensor, op, name: str,
                 backward: bool = False) -> torch.Tensor:
+        _count(name, backward, 2 * (self.size - 1) * _nbytes(t) // self.size)
+        if self.dry:
+            return t.detach().clone()
         w = self._wire(t)
         dist.all_reduce(w, op=op, group=self.group)
-        _count(name, backward)
         return self._back(w, t)
 
     def _gather(self, t: torch.Tensor, dim: int) -> torch.Tensor:
+        _count("all_gather", nbytes=(self.size - 1) * _nbytes(t))
+        if self.dry:
+            return torch.cat([t.detach()] * self.size, dim=dim)
         w = self._wire(t)
         parts = [torch.empty_like(w) for _ in range(self.size)]
         dist.all_gather(parts, w, group=self.group)
-        _count("all_gather")
         return self._back(torch.cat(parts, dim=dim), t)
 
     def all_reduce_sum(self, t: torch.Tensor) -> torch.Tensor:
@@ -181,28 +208,34 @@ class Axis:
         tensor)."""
         if self.size == 1:
             return t
+        _count("broadcast", nbytes=_nbytes(t))
+        if self.dry:
+            return t.detach().clone()
         w = self._wire(t)
         dist.broadcast(w, dist.get_global_rank(self.group, src),
                        group=self.group)
-        _count("broadcast")
         return self._back(w, t)
 
     def isend(self, t: torch.Tensor, dst: int):
         """Start sending ``t`` to the rank at index ``dst`` of the axis (no
         gradient); returns the work, to ``wait()`` on (it holds the staged
         copy until then)."""
+        _count("send", nbytes=_nbytes(t))
+        if self.dry:
+            return _Sent(None, t)
         w = self._wire(t)
         work = dist.isend(w, dist.get_global_rank(self.group, dst),
                           group=self.group)
-        _count("send")
         return _Sent(work, w)
 
     def recv(self, like: torch.Tensor, src: int) -> torch.Tensor:
         """A tensor of ``like``'s shape, dtype and device received from the
         rank at index ``src`` of the axis."""
+        _count("recv", nbytes=_nbytes(like))
+        if self.dry:
+            return torch.zeros_like(like)
         w = self._wire(torch.empty_like(like))
         dist.recv(w, dist.get_global_rank(self.group, src), group=self.group)
-        _count("recv")
         return self._back(w, like)
 
 
@@ -212,11 +245,17 @@ class _Sent(NamedTuple):
     buffer: torch.Tensor
 
     def wait(self) -> None:
-        self.work.wait()
+        if self.work is not None:          # None: a dry axis's send
+            self.work.wait()
 
 
-def _count(name: str, backward: bool = False) -> None:
+def _nbytes(t: torch.Tensor) -> int:
+    return t.numel() * t.element_size()
+
+
+def _count(name: str, backward: bool = False, nbytes: int = 0) -> None:
     COUNTS[name] += 1
+    BYTES[name] += int(nbytes)
     if backward:
         BACKWARD[name] += 1
 
@@ -270,11 +309,21 @@ class StepSharding(NamedTuple):
     step's global batch, so what the reference computes over the whole
     batch is computed over every rank's rows — the fake-quant activation
     scale (one absmax over the tensor), the MoE's routing (its capacity
-    and load-balance terms over the global slot map)."""
+    and load-balance terms over the global slot map).
+
+    ``seq``: the axes a decode step's cache holds a slice of the SEQUENCE
+    over (``parallel.sharding.cache_specs``: the data axes when the batch
+    does not divide them, or 'model' under ``kv_seq_shard``), else None:
+    each rank attends its own positions and the partials are combined over
+    it (``models.layers.attn_apply``).  ``fsdp``: the data axis that the
+    FSDP rule of ``param_specs`` cuts expert weights' K over, else None:
+    a layer gathers such a weight where it uses it."""
     mesh: Any
     tp: Axis | None = None
     rows: Axis | None = None
     global_rows: bool = False
+    seq: Axis | None = None
+    fsdp: Axis | None = None
 
     def every(self) -> Axis:
         """This rank's view of every axis of the mesh (flattened)."""

@@ -225,6 +225,25 @@ def cache_specs(cache, cfg, mesh, batch: int, kv_seq_shard: bool = False,
     return _map_with_path(spec, cache)
 
 
+def seq_axes(cache_specs, mesh) -> tuple | None:
+    """The axes of size > 1 that a cache's SEQUENCE dim is cut over under
+    ``cache_specs`` (its attention K/V leaves': the sequence-parallel
+    fallback or ``kv_seq_shard``), in mesh order; None when it is whole."""
+    found = set()
+
+    def visit(keys, spec):
+        if keys and keys[-1] in ("k", "v", "ks", "vs"):
+            found.add(tuple(a for a in _entry_axes(spec[len(spec) - 3])
+                            if _axis(mesh, a) > 1))
+        return spec
+    _map_with_path(visit, cache_specs)
+    if len(found) > 1:
+        raise ValueError(f"the cache's K/V leaves cut their sequence "
+                         f"differently: {sorted(found)}")
+    axes = next(iter(found), ())
+    return tuple(a for a in mesh.axis_names if a in axes) or None
+
+
 def pool_specs(pool, cfg, mesh):
     """Paged KV block-pool specs (``runtime.kvcache``): leaves are
     (P?, NB, bs, KV, Dh') — KV heads shard over 'model' when they divide and

@@ -923,3 +923,35 @@ def test_decode_attention_config_within_bound(gpu, s):
             assert err <= tol, (s, cluster, span, err, tol)
     with pytest.raises(ValueError):
         da.decode_attention(q, kc, ks, vc, vs, pos, plan=(9, 0))
+
+
+@pytest.mark.parametrize("s", [16, 300, 2048])
+def test_decode_attention_lse_within_bound(gpu, s):
+    """B5 with its log-sum-exp output, at every cluster size and span limit:
+    the output ``torch.equal`` with the lse on and off; the lse within
+    1e-5 max(1, |lse|) of the plain version's; a row with pos < 0 (no
+    valid position) has lse -inf and a zero output."""
+    da = tattn
+    gen = torch.Generator().manual_seed(s)
+    b, kv, g, dh = 4, 3, 3, 64
+    q = torch.randn((b, kv, g, dh), generator=gen).to(gpu, torch.bfloat16)
+    kc, vc = (torch.randint(-127, 128, (b, s, kv, dh), generator=gen,
+                            dtype=torch.int8).to(gpu) for _ in "kv")
+    ks, vs = ((torch.rand((b, s, kv, 1), generator=gen) * 0.02 + 1e-3)
+              .to(gpu) for _ in "kv")
+    pos = torch.tensor([s - 1, s // 2, 3, -7], dtype=torch.int32, device=gpu)
+    _, want = da.decode_attention_ref(q.cpu(), kc.cpu(), ks.cpu(), vc.cpu(),
+                                      vs.cpu(), pos.cpu(), lse=True)
+    for cluster in (0, 1, 2, 8):
+        for span in (0, 8, 32):
+            plan = (cluster, span)
+            plain = da.decode_attention(q, kc, ks, vc, vs, pos, plan=plan)
+            out, lse = da.decode_attention(q, kc, ks, vc, vs, pos, plan=plan,
+                                           lse=True)
+            torch.cuda.synchronize()
+            assert torch.equal(out, plain), (s, plan)
+            got = lse.cpu()
+            assert torch.isneginf(got[3]).all() and not out[3].any()
+            err = (got[:3] - want[:3]).abs()
+            assert (err <= 1e-5 * want[:3].abs().clamp_min(1.0)).all(), \
+                (s, plan, float(err.max()))

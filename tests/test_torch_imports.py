@@ -197,3 +197,30 @@ def test_analysis_modules_stand_alone():
                           capture_output=True, text=True, timeout=300)
     assert proc.returncode == 0, proc.stderr
     assert proc.stdout.strip().splitlines()[-1] == "0 [] {}", proc.stdout
+
+
+DRY_RUN_MODULES = ("repro_torch.launch.dryrun", "repro_torch.launch.hillclimb",
+                   "repro_torch.kernels.costs")
+
+
+def test_dry_run_modules_stand_alone():
+    """The dry run (``launch.dryrun``, ``launch.hillclimb`` and the
+    kernels' work counts) is among the checked sources; importing it in a
+    fresh interpreter loads no JAX, nothing of ``repro``, starts no process
+    group and builds nothing."""
+    for name in DRY_RUN_MODULES:
+        assert REPO / Path("src", *name.split(".")).with_suffix(".py") \
+            in SOURCES, name
+    code = ("import sys\n"
+            f"for m in {DRY_RUN_MODULES!r}: __import__(m)\n"
+            "import torch.distributed as dist\n"
+            "from repro_torch.kernels import _build\n"
+            "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
+            "('jax', 'jaxlib', 'repro', 'ml_dtypes'))\n"
+            "print(bad, dist.is_initialized(), _build._LIBS)\n")
+    proc = subprocess.run([sys.executable, "-c", code], cwd=REPO,
+                          env={**__import__("os").environ,
+                               "PYTHONPATH": str(REPO / "src")},
+                          capture_output=True, text=True, timeout=300)
+    assert proc.returncode == 0, proc.stderr
+    assert proc.stdout.strip() == "[] False {}", proc.stdout

@@ -171,3 +171,40 @@ def test_decode_attention_kernel_plain_version_matches_pallas():
         *(jnp.asarray(a) for a in args), kv_bits=8, backend="pallas",
         interpret=True))
     np.testing.assert_allclose(got, want, atol=1e-5)
+
+
+@pytest.mark.parametrize("form", ["kernel", "serving"])
+def test_decode_attention_plain_lse(form):
+    """The plain versions' log-sum-exp (the kernel's plain version and the
+    engine's serving form): within 1e-6 of ``logsumexp`` of the masked
+    scores, computed here from the f32-dequantized cache; the output with
+    the lse on equals the one without it (in f32; the serving form casts
+    to the model dtype without it) on every row with a valid position; a
+    row whose every position lies past its ``pos`` (pos < 0: a rank's
+    slice of a sequence-parallel cache that starts after pos) has lse -inf
+    and a zero output, as the kernel writes it (the output without the lse
+    is then the softmax of the -1e30 fill, as before)."""
+    q, kc, ks, vc, vs, pos = _attn_inputs(8)
+    pos = np.array([63, 17, -5], np.int32)
+    args = [torch.from_numpy(a) for a in (q, kc, ks, vc, vs, pos)]
+    if form == "kernel":
+        plain = tattn.decode_attention(*args)
+        out, lse = tattn.decode_attention(*args, lse=True)
+    else:
+        plain = engine.decode_attention(*args, kv_bits=8)
+        out, lse = engine.decode_attention(*args, kv_bits=8, lse=True)
+    assert torch.equal(out[:2], plain[:2])
+    k = kc.astype(np.float32) * ks
+    scores = np.einsum("bkgd,bskd->bkgs", q, k) / np.sqrt(q.shape[-1])
+    valid = np.arange(kc.shape[1])[None, :] <= pos[:, None]
+    for row in range(3):
+        got = lse[row].numpy()
+        if not valid[row].any():
+            assert np.isneginf(got).all()
+            assert not out[row].any()
+            continue
+        s = scores[row][..., valid[row]].astype(np.float64)
+        m = s.max(-1)
+        want = m + np.log(np.exp(s - m[..., None]).sum(-1))
+        np.testing.assert_allclose(got, want, rtol=0, atol=1e-6 * max(
+            1.0, float(np.abs(want).max())))

@@ -23,7 +23,20 @@ integer partial sums are exact and the scan is per channel); at fp32 a
 whole-prompt prefill's and a decode step's logits on 1,2 within 1e-4 of
 max|logit| of the one-rank calls, and the streams the reference's.  jamba
 is held on a pure model axis only: its MoE capacity depends on the
-call's rows (ROADMAP Queue C)."""
+call's rows (ROADMAP Queue C).
+
+Sequence-parallel decode (B = 1, the cache cut over its sequence by
+``cache_specs``, each rank attending its positions and the partials
+combined by their log-sum-exp): the reduced smollm at fp32 (float cache)
+and 2xT kv8 on 4,1, a glm4 at d_model 1024 whose 2 KV heads do not divide
+4 under ``kv_seq_shard`` on 1,4 (the cache cut over the model axis that
+also cuts the query heads), gemma2 with a window of 12 over 4 slices of 8
+positions (the window straddles ranks; softcap and the float cache), and
+jamba on 2,2 (pure DP; the Mamba states replicated), from the port's
+draw: greedy streams equal the reference's one-device streams on the same
+params; fp32 logits within 1e-4 of max|logit|.  The dry run of glm4's 1,4 step on each rank of a dry 1,4 mesh
+(``launch.dryrun.decode_cell``, the host's routes) equals the real step's
+collective counts and wire bytes, dispatches and argument bytes."""
 import concurrent.futures
 import dataclasses
 import os
@@ -47,7 +60,7 @@ from repro.runtime.serving import Request as JRequest  # noqa: E402
 from repro.runtime.serving import RequestOptions as JOptions  # noqa: E402
 from repro.runtime.serving import ServingConfig as JServingConfig  # noqa: E402
 from repro_torch.configs import get_config  # noqa: E402
-from repro_torch.interop import params_from_numpy  # noqa: E402
+from repro_torch.interop import params_from_numpy, params_to_numpy  # noqa: E402
 from repro_torch.launch import mesh as tmesh  # noqa: E402
 from repro_torch.launch import serve as tserve  # noqa: E402
 from repro_torch.models import build_model, reduce_for_smoke, to_serving  # noqa: E402
@@ -105,6 +118,66 @@ for cap in (64.0, 1.0):
 np.savez(sys.argv[2], **out)
 print("REF_MOE_OK")
 """
+
+
+# sequence-parallel decode: name -> (arch, precision, kv_bits, cut of the
+# reduced config, mesh, kv_seq_shard, tp of the serving form, seed)
+SP_JOBS = {
+    "smollm fp32": ("smollm-135m", "fp32", 0, {}, "4,1", False, 1, 20),
+    "smollm 2xT": ("smollm-135m", "2xT", 8, {}, "4,1", False, 1, 21),
+    "glm4 kv_seq_shard": ("glm4-9b", "2xT", 8,
+                          {"d_model": 1024, "n_heads": 8}, "1,4", True, 4,
+                          22),
+    "gemma2 window": ("gemma2-27b", "fp32", 0, {"window": 12}, "4,1", False,
+                      1, 23),
+    "jamba": ("jamba-v0.1-52b", "2xT", 8, {}, "2,2", False, 1, 24),
+}
+SP_S_MAX, SP_NEW = 32, 6
+
+
+def _sp_payload():
+    """(the reference's configs and params, the ranks' jobs) of SP_JOBS:
+    the port's draw from the job's seed, in serving form at 2xT (packed
+    with the job's tp), given to the reference through ``interop``."""
+    jobs, ref = {}, {}
+    for name, (arch, prec, kvb, cut, mesh, kvss, tp, seed) in \
+            SP_JOBS.items():
+        jcfg = dataclasses.replace(
+            jreduce(jget_config(arch, precision=prec, kv_bits=kvb)), **cut)
+        tcfg = dataclasses.replace(
+            reduce_for_smoke(get_config(arch, precision=prec, kv_bits=kvb)),
+            **cut)
+        params = _port_params(tcfg, seed, tp)
+        prompt = np.random.default_rng(seed).integers(0, tcfg.vocab, (1, 9))
+        # copies: the spawn moves the tensors' storage into shared memory
+        ref[name] = (jcfg, jax.tree_util.tree_map(
+            np.array, params_to_numpy(params)), prompt)
+        jobs[name] = {"cfg": tcfg, "params": params, "prompt": prompt,
+                      "s_max": SP_S_MAX, "n_new": SP_NEW,
+                      "kv_seq_shard": kvss, "mesh": mesh, "tp": tp,
+                      "dry": name == "glm4 kv_seq_shard"}
+    return ref, jobs
+
+
+def _ref_sp_stream(jcfg, params, prompt):
+    """The reference's one-device greedy stream of ``prompt`` on
+    ``params`` (numpy leaves): its prefill into a cache of SP_S_MAX, then
+    SP_NEW decode steps (their logits)."""
+    import jax.numpy as jnp
+    jp = jax.tree_util.tree_map(jnp.asarray, params)
+    model = jbuild(jcfg)
+    logits, cache = jax.jit(lambda p, b: model.prefill(p, b, SP_S_MAX))(
+        jp, {"tokens": jnp.asarray(prompt, jnp.int32)})
+    step = jax.jit(model.decode_step)
+    tok = jnp.argmax(logits[:, -1], -1)
+    stream, steps = [int(tok[0])], []
+    for i in range(SP_NEW):
+        out, cache = step(jp, tok[:, None].astype(jnp.int32), cache,
+                          jnp.int32(prompt.shape[1] + i))
+        steps.append(np.asarray(out[:, -1]))
+        tok = jnp.argmax(out[:, -1], -1)
+        stream.append(int(tok[0]))
+    return stream, np.concatenate(steps)
 
 
 def _prompts(vocab, n):
@@ -217,6 +290,7 @@ def _run_spmd(tmp):
             "params": params_from_numpy(
                 jax.tree_util.tree_map(np.asarray, jmp), "cpu")}
     payload["mamba_ckpt"] = str(tmp / "mamba_ckpt")
+    sp_ref, payload["sp"] = _sp_payload()
 
     # the ranks run while this process serves the one-device side
     with concurrent.futures.ThreadPoolExecutor(1) as pool:
@@ -239,6 +313,8 @@ def _run_spmd(tmp):
                                    "dense", 2, 4, chunk=0)[0]
         for name, (jcfg_m, jmp) in jmamba.items():
             ref[name] = _ref_streams(jcfg_m, jmp, "dense", 2, 4, 24, chunk=0)
+        for name, args in sp_ref.items():
+            ref[f"sp {name}"] = _ref_sp_stream(*args)
         results = fut.result()
     stdout, stderr = proc.communicate(timeout=300)
     assert proc.returncode == 0, stderr[-3000:]
@@ -459,6 +535,55 @@ def test_mamba_checkpoint_of_a_model_axis_restores_on_one_rank(spmd):
     whole params."""
     assert spmd["ranks"][0]["mamba_tp_restore"] is True
     assert spmd["ranks"][1]["mamba_tp_restore"] is None
+
+
+@pytest.mark.parametrize("name", list(SP_JOBS))
+def test_sequence_parallel_decode_streams(spmd, name):
+    """B = 1 with the cache's sequence cut over the mesh (module
+    docstring): every rank's greedy stream equals the reference's
+    one-device stream; at fp32 the decode steps' logits within 1e-4 of
+    max|logit| of the reference's.  Per decode step and attention layer,
+    one all-reduce max of the log-sum-exp and one all-reduce sum of the
+    weighted partials and their weights (packed); under ``kv_seq_shard``
+    also one gather of the query heads, beside tensor parallelism's max and
+    sum around wo and w_down, the embedding's sum and the logits' gather."""
+    want, want_logits = spmd["ref"][f"sp {name}"]
+    arch, prec, _, cut, mesh, kvss, _, _ = SP_JOBS[name]
+    cfg = dataclasses.replace(reduce_for_smoke(get_config(arch)), **cut)
+    n_attn = sum(m.startswith("attn") for m in cfg.layer_pattern) * \
+        cfg.n_periods
+    for res in spmd["ranks"]:
+        got = res[f"sp_{name}"]
+        assert got["stream"] == want, (res["rank"], name)
+        if prec == "fp32":
+            scale = float(np.abs(want_logits).max())
+            gap = float(np.abs(got["logits"] - want_logits).max())
+            print(f"{name} rank {res['rank']}: logits gap {gap:.3e} of "
+                  f"{scale:.3e}")
+            assert gap <= 1e-4 * scale, (name, gap, scale)
+        counts = got["probe"][0]
+        if kvss:
+            n = cfg.n_layers
+            assert counts == {"all_reduce_sum": 3 * n + 1,
+                              "all_reduce_max": 3 * n,
+                              "all_gather": n + 1, "broadcast": 0}, counts
+        else:                            # pure DP: only the combine
+            assert counts == {"all_reduce_sum": n_attn,
+                              "all_reduce_max": n_attn, "all_gather": 0,
+                              "broadcast": 0}, (name, counts)
+
+
+def test_dry_run_equals_the_real_step(spmd):
+    """glm4's 1,4 sequence-parallel decode step, traced by the dry run on
+    each rank of a dry 1,4 mesh: its collective counts and wire bytes, its
+    dispatches (op and backend) and its argument bytes equal the real
+    step's on that rank."""
+    for res in spmd["ranks"]:
+        got = res["sp_glm4 kv_seq_shard"]
+        counts, nbytes, dispatch, arg_bytes = got["probe"]
+        assert got["dry"] == (counts, nbytes, dispatch, arg_bytes), \
+            (res["rank"], got["dry"], got["probe"])
+        assert sum(nbytes.values()) > 0 and dispatch["decode_attention"]
 
 
 def test_launcher_mesh_cpu(capfd, tmp_path, monkeypatch):

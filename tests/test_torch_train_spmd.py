@@ -15,7 +15,8 @@ tests/test_pipeline.py) do not run under this jax.
 Bounds (reduce_for_smoke shapes, or the serving tests' ``tp-golden``
 and a falcon-mamba stack ``mamba-tp``, d_model 1024: tensor parallel; f32, lr 1e-3, global batch 8 x 16, two
 steps): every rank's loss and grad norm within 1e-5 relative of the
-reference's at each step; every param leaf assembled from the ranks'
+reference's at each step (FSDP too: moe-tp with its expert weights' K cut
+over data, adamw and adafactor on 2,2 and 4,1); every param leaf assembled from the ranks'
 slices within 1e-4 of the reference's, but for at most one entry in
 10^4 of a leaf, within 2.2 lr a step.  An Adam step moves an entry by
 ~lr g / (|g| + eps), near +-lr whatever the summation order, except where
@@ -114,7 +115,13 @@ JOBS = {
     "granite": ("granite-moe-1b-a400m", "fp32", "adamw", 1, 0, ("1,2",)),
     "moe-tp": (MOE_TP, "fp32", "adamw", 1, 0, ("2,2",)),
     "mamba-tp": (MAMBA_TP, "fp32", "adamw", 1, 0, ("1,2",)),
+    "moe-tp fsdp adamw": (MOE_TP, "fp32", "adamw", 1, 0, ("2,2", "4,1")),
+    "moe-tp fsdp adafactor": (MOE_TP, "fp32", "adafactor", 1, 0,
+                              ("2,2", "4,1")),
 }
+# jobs whose params take the FSDP rule (``param_specs(fsdp=True)``: the
+# expert weights' K over data, gathered where used)
+FSDP_JOBS = {"moe-tp fsdp adamw", "moe-tp fsdp adafactor"}
 # the sharded optimizers alone: leaves cut over N, over K, over E (an
 # expert stack), over both axes, and one replicated; gradients small
 # enough that the clip scales by exactly 1 (adam8bit's codes compare equal)
@@ -149,7 +156,7 @@ def _job(i, name):
     held = 1 if opt == "adam8bit" else N_STEPS
     return jcfg, {"cfg": tcfg, "opt": opt, "accum": accum, "bits": bits,
                   "meshes": meshes, "seed": i, "batches": batches,
-                  "held": held}
+                  "held": held, "fsdp": name in FSDP_JOBS}
 
 
 def _reference(jcfg, job):
@@ -264,6 +271,8 @@ def _run(tmp):
     payload = {"jobs": jobs, "pipeline": pipe, "optim": optim,
                "checkpoint": {"job": "tp-golden fp32",
                               "dir": str(tmp / "ckpt")},
+               "fsdp_checkpoint": {"job": "moe-tp fsdp adafactor",
+                                   "dir": str(tmp / "fsdp_ckpt")},
                "elastic": ELASTIC + ["--ckpt-dir", str(tmp / "elastic")],
                "preempt_dir": str(tmp / "preempt")}
     names = list(JOBS)
@@ -306,8 +315,8 @@ def _assembled(spmd, name, label):
     job = spmd["jobs"][name]
     mesh = tmesh.Mesh(MESH_SHAPES[label])
     shapes = build_model(job["cfg"]).init(torch.Generator(), "meta")
-    specs = tree_leaves_along(shapes, tsh.param_specs(shapes, job["cfg"],
-                                                      mesh))
+    specs = tree_leaves_along(shapes, tsh.param_specs(
+        shapes, job["cfg"], mesh, fsdp=job["fsdp"]))
     got = [res["jobs"][(name, label)] for res in spmd["ranks"]]
     # a pair mesh (2,1 / 1,2) runs on ranks 0-1 and again on ranks 2-3
     groups = [got[:2], got[2:]] if label in ("2,1", "1,2") else [got]
@@ -355,7 +364,8 @@ def test_replicated_leaves_bit_equal_after_every_step(spmd):
         shapes = build_model(job["cfg"]).init(torch.Generator(), "meta")
         for label in job["meshes"]:
             mesh = tmesh.Mesh(MESH_SHAPES[label])
-            pspecs = tsh.param_specs(shapes, job["cfg"], mesh)
+            pspecs = tsh.param_specs(shapes, job["cfg"], mesh,
+                                     fsdp=job["fsdp"])
             like = {"params": shapes,
                     "opt": make_optimizer(job["opt"]).init(shapes)}
             specs = tree_leaves_along(like, {
@@ -535,6 +545,32 @@ def test_elastic_resume_on_a_smaller_mesh(spmd):
               f"{max(g for g, _ in gaps):.2e} "
               f"({sum(n for _, n in gaps)} entries beyond {PARAM_ATOL})")
     assert Checkpointer(str(spmd["tmp"] / "elastic")).all_steps() == [3, 6]
+
+
+def test_fsdp_step_collectives(spmd):
+    """moe-tp with the FSDP rule, one step: per MoE layer the rows'
+    gather, each expert weight gathered where it is used and gathered
+    again in the backward (its activations are not kept), and in the
+    backward the gathers' reduce-scatters (all-reduce, this rank's slice)
+    of the rows and the three expert weights; the FSDP leaves skip the
+    gradient bucket's data sum, so one bucket all-reduce a step (plus the
+    global norm's sums over the cut axes)."""
+    n_layers = MOE_TP["n_layers"]
+    for name in sorted(FSDP_JOBS):
+        for label in JOBS[name][5]:
+            for res in spmd["ranks"]:
+                counts, backward = res["jobs"][(name, label)]["counts"][0]
+                assert counts["all_gather"] == 7 * n_layers, (name, label)
+                assert backward["all_reduce_sum"] >= 4 * n_layers
+                assert backward["all_gather"] == 0
+
+
+def test_fsdp_checkpoint_restores_on_one_rank(spmd):
+    """An FSDP state (moe-tp, adafactor, two steps on 2,2: expert weights
+    cut over data and model) saved by the four ranks restores on a one-rank
+    mesh equal to the whole restore."""
+    for res in spmd["ranks"]:
+        assert res["fsdp_restores"] == {"1,1": True}
 
 
 def test_preemption_is_agreed_across_ranks(spmd):

@@ -13,8 +13,11 @@ import numpy as np
 import torch
 
 from repro_torch.checkpoint import Checkpointer
-from repro_torch.launch.mesh import make_mesh
-from repro_torch.models import build_model
+from repro_torch.kernels import engine
+from repro_torch.launch import dryrun
+from repro_torch.launch.mesh import Mesh, make_mesh
+from repro_torch.launch.steps import make_decode_fn, step_sharding
+from repro_torch.models import build_model, to_serving
 from repro_torch.parallel import comm
 from repro_torch.parallel import sharding as shd
 from repro_torch.parallel.comm import StepSharding
@@ -107,6 +110,72 @@ def _checkpoint_restore(cfg, params, mesh, one, ckpt_dir) -> bool | None:
                zip(tree_leaves(got), tree_leaves(params)))
 
 
+def _dispatches(events) -> dict:
+    out: dict = {}
+    for ev in events:
+        by = out.setdefault(ev.op, {})
+        by[ev.impl_backend] = by.get(ev.impl_backend, 0) + 1
+    return out
+
+
+def sp_decode(job, mesh):
+    """Greedy decode of one prompt (B = 1) with the cache cut over its
+    sequence: a one-rank prefill (the same on every rank), the cache cut by
+    ``cache_specs`` (the data axes at B = 1, or 'model' under
+    ``kv_seq_shard``) and the params by ``param_specs``, then ``n_new``
+    decode steps of ``make_decode_fn(model, step_sharding(...))``.
+    Returns (the stream, the decode steps' f32 logits, the first step's
+    probe: collective counts and wire bytes, dispatches, argument bytes),
+    and with ``job["dry"]`` the dry run of the same step on this rank of a
+    dry mesh of the same shape (meta tensors on the host's routes)."""
+    cfg, params, prompt = job["cfg"], job["params"], job["prompt"]
+    model = build_model(cfg)
+    tokens = torch.from_numpy(prompt)
+    with torch.no_grad():
+        logits, cache = model.prefill(params, {"tokens": tokens},
+                                      job["s_max"])
+        cspecs = shd.cache_specs(cache, cfg, mesh, 1,
+                                 kv_seq_shard=job["kv_seq_shard"])
+        cache = shd.shard_tree(cache, cspecs, mesh)
+        local = shd.shard_tree(params, shd.param_specs(params, cfg, mesh),
+                               mesh)
+        step = make_decode_fn(model, step_sharding(cfg, mesh, 1, cspecs))
+        tok = logits[:, -1].argmax(-1)
+        stream, steps, probe = [int(tok)], [], None
+        for i in range(job["n_new"]):
+            pos = torch.tensor([prompt.shape[1] + i])
+            args = (local, tok[:, None], cache, pos)
+            comm.reset_collective_counts()
+            events = []
+            engine.set_dispatch_listener(events.append)
+            try:
+                out, cache = step(*args)
+            finally:
+                engine.set_dispatch_listener(None)
+            if probe is None:
+                probe = (comm.collective_counts(), comm.collective_bytes(),
+                         _dispatches(events),
+                         sum(t.numel() * t.element_size()
+                             for t in tree_leaves(args)))
+            steps.append(out[:, -1].clone())
+            tok = out[:, -1].argmax(-1)
+            stream.append(int(tok))
+    res = {"stream": stream, "logits": torch.cat(steps).numpy(),
+           "probe": probe}
+    if job.get("dry"):
+        dry = Mesh(mesh.shape, rank=mesh.rank, dry=True)
+        shapes = build_model(cfg).init(torch.Generator(), "meta")
+        if cfg.precision != "fp32":
+            shapes = to_serving(shapes, cfg, tp=job["tp"])
+        cell = dryrun.decode_cell(cfg, dry, shapes, 1, job["s_max"],
+                                  kv_seq_shard=job["kv_seq_shard"])
+        rec = dryrun.trace(cell, as_card=False)
+        res["dry"] = (rec["collectives"]["counts"],
+                      rec["collectives"]["bytes"], rec["dispatch"],
+                      rec["memory_analysis"]["argument_size_in_bytes"])
+    return res
+
+
 def _moe_checks(mesh, moe):
     """moe_apply_shard_map on this rank's data shard of x and expert shard
     of p; and the slot-map moe_apply under TP (the global slot map, rows
@@ -138,7 +207,8 @@ def _moe_checks(mesh, moe):
 
 def run_checks(world, payload):
     """Every rank of a 2x2 world: one-rank meshes, a 2,1 mesh on ranks 0-1
-    beside a 1,2 mesh on ranks 2-3, the 2,2 world and a 1,4 mesh."""
+    beside a 1,2 mesh on ranks 2-3, the 2,2 world, a 1,4 and a 4,1
+    mesh."""
     r = world.rank
     # every make_mesh over several ranks is collective: all ranks call each
     one = make_mesh(1, 1, ranks=[r])
@@ -146,6 +216,7 @@ def run_checks(world, payload):
     m12 = make_mesh(1, 2, ranks=[2, 3])
     m12_low = make_mesh(1, 2, ranks=[0, 1])
     m14 = make_mesh(1, 4)
+    m41 = make_mesh(4, 1)
     pair = m21 if r < 2 else m12
     res = {"rank": r, "pair": dict(pair.shape)}
 
@@ -221,4 +292,9 @@ def run_checks(world, payload):
         res["mamba_tp_restore"] = _checkpoint_restore(
             wide["cfg"], wide["params"], m12_low, one,
             payload["mamba_ckpt"])
+
+    # sequence-parallel decode: B = 1, the cache cut over its sequence
+    meshes = {"4,1": m41, "1,4": m14, "2,2": world}
+    for name, job in payload["sp"].items():
+        res[f"sp_{name}"] = sp_decode(job, meshes[job["mesh"]])
     return res

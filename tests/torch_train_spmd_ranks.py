@@ -36,10 +36,11 @@ def digest(t: torch.Tensor) -> str:
 
 
 def state_specs(job, mesh):
-    """{"params", "opt"} specs of ``job``'s state on ``mesh``."""
+    """{"params", "opt"} specs of ``job``'s state on ``mesh`` (with the
+    FSDP rule for an FSDP job)."""
     cfg = job["cfg"]
     shapes = build_model(cfg).init(torch.Generator(), "meta")
-    pspecs = shd.param_specs(shapes, cfg, mesh)
+    pspecs = shd.param_specs(shapes, cfg, mesh, fsdp=job.get("fsdp", False))
     opt = make_optimizer(job["opt"], lr=LR)
     return {"params": pspecs, "opt": opt.state_specs(pspecs)}
 
@@ -57,10 +58,12 @@ def train_job(job, mesh) -> dict:
     cfg = job["cfg"]
     model, opt = build_model(cfg), make_optimizer(job["opt"], lr=LR)
     params = draw(job)
-    params = shd.shard_tree(params, shd.param_specs(params, cfg, mesh), mesh)
+    fsdp = job.get("fsdp", False)
+    params = shd.shard_tree(params, shd.param_specs(params, cfg, mesh,
+                                                    fsdp=fsdp), mesh)
     state = opt.init(params)
     step = make_train_step(model, opt, grad_compress_bits=job["bits"],
-                           accum_steps=job["accum"], mesh=mesh)
+                           accum_steps=job["accum"], mesh=mesh, fsdp=fsdp)
     out = {"metrics": [], "digests": [], "counts": []}
     for i, batch in enumerate(job["batches"]):
         batch = {k: torch.from_numpy(v).long() for k, v in batch.items()}
@@ -180,8 +183,9 @@ def _agreed_preemption(world, path) -> tuple:
 
 def run_checks(world, payload):
     """Every rank of a 2x2 world: the train jobs on their meshes (2,1 and
-    1,2 as two pairs of ranks side by side), the checkpoint restores, the
-    elastic run, the agreed preemption and the pipeline."""
+    1,2 as two pairs of ranks side by side), the checkpoint restores (an
+    FSDP state's on a one-rank mesh too), the elastic run, the agreed
+    preemption and the pipeline."""
     torch.manual_seed(0)
     r = world.rank
 
@@ -205,6 +209,11 @@ def run_checks(world, payload):
                                 states[(ck["job"], "2,2")], world,
                                 {"4,1": m41, "1,2": meshes["1,2"]},
                                 ck["dir"])
+    ck = payload["fsdp_checkpoint"]
+    res["fsdp_restores"] = _restores(payload["jobs"][ck["job"]],
+                                     states[(ck["job"], "2,2")], world,
+                                     {"1,1": make_mesh(1, 1, ranks=[r])},
+                                     ck["dir"])
     res["elastic"] = _elastic(m41, meshes["2,1"], payload["elastic"])
     res["preempt"] = _agreed_preemption(world, payload["preempt_dir"])
 
