@@ -29,7 +29,10 @@ Phases (each prints its own lines; any failed check exits non-zero):
      launch, timed beside the former abs/amax/clamp_min/div chain) and the
      full-sequence flash attention (prefill,
      forward, window + softcap; bf16 and f32 (TF32 tensor cores, three
-     products), each timed beside SDPA);
+     products), each timed beside SDPA; with ``probs_bf16``, the reference's
+     ``attn_probs_bf16``, at the forward shape and whisper-base's encoder,
+     also held by mean |diff| to a share of the flag's own effect that the
+     flag-off kernel misses, timed beside the flag-off kernel and SDPA);
   4. the dense serving path at full width: smollm-135m, 2xT
      weights/activations, int8 KV cache, bf16, random weights from seed 0,
      served by the continuous batcher (8 requests over 4 slots); the kernel
@@ -65,7 +68,11 @@ Phases (each prints its own lines; any failed check exits non-zero):
   4h. ``Model.forward`` / ``Model.loss`` at B=2, S=2048: fp32 weights in
      float32 through the kernels against the plain versions (bounded), 2xT
      bf16 (reported), launches and time per forward, and one forward under
-     ``torch.profiler`` (device busy time, flash attention's share);
+     ``torch.profiler`` (device busy time, flash attention's share); each
+     again with ``attn_probs_bf16`` (B8 launched with ``probs_bf16`` on
+     every layer; fp32 over three batches, held by mean |diff| to a share
+     of the flag's own effect that plain paths rounding only P or only V
+     miss; 2xT reported);
   4i. the integer-code quantizers of ``core`` (``act_quant`` and
      ``act_quant_signed`` launches) against their plain versions;
   4j. sampling and the flight recorder on the 2xT paths: phase 4's
@@ -151,7 +158,11 @@ Phases (each prints its own lines; any failed check exits non-zero):
      restored on one rank ``torch.equal`` to the gathered params, both
      packed and served (4 x 8 tokens through B1, B7c and B5, the tokens
      equal); one ``pipeline_blocks`` call on 2 stages (4 fp32 periods)
-     within 1e-5 of the sequential stack;
+     within 1e-5 of the sequential stack, and its gradients (blocks and x)
+     within 1e-5 of one rank's sequential autograd, the same bits on both
+     ranks; granite-moe-1b-a400m fp32 at 2 layers with the expert-parallel
+     MoE (``moe_impl="shard_map"``) trained on 1,2, nothing dropped: loss
+     and grad norm against one rank's;
   5. decode steps of the dense and the paged 2xT paths, of the dense 1x1
      path and of the paged fp32-weight path (phase 4d's) under
      ``torch.profiler``: device operations per step, device busy time and
@@ -271,7 +282,14 @@ def time_ms(fn, iters: int = 20, reps: int = 20) -> tuple[float, float]:
 
 
 def bound(nbytes: float, ops: float, peak: float) -> tuple[float, str]:
-    t_bytes, t_ops = nbytes / MEM_BW * 1e3, ops / peak * 1e3
+    return bound_terms(nbytes, ((ops, peak),))
+
+
+def bound_terms(nbytes: float, terms) -> tuple[float, str]:
+    """The bound (ms, "bytes" or "operations") of work whose operations come
+    in (ops, peak) terms of several types, each at its own peak."""
+    t_bytes = nbytes / MEM_BW * 1e3
+    t_ops = sum(ops / peak for ops, peak in terms) * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
@@ -1321,7 +1339,95 @@ def _flash_record(gen, device):
                        "bound_ms": bt, "bound_by": by, "library_ms": tl,
                        "shape": f"bf16 B={b} S={s} KV={kv} G={g} Dh={dh} causal"}
     rec["max_abs_err"] = err_max
+    _flash_probs_bf16(device)
     return rec
+
+
+# probs_bf16 (the reference's attn_probs_bf16): the record's forward shape
+# and whisper-base's encoder (B 4, S 1500, 8 heads, no mask)
+FLASH_PB_CASES = (("forward", 2, 2048, KV_HEADS, GROUP, DH, True),
+                  ("whisper encoder", 4, 1500, 8, 1, 64, False))
+
+
+def _flash_probs_bf16(device) -> None:
+    """B8 with ``probs_bf16`` against the plain version of the flag (the
+    kernel's key tiles, P and V rounded to bf16) in bf16 and f32.  Two
+    checks: max |diff| within 2^-7 max|v| + 1e-5 max|out| (the two round
+    the same tiles' P from f32 scores that differ in the last bits: a p
+    next to a rounding boundary may take the neighbouring bf16 value, one
+    ulp, at most 2^-7 p); and mean |diff| within PB_KERNEL_SHARE of the
+    flag's own effect (mean |plain with the flag - plain without|), where
+    flips are rare, so that a kernel that ignored the flag would fail: the
+    flag-off kernel, the control, must exceed the share.  Timed beside the
+    flag-off kernel and SDPA.  The bound counts the tensor-core products
+    the flag leaves (``kernels.costs.flash_attention_mma``): bf16 one term
+    for q.k and one for p.v (flag off: two for p.v), f32 three TF32 terms
+    for q.k and one product of bf16 values for p.v (flag off: three TF32),
+    each at its type's peak.  Inputs from a generator of its own (the
+    later records keep their draws)."""
+    import torch
+    import torch.nn.functional as F
+    from repro_torch.kernels import costs
+    from repro_torch.kernels.flash_attention import flash_attention
+    from repro_torch.kernels.ref import flash_attention_ref
+    gen = torch.Generator().manual_seed(31)
+    for label, b, s, kv, g, dh, causal in FLASH_PB_CASES:
+        for dtype in (torch.float32, torch.bfloat16):
+            bf16 = dtype == torch.bfloat16
+            q = torch.randn((b, s, kv, g, dh), generator=gen).to(device, dtype)
+            k, v = (torch.randn((b, s, kv, dh), generator=gen).to(device, dtype)
+                    for _ in range(2))
+            on = dict(causal=causal, probs_bf16=True)
+            out = flash_attention(q, k, v, **on)
+            out_off = flash_attention(q, k, v, causal=causal)
+            ref = flash_attention_ref(q, k, v, **on)
+            ref_off = flash_attention_ref(q, k, v, causal=causal)
+            torch.cuda.synchronize()
+            err = (out - ref).abs().max().item()
+            tol = 2.0 ** -7 * v.float().abs().max().item() + \
+                1e-5 * ref.abs().max().item()
+            effect = (ref - ref_off).abs().mean().item()
+            share = (out - ref).abs().mean().item() / effect
+            control = (out_off - ref).abs().mean().item() / effect
+            what = f"flash_attention probs_bf16 {label} {dtype}"
+            check(err <= tol, f"{what}: max |diff| {err} > {tol}")
+            check(share <= PB_KERNEL_SHARE, f"{what}: mean |diff| {share} of "
+                  f"the flag's effect > {PB_KERNEL_SHARE}")
+            check(control > PB_KERNEL_SHARE, f"{what}: the flag-off kernel "
+                  f"is within {control} <= {PB_KERNEL_SHARE} of the flag's "
+                  "effect")
+            qh = q.reshape(b, s, kv * g, dh).transpose(1, 2).contiguous()
+            kh, vh = (t.repeat_interleave(g, dim=2).transpose(1, 2).contiguous()
+                      for t in (k, v))
+            tk, _ = time_ms(lambda: flash_attention(q, k, v, **on), reps=5)
+            toff, _ = time_ms(lambda: flash_attention(q, k, v, causal=causal),
+                              reps=5)
+            tp, _ = time_ms(lambda: flash_attention_ref(q, k, v, **on), reps=2)
+            tl, _ = time_ms(lambda: F.scaled_dot_product_attention(
+                qh, kh, vh, is_causal=causal), reps=5)
+            _, nbytes = costs.flash_attention(b, s, s, kv, g, dh,
+                                              2 if bf16 else 4, causal, 0)
+            qk, pv = costs.flash_attention_mma(b, s, s, kv, g, dh,
+                                               2 if bf16 else 4, causal, 0,
+                                               probs_bf16=True)
+            bt, by = bound_terms(nbytes, (
+                (qk, PEAK_BF16 if bf16 else PEAK_TF32), (pv, PEAK_BF16)))
+            print(f"{what}: B={b} S={s} KV={kv} G={g} Dh={dh} "
+                  f"{'causal' if causal else 'no mask'}: max |diff| vs its "
+                  f"plain version {err:.3e} (tolerance {tol:.3e} = 2^-7 "
+                  f"max|v| + 1e-5 max|out|); mean |diff| {share:.5f} of the "
+                  f"flag's own effect {effect:.4e} (limit {PB_KERNEL_SHARE}; "
+                  f"control, the flag-off kernel: {control:.5f}); kernel "
+                  f"{tk:.4f} ms, flag off {toff:.4f} ms (ratio "
+                  f"{tk / toff:.3f}), plain {tp:.4f} ms, sdpa {tl:.4f} ms "
+                  f"(kernel / sdpa {tk / tl:.2f}), bound {bt:.5f} ms ({by}; "
+                  f"q.k {qk / 1e9:.2f} G, p.v {pv / 1e9:.2f} G tensor-core "
+                  "operations)")
+
+
+# mean |kernel - plain version| of B8 with probs_bf16, as a share of the
+# flag's own effect on the plain version (mean |with - without|)
+PB_KERNEL_SHARE = 0.25
 
 
 def phase_kernels(device):
@@ -1656,8 +1762,112 @@ def phase_forward(device, card):
                   "matmul launches")
             print("  2xT bf16: not bounded (one bf16 rounding of an attention "
                   "output flips 2-bit codes downstream)")
+        _forward_probs_bf16(cfg, params, batch, card)
         del model, params
         torch.cuda.empty_cache()
+
+
+def _forward_probs_bf16(cfg, params, batch, card) -> None:
+    """``Model.forward`` with ``attn_probs_bf16`` at S = FWD_S (past the
+    reference's 1024-position chunk): B8 launched with ``probs_bf16`` on
+    every layer (launch counts and dispatch kinds), the logits against the
+    plain path's (``backend="torch"``: the plain version of the flag, the
+    kernel's tiles) and against the flag-off forward's.  The two paths
+    round the same tiles' P, but a p next to a rounding boundary may take
+    the neighbouring bf16 value in one of them (one ulp, 2^-7 p at most,
+    where the flag's own rounding moves every p by up to 2^-8 p), and
+    through 30 layers those flips move the fp32 logits by more than the
+    flag-off forward's 1e-4 of max|logit|.  So at fp32, on this batch and
+    PB_FWD_BATCHES - 1 more, mean |kernels - plain| is held to PB_FWD_SHARE
+    of the flag's own effect (mean |plain with the flag - the flag-off
+    forward|), and two controls must exceed it: plain paths that round only
+    P or only V (what a kernel applying half the flag would give).  At 2xT
+    it is reported."""
+    import torch
+    from repro_torch.kernels import engine
+    from repro_torch.models import build_model
+    model, off_model = build_model(dataclasses.replace(
+        cfg, attn_probs_bf16=True)), build_model(cfg)
+    fp32 = cfg.precision == "fp32"
+    gen = torch.Generator().manual_seed(31)
+    batches = [batch] + [{k: torch.randint(0, cfg.vocab, v.shape,
+                                           generator=gen).to(v.device)
+                          for k, v in batch.items()}
+                         for _ in range(PB_FWD_BATCHES - 1 if fp32 else 0)]
+    for i, bt in enumerate(batches):
+        engine.reset_launch_counts()
+        with engine.dispatch_trace() as ev:
+            lk, _ = model.forward(params, bt)
+        torch.cuda.synchronize()
+        launches = engine.launch_counts()["flash_attention"]
+        kinds = {e.kind for e in ev if e.op == "flash_attention"}
+        lp, _ = model.forward(params, bt, backend="torch")
+        off, _ = off_model.forward(params, bt)
+        gap = (lk - lp).abs().max().item()
+        scale = lp.abs().max().item()
+        print(f"[{card}] {cfg.precision} {cfg.dtype} attn_probs_bf16 batch "
+              f"{i}: flash_attention launches {launches}, dispatch kinds "
+              f"{sorted(kinds)}; logits kernels vs plain versions max |diff| "
+              f"{gap:.3e} of max|logit| {scale:.3e}, against the flag-off "
+              f"forward {(lk - off).abs().max().item():.3e}; argmax equal on "
+              f"{(lk.argmax(-1) == lp.argmax(-1)).float().mean().item():.4f}")
+        check(bool(torch.isfinite(lk).all()), "attn_probs_bf16 forward: "
+              "logits not finite")
+        check(launches == cfg.n_layers
+              and kinds == {engine.ATTN_FLASH_PROBS_BF16},
+              f"attn_probs_bf16 forward: {launches} launches, kinds {kinds}")
+        if not fp32:
+            continue
+        effect = (lp - off).abs().mean().item()
+        share = (lk - lp).abs().mean().item() / effect
+        ctl = {}
+        for half in ("P", "V"):
+            with _half_probs_bf16(half):
+                lh, _ = model.forward(params, bt, backend="torch")
+            ctl[half] = (lh - lp).abs().mean().item() / effect
+        print(f"  fp32 batch {i}: mean |kernels - plain| {share:.5f} of the "
+              f"flag's own effect {effect:.4e} (max: "
+              f"{gap / (lp - off).abs().max().item():.4f}); limit "
+              f"{PB_FWD_SHARE}; controls, plain paths rounding only P / only "
+              f"V: {ctl['P']:.5f} / {ctl['V']:.5f}")
+        check(share <= PB_FWD_SHARE, f"fp32 attn_probs_bf16 forward batch "
+              f"{i}: mean |diff| {share} of the flag's effect > "
+              f"{PB_FWD_SHARE}")
+        check(min(ctl.values()) > PB_FWD_SHARE, f"fp32 attn_probs_bf16 "
+              f"forward batch {i}: a half-rounding control within "
+              f"{PB_FWD_SHARE} of the flag's effect: {ctl}")
+
+
+# mean |kernels - plain path| of the fp32 attn_probs_bf16 forward, as a
+# share of the flag's own effect; the batches it is read on
+PB_FWD_SHARE = 0.25
+PB_FWD_BATCHES = 3
+
+
+@contextlib.contextmanager
+def _half_probs_bf16(half: str):
+    """The plain version of B8's ``probs_bf16`` rounding only P ("P") or
+    only V ("V"), in place of the whole flag, for the controls of
+    :func:`_forward_probs_bf16`.  Only P: P_bf16 V = P_bf16 bf16(V) +
+    P_bf16 (V - bf16(V)), the second product from the flag's plain version
+    too (it rounds V - bf16(V), already 2^-9 of |v|, by 2^-9 of itself)."""
+    import torch
+    from repro_torch.kernels import ref
+    full = ref.flash_attention_ref
+
+    def half_ref(q, k, v, *, probs_bf16=False, **kw):
+        if not probs_bf16:
+            return full(q, k, v, **kw)
+        vb = v.to(torch.bfloat16).to(v.dtype)
+        if half == "V":
+            return full(q, k, vb, **kw)
+        return full(q, k, v, probs_bf16=True, **kw) + \
+            full(q, k, v - vb, probs_bf16=True, **kw)
+    ref.flash_attention_ref = half_ref
+    try:
+        yield
+    finally:
+        ref.flash_attention_ref = full
 
 
 def phase_core_quant(device, card):
@@ -4740,9 +4950,90 @@ def _pipeline(mesh, cfg):
         for i in range(cfg.n_periods):
             h, _ = tfm._apply_period(tfm._period(blocks, i), h, cfg, pos)
     torch.cuda.synchronize()
-    return {"gap": float((y - h).abs().max()), "scale": float(h.abs().max()),
-            "close": bool(torch.allclose(y, h, rtol=PIPE_TOL, atol=PIPE_TOL)),
-            "p2p": p2p}
+    out = {"gap": float((y - h).abs().max()), "scale": float(h.abs().max()),
+           "close": bool(torch.allclose(y, h, rtol=PIPE_TOL, atol=PIPE_TOL)),
+           "p2p": p2p}
+    out.update(_pipeline_grads(mesh, cfg, blocks, x, gen))
+    return out
+
+
+def _pipeline_grads(mesh, cfg, blocks, x, gen) -> dict:
+    """``pipeline_blocks`` under autograd on the same blocks and input, the
+    objective sum(y * c): each leaf's gradient (and x's) against one rank's
+    sequential autograd, relative to the leaf's largest magnitude; whether
+    the two ranks' gradients are the same bits; the backward's sends,
+    receives and collectives."""
+    import torch
+    from repro_torch.models import transformer as tfm
+    from repro_torch.parallel import comm
+    from repro_torch.parallel.pipeline import pipeline_blocks
+    from repro_torch.tree import tree_leaves, tree_map
+    c = torch.randn(x.shape, generator=gen, device=x.device)
+
+    def leaves():
+        return tree_map(lambda t: t.detach().clone().requires_grad_(),
+                        blocks), x.detach().clone().requires_grad_()
+    pb, px = leaves()
+    comm.reset_collective_counts()
+    (pipeline_blocks(pb, px, cfg, mesh, axis="model", n_micro=PIPE_MICRO)
+     * c).sum().backward()
+    counts = {"p2p": comm.p2p_counts(), "p2p_backward":
+              comm.p2p_counts(backward=True),
+              "backward": comm.backward_counts()}
+    sb, sx = leaves()
+    pos = torch.arange(x.shape[1], device=x.device)[None].expand(x.shape[:2])
+    h = sx
+    for i in range(cfg.n_periods):
+        h, _ = tfm._apply_period(tfm._period(sb, i), h, cfg, pos)
+    (h * c).sum().backward()
+    got = [t.grad for t in tree_leaves(pb)] + [px.grad]
+    want = [t.grad for t in tree_leaves(sb)] + [sx.grad]
+    rel = max(float((a - b).abs().max() / b.abs().max().clamp_min(1e-30))
+              for a, b in zip(got, want))
+    return {"grad_rel": rel, "grad_equal": _replicas_equal(mesh.axis("model"), got), **counts}
+
+
+# the expert-parallel MoE in a train step: granite-moe-1b-a400m fp32 at
+# full width, EP_LAYERS layers, EP_STEPS adamw steps of EP_B x EP_S on 1,2
+# against one rank; capacity factor E / k, so no token drops and the
+# per-shard routing is the one-rank step's.  The batch is phase 4v's FSDP
+# one: at 4 x 128, f32 rounding flipped a near-tied top-8 routing there
+EP_LAYERS, EP_STEPS, EP_TOL = 2, 2, 1e-5
+EP_B, EP_S = 4, 64
+
+
+def _granite_ep_cfg():
+    from repro_torch.configs import get_config
+    cfg = get_config("granite-moe-1b-a400m", precision="fp32",
+                     dtype="float32")
+    return dataclasses.replace(cfg, n_layers=EP_LAYERS, moe_impl="shard_map",
+                               capacity_factor=cfg.n_experts / cfg.top_k)
+
+
+def _granite_ep(cfg, device, mesh=None) -> dict:
+    """EP_STEPS train steps of ``cfg`` from seed 0's params (drawn whole on
+    the card, cut to this rank's slices over ``mesh``): per step the loss,
+    grad norm, wall and collectives; the peak memory."""
+    import torch
+    from repro_torch.data import SyntheticLM
+    from repro_torch.launch.steps import make_train_step
+    from repro_torch.models import build_model
+    from repro_torch.optim import make_optimizer
+    from repro_torch.parallel import sharding as shd
+    from repro_torch.tree import tree_map
+    model, opt = build_model(cfg), make_optimizer("adamw", lr=TRAIN_LR)
+    params = model.init(torch.Generator(device=device).manual_seed(0), device)
+    if mesh is not None:
+        params = tree_map(lambda t: t.clone(), shd.shard_tree(
+            params, shd.param_specs(params, cfg, mesh), mesh))
+    state = opt.init(params)
+    step = make_train_step(model, opt, mesh=mesh)
+    data = SyntheticLM(vocab=cfg.vocab, seq_len=EP_S, global_batch=EP_B)
+    batches = [{k: torch.from_numpy(v).to(device, torch.int64)
+                for k, v in next(data).items()} for _ in range(EP_STEPS)]
+    torch.cuda.reset_peak_memory_stats()
+    _, _, recs = _timed_steps(step, params, state, batches)
+    return {"recs": recs, "peak": torch.cuda.max_memory_allocated()}
 
 
 def _rank_4s(world, jobs):
@@ -4761,6 +5052,8 @@ def _rank_4s(world, jobs):
     out["tp"] = _glm4_tp(world, jobs["glm4"], jobs["ckpt"])
     torch.cuda.empty_cache()
     out["pipe"] = _pipeline(world, jobs["pipe"])
+    torch.cuda.empty_cache()
+    out["ep"] = _granite_ep(jobs["ep"], world.device, world)
     torch.cuda.synchronize()
     return out
 
@@ -4770,7 +5063,9 @@ def phase_mesh_train(device, card, tmp: str, trained: dict) -> None:
     pure-DP smollm-135m 2xT (2,1: 2 layers against the one-rank run on the
     same batches, replicas equal after every step; 30 layers timed),
     tensor-parallel glm4-9b 2xT (1,2: 2 layers, its checkpoint restored on
-    one rank and served), the GPipe stack on 2 stages."""
+    one rank and served), the GPipe stack on 2 stages (forward and
+    gradients), the expert-parallel MoE of granite-moe in a train step
+    (1,2) against one rank."""
     import numpy as np
     import torch
     from repro_torch.configs import get_config
@@ -4799,7 +5094,10 @@ def phase_mesh_train(device, card, tmp: str, trained: dict) -> None:
           f"run's first {MESH_TRAIN_STEPS}: {same}")
     glm4 = dataclasses.replace(get_config("glm4-9b", precision="2xT"),
                                n_layers=WIDE_LAYERS)
+    ep_one = _granite_ep(_granite_ep_cfg(), device)
+    torch.cuda.empty_cache()
     jobs = {"smollm": small, "smollm30": model_config(precision="2xT"),
+            "ep": _granite_ep_cfg(),
             "glm4": glm4, "ckpt": str(Path(tmp) / "tp_ckpt"),
             "pipe": dataclasses.replace(model_config(precision="fp32"),
                                         n_layers=PIPE_LAYERS,
@@ -4901,7 +5199,46 @@ def phase_mesh_train(device, card, tmp: str, trained: dict) -> None:
               f"|y - sequential| {p['gap']:.3e} (max|y| {p['scale']:.3e}, "
               f"bound {PIPE_TOL}); {p['p2p']}")
         check(p["close"], f"4s pipeline rank {r}: gap {p['gap']}")
+        stage_bwd = {"send": 0, "recv": PIPE_MICRO} if r == 0 else \
+            {"send": PIPE_MICRO, "recv": 0}
+        print(f"[{card}] 4s pipeline_blocks gradients, rank {r}: largest "
+              f"|grad - sequential autograd's| {p['grad_rel']:.3e} of its "
+              f"leaf's max|grad| (bound {PIPE_TOL}); the ranks' gradients "
+              f"torch.equal: {p['grad_equal']}; p2p {p['p2p']}, of them "
+              f"backward {p['p2p_backward']} (want {stage_bwd}); backward "
+              f"collectives {p['backward']}")
+        check(p["grad_rel"] <= PIPE_TOL and p["grad_equal"]
+              and p["p2p_backward"] == stage_bwd
+              and p["backward"]["all_reduce_sum"] == 1,
+              f"4s pipeline gradients rank {r}: {p['grad_rel']}, equal "
+              f"{p['grad_equal']}, p2p {p['p2p_backward']}, "
+              f"{p['backward']}")
+    _report_ep(card, ep_one, [r["ep"] for r in ranks])
     print(f"phase 4s: {time.time() - t0:.1f} s")
+
+
+def _report_ep(card, one, eps) -> None:
+    """4s: the expert-parallel granite-moe train steps on 1,2 against one
+    rank's: loss and grad norm within EP_TOL relative at every step, no
+    gather of the rows."""
+    for i in range(EP_STEPS):
+        o, recs = one["recs"][i], [e["recs"][i] for e in eps]
+        gaps = [max(abs(r["loss"] - o["loss"]) / abs(o["loss"]),
+                    abs(r["grad_norm"] - o["grad_norm"]) / abs(o["grad_norm"]))
+                for r in recs]
+        print(f"[{card}] 4s granite-moe fp32 {EP_LAYERS} layers, "
+              f"moe_impl=shard_map on 1,2, step {i} ({EP_B} x {EP_S}, "
+              f"nothing dropped): loss {[r['loss'] for r in recs]} (one rank "
+              f"{o['loss']:.6f}), grad norm {recs[0]['grad_norm']:.6g} (one "
+              f"rank {o['grad_norm']:.6g}), largest relative gap "
+              f"{max(gaps):.3e} (bound {EP_TOL}); wall per rank "
+              f"{[round(r['ms'], 2) for r in recs]} ms (one rank "
+              f"{o['ms']:.2f}); collectives {recs[0]['colls']}, of them "
+              f"backward {recs[0]['backward']}; peak per rank "
+              f"{[round(e['peak'] / 1e9, 3) for e in eps]} GB")
+        check(max(gaps) <= EP_TOL, f"4s granite EP step {i}: gaps {gaps}")
+        check(recs[0]["colls"]["all_gather"] == 0, "4s granite EP: rows "
+              f"gathered {recs[0]['colls']}")
 
 
 # ---------------------------------------------------------------------------

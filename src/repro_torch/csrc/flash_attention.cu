@@ -81,6 +81,20 @@
 // 0.26 ms; with the split in the fragment loads, tiles of 32 keys had run
 // 4% faster than 64 and 16 keys 32% slower.
 //
+// probs_bf16 (the reference's attn_probs_bf16: P and V rounded to bf16,
+// P.V accumulated in f32, as its _attend_flash computes for prompts past
+// 1024 positions) is a template flag of both kernels.  The bf16 kernel then
+// keeps the p_hi MMAs and drops the p_lo pass: bf16(p) . V with an f32
+// accumulator, a third fewer MMAs.  The f32 kernel rounds V to bf16 when it
+// splits a tile (no lo plane for V) and P to bf16 after the softmax; bf16
+// values are exact in TF32, so P.V is one TF32 product instead of three
+// (Q.K^T keeps its three).  The running max is over the kernel's own tiles
+// (64 keys bf16, 32 keys f32) where the reference's is over chunks of 1024,
+// so the roundings of P differ from the reference's and the two agree to
+// bf16's unit roundoff, not bit for bit; kernels/ref.flash_attention_ref
+// repeats the kernel's tiling.  With the flag off every instantiation is
+// the one described above.
+//
 // The flattened (batch, KV head, row tile) index runs along grid.x.
 #include "common.cuh"
 
@@ -148,7 +162,7 @@ __device__ __forceinline__ void add_tile(float (&o)[NT][4], const float (&t)[NT]
   }
 }
 
-template <int DH>
+template <int DH, bool PB>
 __global__ void __launch_bounds__(TC_THREADS)
 flash_attn_tc_kernel(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __restrict__ k,
                      const __nv_bfloat16* __restrict__ v, float* __restrict__ out, int Sq,
@@ -314,7 +328,8 @@ flash_attn_tc_kernel(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* _
       // t = (p_hi + p_lo) . V of this tile, from zero: the score fragments
       // of keys 16kk .. +15 are the A fragment of that k-step; the p_lo
       // MMAs follow all p_hi ones, so no MMA waits on the one just before
-      // it.  Then acc = acc * corr + t on the CUDA cores (TILE_SUM).
+      // it.  With PB (probs_bf16) P is p_hi alone.  Then acc = acc * corr +
+      // t on the CUDA cores (TILE_SUM).
       float t[NT][4];
 #pragma unroll
       for (int n = 0; n < NT; ++n)
@@ -323,10 +338,17 @@ flash_attn_tc_kernel(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* _
 #pragma unroll
       for (int kk = 0; kk < ST / 2; ++kk) {
         uint32_t ph[4], pl[4];
-        split_bf16(s[2 * kk][0], s[2 * kk][1], ph[0], pl[0]);
-        split_bf16(s[2 * kk][2], s[2 * kk][3], ph[1], pl[1]);
-        split_bf16(s[2 * kk + 1][0], s[2 * kk + 1][1], ph[2], pl[2]);
-        split_bf16(s[2 * kk + 1][2], s[2 * kk + 1][3], ph[3], pl[3]);
+        if constexpr (PB) {
+          ph[0] = bf16x2_bits(__floats2bfloat162_rn(s[2 * kk][0], s[2 * kk][1]));
+          ph[1] = bf16x2_bits(__floats2bfloat162_rn(s[2 * kk][2], s[2 * kk][3]));
+          ph[2] = bf16x2_bits(__floats2bfloat162_rn(s[2 * kk + 1][0], s[2 * kk + 1][1]));
+          ph[3] = bf16x2_bits(__floats2bfloat162_rn(s[2 * kk + 1][2], s[2 * kk + 1][3]));
+        } else {
+          split_bf16(s[2 * kk][0], s[2 * kk][1], ph[0], pl[0]);
+          split_bf16(s[2 * kk][2], s[2 * kk][3], ph[1], pl[1]);
+          split_bf16(s[2 * kk + 1][0], s[2 * kk + 1][1], ph[2], pl[2]);
+          split_bf16(s[2 * kk + 1][2], s[2 * kk + 1][3], ph[3], pl[3]);
+        }
         uint32_t r[NT / 2][4];
 #pragma unroll
         for (int dp = 0; dp < NT / 2; ++dp) {
@@ -335,10 +357,12 @@ flash_attn_tc_kernel(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* _
           mma_bf16(t[2 * dp], ph, r[dp][0], r[dp][1]);
           mma_bf16(t[2 * dp + 1], ph, r[dp][2], r[dp][3]);
         }
+        if constexpr (!PB) {
 #pragma unroll
-        for (int dp = 0; dp < NT / 2; ++dp) {
-          mma_bf16(t[2 * dp], pl, r[dp][0], r[dp][1]);
-          mma_bf16(t[2 * dp + 1], pl, r[dp][2], r[dp][3]);
+          for (int dp = 0; dp < NT / 2; ++dp) {
+            mma_bf16(t[2 * dp], pl, r[dp][0], r[dp][1]);
+            mma_bf16(t[2 * dp + 1], pl, r[dp][2], r[dp][3]);
+          }
         }
       }
       add_tile(o, t, corr);
@@ -396,6 +420,17 @@ __device__ __forceinline__ void split_tf32x4(float* x, float* lo) {
   *reinterpret_cast<float4*>(lo) = l;
 }
 
+// four floats in shared memory rounded to bf16 in place (round to nearest
+// even), kept as f32: bf16 values are exact TF32 operands
+__device__ __forceinline__ void round_bf16x4(float* x) {
+  float4 v = *reinterpret_cast<float4*>(x);
+  v = make_float4(__bfloat162float(__float2bfloat16_rn(v.x)),
+                  __bfloat162float(__float2bfloat16_rn(v.y)),
+                  __bfloat162float(__float2bfloat16_rn(v.z)),
+                  __bfloat162float(__float2bfloat16_rn(v.w)));
+  *reinterpret_cast<float4*>(x) = v;
+}
+
 // d += a (16x8 tf32, row) . b (8x8 tf32, col), f32
 __device__ __forceinline__ void mma_tf32(float (&d)[4], const uint32_t (&a)[4], uint32_t b0,
                                          uint32_t b1) {
@@ -415,7 +450,7 @@ __device__ __forceinline__ void mma_3xtf32(float (&d)[4], const uint32_t (&ah)[4
   mma_tf32(d, ah, bh0, bh1);
 }
 
-template <int DH>
+template <int DH, bool PB>
 __global__ void __launch_bounds__(TF_THREADS)
 flash_attn_tf32_kernel(const float* __restrict__ q, const float* __restrict__ k,
                        const float* __restrict__ v, float* __restrict__ out, int Sq, int Sk,
@@ -514,7 +549,10 @@ flash_attn_tf32_kernel(const float* __restrict__ q, const float* __restrict__ k,
       const int at = buf * TF_BK * LD + (i / CH) * LD + (i % CH) * 4;
       const int lat = (i / CH) * LD + (i % CH) * 4;
       split_tf32x4(k_s + at, kl_s + lat);
-      split_tf32x4(v_s + at, vl_s + lat);
+      if constexpr (PB)
+        round_bf16x4(v_s + at);           // probs_bf16: V in bf16, no lo
+      else
+        split_tf32x4(v_s + at, vl_s + lat);
     }
     __syncthreads();                       // the split tile visible
 
@@ -601,7 +639,8 @@ flash_attn_tf32_kernel(const float* __restrict__ q, const float* __restrict__ k,
       // columns (tig, tig + 4) take keys (2 tig, 2 tig + 1) of the step, the
       // keys the score fragment s[kk] holds, so P stays in registers; V's B
       // fragment takes the same two keys (rows 2 tig, 2 tig + 1) at column
-      // gid.
+      // gid.  With PB (probs_bf16) P and V are bf16 values and P.V is the
+      // one product hi.hi.
       float t[NT][4];
 #pragma unroll
       for (int n = 0; n < NT; ++n)
@@ -610,16 +649,28 @@ flash_attn_tf32_kernel(const float* __restrict__ q, const float* __restrict__ k,
 #pragma unroll
       for (int kk = 0; kk < ST; ++kk) {
         uint32_t ph[4], pl[4];
-        split_tf32(s[kk][0], ph[0], pl[0]);
-        split_tf32(s[kk][2], ph[1], pl[1]);
-        split_tf32(s[kk][1], ph[2], pl[2]);
-        split_tf32(s[kk][3], ph[3], pl[3]);
         const int vb_at = (kk * 8 + 2 * tig) * LD + gid;
+        if constexpr (PB) {
+          const int order[4] = {0, 2, 1, 3};
 #pragma unroll
-        for (int n = 0; n < NT; ++n) {
-          const int at = vb_at + n * 8;
-          mma_3xtf32(t[n], ph, pl, __float_as_uint(vb[at]), __float_as_uint(vb[at + LD]),
-                     __float_as_uint(vl_s[at]), __float_as_uint(vl_s[at + LD]));
+          for (int e = 0; e < 4; ++e)
+            ph[e] = __float_as_uint(__bfloat162float(__float2bfloat16_rn(s[kk][order[e]])));
+#pragma unroll
+          for (int n = 0; n < NT; ++n) {
+            const int at = vb_at + n * 8;
+            mma_tf32(t[n], ph, __float_as_uint(vb[at]), __float_as_uint(vb[at + LD]));
+          }
+        } else {
+          split_tf32(s[kk][0], ph[0], pl[0]);
+          split_tf32(s[kk][2], ph[1], pl[1]);
+          split_tf32(s[kk][1], ph[2], pl[2]);
+          split_tf32(s[kk][3], ph[3], pl[3]);
+#pragma unroll
+          for (int n = 0; n < NT; ++n) {
+            const int at = vb_at + n * 8;
+            mma_3xtf32(t[n], ph, pl, __float_as_uint(vb[at]), __float_as_uint(vb[at + LD]),
+                       __float_as_uint(vl_s[at]), __float_as_uint(vl_s[at + LD]));
+          }
         }
       }
       add_tile(o, t, corr);
@@ -653,7 +704,7 @@ cudaError_t allow_smem(K kernel, int bytes, bool& done) {
   return e;
 }
 
-template <int DH>
+template <int DH, bool PB>
 cudaError_t launch_dh(int kind, const void* q, const void* k, const void* v, void* out,
                       int B, int Sq, int Sk, int KV, int G, int causal, int window,
                       float softcap, float sm_scale, cudaStream_t stream) {
@@ -664,23 +715,33 @@ cudaError_t launch_dh(int kind, const void* q, const void* k, const void* v, voi
   if (kind == KIND_BF16) {
     static bool smem_set = false;
     constexpr int smem = tc_smem_bytes<DH>();
-    const cudaError_t e = allow_smem(flash_attn_tc_kernel<DH>, smem, smem_set);
+    const cudaError_t e = allow_smem(flash_attn_tc_kernel<DH, PB>, smem, smem_set);
     if (e != cudaSuccess) return e;
-    flash_attn_tc_kernel<DH><<<grid, TC_THREADS, smem, stream>>>(
+    flash_attn_tc_kernel<DH, PB><<<grid, TC_THREADS, smem, stream>>>(
         static_cast<const __nv_bfloat16*>(q), static_cast<const __nv_bfloat16*>(k),
         static_cast<const __nv_bfloat16*>(v), static_cast<float*>(out), Sq, Sk, KV, G,
         B * KV, causal, window, softcap, sm_scale);
   } else {
     static bool smem_set = false;
     constexpr int smem = tf_smem_bytes<DH>();
-    const cudaError_t e = allow_smem(flash_attn_tf32_kernel<DH>, smem, smem_set);
+    const cudaError_t e = allow_smem(flash_attn_tf32_kernel<DH, PB>, smem, smem_set);
     if (e != cudaSuccess) return e;
-    flash_attn_tf32_kernel<DH><<<grid, TF_THREADS, smem, stream>>>(
+    flash_attn_tf32_kernel<DH, PB><<<grid, TF_THREADS, smem, stream>>>(
         static_cast<const float*>(q), static_cast<const float*>(k),
         static_cast<const float*>(v), static_cast<float*>(out), Sq, Sk, KV, G, B * KV, causal,
         window, softcap, sm_scale);
   }
   return cudaGetLastError();
+}
+
+template <int DH>
+cudaError_t launch_pb(int kind, const void* q, const void* k, const void* v, void* out,
+                      int B, int Sq, int Sk, int KV, int G, int causal, int window,
+                      int probs_bf16, float softcap, float sm_scale, cudaStream_t stream) {
+  return probs_bf16 ? launch_dh<DH, true>(kind, q, k, v, out, B, Sq, Sk, KV, G, causal,
+                                          window, softcap, sm_scale, stream)
+                    : launch_dh<DH, false>(kind, q, k, v, out, B, Sq, Sk, KV, G, causal,
+                                           window, softcap, sm_scale, stream);
 }
 
 }  // namespace
@@ -690,30 +751,31 @@ cudaError_t launch_dh(int kind, const void* q, const void* k, const void* v, voi
 // Dh in {32, 64, 96, 112, 128} (112 = 7 bf16 k-steps of 16, 14 n-tiles of
 // 8, 14 / 28 16-byte chunks a bf16 / f32 row: kimi-k2's head).  causal:
 // 0/1 (0: every query sees every key, Sq and Sk independent); window <= 0
-// and softcap <= 0 switch those masks off.
+// and softcap <= 0 switch those masks off; probs_bf16: 0/1 (P and V
+// rounded to bf16 for P.V).
 extern "C" cudaError_t flash_attention(const void* q, const void* k, const void* v,
                                        int kind, void* out, int B, int Sq, int Sk, int KV,
                                        int G, int Dh, int causal, int window,
-                                       float softcap, float sm_scale,
+                                       int probs_bf16, float softcap, float sm_scale,
                                        cudaStream_t stream) {
   if (B <= 0 || Sq <= 0 || Sk <= 0 || KV <= 0 || G <= 0) return cudaErrorInvalidValue;
   if (kind != KIND_F32 && kind != KIND_BF16) return cudaErrorInvalidValue;
   switch (Dh) {
     case 32:
-      return launch_dh<32>(kind, q, k, v, out, B, Sq, Sk, KV, G, causal, window, softcap,
-                           sm_scale, stream);
+      return launch_pb<32>(kind, q, k, v, out, B, Sq, Sk, KV, G, causal, window,
+                           probs_bf16, softcap, sm_scale, stream);
     case 64:
-      return launch_dh<64>(kind, q, k, v, out, B, Sq, Sk, KV, G, causal, window, softcap,
-                           sm_scale, stream);
+      return launch_pb<64>(kind, q, k, v, out, B, Sq, Sk, KV, G, causal, window,
+                           probs_bf16, softcap, sm_scale, stream);
     case 96:
-      return launch_dh<96>(kind, q, k, v, out, B, Sq, Sk, KV, G, causal, window, softcap,
-                           sm_scale, stream);
+      return launch_pb<96>(kind, q, k, v, out, B, Sq, Sk, KV, G, causal, window,
+                           probs_bf16, softcap, sm_scale, stream);
     case 112:
-      return launch_dh<112>(kind, q, k, v, out, B, Sq, Sk, KV, G, causal, window, softcap,
-                            sm_scale, stream);
+      return launch_pb<112>(kind, q, k, v, out, B, Sq, Sk, KV, G, causal, window,
+                            probs_bf16, softcap, sm_scale, stream);
     case 128:
-      return launch_dh<128>(kind, q, k, v, out, B, Sq, Sk, KV, G, causal, window, softcap,
-                            sm_scale, stream);
+      return launch_pb<128>(kind, q, k, v, out, B, Sq, Sk, KV, G, causal, window,
+                            probs_bf16, softcap, sm_scale, stream);
     default:
       return cudaErrorInvalidValue;
   }

@@ -110,8 +110,9 @@ SIGNATURES = {
     },
     "flash_attention": {
         # (q, k, v, kind, out, B, Sq, Sk, KV, G, Dh, causal, window,
-        #  softcap, sm_scale, stream)
-        "flash_attention": (P, P, P, I, P, I, I, I, I, I, I, I, I, F, F, P),
+        #  probs_bf16, softcap, sm_scale, stream)
+        "flash_attention": (P, P, P, I, P, I, I, I, I, I, I, I, I, I, F, F,
+                            P),
     },
     "decode_fused": {
         # (q, q_kind, k, k_scale, v, v_scale, kv_kind, page_table, pos,

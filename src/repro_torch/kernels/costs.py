@@ -88,11 +88,31 @@ def flash_attention(b: int, sq: int, sk: int, kv: int, g: int, dh: int,
                     in_bytes: int, causal: bool, window: int
                     ) -> tuple[int, int]:
     """B8: q (B, Sq, KV, G, Dh), k and v (B, Sk, KV, Dh) read once, the f32
-    output written once."""
+    output written once; 4 Dh operations a visible pair, q.k and p.v, with
+    or without ``probs_bf16`` (P and V rounded to bf16 first: the same
+    products; :func:`flash_attention_mma` counts the product terms the
+    tensor cores issue)."""
     pairs = causal_pairs(sq, sk, causal, window)
     nbytes = (b * sq * kv * g * dh * in_bytes + 2 * b * sk * kv * dh * in_bytes
               + F32 * b * sq * kv * g * dh)
     return 4 * dh * b * kv * g * pairs, nbytes
+
+
+def flash_attention_mma(b: int, sq: int, sk: int, kv: int, g: int, dh: int,
+                        in_bytes: int, causal: bool, window: int,
+                        probs_bf16: bool = False) -> tuple[int, int]:
+    """B8's tensor-core operations, (q.k, p.v), 2 Dh a visible pair a
+    product term.  bf16 inputs: one bf16 term for q.k and two for p.v (P
+    split into bf16 hi and lo), one with ``probs_bf16``.  f32 inputs: three
+    TF32 terms for q.k and three for p.v; with ``probs_bf16`` p.v is one
+    product of bf16 values, which bf16 tensor cores take exactly (the bf16
+    peak applies to it, the TF32 peak to q.k)."""
+    pairs = causal_pairs(sq, sk, causal, window)
+    qk, pv = (1, 2) if in_bytes == 2 else (3, 3)
+    if probs_bf16:
+        pv = 1
+    term = 2 * dh * b * kv * g * pairs
+    return term * qk, term * pv
 
 
 def act_quant_rows(m: int, f: int, in_bytes: int) -> tuple[int, int]:

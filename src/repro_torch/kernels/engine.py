@@ -850,16 +850,19 @@ def paged_attention(q, k_pool, k_scale, v_pool, v_scale, page_table, pos, *,
 # full-sequence causal attention (whole-prompt prefill, forward)
 # ---------------------------------------------------------------------------
 ATTN_FLASH = "flash"
+# the dispatch kind of a flash_attention call with probs_bf16 (the same
+# registry entries, the kernels' bf16-probabilities flag)
+ATTN_FLASH_PROBS_BF16 = "flash_probs_bf16"
 
 
 @register_attention(ATTN_FLASH, 16, BACKEND_TORCH)
-def _flash_attn_torch(q, k, v, *, causal, window, softcap):
+def _flash_attn_torch(q, k, v, *, causal, window, softcap, probs_bf16):
     return ref.flash_attention_ref(q, k, v, causal=causal, window=window,
-                                   softcap=softcap)
+                                   softcap=softcap, probs_bf16=probs_bf16)
 
 
 @register_attention(ATTN_FLASH, 16, BACKEND_CUDA)
-def _flash_attn_cuda(q, k, v, *, causal, window, softcap):
+def _flash_attn_cuda(q, k, v, *, causal, window, softcap, probs_bf16):
     if q.is_meta:
         b, sq, kv, g, dh = q.shape
         return _traced("flash_attention", costs.flash_attention(
@@ -867,25 +870,30 @@ def _flash_attn_cuda(q, k, v, *, causal, window, softcap):
             _empty(q.shape, torch.float32, q))
     return _flash_attention_kernel(q.contiguous(), k.contiguous(),
                                    v.contiguous(), causal=causal,
-                                   window=window, softcap=softcap)
+                                   window=window, softcap=softcap,
+                                   probs_bf16=probs_bf16)
 
 
 def flash_attention(q, k, v, *, causal: bool = True, window: int = 0,
-                    softcap: float = 0.0,
+                    softcap: float = 0.0, probs_bf16: bool = False,
                     backend: str | None = None) -> torch.Tensor:
     """Full-sequence attention via the registry, query and key positions
     both counted from 0 (prefill and forward, never a chunk at an offset):
     q (B, Sq, KV, G, Dh), k/v (B, Sk, KV, Dh) in the model dtype, causal,
     sliding-window (``window`` > 0) and tanh-softcap (``softcap`` > 0)
-    masks, f32 softmax.  Returns (B, Sq, KV, G, Dh) float32."""
+    masks, f32 softmax; with ``probs_bf16`` P.V from P and V rounded to
+    bf16, in f32 (dispatch kind ``ATTN_FLASH_PROBS_BF16``).  Returns
+    (B, Sq, KV, G, Dh) float32."""
     backend = _check_backend(backend, q)
     fn, matched = resolve_attention_entry(ATTN_FLASH, 16, backend)
-    with _record_dispatch(op="flash_attention", kind=ATTN_FLASH,
+    kind = ATTN_FLASH_PROBS_BF16 if probs_bf16 else ATTN_FLASH
+    with _record_dispatch(op="flash_attention", kind=kind,
                           requested_backend=backend, impl_backend=matched[2],
                           a_bits=16, w_bits=16,
                           m_rows=int(q.shape[0] * q.shape[1]),
                           a_scale_shape=None):
-        return fn(q, k, v, causal=causal, window=window, softcap=softcap)
+        return fn(q, k, v, causal=causal, window=window, softcap=softcap,
+                  probs_bf16=probs_bf16)
 
 
 # ---------------------------------------------------------------------------

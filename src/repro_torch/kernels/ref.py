@@ -142,14 +142,24 @@ def act_quant_signed_rows_ref(x, bits: int):
 # ---------------------------------------------------------------------------
 # full-sequence flash attention
 # ---------------------------------------------------------------------------
+# keys a tile of the bf16 and the f32 flash kernels (csrc/flash_attention.cu)
+FLASH_TILE = {torch.bfloat16: 64, torch.float32: 32}
+
+
 def flash_attention_ref(q, k, v, *, causal: bool = True, window: int = 0,
-                        softcap: float = 0.0):
+                        softcap: float = 0.0, probs_bf16: bool = False):
     """Full-materialization softmax, in f32, with the flash kernel's
     semantics: q (B, Sq, KV, G, Dh), k/v (B, Sk, KV, Dh), query and key
     positions both counted from 0; ``k_pos <= q_pos`` when causal,
     ``k_pos > q_pos - window`` when window > 0, scores
     ``softcap * tanh(s / softcap)`` when softcap > 0; a row with no key
-    left is 0.  Returns (B, Sq, KV, G, Dh) float32."""
+    left is 0.  Returns (B, Sq, KV, G, Dh) float32.
+
+    ``probs_bf16``: the kernel's arithmetic of the flag, tile for tile:
+    an online softmax over tiles of ``FLASH_TILE[q.dtype]`` keys (aligned
+    from key 0), each tile's ``p = exp(s - m)`` rounded to bf16 against the
+    running max and multiplied by V rounded to bf16, the tile's sum in f32
+    added to ``acc * corr``; ``l`` sums the unrounded p."""
     dh = q.shape[-1]
     sq, sk = q.shape[1], k.shape[1]
     s = torch.einsum("bqkgd,bskd->bkgqs", q.to(torch.float32),
@@ -164,7 +174,33 @@ def flash_attention_ref(q, k, v, *, causal: bool = True, window: int = 0,
     if window > 0:
         mask &= k_pos > q_pos - window
     s = torch.where(mask, s, torch.full_like(s, -1e30))
+    if probs_bf16:
+        return _flash_bf16_probs(s, mask, v, FLASH_TILE[q.dtype])
     p = torch.softmax(s, dim=-1)
     p = torch.where(mask.any(-1)[:, None], p, torch.zeros_like(p))
     out = torch.einsum("bkgqs,bskd->bkgqd", p, v.to(torch.float32))
+    return out.permute(0, 3, 1, 2, 4)
+
+
+def _flash_bf16_probs(s, mask, v, tile: int):
+    """The online softmax of :func:`flash_attention_ref` with bf16 P and V
+    over key tiles of ``tile``: s (B, KV, G, Sq, Sk) f32 scores, -1e30
+    where masked; mask (Sq, Sk); v (B, Sk, KV, Dh)."""
+    vb = v.to(torch.bfloat16).to(torch.float32)
+    m = torch.full(s.shape[:-1], -1e30, dtype=torch.float32, device=s.device)
+    l = torch.zeros_like(m)
+    acc = torch.zeros(s.shape[:-1] + (v.shape[-1],), dtype=torch.float32,
+                      device=s.device)
+    for k0 in range(0, s.shape[-1], tile):
+        st, mt = s[..., k0:k0 + tile], mask[:, k0:k0 + tile]
+        m_new = torch.maximum(m, st.amax(dim=-1))
+        p = torch.where(mt, torch.exp(st - m_new[..., None]),
+                        torch.zeros_like(st))
+        corr = torch.exp(m - m_new)
+        l = l * corr + p.sum(dim=-1)
+        pb = p.to(torch.bfloat16).to(torch.float32)
+        acc = acc * corr[..., None] + torch.einsum(
+            "bkgqs,bskd->bkgqd", pb, vb[:, k0:k0 + tile])
+        m = m_new
+    out = acc / torch.clamp_min(l[..., None], 1e-30)
     return out.permute(0, 3, 1, 2, 4)

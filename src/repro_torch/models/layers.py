@@ -316,29 +316,39 @@ def _plain_on_card(q, backend: str | None):
         contextlib.nullcontext()
 
 
+def _blockwise(sk: int) -> bool:
+    """The reference's choice of ``_attend_flash`` over ``_attend``: more
+    than ATTN_KV_CHUNK keys, in whole chunks."""
+    return sk > ATTN_KV_CHUNK and sk % ATTN_KV_CHUNK == 0
+
+
+def _probs_bf16(cfg: ModelConfig, sk: int) -> bool:
+    """Whether the reference rounds this attention's probabilities to bf16:
+    ``attn_probs_bf16`` where it takes ``_attend_flash`` (``_attend``
+    keeps f32 P)."""
+    return cfg.attn_probs_bf16 and _blockwise(sk)
+
+
 def _attend_full(q, k, v, positions, cfg: ModelConfig, local: bool,
                  backend: str | None):
     """Causal attention of a whole sequence over itself (no cache): a
     whole-prompt prefill or the forward, whose positions are
     ``arange(S)``.  On the card without autograd: ``engine.flash_attention``
     (the kernel, or its plain version for ``backend="torch"``), whose
-    positions count from 0.  On the CPU, and under autograd on every
-    device: the reference's choice, ``_attend_flash`` for
+    positions count from 0, with bf16 probabilities where the reference
+    rounds them (:func:`_probs_bf16`).  On the CPU, and under autograd on
+    every device: the reference's choice, ``_attend_flash`` for
     Sq > ATTN_KV_CHUNK in whole chunks, else ``_attend``."""
     b, sq, h, dh = q.shape
     kvh = k.shape[2]
     if engine.on_card(q) and not _training(q, k, v):
-        if cfg.attn_probs_bf16:
-            raise NotImplementedError(
-                "attn_probs_bf16: no kernel computes bf16 probabilities; the "
-                "flash-attention kernel's softmax and P.V are f32")
         out = engine.flash_attention(
             q.reshape(b, sq, kvh, h // kvh, dh), k, v, causal=True,
             window=cfg.window if local else 0, softcap=cfg.attn_softcap,
-            backend=backend)
+            probs_bf16=_probs_bf16(cfg, sq), backend=backend)
         return out.reshape(b, sq, h * dh).to(q.dtype)
     with _plain_on_card(q, backend):
-        if sq > ATTN_KV_CHUNK and sq % ATTN_KV_CHUNK == 0:
+        if _blockwise(sq):
             return _attend_flash(q, k, v, positions, positions, cfg,
                                  causal=True, local=local)
         i = positions[:, :, None]               # (B,Sq,1) query pos
@@ -353,18 +363,20 @@ def _attend_all(q, k, v, cfg: ModelConfig, backend: str | None):
     """Attention with no mask: every query sees every key (the enc-dec
     encoder's self-attention and the cross-attention; Sq may differ from
     Sk).  On the card without autograd: ``engine.flash_attention`` with
-    ``causal=False``.  On the CPU, and under autograd on every device: the
-    reference's choice, ``_attend_flash`` for Sk > ATTN_KV_CHUNK in whole
-    chunks, else ``_attend`` with an all-true mask."""
+    ``causal=False`` (bf16 probabilities as :func:`_probs_bf16` says).  On
+    the CPU, and under autograd on every device: the reference's choice,
+    ``_attend_flash`` for Sk > ATTN_KV_CHUNK in whole chunks, else
+    ``_attend`` with an all-true mask."""
     b, sq, h, dh = q.shape
     kvh, sk = k.shape[2], k.shape[1]
     if engine.on_card(q) and not _training(q, k, v):
         out = engine.flash_attention(
             q.reshape(b, sq, kvh, h // kvh, dh), k, v, causal=False,
-            softcap=cfg.attn_softcap, backend=backend)
+            softcap=cfg.attn_softcap, probs_bf16=_probs_bf16(cfg, sk),
+            backend=backend)
         return out.reshape(b, sq, h * dh).to(q.dtype)
     with _plain_on_card(q, backend):
-        if sk > ATTN_KV_CHUNK and sk % ATTN_KV_CHUNK == 0:
+        if _blockwise(sk):
             pos_q, pos_k = (torch.zeros((b, n), dtype=torch.int64,
                                         device=q.device) for n in (sq, sk))
             return _attend_flash(q, k, v, pos_q, pos_k, cfg, causal=False,
@@ -926,7 +938,9 @@ def moe_apply(p, x, cfg: ModelConfig, backend: str | None = None,
     (sharding constraints on the dispatch buffers) that change no value:
     the same slot map computes.  Over a mesh with tensor parallelism
     (``shard.tp``), ``moe_impl="shard_map"`` takes
-    :func:`repro_torch.parallel.moe_shard_map.moe_apply_shard_map`; the
+    :func:`repro_torch.parallel.moe_shard_map.moe_apply_shard_map`, in
+    serving and in a train step alike (each rank routes its own rows with
+    the per-shard capacity, as the reference's ``shard_map`` MoE); the
     slot-map path keeps the global slot map (the rows of every data shard,
     gathered first when the call's rows are split), computes this rank's
     experts and sums the partial outputs over the model axis.  Without
@@ -938,11 +952,6 @@ def moe_apply(p, x, cfg: ModelConfig, backend: str | None = None,
     the rows' cotangents over the row axes)."""
     tp = None if shard is None else shard.tp
     if tp is not None and cfg.moe_impl == "shard_map":
-        if shard.global_rows:
-            raise NotImplementedError(
-                f"{cfg.name}: training over a mesh routes through the global "
-                "slot map (moe_impl='pjit'); the expert-parallel shard_map "
-                "MoE's per-shard capacity is not the one-device step's")
         from repro_torch.parallel.moe_shard_map import moe_apply_shard_map
         return moe_apply_shard_map(p, x, cfg, shard, backend=backend)
     e_held = _n_experts_held(p)

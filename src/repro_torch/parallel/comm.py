@@ -40,10 +40,11 @@ XLA's partitioner puts into the reference's ``jax.grad`` of a sharded
 step).  The ranks of a model axis compute one replicated objective, so the
 cotangent of a tensor replicated over that axis is the same on each rank:
 
-  * ``all_reduce_sum`` (g): backward is the identity;
+  * ``all_reduce_sum`` (g): backward is the identity, or, with
+    ``reduce_grad`` (ranks that each hold their own objective: a train
+    step's rows), the sum of the cotangent over the axis;
   * ``all_gather``: backward takes this rank's slice of the cotangent, or,
-    with ``reduce_grad`` (ranks that each hold their own objective: a train
-    step's rows), the slice of its sum over the axis;
+    with ``reduce_grad``, the slice of its sum over the axis;
   * :meth:`Axis.enter` (f): the identity, whose backward sums the
     cotangent over the axis — where a replicated tensor enters a region
     split over the axis (a column-parallel projection, the experts held
@@ -52,7 +53,8 @@ cotangent of a tensor replicated over that axis is the same on each rank:
 ``all_reduce_max`` and ``broadcast`` carry no gradient (the activation
 scale they serve is detached in both packages).  A collective made in a
 backward pass is counted in :func:`collective_counts` and also in
-:func:`backward_counts`.
+:func:`backward_counts`; a send or receive made in one, in
+:func:`p2p_counts` and also in ``p2p_counts(backward=True)``.
 
 Backends: NCCL when every rank has a card of its own, gloo when ranks share
 a card or run on the CPU (:func:`choose_backend`).  gloo collectives on a
@@ -99,9 +101,10 @@ def backward_counts() -> dict[str, int]:
     return {op: BACKWARD[op] for op in OPS}
 
 
-def p2p_counts() -> dict[str, int]:
-    """Point-to-point sends and receives since the last reset."""
-    return {op: COUNTS[op] for op in P2P}
+def p2p_counts(backward: bool = False) -> dict[str, int]:
+    """Point-to-point sends and receives since the last reset (with
+    ``backward``, those made in backward passes)."""
+    return {op: (BACKWARD if backward else COUNTS)[op] for op in P2P}
 
 
 def reset_collective_counts() -> None:
@@ -170,13 +173,15 @@ class Axis:
         dist.all_gather(parts, w, group=self.group)
         return self._back(torch.cat(parts, dim=dim), t)
 
-    def all_reduce_sum(self, t: torch.Tensor) -> torch.Tensor:
+    def all_reduce_sum(self, t: torch.Tensor, *,
+                       reduce_grad: bool = False) -> torch.Tensor:
         """Elementwise sum of ``t`` over the axis (a new tensor); under
         autograd the output is replicated over the axis and the backward
-        is the identity (g)."""
+        is the identity (g), or with ``reduce_grad`` (each rank its own
+        objective) the cotangent summed over the axis."""
         if self.size == 1:
             return t
-        return _AllReduceSum.apply(t, self)
+        return _AllReduceSum.apply(t, self, reduce_grad)
 
     def all_reduce_max(self, t: torch.Tensor) -> torch.Tensor:
         """Elementwise max of ``t`` over the axis (a new tensor, no
@@ -216,11 +221,11 @@ class Axis:
                        group=self.group)
         return self._back(w, t)
 
-    def isend(self, t: torch.Tensor, dst: int):
+    def isend(self, t: torch.Tensor, dst: int, backward: bool = False):
         """Start sending ``t`` to the rank at index ``dst`` of the axis (no
         gradient); returns the work, to ``wait()`` on (it holds the staged
-        copy until then)."""
-        _count("send", nbytes=_nbytes(t))
+        copy until then).  ``backward``: made in a backward pass."""
+        _count("send", backward, _nbytes(t))
         if self.dry:
             return _Sent(None, t)
         w = self._wire(t)
@@ -228,10 +233,12 @@ class Axis:
                           group=self.group)
         return _Sent(work, w)
 
-    def recv(self, like: torch.Tensor, src: int) -> torch.Tensor:
+    def recv(self, like: torch.Tensor, src: int,
+             backward: bool = False) -> torch.Tensor:
         """A tensor of ``like``'s shape, dtype and device received from the
-        rank at index ``src`` of the axis."""
-        _count("recv", nbytes=_nbytes(like))
+        rank at index ``src`` of the axis.  ``backward``: made in a
+        backward pass."""
+        _count("recv", backward, _nbytes(like))
         if self.dry:
             return torch.zeros_like(like)
         w = self._wire(torch.empty_like(like))
@@ -262,12 +269,16 @@ def _count(name: str, backward: bool = False, nbytes: int = 0) -> None:
 
 class _AllReduceSum(torch.autograd.Function):
     @staticmethod
-    def forward(ctx, t, axis):
+    def forward(ctx, t, axis, reduce_grad):
+        ctx.axis, ctx.reduce_grad = axis, reduce_grad
         return axis._reduce(t, dist.ReduceOp.SUM, "all_reduce_sum")
 
     @staticmethod
     def backward(ctx, g):
-        return g, None
+        if ctx.reduce_grad:
+            g = ctx.axis._reduce(g, dist.ReduceOp.SUM, "all_reduce_sum",
+                                 backward=True)
+        return g, None, None
 
 
 class _AllGather(torch.autograd.Function):

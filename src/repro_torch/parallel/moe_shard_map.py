@@ -15,7 +15,15 @@ Here each rank (data i, model j) of a tensor-parallel step
 
 Semantics: the routing of ``moe_apply`` except that capacity is per
 (data-shard, expert) instead of global (tokens compete for capacity within
-their shard).  The partial outputs sum in another order than one device's
+their shard).  The same body serves a train step (``shard.global_rows``:
+each rank routes its own rows, as the reference's ``jax.grad`` of its
+``shard_map`` does); under autograd the normed tokens and the gates enter
+the held experts through ``Axis.enter`` (each model rank holds its
+experts' part of their cotangent), and the load-balance means over the
+rows take the rows-objective convention: each row rank holds its own
+objective and ``launch.steps`` averages the gradients over the rows, so the
+all-reduce's backward sums the cotangent over them (with the identity the
+aux term's gradient would come out 1 / rows of the reference's).  The partial outputs sum in another order than one device's
 combine, so the result is the slot map's within float rounding, not bit
 for bit.  Expert weights must be cut over the model axis (``n_experts``
 divisible by its size) and whole over data (no FSDP).
@@ -43,14 +51,15 @@ def moe_apply_shard_map(p, x, cfg, shard, *, backend: str | None = None):
             f"{cfg.name}: expert-parallel MoE needs the {e} experts cut "
             f"over the model axis of {tp.size}; this rank holds {e_held}")
     out, probs, top_i = moe_partial(p, x, cfg, backend,
-                                    first_expert=tp.index * e_held)
+                                    first_expert=tp.index * e_held, enter=tp)
     out = tp.all_reduce_sum(out)                      # the ONLY collective
     # load-balance stats averaged over the row shards (global token means)
     me = probs.mean(dim=0)
     ce = F.one_hot(top_i[:, 0], e).to(torch.float32).mean(dim=0)
     rows = shard.rows
     if rows is not None and rows.size > 1:
-        me = rows.all_reduce_sum(me) / rows.size
+        me = rows.all_reduce_sum(me, reduce_grad=shard.global_rows) / \
+            rows.size
         ce = rows.all_reduce_sum(ce) / rows.size
     aux = e * torch.sum(me * ce)
     return out.reshape(x.shape).to(x.dtype), aux

@@ -699,9 +699,49 @@ def test_forward_through_the_kernels(gpu):
         assert abs(lk - lp) <= 1e-5 * abs(lp)
 
 
-def test_bf16_probabilities_refused_on_the_card(gpu):
-    """``attn_probs_bf16`` (set by no config) has no kernel: a forward on
-    the card raises rather than compute f32 probabilities."""
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=["f32", "bf16"])
+@pytest.mark.parametrize("case", FLASH_CASES, ids=lambda c: "-".join(map(str, c)))
+def test_flash_attention_probs_bf16_kernel(gpu, case, dtype):
+    """``probs_bf16`` against the plain version of the flag (the kernel's
+    key tiles, P and V rounded to bf16): the two round the same tiles' P,
+    from scores that differ in the last f32 bits, so a p next to a rounding
+    boundary may take the neighbouring bf16 value (one ulp, at most 2^-7
+    p): max |diff| <= 2^-7 max|v| + 1e-5 max|out|.  Such flips are rare, so
+    mean |diff| is held to PB_SHARE of the flag's own effect (mean |plain
+    with the flag - plain without|), and the flag-off kernel, a kernel that
+    ignored the flag, must miss that share; one launch a call."""
+    b, s, kv, g, dh, causal, window, softcap, *sk = case
+    sk = sk[0] if sk else s
+    gen = torch.Generator().manual_seed(s)
+    q = torch.randn((b, s, kv, g, dh), generator=gen).to(gpu, dtype)
+    k, v = (torch.randn((b, sk, kv, dh), generator=gen).to(gpu, dtype)
+            for _ in range(2))
+    kw = dict(causal=causal, window=window, softcap=softcap)
+    got = _launch_once("flash_attention",
+                       lambda: tflash.flash_attention(q, k, v, probs_bf16=True,
+                                                      **kw))
+    got_off = tflash.flash_attention(q, k, v, **kw)
+    want = ref.flash_attention_ref(q, k, v, probs_bf16=True, **kw)
+    effect = (want - ref.flash_attention_ref(q, k, v, **kw)).abs().mean()
+    torch.cuda.synchronize()
+    tol = 2.0 ** -7 * v.float().abs().max() + 1e-5 * want.abs().max()
+    assert got.dtype == torch.float32 and got.shape == want.shape
+    assert (got - want).abs().max() <= tol
+    assert (got - want).abs().mean() <= PB_SHARE * effect
+    assert (got_off - want).abs().mean() > PB_SHARE * effect
+
+
+# mean |B8 probs_bf16 - its plain version| as a share of the flag's effect
+# (chip_smoke.PB_KERNEL_SHARE)
+PB_SHARE = 0.25
+
+
+def test_bf16_probabilities_launch_b8_past_the_chunk(gpu):
+    """``attn_probs_bf16`` (set by no config): a forward of the reduced
+    smollm at S 2048 (past the reference's 1024-position chunk) launches B8
+    with bf16 probabilities on every layer, at S 512 with f32 ones, as the
+    reference rounds P only in ``_attend_flash``."""
     import dataclasses
     from repro_torch.configs import get_config
     from repro_torch.models import build_model, reduce_for_smoke
@@ -709,9 +749,17 @@ def test_bf16_probabilities_refused_on_the_card(gpu):
                               attn_probs_bf16=True)
     model = build_model(cfg)
     params = model.init(torch.Generator().manual_seed(0), gpu)
-    tokens = torch.zeros((1, 8), dtype=torch.int64, device=gpu)
-    with pytest.raises(NotImplementedError, match="attn_probs_bf16"):
-        model.forward(params, {"tokens": tokens})
+    for s, kind in ((2048, engine.ATTN_FLASH_PROBS_BF16),
+                    (512, engine.ATTN_FLASH)):
+        tokens = torch.zeros((1, s), dtype=torch.int64, device=gpu)
+        engine.reset_launch_counts()
+        with engine.dispatch_trace() as ev:
+            logits, _ = model.forward(params, {"tokens": tokens})
+        assert engine.launch_counts()["flash_attention"] == cfg.n_layers
+        assert [(e.kind, e.impl_backend) for e in ev
+                if e.op == "flash_attention"] == [(kind, "cuda")] * \
+            cfg.n_layers
+        assert bool(torch.isfinite(logits).all())
 
 
 # ---------------------------------------------------------------------------

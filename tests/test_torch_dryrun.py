@@ -12,8 +12,10 @@ smollm-135m decode cell at 2xT kv8 runs with no kernel library built or
 loaded, every dispatch of a kind with a kernel on the card's route, its
 argument bytes the sum of ``shard_tree``'s meta leaves; the FSDP train
 cells (internvl2-76b and kimi-k2 at full width, depth cut) trace, kimi's
-expert weights cut over data too; a real host tensor still refuses
-``backend="cuda"``.  (The dry run against a real run of the same step, op
+expert weights cut over data too; the configurations the card once
+refused trace (``attn_probs_bf16`` at a 32k prefill, B8 with bf16
+probabilities; the expert-parallel MoE in a train step); a real host tensor
+still refuses ``backend="cuda"``.  (The dry run against a real run of the same step, op
 for op, is in tests/test_torch_spmd.py's spawn.)"""
 import ast
 import dataclasses
@@ -233,6 +235,59 @@ def test_fsdp_train_cell(monkeypatch, tmp_path, arch, n_layers):
     # a microbatch: the rows' gather, three expert gathers and their three
     # re-gathers in the backward
     assert counts["all_gather"] == 8 * 7
+
+
+def _traced_cell(monkeypatch, tmp_path, arch, shape, **kw):
+    """``run_cell`` at one layer on rank 0 of 16x16, its dispatches
+    collected; (record, dispatch events)."""
+    _no_library(monkeypatch)
+    events = []
+    engine.set_dispatch_listener(events.append)
+    try:
+        rec = dryrun.run_cell(arch, shape, out_dir=str(tmp_path),
+                              verbose=False, n_layers=1, **kw)
+    finally:
+        engine.set_dispatch_listener(None)
+    assert rec["status"] == "ok", rec.get("traceback")
+    return rec, events
+
+
+@pytest.mark.parametrize("case", ["attn_probs_bf16", "moe_shard_map_train"])
+def test_once_refused_configurations_trace(monkeypatch, tmp_path, case):
+    """``attn_probs_bf16``: smollm-135m's prefill_32k (32768 positions, past
+    the reference's 1024-position chunk) launches B8 with ``probs_bf16``
+    (dispatch kind ``flash_probs_bf16`` on the card's route), counted by
+    ``kernels.costs.flash_attention`` as the flag-off cell (the same q.k
+    and p.v products, one term each).  ``moe_impl="shard_map"`` in
+    granite-moe's train_4k: each rank routes its own rows, so the rows are
+    never gathered (the slot map's cell gathers them once a microbatch);
+    per microbatch the layer makes the slot map's all-reduce of the partial
+    output over model, two of the load-balance means over the rows forward
+    and one backward (the rows-objective sum), where the slot map's gather
+    made one backward: two all-reduce sums more a microbatch."""
+    if case == "attn_probs_bf16":
+        rec, events = _traced_cell(monkeypatch, tmp_path, "smollm-135m",
+                                   "prefill_32k", attn_probs_bf16=True)
+        off, off_events = _traced_cell(monkeypatch, tmp_path, "smollm-135m",
+                                       "prefill_32k")
+        kinds = [(e.kind, e.impl_backend) for e in events
+                 if e.op == "flash_attention"]
+        assert kinds == [(engine.ATTN_FLASH_PROBS_BF16, "cuda")]
+        assert [e.kind for e in off_events if e.op == "flash_attention"] \
+            == [engine.ATTN_FLASH]
+        assert rec["kernels"]["flash_attention"]["launches"] == 1
+        assert rec["kernels"] == off["kernels"]
+        return
+    arch, shape = "granite-moe-1b-a400m", "train_4k"
+    rec, _ = _traced_cell(monkeypatch, tmp_path, arch, shape,
+                          moe_impl="shard_map")
+    slot, _ = _traced_cell(monkeypatch, tmp_path, arch, shape)
+    cfg = dataclasses.replace(get_config(arch), n_layers=1)
+    n_micro = dryrun._accum_steps(cfg, tmesh.make_production_mesh(),
+                                  SHAPES[shape])
+    ep, sm = rec["collectives"]["counts"], slot["collectives"]["counts"]
+    assert ep["all_gather"] == 0 and sm["all_gather"] == n_micro
+    assert ep["all_reduce_sum"] - sm["all_reduce_sum"] == 2 * n_micro
 
 
 def test_real_host_tensor_refuses_cuda():

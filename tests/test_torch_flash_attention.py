@@ -15,8 +15,24 @@ bound).  Its f32 kernel runs Q.K^T and P.V on TF32 tensor cores in three
 products (every operand split into two TF32 terms, hi.hi + hi.lo + lo.hi);
 an emulation of that arithmetic is held to the same bound, and one product
 (hi.hi) shown to miss it.
+
+``probs_bf16`` (the reference's ``attn_probs_bf16``, which its
+``_attend_flash`` applies past ATTN_KV_CHUNK = 1024 positions) rounds P and
+V to bf16 for P.V.  The kernels keep their own key tiles for the running
+max (64 keys bf16, 32 f32) where the reference's chunks are 1024 keys, so
+the roundings differ and the two agree to bf16's unit roundoff u = 2^-8,
+not bit for bit.  The bound: a term that passes r roundings of u is within
+(r u + O(u^2)) p |v| of the exact one, and the terms' weights p / l sum to
+1, so each side is within r u max|v| of the exact f32 attention.  The
+kernel rounds P (and V from f32 inputs): r = 1 (2); the reference rounds P,
+V and each chunk's bf16 P.V sum: r = 2 (3).  So
+``|out - reference| <= (1 + 2 + 0.1) u max|v|`` from bf16 inputs and
+``(2 + 3 + 0.1) u max|v|`` from f32 ones (0.1 for the u^2 terms and the f32
+sums).  Below 1024 positions the reference keeps f32 P (``_attend``), and so
+does the model path.
 """
 import dataclasses
+import functools
 import importlib
 
 import numpy as np
@@ -254,10 +270,12 @@ def _tf32_dot(eq, a, b, terms):
 
 
 def _tf32_split_emulation(q, k, v, *, causal, window, softcap, terms=3,
-                          bk=32):
+                          bk=32, probs_bf16=False):
     """The arithmetic of the f32 kernel of ``csrc/flash_attention.cu``:
     S = Q.K^T and P.V each as ``terms`` TF32 products summed in f32, the
-    online softmax over tiles of ``bk`` keys in f32, P split after it."""
+    online softmax over tiles of ``bk`` keys in f32, P split after it; with
+    ``probs_bf16`` P.V is one product of P and V rounded to bf16 (exact
+    TF32 values)."""
     dh, sq, sk = q.shape[-1], q.shape[1], k.shape[1]
     s = _tf32_dot("bqkgd,bskd->bkgqs", q, k, terms) * dh ** -0.5
     if softcap > 0:
@@ -278,10 +296,17 @@ def _tf32_split_emulation(q, k, v, *, causal, window, softcap, terms=3,
         p = torch.where(mt, torch.exp(st - m_new[..., None]), 0.0)
         corr = torch.exp(m - m_new)
         l = l * corr + p.sum(-1)
-        acc = acc * corr[..., None] + _tf32_dot("bkgqs,bskd->bkgqd", p, vt,
-                                                terms)
+        if probs_bf16:
+            pv = torch.einsum("bkgqs,bskd->bkgqd", _bf16(p), _bf16(vt))
+        else:
+            pv = _tf32_dot("bkgqs,bskd->bkgqd", p, vt, terms)
+        acc = acc * corr[..., None] + pv
         m = m_new
     return (acc / torch.clamp_min(l[..., None], 1e-30)).permute(0, 3, 1, 2, 4)
+
+
+def _bf16(x):
+    return x.to(torch.bfloat16).to(torch.float32)
 
 
 def test_tf32_rounding_is_round_half_away():
@@ -340,3 +365,119 @@ def test_kernel_arithmetic_without_mask_holds_the_bound(sq):
     want = ref.flash_attention_ref(qb, kb, vb, **kw)
     _close(_tensor_core_emulation(qb, kb, vb, split=True, **kw).numpy(),
            want.numpy())
+
+
+# probs_bf16 at Sq 2048 (the reference's _attend_flash over two chunks of
+# 1024): B 1, GQA 4 heads over 2 KV heads, Dh 32, causal
+U = 2.0 ** -8
+PB_SHAPE = (1, 2048, 1, 2, 32)
+PB_ROUNDINGS = {"bfloat16": 1 + 2, "float32": 2 + 3}   # kernel + reference
+
+
+@functools.lru_cache(maxsize=None)
+def _probs_bf16_case(dtype: str):
+    """(q, k, v) torch tensors in ``dtype`` and the reference's
+    ``_attend_flash`` with ``attn_probs_bf16`` on them (B, Sq, KV, G, Dh)."""
+    b, s, kv, g, dh = PB_SHAPE
+    q, k, v = (torch.from_numpy(a).to(getattr(torch, dtype))
+               for a in _qkv(b, s, kv, g, dh, seed=11))
+    jcfg = dataclasses.replace(jreduce(jget_config("smollm-135m")),
+                               attn_probs_bf16=True)
+    pos = jnp.broadcast_to(jnp.arange(s, dtype=jnp.int32)[None], (b, s))
+    jq, jk, jv = (jnp.asarray(t.to(torch.float32).numpy()).astype(
+        getattr(jnp, dtype)) for t in (q, k, v))
+    want = jlayers._attend_flash(jq.reshape(b, s, kv * g, dh), jk, jv, pos,
+                                 pos, jcfg, causal=True, local=False)
+    want = np.asarray(want.astype(jnp.float32)).reshape(b, s, kv, g, dh)
+    return q, k, v, want
+
+
+@pytest.mark.parametrize("dtype", ["bfloat16", "float32"])
+@pytest.mark.parametrize("what", ["kernel-emulation", "plain-version"])
+def test_probs_bf16_within_the_bound_of_the_reference(what, dtype):
+    """B8's ``probs_bf16`` at Sq 2048 against the reference's
+    ``_attend_flash`` with ``attn_probs_bf16``, within the module
+    docstring's bound ``r u max|v|``: the kernel's one-term-P arithmetic
+    (bf16: one bf16 P per MMA over tiles of 64 keys; f32: Q.K^T in three
+    TF32 products, P.V one product of bf16 P and V over tiles of 32) and
+    the plain version (``engine.flash_attention`` on the CPU, the kernel's
+    tiling)."""
+    q, k, v, want = _probs_bf16_case(dtype)
+    kw = dict(causal=True, window=0, softcap=0.0)
+    if what == "plain-version":
+        with engine.dispatch_trace() as ev:
+            got = engine.flash_attention(q, k, v, probs_bf16=True, **kw)
+        assert [(e.kind, e.impl_backend) for e in ev] == [
+            (engine.ATTN_FLASH_PROBS_BF16, "torch")]
+    elif dtype == "bfloat16":
+        got = _tensor_core_emulation(q, k, v, split=False, **kw)
+    else:
+        got = _tf32_split_emulation(q, k, v, probs_bf16=True, **kw)
+    tol = (PB_ROUNDINGS[dtype] + 0.1) * U * float(v.float().abs().max())
+    gap = float(np.abs(got.numpy() - want).max())
+    print(f"{what} {dtype}: max |diff| {gap:.3e} = {gap / tol:.4f} of the "
+          f"bound {tol:.3e}")
+    assert gap <= tol
+    if what == "plain-version":      # the kernel's arithmetic, tile for tile
+        emul = _tensor_core_emulation(q, k, v, split=False, **kw) \
+            if dtype == "bfloat16" else \
+            _tf32_split_emulation(q, k, v, probs_bf16=True, **kw)
+        _close_flips(got, emul, v, engine.flash_attention(q, k, v, **kw))
+
+
+# mean |kernel - plain version| of probs_bf16 as a share of the flag's own
+# effect (chip_smoke.PB_KERNEL_SHARE)
+PB_SHARE = 0.25
+
+
+def _close_flips(got, want, v, off):
+    """Two computations of the same tiles' bf16 P, whose f32 scores differ
+    in the last bits: a p near a rounding boundary can round to the
+    neighbouring bf16 value, one ulp (at most 2u p) apart, so ``|got -
+    want| <= 2 u max|v|`` on top of the f32 bound 1e-5 max|out|.  Such
+    flips are rare, so mean |got - want| is within PB_SHARE of the flag's
+    own effect (mean |got - off|, ``off`` the plain version without the
+    flag), which ``off`` itself misses (the checks ``chip_smoke.py`` holds
+    the kernel to against the plain version)."""
+    gap = (got - want).abs()
+    tol = 2 * U * float(v.float().abs().max()) + RTOL * float(want.abs().max())
+    n_f32 = int((gap > RTOL * want.abs().max()).sum())
+    effect = float((got - off).abs().mean())
+    share = float(gap.mean()) / effect
+    control = float((off - want).abs().mean()) / effect
+    print(f"  beside the kernel's arithmetic: max |diff| {float(gap.max()):.3e}"
+          f" ({n_f32} of {gap.numel()} beyond 1e-5 of max|out|), bound "
+          f"{tol:.3e}; mean |diff| {share:.5f} of the flag's effect (the "
+          f"flag off: {control:.5f})")
+    assert float(gap.max()) <= tol
+    assert share <= PB_SHARE < control
+
+
+@pytest.mark.parametrize("s", [512, 1024, 2048])
+def test_model_path_rounds_probs_where_the_reference_does(s):
+    """``attn_probs_bf16`` in ``layers._attend_full``: traced on the card's
+    route (meta tensors), the kernel takes ``probs_bf16`` only past 1024
+    positions in whole chunks, where the reference takes ``_attend_flash``;
+    below, P stays f32, and the plain version equals the reference's
+    ``_attend`` (f32 P) within 1e-5 of max|out|."""
+    cfg = dataclasses.replace(reduce_for_smoke(get_config("smollm-135m")),
+                              attn_probs_bf16=True)
+    h, kvh, dh = cfg.n_heads, cfg.n_kv_heads, cfg.dh
+    meta = [torch.empty((1, s, n, dh), device="meta") for n in (h, kvh, kvh)]
+    pos = torch.arange(s)[None]
+    with engine.trace_as_card(), engine.dispatch_trace() as ev:
+        layers._attend_full(*meta, pos.to("meta"), cfg, False, None)
+    pb = s > 1024
+    assert [(e.kind, e.impl_backend) for e in ev] == [
+        (engine.ATTN_FLASH_PROBS_BF16 if pb else engine.ATTN_FLASH, "cuda")]
+    if pb or s > 512:
+        return
+    q, k, v = _qkv(1, s, kvh, h // kvh, dh, seed=s)
+    got = engine.flash_attention(*(torch.from_numpy(a) for a in (q, k, v)),
+                                 probs_bf16=layers._probs_bf16(cfg, s))
+    jcfg = dataclasses.replace(jreduce(jget_config("smollm-135m")),
+                               attn_probs_bf16=True)
+    mask = jnp.tril(jnp.ones((s, s), bool))[None, None]
+    want = jlayers._attend(jnp.asarray(q).reshape(1, s, h, dh),
+                           jnp.asarray(k), jnp.asarray(v), mask, jcfg)
+    _close(got.numpy(), np.asarray(want).reshape(got.shape))

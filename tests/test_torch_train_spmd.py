@@ -16,7 +16,10 @@ Bounds (reduce_for_smoke shapes, or the serving tests' ``tp-golden``
 and a falcon-mamba stack ``mamba-tp``, d_model 1024: tensor parallel; f32, lr 1e-3, global batch 8 x 16, two
 steps): every rank's loss and grad norm within 1e-5 relative of the
 reference's at each step (FSDP too: moe-tp with its expert weights' K cut
-over data, adamw and adafactor on 2,2 and 4,1); every param leaf assembled from the ranks'
+over data, adamw and adafactor on 2,2 and 4,1; and the expert-parallel
+shard_map MoE, moe-tp with ``moe_impl="shard_map"`` on 2,2 at a capacity
+where nothing drops, so its per-shard routing is the one-device step's);
+every param leaf assembled from the ranks'
 slices within 1e-4 of the reference's, but for at most one entry in
 10^4 of a leaf, within 2.2 lr a step.  An Adam step moves an entry by
 ~lr g / (|g| + eps), near +-lr whatever the summation order, except where
@@ -35,8 +38,16 @@ On every rank and after every step, the leaves
 are bit-equal across those ranks.  The sharded optimizers alone, fed the
 reference's gradients: params and float moments within 1e-6 of their
 largest magnitude, adam8bit's codes equal (tests/test_torch_optim.py's
-bounds).  The pipeline within 1e-5 of the reference's sequential stack;
-checkpoints bit-equal."""
+bounds).  The pipeline within 1e-5 of the reference's sequential stack, and
+its gradients (blocks and x) within 1e-5 of each leaf's largest magnitude
+of ``jax.grad`` of that stack, the same bits on every rank; checkpoints
+bit-equal.  The expert-parallel MoE layer (reduced granite, 8 experts top-2
+at capacity factor 1.0, so tokens drop; 2 data x 2 model ranks) against
+the reference's own body, ``_local_moe``, under ``jax.vmap`` with the axis
+names 'model' inside 'data': the output, aux, and the gradients of the
+rows' objective and of the aux term (averaged over the data ranks, as a
+train step's bucket averages them) within 1e-5 of each leaf's largest
+magnitude."""
 import concurrent.futures
 import contextlib
 import dataclasses
@@ -61,6 +72,7 @@ from repro.models.config import ModelConfig as JModelConfig  # noqa: E402
 from repro.models.transformer import _apply_period as j_apply_period  # noqa: E402
 from repro.optim import make_optimizer as jmake_optimizer  # noqa: E402
 from repro.parallel import sharding as jsh  # noqa: E402
+from repro.parallel.moe_shard_map import _local_moe as j_local_moe  # noqa: E402
 from repro.parallel.pipeline import bubble_fraction as jbubble  # noqa: E402
 from repro_torch.checkpoint import Checkpointer  # noqa: E402
 from repro_torch.configs import get_config  # noqa: E402
@@ -71,8 +83,7 @@ from repro_torch.models import build_model, reduce_for_smoke  # noqa: E402
 from repro_torch.models.config import ModelConfig  # noqa: E402
 from repro_torch.optim import OPTIMIZERS, make_optimizer  # noqa: E402
 from repro_torch.parallel import sharding as tsh  # noqa: E402
-from repro_torch.parallel.comm import StepSharding  # noqa: E402
-from repro_torch.parallel.pipeline import bubble_fraction, pipeline_blocks  # noqa: E402
+from repro_torch.parallel.pipeline import bubble_fraction  # noqa: E402
 from repro_torch.tree import tree_leaves, tree_leaves_along  # noqa: E402
 
 sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
@@ -118,6 +129,10 @@ JOBS = {
     "moe-tp fsdp adamw": (MOE_TP, "fp32", "adamw", 1, 0, ("2,2", "4,1")),
     "moe-tp fsdp adafactor": (MOE_TP, "fp32", "adafactor", 1, 0,
                               ("2,2", "4,1")),
+    # the expert-parallel MoE in a train step: capacity T (factor E / k),
+    # so no token drops and the per-shard routing is the global one's
+    "moe-tp ep": (dict(MOE_TP, moe_impl="shard_map", capacity_factor=2.0),
+                  "fp32", "adamw", 1, 0, ("2,2",)),
 }
 # jobs whose params take the FSDP rule (``param_specs(fsdp=True)``: the
 # expert weights' K over data, gathered where used)
@@ -228,14 +243,17 @@ def _pipeline_payload():
                                dtype="float32")
     blocks = params_to_numpy(build_model(cfg).init(
         torch.Generator().manual_seed(50), "cpu"))["blocks"]
-    x = np.random.default_rng(51).standard_normal(
-        (8, 16, cfg.d_model)).astype(np.float32)
-    return jcfg, {"cfg": cfg, "blocks": blocks, "x": x, "n_micro": 4}
+    rng = np.random.default_rng(51)
+    x, cot = (rng.standard_normal((8, 16, cfg.d_model)).astype(np.float32)
+              for _ in range(2))
+    return jcfg, {"cfg": cfg, "blocks": blocks, "x": x, "cot": cot,
+                  "n_micro": 4}
 
 
-def _sequential(jcfg, blocks, x):
-    """The reference test's sequential stack: ``_apply_period`` scanned
-    over the periods."""
+def _sequential(jcfg, blocks, x, cot):
+    """The reference test's sequential stack, ``_apply_period`` scanned
+    over the periods, and ``jax.grad`` of ``sum(y * cot)`` through it:
+    (y, the blocks' gradient leaves, x's gradient)."""
     positions = jnp.broadcast_to(jnp.arange(x.shape[1], dtype=jnp.int32)[None],
                                  x.shape[:2])
 
@@ -244,8 +262,71 @@ def _sequential(jcfg, blocks, x):
             y, _, _ = j_apply_period(pp, h, jcfg, positions)
             return y, None
         return jax.lax.scan(body, h, bl)[0]
+
+    def value_and_grads(bl, h, c):
+        y, vjp = jax.vjp(run, bl, h)
+        return y, vjp(c)
     bl = jax.tree_util.tree_map(jnp.asarray, blocks)
-    return np.asarray(jax.jit(run)(bl, jnp.asarray(x)))
+    y, (gb, gx) = jax.jit(value_and_grads)(bl, jnp.asarray(x),
+                                           jnp.asarray(cot))
+    return np.asarray(y), [np.asarray(g) for g in
+                           jax.tree_util.tree_leaves(gb)], np.asarray(gx)
+
+
+# the expert-parallel MoE layer: reduced granite, 8 experts top-2, capacity
+# factor 1.0 (tokens drop), 2 data x 2 model ranks
+MOE_EP_MESH = {"data": 2, "model": 2}
+
+
+def _moe_ep_payload():
+    over = dict(n_experts=8, top_k=2, capacity_factor=1.0, dtype="float32",
+                moe_impl="shard_map")
+    cfg = dataclasses.replace(reduce_for_smoke(get_config(
+        "granite-moe-1b-a400m")), **over)
+    jcfg = dataclasses.replace(jreduce(jget_config("granite-moe-1b-a400m")),
+                               **over)
+    from repro_torch.models import layers as L
+    p = params_to_numpy(L.moe_init(torch.Generator().manual_seed(70), cfg,
+                                   "cpu"))
+    p["norm"] = p["norm"]["g"]
+    rng = np.random.default_rng(71)
+    x, cot = (rng.standard_normal((4, 16, cfg.d_model)).astype(np.float32)
+              for _ in range(2))
+    return jcfg, {"cfg": cfg, "params": p, "x": x, "cot": cot}
+
+
+def _moe_ep_oracle(jcfg, job):
+    """``_local_moe`` over the mesh by named vmap ('model' inside 'data'):
+    out (B, S, D), aux, and ``jax.grad`` of ``sum(out * cot)`` and of aux
+    with respect to the params (whole) and x."""
+    nd, nm = MOE_EP_MESH["data"], MOE_EP_MESH["model"]
+    experts = ("w_gate", "w_up", "w_down")
+
+    def run(p, x):
+        ex = {k: p[k].reshape(nm, -1, *p[k].shape[1:]) for k in experts}
+        shared = {"norm": {"g": p["norm"]}, "w_router": p["w_router"]}
+
+        def body(ex, x_loc):
+            return j_local_moe(dict(shared, **ex), x_loc, jcfg,
+                               data_axis="data", model_axis="model")
+        f = jax.vmap(jax.vmap(body, in_axes=(0, None), axis_name="model"),
+                     in_axes=(None, 0), axis_name="data")
+        out, aux = f(ex, x.reshape(nd, -1, *x.shape[1:]))
+        return out[:, 0].reshape(x.shape), aux[0, 0]
+
+    def both(p, x, cot):
+        (out, aux), vjp = jax.vjp(run, p, x)
+        g_out = vjp((cot, jnp.zeros_like(aux)))
+        g_aux = vjp((jnp.zeros_like(out), jnp.ones_like(aux)))
+        return out, aux, g_out, g_aux
+    p = jax.tree_util.tree_map(jnp.asarray, job["params"])
+    out, aux, g_out, g_aux = jax.jit(both)(p, jnp.asarray(job["x"]),
+                                           jnp.asarray(job["cot"]))
+    grads = {}
+    for what, (gp, gx) in (("out", g_out), ("aux", g_aux)):
+        grads[what] = {k: np.asarray(v) for k, v in gp.items()}
+        grads[what]["x"] = np.asarray(gx)
+    return np.asarray(out), float(aux), grads
 
 
 @pytest.fixture(scope="module")
@@ -267,8 +348,10 @@ def _run(tmp):
     for i, name in enumerate(JOBS):
         jcfgs[name], jobs[name] = _job(i, name)
     jpipe, pipe = _pipeline_payload()
+    jmoe, moe_ep = _moe_ep_payload()
     optim = _optim_payload()
     payload = {"jobs": jobs, "pipeline": pipe, "optim": optim,
+               "moe_ep": moe_ep,
                "checkpoint": {"job": "tp-golden fp32",
                               "dir": str(tmp / "ckpt")},
                "fsdp_checkpoint": {"job": "moe-tp fsdp adafactor",
@@ -288,14 +371,15 @@ def _run(tmp):
                for n in names[1::3] + names[2::3]}
         with _fast_compile():
             ref = {n: _reference(jcfgs[n], jobs[n]) for n in names[::3]}
-            seq = _sequential(jpipe, pipe["blocks"], pipe["x"])
+            seq = _sequential(jpipe, pipe["blocks"], pipe["x"], pipe["cot"])
+            moe_ref = _moe_ep_oracle(jmoe, moe_ep)
             optim_ref = _optim_reference(optim)
         one = tlaunch.train(tlaunch.parse_args(
             ELASTIC + ["--ckpt-dir", str(tmp / "one")]))
         ref.update({n: f.result() for n, f in far.items()})
         results = fut.result()
     return {"ref": ref, "jobs": jobs, "ranks": results, "seq": seq,
-            "optim": optim, "optim_ref": optim_ref,
+            "moe_ref": moe_ref, "optim": optim, "optim_ref": optim_ref,
             "one": one, "tmp": tmp}
 
 
@@ -588,7 +672,7 @@ def test_pipeline_matches_sequential_stack(spmd):
     ``bubble_fraction`` equals the reference's."""
     for res in spmd["ranks"]:
         y, p2p, bcast = res["pipeline"]
-        np.testing.assert_allclose(y, spmd["seq"], rtol=1e-5, atol=1e-5)
+        np.testing.assert_allclose(y, spmd["seq"][0], rtol=1e-5, atol=1e-5)
         stage = res["rank"] // 2
         assert p2p == ({"send": 4, "recv": 0} if stage == 0
                        else {"send": 0, "recv": 4}) and bcast == 1
@@ -596,29 +680,81 @@ def test_pipeline_matches_sequential_stack(spmd):
         assert bubble_fraction(s_, m) == jbubble(s_, m)
 
 
+def _leaf_close(got, want, what):
+    """``got`` within 1e-5 of ``want``'s largest magnitude; the ratio."""
+    tol = 1e-5 * max(float(np.abs(want).max()), 1e-30)
+    gap = float(np.abs(got - want).max())
+    assert got.shape == want.shape and gap <= tol, (what, gap, tol)
+    return gap / tol
+
+
+def test_pipeline_gradients_match_jax_grad(spmd):
+    """``pipeline_blocks`` under autograd (2 stages, n_micro 4, the payload
+    of test_pipeline_matches_sequential_stack): the gradient of
+    sum(y * cot) w.r.t. every block leaf and x within 1e-5 of each leaf's
+    largest magnitude of ``jax.grad`` of the reference's sequential scan;
+    the same bits on every rank; per stage, the backward's p2p (stage 1
+    sends and stage 0 receives each microbatch's cotangent) on top of the
+    forward's, and one bucket all-reduce."""
+    _, want_blocks, want_x = spmd["seq"]
+    worst = 0.0
+    first = spmd["ranks"][0]["pipeline_grads"]
+    for res in spmd["ranks"]:
+        blocks, gx, p2p, p2p_bwd, bwd = res["pipeline_grads"]
+        assert len(blocks) == len(want_blocks)
+        for i, (a, w) in enumerate(zip(blocks, want_blocks)):
+            worst = max(worst, _leaf_close(a, w, ("block", i)))
+        worst = max(worst, _leaf_close(gx, want_x, "x"))
+        assert all(np.array_equal(a, b) for a, b in
+                   zip(blocks + [gx], first[0] + [first[1]]))
+        stage = res["rank"] // 2
+        assert p2p_bwd == ({"send": 0, "recv": 4} if stage == 0
+                           else {"send": 4, "recv": 0})
+        assert p2p == {"send": 4, "recv": 4}
+        assert bwd == {"all_reduce_sum": 1, "all_reduce_max": 0,
+                       "all_gather": 0, "broadcast": 0}
+    print(f"pipeline gradients: worst leaf {worst:.3f} of its bound")
+
+
+def test_expert_parallel_moe_layer_matches_named_vmap_oracle(spmd):
+    """The expert-parallel MoE layer in a train step's sharding (2 data x 2
+    model ranks, tokens dropped at capacity factor 1.0) against the
+    reference's ``_local_moe`` under named vmap: each rank's output rows
+    and the aux value; the gradients of the rows' objective and of the aux
+    term averaged over the data ranks (the params: the router and norm
+    whole, each model rank's experts; x: each rank's rows, divided by the
+    row count) within 1e-5 of each leaf's largest magnitude.  With the
+    load-balance all-reduce's backward the identity, the aux term's
+    gradient would come out half the oracle's."""
+    out, aux, grads = spmd["moe_ref"]
+    ranks_ = [r["moe_ep"] for r in spmd["ranks"]]
+    nd = MOE_EP_MESH["data"]
+    assert any(r["held"] != ranks_[0]["held"] for r in ranks_)
+    worst = 0.0
+    for r in ranks_:
+        rows = slice(*r["mine"])
+        worst = max(worst, _leaf_close(r["y"], out[rows], "out"))
+        assert abs(r["aux_value"] - aux) <= 1e-5 * abs(aux)
+    for what in ("out", "aux"):
+        for k, want in grads[what].items():
+            got = np.zeros_like(want)
+            for r in ranks_:
+                g = r[what][k]
+                if k == "x":
+                    got[slice(*r["mine"])] = g / nd
+                elif k in ("w_gate", "w_up", "w_down"):
+                    got[slice(*r["held"])] += g / nd
+                elif r["held"][0] == 0:        # replicated over model
+                    got += g / nd
+            worst = max(worst, _leaf_close(got, want, (what, k)))
+    print(f"expert-parallel MoE layer: worst leaf {worst:.3f} of its bound")
+
+
 def test_refusals():
-    """A shape-only mesh of several ranks trains nowhere; the pipeline
-    refuses gradients; the expert-parallel shard_map MoE is not a train
-    step's MoE."""
+    """A shape-only mesh of several ranks trains nowhere (the pipeline's
+    gradients and the expert-parallel MoE in a train step, refused before,
+    are test_pipeline_gradients_match_jax_grad and
+    test_expert_parallel_moe_layer_matches_named_vmap_oracle)."""
     with pytest.raises(ValueError, match="shape alone"):
         tlaunch.train(tlaunch.parse_args(ELASTIC + ["--ckpt-dir", "x"]),
                       mesh=tmesh.Mesh({"data": 2, "model": 1}))
-    cfg = dataclasses.replace(reduce_for_smoke(get_config("glm4-9b")),
-                              n_layers=2, dtype="float32")
-    blocks = build_model(cfg).init(torch.Generator().manual_seed(0),
-                                   "cpu")["blocks"]
-    x = torch.zeros((2, 4, cfg.d_model), requires_grad=True)
-    with pytest.raises(NotImplementedError, match="forward pass"):
-        pipeline_blocks(blocks, x, cfg, tmesh.Mesh({"data": 1, "model": 1}),
-                        axis="data")
-    from repro_torch.models import layers as L
-    mcfg = dataclasses.replace(ModelConfig(**MOE_TP),
-                               moe_impl="shard_map")
-    mesh = tmesh.Mesh({"data": 1, "model": 1})
-    shard = StepSharding(mesh, tp=mesh.axis("model"), global_rows=True)
-    p = build_model(mcfg).init(torch.Generator().manual_seed(0), "cpu")
-    lp = {k: v[0] for k, v in p["blocks"]["layer_0"]["moe"].items()
-          if not isinstance(v, dict)}
-    lp["norm"] = {"g": p["blocks"]["layer_0"]["moe"]["norm"]["g"][0]}
-    with pytest.raises(NotImplementedError, match="global slot map"):
-        L.moe_apply(lp, torch.zeros((1, 2, mcfg.d_model)), mcfg, shard=shard)

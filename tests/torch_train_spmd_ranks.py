@@ -6,7 +6,8 @@ the reference's side and every assertion.
 :func:`run_checks` returns, per rank, plain data: each train job's
 metrics, a digest of every local leaf after every step, its final local
 params and the collectives of its steps; the elastic run's metrics and
-state; the checkpoint restores' equalities; the pipeline's output."""
+state; the checkpoint restores' equalities; the pipeline's output and, under autograd, its
+gradients; the expert-parallel MoE layer's output, aux and gradients."""
 from __future__ import annotations
 
 import hashlib
@@ -24,9 +25,11 @@ from repro_torch.models import build_model
 from repro_torch.optim import make_optimizer
 from repro_torch.parallel import comm
 from repro_torch.parallel import sharding as shd
+from repro_torch.parallel.comm import StepSharding
+from repro_torch.parallel.moe_shard_map import moe_apply_shard_map
 from repro_torch.parallel.pipeline import pipeline_blocks
 from repro_torch.runtime import ElasticTrainer
-from repro_torch.tree import tree_leaves
+from repro_torch.tree import tree_leaves, tree_map
 
 LR = 1e-3
 
@@ -181,6 +184,57 @@ def _agreed_preemption(world, path) -> tuple:
     return status, len(metrics), int(state["n"]), ck.all_steps()
 
 
+def pipeline_grads(world, pipe) -> tuple:
+    """``pipe``'s blocks and x through ``pipeline_blocks`` under autograd
+    (2 stages over 'data'), the objective sum(y * cot): the gradients of the
+    blocks (numpy leaves) and of x, the p2p counts forward and backward and
+    the backward's collectives."""
+    blocks = tree_map(lambda t: t.requires_grad_(),
+                      params_from_numpy(pipe["blocks"], "cpu"))
+    x = torch.from_numpy(pipe["x"]).requires_grad_()
+    comm.reset_collective_counts()
+    y = pipeline_blocks(blocks, x, pipe["cfg"], world, axis="data",
+                        n_micro=pipe["n_micro"])
+    (y * torch.from_numpy(pipe["cot"])).sum().backward()
+    return ([t.grad.numpy() for t in tree_leaves(blocks)], x.grad.numpy(),
+            comm.p2p_counts(), comm.p2p_counts(backward=True),
+            comm.backward_counts())
+
+
+def moe_ep(world, job) -> dict:
+    """The expert-parallel MoE layer on this rank of the 2x2 world (its
+    data shard's rows, its model shard's experts) in a train step's
+    sharding: the output and aux, and the gradients of two objectives, the
+    rows' ``R sum(out * cot)`` and the aux term (R the row ranks: each rank
+    holds its rows' objective, as a train step's rank its loss; the
+    gradients are averaged over the rows after)."""
+    cfg, p = job["cfg"], job["params"]
+    tp, rows = world.axis("model"), world.axis("data")
+    e_loc = cfg.n_experts // tp.size
+    held = slice(tp.index * e_loc, (tp.index + 1) * e_loc)
+    n = job["x"].shape[0] // rows.size
+    mine = slice(rows.index * n, (rows.index + 1) * n)
+    shard = StepSharding(world, tp=tp, rows=rows, global_rows=True)
+    out = {}
+    for what in ("out", "aux"):
+        lp = {k: torch.from_numpy(v[held] if k.startswith("w_") and
+                                  k != "w_router" else v).requires_grad_()
+              for k, v in p.items() if k != "norm"}
+        lp["norm"] = {"g": torch.from_numpy(p["norm"]).requires_grad_()}
+        x = torch.from_numpy(job["x"][mine]).requires_grad_()
+        y, aux = moe_apply_shard_map(lp, x, cfg, shard)
+        obj = rows.size * (y * torch.from_numpy(job["cot"][mine])).sum() \
+            if what == "out" else aux
+        obj.backward()
+        leaves = dict(lp, norm=lp["norm"]["g"], x=x)
+        out[what] = {k: (torch.zeros_like(v) if v.grad is None else v.grad
+                         ).numpy() for k, v in leaves.items()}
+        out["y"], out["aux_value"] = y.detach().numpy(), float(aux.detach())
+    out["held"], out["mine"] = (held.start, held.stop), (mine.start,
+                                                         mine.stop)
+    return out
+
+
 def run_checks(world, payload):
     """Every rank of a 2x2 world: the train jobs on their meshes (2,1 and
     1,2 as two pairs of ranks side by side), the checkpoint restores (an
@@ -225,6 +279,8 @@ def run_checks(world, payload):
                             world, axis="data", n_micro=pipe["n_micro"])
     res["pipeline"] = (y.numpy(), comm.p2p_counts(),
                        comm.collective_counts()["broadcast"])
+    res["pipeline_grads"] = pipeline_grads(world, pipe)
+    res["moe_ep"] = moe_ep(world, payload["moe_ep"])
     return res
 
 
