@@ -90,3 +90,11 @@ def unpack_nibbles(packed: torch.Tensor) -> torch.Tensor:
     out = torch.stack([lo, hi], dim=-1).to(torch.int8)
     return out.reshape(*packed.shape[:-1], packed.shape[-1] * 2)
 
+
+
+def packed_last_dim(k: int, bits: int) -> int:
+    """Length of the packed last axis for an unpacked length k."""
+    n = codes_per_word(bits)
+    if k % n:
+        raise ValueError(f"{k} not a multiple of {n}")
+    return k // n

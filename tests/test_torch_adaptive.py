@@ -27,6 +27,7 @@ import numpy as np
 import pytest
 
 torch = pytest.importorskip("torch")
+from torch_testing import one_thread, reference_jit  # noqa: E402,F401
 import jax  # noqa: E402
 
 from repro.configs import get_config as jget_config  # noqa: E402
@@ -122,7 +123,7 @@ def stack():
     tcfg = dataclasses.replace(treduce(get_config(
         "smollm-135m", precision="fp32", kv_bits=0)), dtype="float32")
     jm = jbuild(jcfg)
-    jp = jax.jit(jm.init)(jax.random.PRNGKey(0))
+    jp = reference_jit(jm.init)(jax.random.PRNGKey(0))
     tp = params_from_numpy(jax.tree_util.tree_map(np.array, jp), "cpu")
     return {"ref": (jserving, jadaptive, jtracing, jpolicy, jm, jp, np.int32),
             "port": (tserving, tadaptive, ttracing, tpolicy,

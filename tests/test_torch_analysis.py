@@ -27,6 +27,7 @@ import numpy as np
 import pytest
 
 torch = pytest.importorskip("torch")
+from torch_testing import one_thread, ranks_one_thread  # noqa: E402,F401
 
 from repro.analysis import steps as jsteps  # noqa: E402
 from repro_torch.analysis import astlint, cli  # noqa: E402
@@ -424,8 +425,10 @@ def test_two_ranks(tmp_path, monkeypatch):
     reference's steps, zero findings; tensor-parallel steps bind no
     ``no_collectives``, pure-DP ones do; an all-reduce in a pure-DP step
     fires ``no_collectives`` alone."""
-    res = tmesh.spawn(ranks.run_checks, tmesh.Mesh({"data": 2, "model": 1}),
-                      {}, device="cpu")
+    with ranks_one_thread():
+        res = tmesh.spawn(ranks.run_checks,
+                          tmesh.Mesh({"data": 2, "model": 1}), {},
+                          device="cpu")
     for r in res:
         for name, pure in (("tp-d1024", False), ("smollm-dp", True)):
             got = r[name]

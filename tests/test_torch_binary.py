@@ -19,6 +19,7 @@ import numpy as np
 import pytest
 
 torch = pytest.importorskip("torch")
+from torch_testing import one_thread, reference_jit  # noqa: E402,F401
 import jax  # noqa: E402
 import jax.numpy as jnp  # noqa: E402
 
@@ -215,7 +216,7 @@ def _pair(kv_bits):
         tcfg = dataclasses.replace(treduce(get_config(
             "smollm-135m", precision="1x1", kv_bits=kv_bits)), dtype="float32")
         jm = jbuild(jcfg)
-        jsv = jax.jit(lambda key: jto_serving(jm.init(key), jcfg))(
+        jsv = reference_jit(lambda key: jto_serving(jm.init(key), jcfg))(
             jax.random.PRNGKey(0))
         tp = params_from_numpy(jax.tree_util.tree_map(np.array, jsv), "cpu")
         _MODELS[kv_bits] = (jm, jsv, build_model(tcfg), tp)

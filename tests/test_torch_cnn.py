@@ -15,6 +15,7 @@ import numpy as np
 import pytest
 
 torch = pytest.importorskip("torch")
+from torch_testing import one_thread, reference_jit  # noqa: E402,F401
 import jax  # noqa: E402
 import jax.numpy as jnp  # noqa: E402
 
@@ -199,14 +200,15 @@ def _net(name):
                                                        n_classes=10),
                 "alexnet": lambda k: jcnn.alexnet_init(k, width_mult=0.25,
                                                        n_classes=10)}[name]
-        _NETS[name] = jax.jit(init)(key)
+        _NETS[name] = reference_jit(init)(key)
     return _NETS[name]
 
 
 def _serving(name, precision):
     key = (name, precision)
     if key not in _NETS:
-        _NETS[key] = jax.jit(lambda p: jcnn.cnn_to_serving(p, precision))(
+        _NETS[key] = reference_jit(
+            lambda p: jcnn.cnn_to_serving(p, precision))(
             _net(name))
     return _NETS[key]
 
@@ -241,7 +243,7 @@ def _check_logits(got, want):
 
 def _run_both(name, precision, x, jfn, tfn, serving=True):
     jp = _serving(name, precision) if serving else _net(name)
-    want = np.asarray(jax.jit(jfn)(jp, jnp.asarray(x)))
+    want = np.asarray(reference_jit(jfn)(jp, jnp.asarray(x)))
     tp = params_from_numpy(_np_tree(jp), "cpu")
     with engine.dispatch_trace() as ev:
         got = tfn(tp, torch.from_numpy(x)).numpy()

@@ -4,6 +4,7 @@ import numpy as np
 import pytest
 
 torch = pytest.importorskip("torch")
+from torch_testing import one_thread  # noqa: E402,F401
 import jax.numpy as jnp  # noqa: E402
 
 from repro.core import packing as jpack  # noqa: E402
@@ -52,6 +53,19 @@ def test_nibbles_identical():
     got = tpack.pack_nibbles(torch.from_numpy(codes))
     np.testing.assert_array_equal(got.numpy(), want)
     np.testing.assert_array_equal(tpack.unpack_nibbles(got).numpy(), codes)
+
+
+@pytest.mark.parametrize("bits", [1, 2, 4, 8])
+def test_packed_last_dim_matches(bits):
+    """The packed last axis of every multiple of the word's code count,
+    and the same ValueError for a k it does not divide."""
+    n = 32 // bits
+    for k in (n, 3 * n, 64 * n):
+        assert tpack.packed_last_dim(k, bits) == \
+            jpack.packed_last_dim(k, bits) == k // n
+    for mod in (jpack, tpack):
+        with pytest.raises(ValueError, match="not a multiple of"):
+            mod.packed_last_dim(n + 1, bits)
 
 
 @pytest.mark.parametrize("name", ["2xT", "8xT", "8x8", "4x4", "2x2", "3x3", "8xB"])

@@ -9,6 +9,7 @@ import importlib
 import pytest
 
 torch = pytest.importorskip("torch")
+from torch_testing import one_thread  # noqa: E402,F401
 
 from repro_torch.core import packing  # noqa: E402
 from repro_torch.core.precision import get_precision, signed  # noqa: E402

@@ -20,6 +20,7 @@ import numpy as np
 import pytest
 
 torch = pytest.importorskip("torch")
+from torch_testing import one_thread  # noqa: E402,F401
 import jax.numpy as jnp  # noqa: E402
 
 tattn = importlib.import_module("repro_torch.kernels.decode_attention")

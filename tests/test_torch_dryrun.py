@@ -24,6 +24,7 @@ from pathlib import Path
 import pytest
 
 torch = pytest.importorskip("torch")
+from torch_testing import one_thread, reference_jit  # noqa: E402,F401
 
 from repro.configs import get_config as jget_config  # noqa: E402
 from repro.configs import iter_cells as jiter_cells  # noqa: E402
@@ -322,7 +323,8 @@ def test_quantized_lm_head_matches_reference():
         "glm4-9b", precision=precision, kv_bits=8)), **over)
     cfg = dataclasses.replace(reduce_for_smoke(get_config(
         "glm4-9b", precision=precision, kv_bits=8)), **over)
-    jp = jax.jit(lambda k: jto_serving(jbuild(jcfg).init(k), jcfg, tp=1))(
+    jp = reference_jit(
+        lambda k: jto_serving(jbuild(jcfg).init(k), jcfg, tp=1))(
         jax.random.PRNGKey(3))
     assert "wt_packed" in jp["lm_head"]
     params = params_from_numpy(jax.tree_util.tree_map(np.asarray, jp), "cpu")

@@ -18,6 +18,7 @@ import numpy as np
 import pytest
 
 torch = pytest.importorskip("torch")
+from torch_testing import one_thread, reference_jit  # noqa: E402,F401
 import jax  # noqa: E402
 import jax.numpy as jnp  # noqa: E402
 
@@ -64,11 +65,11 @@ def _pair(precision, kv_bits):
     if key not in _MODELS:
         jcfg, tcfg = _cfgs(precision, kv_bits)
         jm = jbuild(jcfg)
-        jsv = jax.jit(lambda k: jto_serving(jm.init(k), jcfg))(
+        jsv = reference_jit(lambda k: jto_serving(jm.init(k), jcfg))(
             jax.random.PRNGKey(0))
         jm = dataclasses.replace(
-            jm, prefill=jax.jit(jm.prefill, static_argnums=2),
-            decode_step=jax.jit(jm.decode_step))
+            jm, prefill=reference_jit(jm.prefill, static_argnums=2),
+            decode_step=reference_jit(jm.decode_step))
         tp = params_from_numpy(jax.tree_util.tree_map(np.array, jsv), "cpu")
         _MODELS[key] = (jm, jsv, build_model(tcfg), tp)
     return _MODELS[key]
@@ -101,8 +102,8 @@ def test_encode(precision):
     """The encoder's states (bidirectional attention, RoPE, enc_norm)."""
     jm, jsv, tm, tp = _pair(precision, 0)
     jb, tb = _batch(tm.cfg, 2, 6, S_ENC, seed=1)
-    want = jax.jit(lambda p, f: jencdec.encode(p, f, jm.cfg))(jsv,
-                                                             jb["frames"])
+    want = reference_jit(lambda p, f: jencdec.encode(p, f, jm.cfg))(
+        jsv, jb["frames"])
     got = encdec.encode(tp, tb["frames"], tm.cfg)
     _close(got, want)
 

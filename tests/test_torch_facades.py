@@ -24,6 +24,7 @@ import numpy as np
 import pytest
 
 pytest.importorskip("torch")
+from torch_testing import one_thread  # noqa: E402,F401
 
 import repro.runtime as jruntime  # noqa: E402
 import repro_torch.runtime as truntime  # noqa: E402

@@ -13,6 +13,7 @@ card's machine:
 import pytest
 
 torch = pytest.importorskip("torch")
+from torch_testing import one_thread  # noqa: E402,F401
 
 from repro_torch.configs import get_config  # noqa: E402
 from repro_torch.core.precision import get_precision, signed  # noqa: E402

@@ -1,7 +1,8 @@
 """The port stands alone: no module of ``src/repro_torch``, no example of
 the port (``examples/torch_*.py``) and not ``chip_smoke.py`` imports JAX or anything of the JAX package ``repro``;
 importing the port builds nothing; ``chip_smoke.py`` refuses to run
-outside a checkout."""
+outside a checkout.  And the port's tests keep one PyTorch thread a
+process (``tests/torch_testing.py``)."""
 import ast
 import importlib
 import pkgutil
@@ -12,6 +13,7 @@ from pathlib import Path
 import pytest
 
 torch = pytest.importorskip("torch")
+from torch_testing import one_thread  # noqa: E402,F401
 
 REPO = Path(__file__).resolve().parent.parent
 SOURCES = sorted((REPO / "src" / "repro_torch").rglob("*.py")) + \
@@ -224,3 +226,80 @@ def test_dry_run_modules_stand_alone():
                           capture_output=True, text=True, timeout=300)
     assert proc.returncode == 0, proc.stderr
     assert proc.stdout.strip() == "[] False {}", proc.stdout
+
+
+TEST_FILES = sorted((REPO / "tests").glob("test_torch_*.py")) + \
+    sorted((REPO / "tests").glob("torch_*_ranks.py"))
+# fault C6's check that a backward's bits do not depend on the run sets 4
+# threads on purpose (and restores the count after)
+MORE_THREADS = {("test_torch_train_spmd.py",
+                 "test_token_gathers_backward_bit_equal_run_to_run")}
+
+
+def _imports_torch(tree) -> bool:
+    for node in ast.walk(tree):
+        if isinstance(node, ast.Import) and any(
+                a.name.split(".")[0] == "torch" for a in node.names):
+            return True
+        if isinstance(node, ast.Call) and getattr(
+                node.func, "attr", None) == "importorskip" and \
+                node.args and getattr(node.args[0], "value", None) == "torch":
+            return True
+    return False
+
+
+def _calls(tree, attr):
+    """(call, enclosing function, with-item names) of every call of
+    ``<x>.attr(...)`` or of a call that is handed ``<x>.attr`` (an
+    executor's ``submit(tmesh.spawn, ...)``)."""
+    out = []
+
+    def walk(node, func, withs):
+        if isinstance(node, (ast.FunctionDef, ast.AsyncFunctionDef)):
+            func = node.name
+        if isinstance(node, ast.With):
+            withs = withs + tuple(
+                getattr(i.context_expr.func, "id", None) for i in node.items
+                if isinstance(i.context_expr, ast.Call))
+        if isinstance(node, ast.Call) and attr in [
+                getattr(f, "attr", None) for f in [node.func, *node.args]]:
+            out.append((node, func, withs))
+        for child in ast.iter_child_nodes(node):
+            walk(child, func, withs)
+
+    walk(tree, None, ())
+    return out
+
+
+@pytest.mark.parametrize("path", TEST_FILES, ids=lambda p: p.name)
+def test_port_tests_take_one_thread(path):
+    """Every port test file that imports torch takes the shared one-thread
+    fixture (``tests/torch_testing.py``), every rank entry of a rank file
+    starts with ``torch.set_num_threads(1)``, every spawn of CPU ranks runs
+    inside ``ranks_one_thread()``, and no file sets another thread count
+    but fault C6's check (``MORE_THREADS``)."""
+    tree = ast.parse(path.read_text(encoding="utf-8"), filename=str(path))
+    if not _imports_torch(tree):
+        return
+    if path.name.startswith("test_"):
+        assert any(isinstance(n, ast.ImportFrom)
+                   and n.module == "torch_testing"
+                   and "one_thread" in [a.name for a in n.names]
+                   for n in tree.body), \
+            f"{path.name}: from torch_testing import one_thread"
+    else:
+        entry = [n for n in tree.body if isinstance(n, ast.FunctionDef)
+                 and n.name == "run_checks"]
+        assert entry, f"{path.name} has no run_checks"
+        body = [n for n in entry[0].body if not (
+            isinstance(n, ast.Expr) and isinstance(n.value, ast.Constant))]
+        assert ast.unparse(body[0]) == "torch.set_num_threads(1)", path.name
+    for call, func, _ in _calls(tree, "set_num_threads"):
+        if (path.name, func) in MORE_THREADS:
+            continue
+        assert ast.unparse(call) == "torch.set_num_threads(1)", \
+            f"{path.name}:{call.lineno} {ast.unparse(call)}"
+    for call, func, withs in _calls(tree, "spawn"):
+        device = [k.value for k in call.keywords if k.arg == "device"]
+        if device and getattr(device[0], "value", None) == "cpu":
+            assert "ranks_one_thread" in withs, f"{path.name}:{call.lineno}"

@@ -16,6 +16,7 @@ import numpy as np
 import pytest
 
 torch = pytest.importorskip("torch")
+from torch_testing import one_thread, reference_jit  # noqa: E402,F401
 import jax  # noqa: E402
 import jax.numpy as jnp  # noqa: E402
 
@@ -64,7 +65,7 @@ def _pair(precision):
         tcfg = dataclasses.replace(treduce(get_config(
             "smollm-135m", precision=precision, kv_bits=0)), dtype="float32")
         jm = jbuild(jcfg)
-        jsv = jax.jit(lambda key: jto_serving(jm.init(key), jcfg))(
+        jsv = reference_jit(lambda key: jto_serving(jm.init(key), jcfg))(
             jax.random.PRNGKey(0))
         tp = params_from_numpy(jax.tree_util.tree_map(np.array, jsv), "cpu")
         _MODELS[precision] = (jm, jsv, build_model(tcfg), tp)

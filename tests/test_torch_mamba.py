@@ -17,6 +17,7 @@ import numpy as np
 import pytest
 
 torch = pytest.importorskip("torch")
+from torch_testing import one_thread, reference_jit  # noqa: E402,F401
 import jax  # noqa: E402
 import jax.numpy as jnp  # noqa: E402
 
@@ -49,7 +50,7 @@ def _layer(precision):
         jcfg = jreduce(jget_config(ARCH, precision=precision))
         tcfg = reduce_for_smoke(get_config(ARCH, precision=precision))
         jm = jbuild(jcfg)
-        jsv = jax.jit(lambda key: jto_serving(jm.init(key), jcfg))(
+        jsv = reference_jit(lambda key: jto_serving(jm.init(key), jcfg))(
             jax.random.PRNGKey(0))
         lp = jax.tree_util.tree_map(lambda a: np.array(a[0]),
                                     jsv["blocks"]["layer_0"]["mamba"])

@@ -24,6 +24,7 @@ import numpy as np
 import pytest
 
 torch = pytest.importorskip("torch")
+from torch_testing import one_thread, reference_jit  # noqa: E402,F401
 import jax  # noqa: E402
 import jax.numpy as jnp  # noqa: E402
 
@@ -63,16 +64,24 @@ def _np_tree(tree):
     return jax.tree_util.tree_map(np.array, tree)
 
 
+_PARAMS = {}
+
+
 def _pair(precision, kv_bits):
-    """(jax model, jax serving params, port model, port serving params)."""
+    """(jax model, jax serving params, port model, port serving params).
+    The serving params do not depend on the KV cache's bits: one draw and
+    packing serves every kv_bits of a precision."""
     jcfg = reduce_for_smoke(jget_config("smollm-135m", precision=precision,
                                         kv_bits=kv_bits))
     tcfg = treduce(get_config("smollm-135m", precision=precision,
                               kv_bits=kv_bits))
     assert jcfg.dtype == tcfg.dtype == "float32"
     jm = jbuild(jcfg)
-    jsv = jto_serving(jm.init(jax.random.PRNGKey(0)), jcfg)
-    return jm, jsv, build_model(tcfg), params_from_numpy(_np_tree(jsv), "cpu")
+    if precision not in _PARAMS:
+        jsv = jto_serving(jm.init(jax.random.PRNGKey(0)), jcfg)
+        _PARAMS[precision] = (jsv, params_from_numpy(_np_tree(jsv), "cpu"))
+    jsv, tp = _PARAMS[precision]
+    return jm, jsv, build_model(tcfg), tp
 
 
 _RUNS = {}
@@ -87,6 +96,9 @@ def _run(precision, kv_bits):
     if key in _RUNS:
         return _RUNS[key]
     jm, jsv, tm, tp = _pair(precision, kv_bits)
+    # jitted: an eager scan compiles its body on every call
+    prefill_chunk, decode_step = (reference_jit(jm.prefill_chunk),
+                                  reference_jit(jm.decode_step))
     toks = np.random.default_rng(0).integers(
         0, tm.cfg.vocab, (2, PROMPT)).astype(np.int32)
     cj = jtfm.make_cache(jm.cfg, 2, S_MAX)
@@ -94,7 +106,7 @@ def _run(precision, kv_bits):
     chunks = []
     for start in range(0, PROMPT, CHUNK):
         piece = toks[:, start:start + CHUNK]
-        lj, cj = jm.prefill_chunk(jsv, jnp.asarray(piece), cj, start)
+        lj, cj = prefill_chunk(jsv, jnp.asarray(piece), cj, start)
         lt, ct = tm.prefill_chunk(tp, torch.from_numpy(piece).long(), ct,
                                   start)
         chunks.append((lt.numpy(), np.asarray(lj)))
@@ -103,7 +115,7 @@ def _run(precision, kv_bits):
     decode = []
     for i in range(STEPS):
         step = out_j[-1][:, None].astype(np.int32)
-        lj, cj = jm.decode_step(jsv, jnp.asarray(step), cj, PROMPT + i)
+        lj, cj = decode_step(jsv, jnp.asarray(step), cj, PROMPT + i)
         lt, ct = tm.decode_step(tp, torch.from_numpy(step).long(), ct,
                                 PROMPT + i)
         decode.append((lt.numpy(), np.asarray(lj)))

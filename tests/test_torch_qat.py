@@ -31,6 +31,7 @@ import numpy as np
 import pytest
 
 torch = pytest.importorskip("torch")
+from torch_testing import one_thread, reference_jit  # noqa: E402,F401
 import jax  # noqa: E402
 import jax.numpy as jnp  # noqa: E402
 
@@ -155,7 +156,7 @@ def _reference(jm, jp, batch):
 
     jlayers.act_fake_quant = quantizer
     try:
-        loss, grads = jax.jit(jax.value_and_grad(jm.loss))(jp, batch)
+        loss, grads = reference_jit(jax.value_and_grad(jm.loss))(jp, batch)
         jax.block_until_ready(grads)
         jax.effects_barrier()
     finally:
@@ -267,7 +268,7 @@ def test_fused_paged_decode_fake_quant_wo_matches_reference():
     jcfg = jreduce(jget_config("smollm-135m", precision=precision))
     tcfg = reduce_for_smoke(get_config("smollm-135m", precision=precision))
     jm, tm = jbuild(jcfg), build_model(tcfg)
-    jp = jax.jit(jm.init)(jax.random.PRNGKey(0))
+    jp = reference_jit(jm.init)(jax.random.PRNGKey(0))
     tp = params_from_numpy(jax.tree_util.tree_map(np.array, jp), "cpu")
     jpool = jtfm.make_pool(jcfg, 8, bs, kv_bits)
     tpool = tfm.make_pool(tcfg, 8, bs, kv_bits, "cpu")

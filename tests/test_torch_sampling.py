@@ -23,6 +23,7 @@ import numpy as np
 import pytest
 
 torch = pytest.importorskip("torch")
+from torch_testing import one_thread, reference_jit  # noqa: E402,F401
 import jax  # noqa: E402
 import jax.numpy as jnp  # noqa: E402
 
@@ -159,9 +160,9 @@ def _pair(precision, kv_bits):
             dtype="float32")
         jm = jbuild(jcfg)
         if precision == "fp32":
-            jp = jax.jit(jm.init)(jax.random.PRNGKey(0))
+            jp = reference_jit(jm.init)(jax.random.PRNGKey(0))
         else:
-            jp = jax.jit(lambda k: jto_serving(jm.init(k), jcfg))(
+            jp = reference_jit(lambda k: jto_serving(jm.init(k), jcfg))(
                 jax.random.PRNGKey(0))
         tp = params_from_numpy(jax.tree_util.tree_map(np.array, jp), "cpu")
         _MODELS[key] = (jm, jp, build_model(tcfg), tp)

@@ -8,6 +8,7 @@ import numpy as np
 import pytest
 
 torch = pytest.importorskip("torch")
+from torch_testing import one_thread  # noqa: E402,F401
 import jax  # noqa: E402
 
 from repro.configs import get_config as jget_config  # noqa: E402

@@ -16,6 +16,7 @@ import pytest
 from hypothesis import given, settings, strategies as st
 
 torch = pytest.importorskip("torch")
+from torch_testing import one_thread  # noqa: E402,F401
 import jax  # noqa: E402
 from jax.sharding import Mesh as JMesh  # noqa: E402
 

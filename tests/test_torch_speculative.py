@@ -24,6 +24,7 @@ import numpy as np
 import pytest
 
 torch = pytest.importorskip("torch")
+from torch_testing import one_thread, reference_jit  # noqa: E402,F401
 import jax  # noqa: E402
 import jax.numpy as jnp  # noqa: E402
 
@@ -74,7 +75,7 @@ def stack():
     tcfg = dataclasses.replace(treduce(get_config(
         "smollm-135m", precision="fp32", kv_bits=0)), dtype="float32")
     jm = jbuild(jcfg)
-    jp = jax.jit(jm.init)(jax.random.PRNGKey(0))
+    jp = reference_jit(jm.init)(jax.random.PRNGKey(0))
     tp = params_from_numpy(jax.tree_util.tree_map(np.array, jp), "cpu")
     return jm, jp, build_model(tcfg), tp, {}
 

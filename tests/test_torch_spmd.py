@@ -47,6 +47,8 @@ import numpy as np
 import pytest
 
 torch = pytest.importorskip("torch")
+from torch_testing import (  # noqa: E402,F401
+    one_thread, ranks_one_thread, reference_jit)
 import jax  # noqa: E402
 
 from repro.configs import get_config as jget_config  # noqa: E402
@@ -166,9 +168,9 @@ def _ref_sp_stream(jcfg, params, prompt):
     import jax.numpy as jnp
     jp = jax.tree_util.tree_map(jnp.asarray, params)
     model = jbuild(jcfg)
-    logits, cache = jax.jit(lambda p, b: model.prefill(p, b, SP_S_MAX))(
+    logits, cache = reference_jit(lambda p, b: model.prefill(p, b, SP_S_MAX))(
         jp, {"tokens": jnp.asarray(prompt, jnp.int32)})
-    step = jax.jit(model.decode_step)
+    step = reference_jit(model.decode_step)
     tok = jnp.argmax(logits[:, -1], -1)
     stream, steps = [int(tok[0])], []
     for i in range(SP_NEW):
@@ -249,12 +251,13 @@ def _run_spmd(tmp):
     payload = {}
     jcfg = jreduce(jget_config("smollm-135m", precision="2xT"))
     tcfg = reduce_for_smoke(get_config("smollm-135m", precision="2xT"))
-    jp = jax.jit(lambda k: jto_serving(jbuild(jcfg).init(k), jcfg, tp=1))(
+    jp = reference_jit(
+        lambda k: jto_serving(jbuild(jcfg).init(k), jcfg, tp=1))(
         jax.random.PRNGKey(0))
     payload["smollm"] = {"cfg": tcfg, "params": params_from_numpy(
         jax.tree_util.tree_map(np.asarray, jp), "cpu")}
     jtp = JModelConfig(**TP_GOLDEN)
-    jpt = jax.jit(lambda k: jto_serving(jbuild(jtp).init(k), jtp, tp=2))(
+    jpt = reference_jit(lambda k: jto_serving(jbuild(jtp).init(k), jtp, tp=2))(
         jax.random.PRNGKey(1))
     payload["tp_golden"] = {"cfg": ModelConfig(**TP_GOLDEN),
                             "params": params_from_numpy(
@@ -282,7 +285,7 @@ def _run_spmd(tmp):
     for name, arch, precision, cut, seed in MAMBA_TP:
         jcfg_m = dataclasses.replace(
             jreduce(jget_config(arch, precision=precision)), **cut)
-        jmp = jax.jit(lambda k, c=jcfg_m: jto_serving(
+        jmp = reference_jit(lambda k, c=jcfg_m: jto_serving(
             jbuild(c).init(k), c, tp=2))(jax.random.PRNGKey(seed))
         jmamba[name] = (jcfg_m, jmp)
         payload[name] = {"cfg": dataclasses.replace(
@@ -293,7 +296,7 @@ def _run_spmd(tmp):
     sp_ref, payload["sp"] = _sp_payload()
 
     # the ranks run while this process serves the one-device side
-    with concurrent.futures.ThreadPoolExecutor(1) as pool:
+    with ranks_one_thread(), concurrent.futures.ThreadPoolExecutor(1) as pool:
         fut = pool.submit(tmesh.spawn, ranks.run_checks,
                           tmesh.Mesh({"data": 2, "model": 2}), payload,
                           device="cpu")
@@ -594,7 +597,8 @@ def test_launcher_mesh_cpu(capfd, tmp_path, monkeypatch):
     cli = ["--reduced", "--device", "cpu", "--requests", "3", "--slots",
            "2", "--prompt-len", "10", "--gen", "4"]
     base = tserve.main(cli)
-    got = tserve.main(cli + ["--mesh", "2,1"])
+    with ranks_one_thread():
+        got = tserve.main(cli + ["--mesh", "2,1"])
     out = capfd.readouterr().out
     assert "mesh: 2 ranks (data=2 model=1) over gloo on the CPU" in out
     assert "SPMD serving on mesh data=2 model=1: decode batch sharded " \

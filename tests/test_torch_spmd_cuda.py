@@ -18,6 +18,7 @@ import sys
 import pytest
 
 torch = pytest.importorskip("torch")
+from torch_testing import one_thread  # noqa: E402,F401
 
 from repro_torch.kernels import _build  # noqa: E402
 from repro_torch.launch.mesh import parse_mesh, spawn  # noqa: E402

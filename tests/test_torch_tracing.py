@@ -22,6 +22,7 @@ import numpy as np
 import pytest
 
 torch = pytest.importorskip("torch")
+from torch_testing import one_thread, reference_jit  # noqa: E402,F401
 import jax  # noqa: E402
 
 from repro.configs import get_config as jget_config  # noqa: E402
@@ -309,7 +310,7 @@ def _model(paged: bool):
     if "params" not in _MODELS:
         jcfg = _jcfg(False)
         jm = jbuild(jcfg)
-        jp = jax.jit(lambda k: jto_serving(jm.init(k), jcfg))(
+        jp = reference_jit(lambda k: jto_serving(jm.init(k), jcfg))(
             jax.random.PRNGKey(0))
         _MODELS["jparams"] = jp
         _MODELS["params"] = params_from_numpy(

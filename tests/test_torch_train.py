@@ -19,6 +19,7 @@ import numpy as np
 import pytest
 
 torch = pytest.importorskip("torch")
+from torch_testing import one_thread, reference_jit  # noqa: E402,F401
 import jax  # noqa: E402
 import jax.numpy as jnp  # noqa: E402
 
@@ -45,16 +46,6 @@ METRIC_RTOL = 1e-5
 PARAM_ATOL_PER_STEP = 0.1 * LR
 
 
-@pytest.fixture(scope="module", autouse=True)
-def _one_thread():
-    """The train steps here are many small ops: one intra-op thread keeps
-    them from contending with the other test workers' threads."""
-    n = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(n)
-
-
 # ---------------------------------------------------------------------------
 # the train step
 # ---------------------------------------------------------------------------
@@ -63,7 +54,7 @@ def smollm():
     jcfg = jreduce(jget_config("smollm-135m", precision="fp32"))
     tcfg = reduce_for_smoke(get_config("smollm-135m", precision="fp32"))
     jm = jbuild(jcfg)
-    jp = jax.jit(jm.init)(jax.random.PRNGKey(0))
+    jp = reference_jit(jm.init)(jax.random.PRNGKey(0))
     return jm, jp, build_model(tcfg)
 
 
@@ -80,7 +71,7 @@ def _batches(vocab, n, b=4, s=16):
 def test_train_step_matches_reference(smollm, n_steps, accum, bits):
     jm, jp, tm = smollm
     jo, to = jmake_optimizer("adamw", lr=LR), make_optimizer("adamw", lr=LR)
-    jstep = jax.jit(jmake_train_step(jm, jo, grad_compress_bits=bits,
+    jstep = reference_jit(jmake_train_step(jm, jo, grad_compress_bits=bits,
                                      accum_steps=accum))
     tstep = make_train_step(tm, to, grad_compress_bits=bits,
                             accum_steps=accum)

@@ -24,6 +24,7 @@ from pathlib import Path
 import pytest
 
 torch = pytest.importorskip("torch")
+from torch_testing import one_thread  # noqa: E402,F401
 
 pytestmark = pytest.mark.cuda
 

@@ -49,7 +49,6 @@ rows' objective and of the aux term (averaged over the data ranks, as a
 train step's bucket averages them) within 1e-5 of each leaf's largest
 magnitude."""
 import concurrent.futures
-import contextlib
 import dataclasses
 import multiprocessing
 import os
@@ -59,6 +58,8 @@ import numpy as np
 import pytest
 
 torch = pytest.importorskip("torch")
+from torch_testing import (  # noqa: E402,F401
+    one_thread, ranks_one_thread, reference_jit)
 import jax  # noqa: E402
 import jax.numpy as jnp  # noqa: E402
 from jax.sharding import Mesh as JMesh  # noqa: E402
@@ -179,8 +180,8 @@ def _reference(jcfg, job):
     the params' leaves after step ``job["held"]``."""
     jm = jbuild(jcfg)
     jo = jmake_optimizer(job["opt"], lr=LR)
-    step = jax.jit(jmake_train_step(jm, jo, grad_compress_bits=job["bits"],
-                                    accum_steps=job["accum"]))
+    step = reference_jit(jmake_train_step(
+        jm, jo, grad_compress_bits=job["bits"], accum_steps=job["accum"]))
     p = jax.tree_util.tree_map(jnp.asarray, params_to_numpy(ranks.draw(job)))
     s, metrics = jo.init(p), []
     for i, b in enumerate(job["batches"]):
@@ -189,24 +190,6 @@ def _reference(jcfg, job):
         if i + 1 == job["held"]:
             held = [np.asarray(x) for x in jax.tree_util.tree_leaves(p)]
     return metrics, held
-
-
-@contextlib.contextmanager
-def _fast_compile():
-    """XLA without most of its optimization passes while the reference's
-    steps compile (compiling is most of this side's time; the functions
-    are the same), restored after."""
-    before = jax.config.read("jax_disable_most_optimizations")
-    jax.config.update("jax_disable_most_optimizations", True)
-    try:
-        yield
-    finally:
-        jax.config.update("jax_disable_most_optimizations", before)
-
-
-def _reference_fast(jcfg, job):
-    with _fast_compile():
-        return _reference(jcfg, job)
 
 
 def _optim_payload():
@@ -224,7 +207,7 @@ def _optim_reference(optim):
     out = {}
     for name, kw in optim["optimizers"].items():
         jo = jmake_optimizer(name, **kw)
-        update = jax.jit(jo.update)
+        update = reference_jit(jo.update)
         p = jax.tree_util.tree_map(jnp.asarray, optim["params"])
         s, norms = jo.init(p), []
         for g in optim["grads"]:
@@ -267,8 +250,8 @@ def _sequential(jcfg, blocks, x, cot):
         y, vjp = jax.vjp(run, bl, h)
         return y, vjp(c)
     bl = jax.tree_util.tree_map(jnp.asarray, blocks)
-    y, (gb, gx) = jax.jit(value_and_grads)(bl, jnp.asarray(x),
-                                           jnp.asarray(cot))
+    y, (gb, gx) = reference_jit(value_and_grads)(bl, jnp.asarray(x),
+                                                 jnp.asarray(cot))
     return np.asarray(y), [np.asarray(g) for g in
                            jax.tree_util.tree_leaves(gb)], np.asarray(gx)
 
@@ -320,8 +303,8 @@ def _moe_ep_oracle(jcfg, job):
         g_aux = vjp((jnp.zeros_like(out), jnp.ones_like(aux)))
         return out, aux, g_out, g_aux
     p = jax.tree_util.tree_map(jnp.asarray, job["params"])
-    out, aux, g_out, g_aux = jax.jit(both)(p, jnp.asarray(job["x"]),
-                                           jnp.asarray(job["cot"]))
+    out, aux, g_out, g_aux = reference_jit(both)(
+        p, jnp.asarray(job["x"]), jnp.asarray(job["cot"]))
     grads = {}
     for what, (gp, gx) in (("out", g_out), ("aux", g_aux)):
         grads[what] = {k: np.asarray(v) for k, v in gp.items()}
@@ -362,22 +345,23 @@ def _run(tmp):
     spawn_ctx = multiprocessing.get_context("spawn")
     with concurrent.futures.ThreadPoolExecutor(1) as pool, \
             concurrent.futures.ProcessPoolExecutor(2, spawn_ctx) as workers:
-        fut = pool.submit(tmesh.spawn, ranks.run_checks,
-                          tmesh.Mesh({"data": 2, "model": 2}), payload,
-                          device="cpu")
         # the reference's steps in three processes: compiling them is most
-        # of this side's time
-        far = {n: workers.submit(_reference_fast, jcfgs[n], jobs[n])
+        # of this side's time (its two workers start here, outside the
+        # ranks' one-thread environment)
+        far = {n: workers.submit(_reference, jcfgs[n], jobs[n])
                for n in names[1::3] + names[2::3]}
-        with _fast_compile():
+        with ranks_one_thread():
+            fut = pool.submit(tmesh.spawn, ranks.run_checks,
+                              tmesh.Mesh({"data": 2, "model": 2}), payload,
+                              device="cpu")
             ref = {n: _reference(jcfgs[n], jobs[n]) for n in names[::3]}
             seq = _sequential(jpipe, pipe["blocks"], pipe["x"], pipe["cot"])
             moe_ref = _moe_ep_oracle(jmoe, moe_ep)
             optim_ref = _optim_reference(optim)
-        one = tlaunch.train(tlaunch.parse_args(
-            ELASTIC + ["--ckpt-dir", str(tmp / "one")]))
-        ref.update({n: f.result() for n, f in far.items()})
-        results = fut.result()
+            one = tlaunch.train(tlaunch.parse_args(
+                ELASTIC + ["--ckpt-dir", str(tmp / "one")]))
+            ref.update({n: f.result() for n, f in far.items()})
+            results = fut.result()
     return {"ref": ref, "jobs": jobs, "ranks": results, "seq": seq,
             "moe_ref": moe_ref, "optim": optim, "optim_ref": optim_ref,
             "one": one, "tmp": tmp}

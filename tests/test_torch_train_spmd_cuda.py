@@ -20,6 +20,7 @@ import numpy as np
 import pytest
 
 torch = pytest.importorskip("torch")
+from torch_testing import one_thread  # noqa: E402,F401
 
 from repro_torch.configs import get_config  # noqa: E402
 from repro_torch.launch.mesh import Mesh, spawn  # noqa: E402

@@ -26,6 +26,7 @@ import numpy as np
 import pytest
 
 torch = pytest.importorskip("torch")
+from torch_testing import one_thread  # noqa: E402,F401
 import jax  # noqa: E402,F401  (the reference's modules below import it)
 
 from repro.configs import get_config as jget_config  # noqa: E402

@@ -13,6 +13,7 @@ from repro_torch.launch.mesh import make_mesh
 
 
 def run_checks(world, payload):
+    torch.set_num_threads(1)
     m12 = make_mesh(1, 2)
     m21 = make_mesh(2, 1)
     out = {"rank": world.rank}

@@ -209,6 +209,7 @@ def run_checks(world, payload):
     """Every rank of a 2x2 world: one-rank meshes, a 2,1 mesh on ranks 0-1
     beside a 1,2 mesh on ranks 2-3, the 2,2 world, a 1,4 and a 4,1
     mesh."""
+    torch.set_num_threads(1)
     r = world.rank
     # every make_mesh over several ranks is collective: all ranks call each
     one = make_mesh(1, 1, ranks=[r])

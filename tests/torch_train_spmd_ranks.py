@@ -240,6 +240,7 @@ def run_checks(world, payload):
     1,2 as two pairs of ranks side by side), the checkpoint restores (an
     FSDP state's on a one-rank mesh too), the elastic run, the agreed
     preemption and the pipeline."""
+    torch.set_num_threads(1)
     torch.manual_seed(0)
     r = world.rank
 
