@@ -24,9 +24,13 @@ Phases (each prints its own lines; any failed check exits non-zero):
      (the serving step and a 2048-position cache, each with its plan),
      the paged attention at kv 8/4/16 (kv8 / kv16; kv8 at a 2048-position
      context; a sweep of cluster sizes and span limits over context
-     lengths), the fused decode at kv8 (also at 2048 positions), the three activation quantizers (f32 and bf16
-     rows, ``torch.equal``) and B7c's row form (scale and codes in one
-     launch, timed beside the former abs/amax/clamp_min/div chain) and the
+     lengths), the fused decode at kv8 (also at 2048 positions), the
+     three activation quantizers (f32 and bf16 rows, ``torch.equal``;
+     B7a/B7b also at ResNet-34's stem rows at batch 32, past the L2),
+     B7b's tensor form (scale and codes in one launch, timed beside
+     ``core.act_quant_codes_signed`` and its former five-operation chain)
+     and B7c's row form (scale and codes in one launch, timed beside the
+     former abs/amax/clamp_min/div chain) and the
      full-sequence flash attention (prefill,
      forward, window + softcap; bf16 and f32 (TF32 tensor cores, three
      products), each timed beside SDPA; with ``probs_bf16``, the reference's
@@ -74,7 +78,9 @@ Phases (each prints its own lines; any failed check exits non-zero):
      of the flag's own effect that plain paths rounding only P or only V
      miss; 2xT reported);
   4i. the integer-code quantizers of ``core`` (``act_quant`` and
-     ``act_quant_signed`` launches) against their plain versions;
+     ``act_quant_signed`` launches) against their plain versions, the
+     signed scale against the host's float64 quotient rounded to bf16, and
+     one device operation a signed call (``torch.profiler``);
   4j. sampling and the flight recorder on the 2xT paths: phase 4's
      requests with odd rids sampled (temperature 0.8, top-k 50, seed 11),
      greedy rows against phase 4's streams, four sampled requests each
@@ -1079,13 +1085,19 @@ def _fused_decode_record(gen, device):
 
 # the activation quantizers' callers: one layer's seven decode projections
 # quantize their (4, K) bf16 rows (K = 576 six times, 1536 once); ResNet-34
-# stage-1 im2col rows; post-ReLU CNN rows (ResNet-34 stage 1, 64 channels)
+# stage-1 im2col rows; post-ReLU CNN rows (ResNet-34 stage 1, 64 channels;
+# its stem at batch 32, 112x112x64, whose 77 MB in bf16 exceed the L2)
 QUANT_DECODE_ROWS = [(4, k) for _, k in SMOLLM_DECODE_PROJ]
+QUANT_HBM_ROWS = (32 * 112 * 112, 64)
 QUANT_SHAPES = {
     "act_quant_signed_grouped": [(4, 576), (4, 1536), (8 * 56 * 56, 576)],
-    "act_quant": [(8 * 56 * 56, 64), (4, 576)],
-    "act_quant_signed": [(8 * 56 * 56, 64), (4, 576)],
+    "act_quant": [(8 * 56 * 56, 64), (4, 576), QUANT_HBM_ROWS],
+    "act_quant_signed": [(8 * 56 * 56, 64), (4, 576), QUANT_HBM_ROWS],
 }
+# B7b's tensor form (the scale from all of x, then the codes: the card's
+# path of core.act_quant_codes_signed), timed at an LM row block and the
+# record's CNN rows
+QUANT_TENSOR_TIMED = [(4, 576), (8 * 56 * 56, 64)]
 
 
 def _quant_call(name, x, bits):
@@ -1100,7 +1112,8 @@ def _quant_call(name, x, bits):
         return (lambda: aq.act_quant(x, bits=bits, compute_dtype=cd),
                 lambda: ref.act_quant_ref(x, bits, compute_dtype=cd))
     if name == "act_quant_signed":
-        s = (x.abs().amax().clamp_min(1e-8) / qmax).reshape(1)
+        amax = x.abs().amax().clamp_min(1e-8)
+        s = (amax / amax.new_full((), qmax)).reshape(1)
         return (lambda: aq.act_quant_signed(x, s, bits=bits, compute_dtype=cd),
                 lambda: ref.act_quant_signed_ref(x, bits, s, compute_dtype=cd))
     s = x.abs().amax(dim=1, keepdim=True).clamp_min(1e-8) / qmax
@@ -1118,12 +1131,65 @@ def _quant_rows(gen, device, name, m, f, dtype):
     return x.to(device, dtype)
 
 
+def _quant_tensor_check(x, bits) -> None:
+    """B7b's tensor form on x against its plain version: codes and scale
+    ``torch.equal``, one ``act_quant_signed`` launch."""
+    import torch
+    from repro_torch.kernels import _build, ref
+    aq = importlib.import_module("repro_torch.kernels.act_quant")
+    before = _build.LAUNCHES["act_quant_signed"]
+    q, s = aq.act_quant_signed_tensor(x, bits=bits)
+    check(_build.LAUNCHES["act_quant_signed"] == before + 1,
+          "act_quant_signed_tensor: not one launch")
+    q_ref, s_ref = ref.act_quant_signed_tensor_ref(x, bits)
+    torch.cuda.synchronize()
+    check(torch.equal(s, s_ref) and torch.equal(q, q_ref),
+          f"act_quant_signed_tensor {tuple(x.shape)} {x.dtype} bits={bits}: "
+          f"scale {s.item()!r} against {s_ref.item()!r}, "
+          f"{int((q != q_ref).sum())} codes differ from the plain version")
+
+
+def _quant_tensor_times(gen, device) -> None:
+    """B7b's tensor form timed in bf16 at 2 bits beside its plain version,
+    the whole ``core.act_quant_codes_signed`` call and the former chain of
+    that call (abs, amax, clamp_min, ``/ qmax`` by a Python number, then
+    the given-scale kernel).  Returns {shape: (kernel ms, plain ms, bound
+    ms, bound_by)}."""
+    from repro_torch.core import act_quant_codes_signed
+    from repro_torch.kernels import ref
+    aq = importlib.import_module("repro_torch.kernels.act_quant")
+
+    def chain(x):
+        s = x.abs().amax().clamp_min(1e-8) / 1      # / qmax, 1 at 2 bits
+        return aq.act_quant_signed(x, s.reshape(1), bits=2, compute_dtype=x.dtype), s
+
+    import torch
+    out = {}
+    for (m, f) in QUANT_TENSOR_TIMED:
+        x = _quant_rows(gen, device, "act_quant_signed", m, f, torch.bfloat16)
+        tk = time_ms(lambda: aq.act_quant_signed_tensor(x, bits=2))[0]
+        tp = time_ms(lambda: ref.act_quant_signed_tensor_ref(x, 2))[0]
+        tc = time_ms(lambda: act_quant_codes_signed(x, 2))[0]
+        tf = time_ms(lambda: chain(x))[0]
+        bt, by = bound(3 * m * f + 4, 3 * m * f, PEAK_F32)
+        print(f"  tensor form ({m}, {f}) bf16: kernel {tk:.5f} ms, "
+              f"core.act_quant_codes_signed {tc:.5f} ms, former chain "
+              f"(abs, amax, clamp_min, div, kernel) {tf:.5f} ms, plain "
+              f"{tp:.5f} ms, bound {bt:.6f} ms ({by}), bound / kernel "
+              f"{bt / tk:.2f}")
+        out[(m, f)] = (tk, tp, bt, by)
+    return out
+
+
 def _quant_records(gen, device):
     """B7a/b/c against their plain versions, ``torch.equal``, at their
     callers' shapes in f32 and bf16 (compute in the rows' dtype) and at 2, 4
-    and 8 bits; timed in bf16 at 2 bits: B7a/B7b at the post-ReLU CNN shape
-    (the record) and LM rows, B7c's scale-taking form at its shapes (its
-    record comes from its row form, :func:`_quant_rows_record`)."""
+    and 8 bits, B7b also in its tensor form; timed in bf16 at 2 bits:
+    B7a/B7b at the post-ReLU CNN shape, LM rows and the stem rows past the
+    L2, B7b's tensor form at QUANT_TENSOR_TIMED (B7b's record: the form
+    the port runs, at the CNN shape; B7a's: the CNN shape), B7c's
+    scale-taking form at its shapes (its record comes from its row form,
+    :func:`_quant_rows_record`)."""
     import torch
     records = []
     for name, shapes in QUANT_SHAPES.items():
@@ -1138,8 +1204,13 @@ def _quant_records(gen, device):
                           f"{name} ({m}, {f}) {dtype} bits={bits}: not equal "
                           f"to the plain version ({int((got != want).sum())} "
                           "codes differ)")
+                    if name == "act_quant_signed":
+                        _quant_tensor_check(x, bits)
+                del x
         print(f"{name}: torch.equal to the plain version at {shapes} x "
-              "(f32, bf16) x bits (2, 4, 8)")
+              "(f32, bf16) x bits (2, 4, 8)"
+              + (", and its tensor form (codes and scale, one launch)"
+                 if name == "act_quant_signed" else ""))
 
         def times(m, f):
             x = _quant_rows(gen, device, name, m, f, torch.bfloat16)
@@ -1154,21 +1225,35 @@ def _quant_records(gen, device):
             rows, label = QUANT_DECODE_ROWS, "one layer's 7 decode projections, bf16"
         else:
             rows, label = shapes[:1], f"post-ReLU CNN rows {shapes[0]}, bf16"
+            if name == "act_quant_signed":
+                label = "given scale, " + label
         t_k = t_p = b_ms = 0.0
         for (m, f) in rows:
             tk, tk_eager, tp, bt, by = times(m, f)
             t_k, t_p, b_ms = t_k + tk, t_p + tp, b_ms + bt
         print(f"  {label}: kernel {t_k:.5f} ms (last eager call "
               f"{tk_eager:.4f} ms), plain {t_p:.5f} ms, bound {b_ms:.6f} ms "
-              f"({by}); no single PyTorch call computes it")
+              f"({by}), bound / kernel {b_ms / t_k:.2f}; no single PyTorch "
+              "call computes it")
         for (m, f) in shapes:
             if (m, f) in rows:
                 continue
             tk, tk_eager, tp, bt, by = times(m, f)
             print(f"  ({m}, {f}) bf16: kernel {tk:.5f} ms, plain {tp:.5f} ms, "
-                  f"bound {bt:.6f} ms ({by}), {(3 * m * f) / tk / 1e6:.1f} GB/s")
+                  f"bound {bt:.6f} ms ({by}), bound / kernel {bt / tk:.2f}, "
+                  f"{(3 * m * f) / tk / 1e6:.1f} GB/s")
         if name == "act_quant_signed_grouped":
             records.append(_quant_rows_record(gen, device))
+        elif name == "act_quant_signed":
+            # the record is the tensor form: the one the port runs (core.
+            # act_quant_codes_signed), whose launches phase 4i counts
+            (m, f) = shapes[0]
+            tk, tp, bt, by = _quant_tensor_times(gen, device)[(m, f)]
+            records.append({"name": name, "ms": tk, "plain_ms": tp,
+                            "bound_ms": bt, "bound_by": by,
+                            "library_ms": None, "max_abs_err": 0.0,
+                            "shape": f"tensor form, post-ReLU CNN rows "
+                                     f"{(m, f)}, bf16"})
         else:
             records.append({"name": name, "ms": t_k, "plain_ms": t_p,
                             "bound_ms": b_ms, "bound_by": by,
@@ -1874,8 +1959,12 @@ def phase_core_quant(device, card):
     """4i: the port's integer-code quantizers, ``core.act_quant_codes_unsigned``
     on post-ReLU CNN activations (batch 8, ResNet-34 stage 1: 56x56x64) and
     ``core.act_quant_codes_signed`` on LM rows (4 tokens' embeddings of the
-    served model, bf16), each against its plain version."""
+    served model, bf16), each against its plain version; the signed scale
+    also against the true quotient max(amax, 1e-8) / qmax computed in
+    float64 on the host and rounded to bf16, and the signed call's device
+    operations under ``torch.profiler`` (one launch)."""
     import torch
+    from torch.profiler import ProfilerActivity, profile
     from repro_torch.core import act_quant_codes_signed, act_quant_codes_unsigned
     from repro_torch.kernels import engine, ref
     print("== 4i. core activation quantizers (act_quant_codes_unsigned / "
@@ -1897,14 +1986,36 @@ def phase_core_quant(device, card):
     check(launches["act_quant"] == 1 and launches["act_quant_signed"] == 1
           and sum(launches.values()) == 2, f"core quantizers: {launches}")
     want_u = ref.act_quant_ref(relu.reshape(-1, 64), 2).reshape(relu.shape)
-    want_s = ref.act_quant_signed_ref(rows, 8, scale.to(torch.bfloat16),
-                                      compute_dtype=torch.bfloat16)
-    check(torch.equal(codes_u, want_u) and torch.equal(codes_s, want_s),
+    want_s, want_scale = ref.act_quant_signed_tensor_ref(rows, 8)
+    check(torch.equal(codes_u, want_u) and torch.equal(codes_s, want_s)
+          and torch.equal(scale, want_scale),
           "core quantizers differ from the plain versions")
+    amax = max(rows.cpu().double().abs().max().item(), 1e-8)
+    host = torch.tensor(amax / 127, dtype=torch.float64).to(torch.bfloat16)
+    check(scale.item() == host.item(), f"act_quant_codes_signed scale "
+          f"{scale.item()!r}, the true quotient {host.item()!r}")
+    # many calls between idle margins: the profiler drops the device
+    # operations of a window of a few microseconds
+    calls = 50
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        time.sleep(0.01)
+        for _ in range(calls):
+            act_quant_codes_signed(rows, 8)
+        torch.cuda.synchronize()
+        time.sleep(0.01)
+    dev, _, by_name = _profile_device(prof)
+    print(f"act_quant_codes_signed: {len(dev)} device operation(s) over "
+          f"{calls} calls (torch.profiler): {sorted(by_name)}")
+    check(len(by_name) == 1 and "act_quant_tensor_kernel" in next(iter(by_name))
+          and calls // 2 <= len(dev) <= calls,
+          f"act_quant_codes_signed: {len(dev)} device operations of "
+          f"{sorted(by_name)} over {calls} calls, not one launch a call")
     print(f"unsigned 2-bit codes of {tuple(relu.shape)} f32 (histogram "
           f"{torch.bincount(codes_u.flatten().long(), minlength=4).tolist()}) "
           f"and signed 8-bit codes of {tuple(rows.shape)} bf16 (scale "
-          f"{scale.item():.4e}): torch.equal to the plain versions")
+          f"{scale.item():.6e}, equal to the host's float64 quotient rounded "
+          "to bf16): torch.equal to the plain versions")
     return launches
 
 

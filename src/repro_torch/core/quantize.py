@@ -28,6 +28,35 @@ from .precision import (A_FLOAT, A_SIGNED, A_UNSIGNED, PrecisionConfig,
                         W_BINARY, W_FLOAT, W_INT, W_TERNARY)
 
 
+# true_div's divisors on the card, one 0-dim tensor a (device, dtype, n)
+_DIVISORS: dict[tuple, torch.Tensor] = {}
+
+
+def true_div(t: torch.Tensor, n) -> torch.Tensor:
+    """``t / n`` for a Python number ``n``, a true quotient on every device.
+    PyTorch's CUDA division by a Python number multiplies by its rounded
+    reciprocal, which differs from the quotient in one ulp for some 5% (n =
+    127) to 55% (n = 7) of values; the CPU divides.  ``n`` is a tensor on
+    t's device in t's dtype, so both devices divide.  On the card it is
+    made once (outside a CUDA-graph capture; a capture that finds none
+    fills its own) and kept, so the quotient is one launch, as ``t / n``
+    was.  Every quantizer scale ``amax / qmax`` of the port's PyTorch code
+    goes through here; the kernels divide with ``__fdiv_rn``."""
+    if not t.is_cuda:
+        return t / t.new_full((), n)
+    key = (t.device, t.dtype, n)
+    d = _DIVISORS.get(key)
+    if d is None:
+        if torch.cuda.is_current_stream_capturing():
+            return t / t.new_full((), n)
+        with torch.inference_mode(False):     # usable under autograd too
+            d = t.new_full((), n)
+        # filled before any stream reads it
+        torch.cuda.current_stream(t.device).synchronize()
+        _DIVISORS[key] = d
+    return t / d
+
+
 def _rows(x: torch.Tensor) -> torch.Tensor:
     """x as contiguous (rows, last dim) for the elementwise kernels."""
     return x.reshape(-1, x.shape[-1] if x.dim() else 1).contiguous()
@@ -48,13 +77,12 @@ def act_quant_codes_signed(x: torch.Tensor, bits: int
     """Symmetric signed k-bit codes with a per-tensor scale: returns (codes
     in [-(2^(k-1)-1), 2^(k-1)-1] as int8 of x's shape, scale as a float32
     scalar) with dequant = codes * scale.  The scale is max|x| / qmax
-    (floored at 1e-8) in x's dtype, which the codes are computed in."""
-    from repro_torch.kernels.act_quant import act_quant_signed
-    qmax = (1 << (bits - 1)) - 1
-    scale = x.abs().amax().clamp_min(1e-8) / qmax
-    codes = act_quant_signed(_rows(x), scale, bits=bits,
-                             compute_dtype=x.dtype)
-    return codes.reshape(x.shape), scale.to(torch.float32)
+    (floored at 1e-8, a true quotient) in x's dtype, which the codes are
+    computed in; on the card scale and codes come from one launch
+    (``act_quant_signed_tensor``)."""
+    from repro_torch.kernels.act_quant import act_quant_signed_tensor
+    codes, scale = act_quant_signed_tensor(_rows(x), bits=bits)
+    return codes.reshape(x.shape), scale
 
 
 def _clip(x: torch.Tensor, lo: float, hi: float) -> torch.Tensor:
@@ -96,7 +124,7 @@ def act_fake_quant(x: torch.Tensor, cfg: PrecisionConfig,
         amax = x.abs().amax().detach()
         if reduce is not None:
             amax = reduce.all_reduce_max(amax)
-        scale = amax.clamp_min(1e-8) / qmax
+        scale = true_div(amax.clamp_min(1e-8), qmax)
         return _round_ste(_clip(x / scale, -qmax, qmax)) * scale
     raise ValueError(cfg.a_mode)
 
@@ -124,7 +152,7 @@ def int_quant(w: torch.Tensor, bits: int, axis=0) -> tuple[torch.Tensor, torch.T
     """Symmetric k-bit signed weight quantization with per-channel scale."""
     qmax = (1 << (bits - 1)) - 1
     absmax = w.abs().amax(dim=axis, keepdim=True).clamp_min(1e-8)
-    scale = absmax / qmax
+    scale = true_div(absmax, qmax)
     codes = torch.clamp(torch.round(w / scale), -qmax, qmax).to(torch.int8)
     return codes, scale.to(torch.float32)
 
@@ -140,7 +168,7 @@ def _split_quant(w: torch.Tensor, cfg: PrecisionConfig, axis: int, reduce
     if cfg.w_mode == W_INT:
         qmax = (1 << (cfg.w_bits - 1)) - 1
         absmax = reduce.all_reduce_max(a.amax(dim=axis, keepdim=True))
-        scale = absmax.clamp_min(1e-8) / qmax
+        scale = true_div(absmax.clamp_min(1e-8), qmax)
         codes = torch.clamp(torch.round(w / scale), -qmax, qmax)
         return codes.to(torch.int8), scale.to(torch.float32)
     mean = reduce.all_reduce_sum(a.sum(dim=axis, keepdim=True)) / n

@@ -25,12 +25,45 @@
 // What bounds them on an H100: bytes (read x once, write one byte a code);
 // the arithmetic is a few operations a byte.
 //
-// The elementwise kernel: one thread per 8 consecutive codes of one row: 32
-// bytes of f32 (two float4 loads) or 16 of bf16 (one uint4) in, one 8-byte
-// store out, when F is a multiple of 8 and the pointers are aligned; scalar
-// loads with bounds checks otherwise (the ragged tail of a row).  No row
-// padding: rows and columns are masked.  The flattened (row, group of 8)
-// index runs along grid.x.
+// The grouped form: one thread per 8 consecutive codes of one row: 32 bytes
+// of f32 (two float4 loads) or 16 of bf16 (one uint4) in, one 8-byte store
+// out, when F is a multiple of 8 and the pointers are aligned; scalar loads
+// with bounds checks otherwise (the ragged tail of a row).  No row padding:
+// rows and columns are masked.  The flattened (row, group of 8) index runs
+// along grid.x.
+//
+// The flat forms (unsigned, one given scale, and the tensor form below): the
+// codes do not depend on the row, so the kernel walks x as one array of
+// N = M * F values in vectors of 8 (32 bytes of f32 as two float4 loads, or
+// 16 of bf16 as one uint4, in; one 8-byte store out) when x is 16-byte and
+// the codes 8-byte aligned, with scalar loads past the last whole vector
+// (all of x when unaligned); no row or column index is computed.  Each
+// thread issues FLAT_U = 4 independent vector loads, vectors T apart for a
+// grid of T threads (a warp reads 512 or 1024 contiguous bytes a load),
+// before its first store, in a grid-stride loop over a grid no larger than
+// the blocks the card holds at once (SMs x resident blocks an SM): bytes in
+// flight to cover HBM's latency, and no block launched only to retire.  A
+// given scale is loaded once a thread.  The arithmetic is the header's:
+// the signed code is the row form's code_row (below); f32 rows under bf16
+// compute are first rounded to bf16 (bf16 rows are bf16 values already).
+//
+// The tensor form (act_quant_signed_tensor, the card's path of
+// core.act_quant_codes_signed): s = max(amax|x|, 1e-8) / qmax over the
+// whole tensor, rounded to x's dtype as the row form rounds it, and the
+// codes, in ONE launch.  A cooperative launch keeps the grid co-resident
+// (no more blocks than the card holds at once).  Each block takes the max
+// of its vectors, keeping a thread's first FLAT_U vectors in registers,
+// combines its warps' maxima, and adds it to the grid's with one atomicMax
+// on the float's bits (exact: non-negative floats order as their bits).  A
+// grid barrier (an arrival count) follows; each block reads the grid's max
+// and computes s; pass 2 writes the codes, from registers for the kept
+// vectors, re-reading the rest (from L2 where x fits there).  The three
+// state words (max, arrivals, reads) are zero at rest: the last block to
+// read the max puts them back to zero inside the same launch, so every
+// call, and every replay of a captured graph, starts from zero without a
+// memset launch.  Launches that may run at the same time need states of
+// their own: the wrapper gives one to each stream and one to each call
+// captured into a CUDA graph.
 //
 // The row form: 32 * wpr lanes a row.  A row of up to 256 vectors of 8 (F <=
 // 2048: every LM row, ResNet-34's im2col rows in stages 1-2) gets one vector
@@ -45,7 +78,7 @@
 // PyTorch expression on x's dtype rounds: max(amax, 1e-8) (in bf16: rounded
 // to bf16, as clamp_min on a bf16 tensor gives it), then __fdiv_rn by qmax
 // (then rounded to bf16), stored in x's dtype; and the codes by the
-// elementwise kernel's arithmetic (less its no-op conversions: code_row),
+// grouped kernel's arithmetic (less its no-op conversions: code_row),
 // from the values still in registers, or for a row longer than one batch read
 // a second time from L1 or L2.  At decode that is one launch where the engine
 // issued five (abs, amax, clamp_min, div, codes).  What bounds the CNN rows
@@ -89,28 +122,25 @@ __device__ __forceinline__ void load_row8(const XT* __restrict__ xr, int c0, int
   }
 }
 
+// Codes 0 .. 7 of q at p: one 8-byte store (p 8-byte aligned).
+__device__ __forceinline__ void store8(int8_t* __restrict__ p, const int8_t (&q)[VEC]) {
+  uint2 packed;
+  int8_t* pb = reinterpret_cast<int8_t*>(&packed);
+#pragma unroll
+  for (int i = 0; i < VEC; ++i) pb[i] = q[i];
+  *reinterpret_cast<uint2*>(p) = packed;
+}
+
 // Codes c0 .. c0 + 7 of a row of F: one 8-byte store, or byte stores up to F.
 __device__ __forceinline__ void store_row8(int8_t* __restrict__ orow, int c0, int F,
                                            bool aligned, const int8_t (&q)[VEC]) {
   if (aligned && c0 + VEC <= F) {
-    uint2 packed;
-    int8_t* pb = reinterpret_cast<int8_t*>(&packed);
-#pragma unroll
-    for (int i = 0; i < VEC; ++i) pb[i] = q[i];
-    *reinterpret_cast<uint2*>(orow + c0) = packed;
+    store8(orow + c0, q);
   } else {
 #pragma unroll
     for (int i = 0; i < VEC; ++i)
       if (c0 + i < F) orow[c0 + i] = q[i];
   }
-}
-
-// Unsigned eq. (4) code of one value.
-__device__ __forceinline__ int8_t code_unsigned(float x, float levels, bool bf16) {
-  const float c = fminf(fmaxf(round_to(x, bf16), 0.f), 1.f);
-  const float y = round_to(__fmul_rn(c, levels), bf16);
-  const float r = floorf(round_to(__fadd_rn(y, 0.5f), bf16));
-  return static_cast<int8_t>(__float2int_rn(fminf(r, 127.f)));
 }
 
 // Signed symmetric code of one value under scale s.
@@ -120,13 +150,12 @@ __device__ __forceinline__ int8_t code_signed(float x, float s, float qmax, bool
   return static_cast<int8_t>(__float2int_rn(r));
 }
 
-// SIGNED: scale[row * s_row_stride + col / rep] (s_row_stride 0 and rep F
-// for one scalar scale); otherwise the unsigned code (scale unused).
-template <typename XT, typename ST, bool SIGNED>
+// The grouped form: scale[row * s_row_stride + col / rep].
+template <typename XT, typename ST>
 __global__ void __launch_bounds__(THREADS)
-act_quant_kernel(const XT* __restrict__ x, const ST* __restrict__ scale,
-                 int8_t* __restrict__ out, int M, int F, int nvec, int s_row_stride,
-                 int rep, int bits, bool bf16, bool aligned) {
+act_quant_grouped_kernel(const XT* __restrict__ x, const ST* __restrict__ scale,
+                         int8_t* __restrict__ out, int M, int F, int nvec, int s_row_stride,
+                         int rep, int bits, bool bf16, bool aligned) {
   const long long t = static_cast<long long>(blockIdx.x) * THREADS + threadIdx.x;
   if (t >= static_cast<long long>(M) * nvec) return;
   const int row = static_cast<int>(t / nvec);
@@ -135,54 +164,47 @@ act_quant_kernel(const XT* __restrict__ x, const ST* __restrict__ scale,
   load_row8(x + static_cast<size_t>(row) * F, c0, F, aligned, v);
 
   int8_t q[VEC];
-  if constexpr (SIGNED) {
-    const float qmax = static_cast<float>((1 << (bits - 1)) - 1);
-    const ST* srow = scale + static_cast<size_t>(row) * s_row_stride;
+  const float qmax = static_cast<float>((1 << (bits - 1)) - 1);
+  const ST* srow = scale + static_cast<size_t>(row) * s_row_stride;
 #pragma unroll
-    for (int i = 0; i < VEC; ++i) {
-      const int c = min(c0 + i, F - 1);
-      q[i] = code_signed(v[i], to_float(srow[c / rep]), qmax, bf16);
-    }
-  } else {
-    const float levels = static_cast<float>((1 << bits) - 1);
-#pragma unroll
-    for (int i = 0; i < VEC; ++i) q[i] = code_unsigned(v[i], levels, bf16);
+  for (int i = 0; i < VEC; ++i) {
+    const int c = min(c0 + i, F - 1);
+    q[i] = code_signed(v[i], to_float(srow[c / rep]), qmax, bf16);
   }
   store_row8(out + static_cast<size_t>(row) * F, c0, F, aligned, q);
 }
 
-template <typename XT, typename ST, bool SIGNED>
-cudaError_t launch_typed(const void* x, const void* scale, void* out, int M, int F,
-                         int s_row_stride, int rep, int bits, int bf16, int aligned,
-                         cudaStream_t stream) {
+template <typename XT, typename ST>
+cudaError_t launch_grouped_typed(const void* x, const void* scale, void* out, int M, int F,
+                                 int s_row_stride, int rep, int bits, int bf16, int aligned,
+                                 cudaStream_t stream) {
   const int nvec = (F + VEC - 1) / VEC;
   const long long blocks = (static_cast<long long>(M) * nvec + THREADS - 1) / THREADS;
   if (blocks > 2147483647LL) return cudaErrorInvalidValue;
-  act_quant_kernel<XT, ST, SIGNED><<<static_cast<unsigned>(blocks), THREADS, 0, stream>>>(
+  act_quant_grouped_kernel<XT, ST><<<static_cast<unsigned>(blocks), THREADS, 0, stream>>>(
       static_cast<const XT*>(x), static_cast<const ST*>(scale), static_cast<int8_t*>(out),
       M, F, nvec, s_row_stride, rep, bits, bf16 != 0, aligned != 0);
   return cudaGetLastError();
 }
 
-template <bool SIGNED>
-cudaError_t launch(const void* x, int x_kind, const void* scale, int s_kind, void* out,
-                   int M, int F, int s_row_stride, int rep, int bits, int bf16,
-                   int aligned, cudaStream_t stream) {
+cudaError_t launch_grouped(const void* x, int x_kind, const void* scale, int s_kind,
+                           void* out, int M, int F, int s_row_stride, int rep, int bits,
+                           int bf16, int aligned, cudaStream_t stream) {
   if (M <= 0 || F <= 0 || rep <= 0 || bits < 1 || bits > 8) return cudaErrorInvalidValue;
-  if (SIGNED && scale == nullptr) return cudaErrorInvalidValue;
-  const bool xf = x_kind == KIND_F32, sf = !SIGNED || s_kind == KIND_F32;
+  if (scale == nullptr) return cudaErrorInvalidValue;
+  const bool xf = x_kind == KIND_F32, sf = s_kind == KIND_F32;
   if (!xf && x_kind != KIND_BF16) return cudaErrorInvalidValue;
-  if (SIGNED && !sf && s_kind != KIND_BF16) return cudaErrorInvalidValue;
+  if (!sf && s_kind != KIND_BF16) return cudaErrorInvalidValue;
   if (xf && sf)
-    return launch_typed<float, float, SIGNED>(x, scale, out, M, F, s_row_stride, rep, bits,
+    return launch_grouped_typed<float, float>(x, scale, out, M, F, s_row_stride, rep, bits,
                                               bf16, aligned, stream);
   if (xf)
-    return launch_typed<float, __nv_bfloat16, SIGNED>(x, scale, out, M, F, s_row_stride,
+    return launch_grouped_typed<float, __nv_bfloat16>(x, scale, out, M, F, s_row_stride,
                                                       rep, bits, bf16, aligned, stream);
   if (sf)
-    return launch_typed<__nv_bfloat16, float, SIGNED>(x, scale, out, M, F, s_row_stride,
+    return launch_grouped_typed<__nv_bfloat16, float>(x, scale, out, M, F, s_row_stride,
                                                       rep, bits, bf16, aligned, stream);
-  return launch_typed<__nv_bfloat16, __nv_bfloat16, SIGNED>(
+  return launch_grouped_typed<__nv_bfloat16, __nv_bfloat16>(
       x, scale, out, M, F, s_row_stride, rep, bits, bf16, aligned, stream);
 }
 
@@ -198,14 +220,17 @@ constexpr int RW_THREADS = 256;   // at most 8 warps a block
 // gives the code that rintf then clamping gives, qmax being an integer,
 // and the rounding is one add (half to even): 1.5 * 2^23 + v lands in a
 // binade of unit spacing.
+// v rounded to bf16 (to nearest even) on its bits: __float2bfloat16_rn's
+// value for every finite v, on the integer pipes (no conversion).
+__device__ __forceinline__ float bf16_rne(float v) {
+  const uint32_t u = __float_as_uint(v);
+  return __uint_as_float((u + 0x7FFFu + ((u >> 16) & 1u)) & 0xFFFF0000u);
+}
+
 template <bool BF16>
 __device__ __forceinline__ int8_t code_row(float x, float s, float qmax) {
   float q = __fdiv_rn(x, s);
-  if constexpr (BF16) {
-    uint32_t u = __float_as_uint(q);
-    u = (u + 0x7FFFu + ((u >> 16) & 1u)) & 0xFFFF0000u;
-    q = __uint_as_float(u);
-  }
+  if constexpr (BF16) q = bf16_rne(q);
   const float t = __fadd_rn(fminf(fmaxf(q, -qmax), qmax), 12582912.0f);
   return static_cast<int8_t>(__float_as_int(t) - 0x4B400000);
 }
@@ -333,34 +358,342 @@ cudaError_t launch_rows(const void* x, void* out, void* scale, int M, int F, int
   return cudaGetLastError();
 }
 
+// ---------------------------------------------------------------------------
+// the flat forms: unsigned, one given scale, and the tensor form
+// ---------------------------------------------------------------------------
+constexpr int FLAT_THREADS = 256, FLAT_U = 4;
+
+// Unsigned eq. (4) code of x, a value of the compute dtype, without the
+// conversion pipe (a quarter of the FP32 rate, which bounded a first version
+// of this kernel at the stem rows): the bf16 roundings on the bits, and
+// floor(z) of 0 <= z < 2^22 as an add rounded down onto the integers of
+// [2^23, 2^24).
+template <bool BF16>
+__device__ __forceinline__ int8_t code_unsigned(float x, float levels) {
+  const float c = fminf(fmaxf(x, 0.f), 1.f);
+  float y = __fmul_rn(c, levels);
+  if constexpr (BF16) y = bf16_rne(y);
+  float z = __fadd_rn(y, 0.5f);
+  if constexpr (BF16) z = bf16_rne(z);
+  const int r = __float_as_int(__fadd_rd(z, 12582912.0f)) - 0x4B400000;
+  return static_cast<int8_t>(min(r, 127));
+}
+
+// v as a value of the compute dtype: f32 rows under bf16 compute round.
+template <typename XT, bool BF16>
+__device__ __forceinline__ float in_compute(float v) {
+  if constexpr (BF16 && sizeof(XT) == 4) return bf16_rne(v);
+  return v;
+}
+
+// SIGNED: codes under the one scale *scale; else the unsigned codes.
+// n values; vectors of 8 when aligned.
+template <typename XT, typename ST, bool SIGNED, bool BF16>
+__global__ void __launch_bounds__(FLAT_THREADS)
+act_quant_flat_kernel(const XT* __restrict__ x, const ST* __restrict__ scale,
+                      int8_t* __restrict__ out, long long n, int bits, bool aligned) {
+  const long long T = static_cast<long long>(gridDim.x) * FLAT_THREADS;
+  const long long t0 = static_cast<long long>(blockIdx.x) * FLAT_THREADS + threadIdx.x;
+  float s = 0.f, lim;
+  if constexpr (SIGNED) {
+    s = round_to(to_float(*scale), BF16);
+    lim = static_cast<float>((1 << (bits - 1)) - 1);
+  } else {
+    lim = static_cast<float>((1 << bits) - 1);
+  }
+  const auto code = [&](float v) -> int8_t {
+    if constexpr (SIGNED) return code_row<BF16>(in_compute<XT, BF16>(v), s, lim);
+    else return code_unsigned<BF16>(in_compute<XT, BF16>(v), lim);
+  };
+  const long long nvec = aligned ? n / VEC : 0;
+  for (long long v0 = t0; v0 < nvec; v0 += FLAT_U * T) {
+    float val[FLAT_U][VEC];
+#pragma unroll
+    for (int u = 0; u < FLAT_U; ++u)
+      if (v0 + u * T < nvec) load8(x + (v0 + u * T) * VEC, val[u]);
+#pragma unroll
+    for (int u = 0; u < FLAT_U; ++u) {
+      const long long v = v0 + u * T;
+      if (v < nvec) {
+        int8_t q[VEC];
+#pragma unroll
+        for (int i = 0; i < VEC; ++i) q[i] = code(val[u][i]);
+        store8(out + v * VEC, q);
+      }
+    }
+  }
+  for (long long i = nvec * VEC + t0; i < n; i += T) out[i] = code(to_float(x[i]));
+}
+
+// The max of every block's m >= 0, for thread 0 of each block of a
+// co-resident grid: one atomicMax on the bits, a barrier on the arrival
+// count, the read; then the last block to read puts the three words back to
+// zero (every block has left the barrier by then).
+__device__ float grid_max(unsigned* state, float m) {
+  atomicMax(state, __float_as_uint(m));
+  __threadfence();
+  atomicAdd(state + 1, 1u);
+  while (*reinterpret_cast<volatile unsigned*>(state + 1) < gridDim.x) __nanosleep(32);
+  __threadfence();
+  const float g = __uint_as_float(*reinterpret_cast<volatile unsigned*>(state));
+  __threadfence();
+  if (atomicAdd(state + 2, 1u) == gridDim.x - 1) {
+    state[0] = 0u;
+    state[1] = 0u;
+    state[2] = 0u;
+  }
+  return g;
+}
+
+// state: 3 words, zero at rest (the header's tensor form).
+template <typename XT>
+__global__ void __launch_bounds__(FLAT_THREADS)
+act_quant_tensor_kernel(const XT* __restrict__ x, int8_t* __restrict__ out,
+                        float* __restrict__ scale, unsigned* __restrict__ state,
+                        long long n, int bits, bool aligned) {
+  constexpr bool BF16 = sizeof(XT) == 2;
+  __shared__ float red[FLAT_THREADS / 32];
+  __shared__ float s_block;
+  const long long T = static_cast<long long>(gridDim.x) * FLAT_THREADS;
+  const long long t0 = static_cast<long long>(blockIdx.x) * FLAT_THREADS + threadIdx.x;
+  const long long nvec = aligned ? n / VEC : 0;
+
+  // pass 1: max |x|; the thread's first FLAT_U vectors stay in registers
+  float keep[FLAT_U][VEC];
+#pragma unroll
+  for (int u = 0; u < FLAT_U; ++u) {
+    const long long v = t0 + u * T;
+    if (v < nvec) {
+      load8(x + v * VEC, keep[u]);
+    } else {
+#pragma unroll
+      for (int i = 0; i < VEC; ++i) keep[u][i] = 0.f;
+    }
+  }
+  float amax = 0.f;
+#pragma unroll
+  for (int u = 0; u < FLAT_U; ++u)
+#pragma unroll
+    for (int i = 0; i < VEC; ++i) amax = fmaxf(amax, fabsf(keep[u][i]));
+  for (long long v0 = t0 + FLAT_U * T; v0 < nvec; v0 += FLAT_U * T) {
+    float t[FLAT_U][VEC];
+#pragma unroll
+    for (int u = 0; u < FLAT_U; ++u) {
+      if (v0 + u * T < nvec) {
+        load8(x + (v0 + u * T) * VEC, t[u]);
+      } else {
+#pragma unroll
+        for (int i = 0; i < VEC; ++i) t[u][i] = 0.f;
+      }
+    }
+#pragma unroll
+    for (int u = 0; u < FLAT_U; ++u)
+#pragma unroll
+      for (int i = 0; i < VEC; ++i) amax = fmaxf(amax, fabsf(t[u][i]));
+  }
+  for (long long i = nvec * VEC + t0; i < n; i += T) amax = fmaxf(amax, fabsf(to_float(x[i])));
+#pragma unroll
+  for (int off = 16; off > 0; off >>= 1)
+    amax = fmaxf(amax, __shfl_xor_sync(0xffffffffu, amax, off));
+  if ((threadIdx.x & 31) == 0) red[threadIdx.x >> 5] = amax;
+  __syncthreads();
+
+  // the grid's max (one block: its own), the scale
+  if (threadIdx.x == 0) {
+    for (int w = 1; w < FLAT_THREADS / 32; ++w) amax = fmaxf(amax, red[w]);
+    if (gridDim.x > 1) amax = grid_max(state, amax);
+    const float qmax = static_cast<float>((1 << (bits - 1)) - 1);
+    const float s = round_to(__fdiv_rn(round_to(fmaxf(amax, 1e-8f), BF16), qmax), BF16);
+    s_block = s;
+    if (blockIdx.x == 0) *scale = s;
+  }
+  __syncthreads();
+  const float s = s_block;
+  const float qmax = static_cast<float>((1 << (bits - 1)) - 1);
+
+  // pass 2: the codes, the kept vectors from registers, the rest read again
+#pragma unroll
+  for (int u = 0; u < FLAT_U; ++u) {
+    const long long v = t0 + u * T;
+    if (v < nvec) {
+      int8_t q[VEC];
+#pragma unroll
+      for (int i = 0; i < VEC; ++i) q[i] = code_row<BF16>(keep[u][i], s, qmax);
+      store8(out + v * VEC, q);
+    }
+  }
+  for (long long v0 = t0 + FLAT_U * T; v0 < nvec; v0 += FLAT_U * T) {
+    float t[FLAT_U][VEC];
+#pragma unroll
+    for (int u = 0; u < FLAT_U; ++u)
+      if (v0 + u * T < nvec) load8(x + (v0 + u * T) * VEC, t[u]);
+#pragma unroll
+    for (int u = 0; u < FLAT_U; ++u) {
+      const long long v = v0 + u * T;
+      if (v < nvec) {
+        int8_t q[VEC];
+#pragma unroll
+        for (int i = 0; i < VEC; ++i) q[i] = code_row<BF16>(t[u][i], s, qmax);
+        store8(out + v * VEC, q);
+      }
+    }
+  }
+  for (long long i = nvec * VEC + t0; i < n; i += T)
+    out[i] = code_row<BF16>(to_float(x[i]), s, qmax);
+}
+
+// Blocks of FLAT_THREADS threads that the card runs at once: SMs x the
+// kernel's resident blocks an SM (by its registers), cached per device in
+// `cache`, which the caller keeps for this one kernel (kernels of one
+// function type differ in their registers).
+template <typename K>
+cudaError_t resident_blocks(K* kernel, int (&cache)[64], int* blocks) {
+  int dev = 0;
+  cudaError_t e = cudaGetDevice(&dev);
+  if (e != cudaSuccess) return e;
+  if (dev >= 64) return cudaErrorInvalidDevice;
+  if (cache[dev] == 0) {
+    int sms = 0, per_sm = 0;
+    e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+    if (e == cudaSuccess)
+      e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel, FLAT_THREADS, 0);
+    if (e != cudaSuccess) return e;
+    if (per_sm <= 0) return cudaErrorInvalidConfiguration;
+    cache[dev] = sms * per_sm;
+  }
+  *blocks = cache[dev];
+  return cudaSuccess;
+}
+
+// The grid over n values, at most `resident` blocks, each thread `per_thread`
+// values or (unaligned) one.  The given-scale kernels take a vector a thread
+// (every SM gets a share of the L2-resident shapes); the tensor form FLAT_U
+// vectors a thread (the decode rows in one block, which skips the barrier).
+unsigned flat_blocks(long long n, bool aligned, int per_thread, int resident) {
+  const long long per_block = static_cast<long long>(FLAT_THREADS) * (aligned ? per_thread : 1);
+  const long long want = (n + per_block - 1) / per_block;
+  return static_cast<unsigned>(want < resident ? (want > 0 ? want : 1) : resident);
+}
+
+template <typename XT, typename ST, bool SIGNED, bool BF16>
+cudaError_t launch_flat_typed(const void* x, const void* scale, void* out, long long n,
+                              int bits, bool aligned, cudaStream_t stream) {
+  auto* kernel = act_quant_flat_kernel<XT, ST, SIGNED, BF16>;
+  static int cache[64] = {};
+  int resident = 0;
+  const cudaError_t e = resident_blocks(kernel, cache, &resident);
+  if (e != cudaSuccess) return e;
+  kernel<<<flat_blocks(n, aligned, VEC, resident), FLAT_THREADS, 0, stream>>>(
+      static_cast<const XT*>(x), static_cast<const ST*>(scale), static_cast<int8_t*>(out),
+      n, bits, aligned);
+  return cudaGetLastError();
+}
+
+template <typename XT, typename ST, bool SIGNED>
+cudaError_t launch_flat_xs(const void* x, const void* scale, void* out, long long n,
+                           int bits, int bf16, int aligned, cudaStream_t stream) {
+  if (bf16)
+    return launch_flat_typed<XT, ST, SIGNED, true>(x, scale, out, n, bits, aligned != 0,
+                                                   stream);
+  return launch_flat_typed<XT, ST, SIGNED, false>(x, scale, out, n, bits, aligned != 0,
+                                                  stream);
+}
+
+template <bool SIGNED>
+cudaError_t launch_flat(const void* x, int x_kind, const void* scale, int s_kind, void* out,
+                        int M, int F, int bits, int bf16, int aligned, cudaStream_t stream) {
+  if (M <= 0 || F <= 0 || bits < 1 || bits > 8) return cudaErrorInvalidValue;
+  if (SIGNED && scale == nullptr) return cudaErrorInvalidValue;
+  const long long n = static_cast<long long>(M) * F;
+  const bool xf = x_kind == KIND_F32, sf = !SIGNED || s_kind == KIND_F32;
+  if (!xf && x_kind != KIND_BF16) return cudaErrorInvalidValue;
+  if (SIGNED && !sf && s_kind != KIND_BF16) return cudaErrorInvalidValue;
+  if (xf && sf)
+    return launch_flat_xs<float, float, SIGNED>(x, scale, out, n, bits, bf16, aligned, stream);
+  if (xf)
+    return launch_flat_xs<float, __nv_bfloat16, SIGNED>(x, scale, out, n, bits, bf16,
+                                                        aligned, stream);
+  if (sf)
+    return launch_flat_xs<__nv_bfloat16, float, SIGNED>(x, scale, out, n, bits, bf16,
+                                                        aligned, stream);
+  return launch_flat_xs<__nv_bfloat16, __nv_bfloat16, SIGNED>(x, scale, out, n, bits, bf16,
+                                                              aligned, stream);
+}
+
+// The tensor form's cooperative launch: the grid no larger than the card
+// holds at once, which the launch checks.
+template <typename XT>
+cudaError_t launch_tensor(const void* x, void* out, void* scale, void* state, long long n,
+                          int bits, bool aligned, cudaStream_t stream) {
+  auto* kernel = act_quant_tensor_kernel<XT>;
+  static int cache[64] = {};
+  int resident = 0;
+  cudaError_t e = resident_blocks(kernel, cache, &resident);
+  if (e != cudaSuccess) return e;
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(flat_blocks(n, aligned, FLAT_U * VEC, resident));
+  cfg.blockDim = dim3(FLAT_THREADS);
+  cfg.stream = stream;
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeCooperative;
+  attr[0].val.cooperative = 1;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  e = cudaLaunchKernelEx(&cfg, kernel, static_cast<const XT*>(x), static_cast<int8_t*>(out),
+                         static_cast<float*>(scale), static_cast<unsigned*>(state), n, bits,
+                         aligned);
+  if (e == cudaSuccess) e = cudaGetLastError();
+  return e;
+}
+
 }  // namespace
 
-// x: (M, F) f32 or bf16 (x_kind); out: (M, F) int8.  bf16: 1 rounds each
-// intermediate to bf16.  aligned: 1 when F % 8 == 0, x is 16-byte and out
-// 8-byte aligned (vector loads and stores).
+// x: (M, F) f32 or bf16 (x_kind), contiguous; out: (M, F) int8.  bf16: 1
+// rounds each intermediate to bf16.  aligned: 1 when x is 16-byte and out
+// 8-byte aligned (vector loads and stores; F may be ragged).
 extern "C" cudaError_t act_quant_unsigned(const void* x, int x_kind, void* out, int M,
                                           int F, int bits, int bf16, int aligned,
                                           cudaStream_t stream) {
-  return launch<false>(x, x_kind, nullptr, KIND_F32, out, M, F, 0, F, bits, bf16, aligned,
-                       stream);
+  return launch_flat<false>(x, x_kind, nullptr, KIND_F32, out, M, F, bits, bf16, aligned,
+                            stream);
 }
 
-// scale: one f32 or bf16 value (s_kind) on the device.
+// scale: one f32 or bf16 value (s_kind) on the device; aligned as above.
 extern "C" cudaError_t act_quant_signed(const void* x, int x_kind, const void* scale,
                                         int s_kind, void* out, int M, int F, int bits,
                                         int bf16, int aligned, cudaStream_t stream) {
-  return launch<true>(x, x_kind, scale, s_kind, out, M, F, 0, F, bits, bf16, aligned,
-                      stream);
+  return launch_flat<true>(x, x_kind, scale, s_kind, out, M, F, bits, bf16, aligned,
+                           stream);
 }
 
-// scale: (M, G) f32 or bf16 (s_kind), G | F.
+// The tensor form: x (M, F) f32 or bf16 (x_kind), contiguous -> codes out
+// (M, F) int8 and the scale max(amax|x|, 1e-8) / qmax, a value of x's dtype,
+// as one f32 at `scale`, computed in x's dtype; state: 3 unsigned words on
+// the device, zero at rest (zero them once; the kernel leaves them zero);
+// aligned as above.  One cooperative launch.
+extern "C" cudaError_t act_quant_signed_tensor(const void* x, int x_kind, void* out,
+                                               void* scale, void* state, int M, int F,
+                                               int bits, int aligned, cudaStream_t stream) {
+  if (M <= 0 || F <= 0 || bits < 2 || bits > 8 || scale == nullptr || state == nullptr)
+    return cudaErrorInvalidValue;
+  const long long n = static_cast<long long>(M) * F;
+  if (x_kind == KIND_F32)
+    return launch_tensor<float>(x, out, scale, state, n, bits, aligned != 0, stream);
+  if (x_kind == KIND_BF16)
+    return launch_tensor<__nv_bfloat16>(x, out, scale, state, n, bits, aligned != 0,
+                                        stream);
+  return cudaErrorInvalidValue;
+}
+
+// scale: (M, G) f32 or bf16 (s_kind), G | F.  aligned: 1 when F % 8 == 0,
+// x is 16-byte and out 8-byte aligned.
 extern "C" cudaError_t act_quant_signed_grouped(const void* x, int x_kind, const void* scale,
                                                 int s_kind, void* out, int M, int F, int G,
                                                 int bits, int bf16, int aligned,
                                                 cudaStream_t stream) {
   if (G <= 0 || F % G != 0) return cudaErrorInvalidValue;
-  return launch<true>(x, x_kind, scale, s_kind, out, M, F, G, F / G, bits, bf16, aligned,
-                      stream);
+  return launch_grouped(x, x_kind, scale, s_kind, out, M, F, G, F / G, bits, bf16, aligned,
+                        stream);
 }
 
 // The row form: x (M, F) f32 or bf16 (x_kind) -> codes out (M, F) int8 and

@@ -57,6 +57,8 @@ SIGNATURES = {
         "act_quant_signed_grouped": (P, I, P, I, P, I, I, I, I, I, I, P),
         # (x, x_kind, out, scale, M, F, bits, aligned, stream)
         "act_quant_signed_rows": (P, I, P, P, I, I, I, I, P),
+        # (x, x_kind, out, scale, state, M, F, bits, aligned, stream)
+        "act_quant_signed_tensor": (P, I, P, P, P, I, I, I, I, P),
     },
     "binary_matmul": {
         # (a, w, alpha, bias, out, M, N, K, stream)

@@ -1,12 +1,16 @@
 """Activation quantizers — float rows to int8 codes in one elementwise pass.
 
-Three functions, each the counterpart of a TPU kernel of
-``repro/kernels/act_quant.py``:
+The counterparts of the three TPU kernels of ``repro/kernels/act_quant.py``
+and two forms that also compute their scale:
 
   * :func:`act_quant` — unsigned eq. (4), ``floor(clip(x,0,1)*(2^k-1)+0.5)``
     (half up), for post-ReLU activations;
   * :func:`act_quant_signed` — ``clip(round(x/s), +-(2^(k-1)-1))`` (half to
     even) with one scale ``s``;
+  * :func:`act_quant_signed_tensor` — its tensor form, the card's path of
+    ``core.act_quant_codes_signed``: the scale ``max(amax|x|, 1e-8) / qmax``
+    over all of x computed in the same launch, and returned beside the
+    codes.  Its launches count as ``act_quant_signed``'s;
   * :func:`act_quant_signed_grouped` — the same with ``s`` (M, G), G | F,
     each scale covering F/G columns;
   * :func:`act_quant_signed_rows` — its row form, the engine's per-row
@@ -30,7 +34,8 @@ import torch
 
 from . import _build
 from .ref import (act_quant_ref, act_quant_signed_grouped_ref,
-                  act_quant_signed_ref, act_quant_signed_rows_ref)
+                  act_quant_signed_ref, act_quant_signed_rows_ref,
+                  act_quant_signed_tensor_ref)
 
 _KINDS = {torch.float32: 1, torch.bfloat16: 2}      # x and scale dtypes
 COMPUTE_DTYPES = (torch.float32, torch.bfloat16)
@@ -63,9 +68,46 @@ def _check_scale(scale, x, shape) -> None:
 
 
 def _aligned(x, out) -> int:
-    """1 when the kernel may use 16-byte loads and 8-byte stores."""
-    return int(x.shape[1] % 8 == 0 and x.data_ptr() % 16 == 0
-               and out.data_ptr() % 8 == 0)
+    """1 when the row kernels may use 16-byte loads and 8-byte stores."""
+    return int(x.shape[1] % 8 == 0 and _flat_aligned(x, out))
+
+
+def _flat_aligned(x, out) -> int:
+    """1 when the flat kernels (x as one array) may use 16-byte loads and
+    8-byte stores: any F."""
+    return int(x.data_ptr() % 16 == 0 and out.data_ptr() % 8 == 0)
+
+
+# The tensor form's state: 3 words (max, arrivals, reads), zero at rest (the
+# kernel puts them back to zero before it ends).  Two launches that may run
+# at once must not share one: an eager call takes its stream's, and a call
+# captured into a CUDA graph a slot of its own, which the graph keeps, from
+# a pool zeroed at the device's first eager call (256 KB: a timing loop
+# captures hundreds of calls; a capture that finds none left zeroes a state
+# of its own inside the graph, one memset node more).
+_STREAM_STATE: dict[tuple, torch.Tensor] = {}
+_GRAPH_SLOTS = 16384
+_GRAPH_POOL: dict[torch.device, list] = {}      # device -> [(slots, 4), taken]
+
+
+def _tensor_state(device) -> torch.Tensor:
+    if torch.cuda.is_current_stream_capturing():
+        pool = _GRAPH_POOL.get(device)
+        if pool is None or pool[1] == _GRAPH_SLOTS:
+            return torch.zeros(3, dtype=torch.int32, device=device)
+        pool[1] += 1
+        return pool[0][pool[1] - 1]
+    key = (device, torch.cuda.current_stream(device).cuda_stream)
+    state = _STREAM_STATE.get(key)
+    if state is None:
+        if device not in _GRAPH_POOL:
+            _GRAPH_POOL[device] = [torch.zeros(
+                (_GRAPH_SLOTS, 4), dtype=torch.int32, device=device), 0]
+        state = _STREAM_STATE[key] = torch.zeros(3, dtype=torch.int32,
+                                                 device=device)
+        # zero before a graph replayed on any stream reads the pool
+        torch.cuda.current_stream(device).synchronize()
+    return state
 
 
 def _launch(name: str, fn: str, x, args) -> torch.Tensor:
@@ -88,7 +130,7 @@ def act_quant(x: torch.Tensor, *, bits: int,
     m, f = _check_x(x, bits, compute_dtype)
     bf16 = int(compute_dtype == torch.bfloat16)
     return _launch("act_quant", "act_quant_unsigned", x, lambda out: (
-        out.data_ptr(), m, f, bits, bf16, _aligned(x, out),
+        out.data_ptr(), m, f, bits, bf16, _flat_aligned(x, out),
         _build.stream_ptr(x)))
 
 
@@ -107,7 +149,29 @@ def act_quant_signed(x: torch.Tensor, scale: torch.Tensor, *, bits: int,
     bf16 = int(compute_dtype == torch.bfloat16)
     return _launch("act_quant_signed", "act_quant_signed", x, lambda out: (
         scale.data_ptr(), _KINDS[scale.dtype], out.data_ptr(), m, f, bits,
-        bf16, _aligned(x, out), _build.stream_ptr(x)))
+        bf16, _flat_aligned(x, out), _build.stream_ptr(x)))
+
+
+def act_quant_signed_tensor(x: torch.Tensor, *, bits: int
+                            ) -> tuple[torch.Tensor, torch.Tensor]:
+    """Signed codes of x (M, F) f32/bf16 under one scale taken from all of
+    x, computed in x's dtype: ``scale = max(amax|x|, 1e-8) / qmax``, codes
+    ``clip(round(x / scale), +-qmax)``; 2 <= bits <= 8.  Returns (codes,
+    the scale as a float32 scalar), one launch on the card."""
+    if not x.is_cuda:
+        return act_quant_signed_tensor_ref(x, bits)
+    m, f = _check_x(x, bits, x.dtype)
+    if bits < 2 or x.numel() == 0:
+        raise ValueError(f"bits={bits}, shape {tuple(x.shape)}: the tensor "
+                         "form needs qmax >= 1 and values to take the max of")
+    state = _tensor_state(x.device)
+    scale = torch.empty((), dtype=torch.float32, device=x.device)
+    codes = _launch("act_quant_signed", "act_quant_signed_tensor", x,
+                    lambda out: (out.data_ptr(), scale.data_ptr(),
+                                 state.data_ptr(), m, f, bits,
+                                 _flat_aligned(x, out),
+                                 _build.stream_ptr(x)))
+    return codes, scale
 
 
 def act_quant_signed_grouped(x: torch.Tensor, scale: torch.Tensor, *,

@@ -56,8 +56,8 @@ import torch
 from repro_torch.core import packing
 from repro_torch.core.precision import (A_FLOAT, PrecisionConfig, W_BINARY,
                                         W_FLOAT, W_INT, W_TERNARY)
-from repro_torch.core.quantize import (act_fake_quant, weight_fake_quant,
-                                      weight_quant)
+from repro_torch.core.quantize import (act_fake_quant, true_div,
+                                      weight_fake_quant, weight_quant)
 
 from . import _build, costs, ref, tuning
 from .act_quant import act_quant_signed_grouped, act_quant_signed_rows
@@ -557,8 +557,7 @@ def _prep_split_activations(x2: torch.Tensor, pw: PackedWeight, a_bits: int,
     bits = min(a_bits, 8)
     qmax = (1 << (bits - 1)) - 1
     amax = reduce.all_reduce_max(x2.abs().amax(dim=1, keepdim=True))
-    amax = amax.clamp_min(1e-8)
-    a_scale = amax / amax.new_full((), qmax)
+    a_scale = true_div(amax.clamp_min(1e-8), qmax)
     if backend == BACKEND_TORCH:
         return ref.act_quant_signed_grouped_ref(
             x2, bits, a_scale, compute_dtype=x2.dtype), a_scale

@@ -14,6 +14,7 @@ from __future__ import annotations
 import torch
 
 from repro_torch.core import packing
+from repro_torch.core.quantize import true_div
 
 
 def int_dot(x: torch.Tensor, wt: torch.Tensor) -> torch.Tensor:
@@ -129,14 +130,21 @@ def act_quant_signed_rows_ref(x, bits: int):
     """The engine's per-row quantizer in x's dtype: ``a_scale = max(amax
     |x[row]|, 1e-8) / qmax`` (M, 1), then
     :func:`act_quant_signed_grouped_ref` with that scale.  Returns (codes,
-    a_scale).  The quotient divides by a tensor on x's device: PyTorch's
-    CUDA division by a Python number multiplies by its reciprocal instead,
-    which can round differently (on the CPU the two are the same)."""
+    a_scale).  The quotient is a true one on every device (``true_div``)."""
     qmax = (1 << (bits - 1)) - 1
-    amax = x.abs().amax(dim=1, keepdim=True).clamp_min(1e-8)
-    a_scale = amax / amax.new_full((), qmax)
+    a_scale = true_div(x.abs().amax(dim=1, keepdim=True).clamp_min(1e-8), qmax)
     return act_quant_signed_grouped_ref(x, bits, a_scale,
                                         compute_dtype=x.dtype), a_scale
+
+
+def act_quant_signed_tensor_ref(x, bits: int):
+    """``core.act_quant_codes_signed`` on rows x: one scale ``max(amax|x|,
+    1e-8) / qmax`` in x's dtype (a true quotient, ``true_div``), then
+    :func:`act_quant_signed_ref` in x's dtype.  Returns (codes, the scale
+    as a float32 scalar)."""
+    scale = true_div(x.abs().amax().clamp_min(1e-8), (1 << (bits - 1)) - 1)
+    return act_quant_signed_ref(x, bits, scale, compute_dtype=x.dtype), \
+        scale.to(torch.float32)
 
 
 # ---------------------------------------------------------------------------

@@ -23,6 +23,7 @@ from __future__ import annotations
 
 import torch
 
+from repro_torch.core.quantize import true_div
 from repro_torch.models import Model
 from repro_torch.parallel import sharding as shd
 from repro_torch.parallel.comm import StepSharding
@@ -38,7 +39,7 @@ def _compress(g: torch.Tensor, bits: int, cut=None) -> torch.Tensor:
     amax = g.abs().max()
     if cut is not None:
         amax = cut.all_reduce_max(amax)
-    s = torch.clamp_min(amax, 1e-12) / qmax
+    s = true_div(torch.clamp_min(amax, 1e-12), qmax)
     q = torch.clamp(torch.round(g / s), -qmax, qmax).to(torch.int8)
     return q.to(torch.float32) * s
 

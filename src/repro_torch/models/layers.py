@@ -55,7 +55,8 @@ import torch.nn.functional as F
 
 from repro_torch.core.packing import pack_nibbles, unpack_nibbles
 from repro_torch.core.precision import A_FLOAT, W_FLOAT, get_precision, signed
-from repro_torch.core.quantize import act_fake_quant, weight_fake_quant
+from repro_torch.core.quantize import (act_fake_quant, true_div,
+                                       weight_fake_quant)
 from repro_torch.kernels import engine
 from repro_torch.kernels.decode_attention import masked_lse
 from repro_torch.kernels.paged_attention import gather_pool
@@ -212,11 +213,12 @@ def _post_norm(p, out, cfg: ModelConfig):
 
 def _kv_quantize(k, v, bits: int):
     """Symmetric per-(token, head) KV quantization; scales are per position
-    so appends never re-scale history.  bits=4 nibble-packs along Dh."""
+    so appends never re-scale history.  bits=4 nibble-packs along Dh.  The
+    scale is a true quotient on every device (:func:`true_div`)."""
     qmax = (1 << (bits - 1)) - 1
 
     def q(t):
-        s = t.abs().amax(dim=3, keepdim=True).clamp_min(1e-6) / qmax
+        s = true_div(t.abs().amax(dim=3, keepdim=True).clamp_min(1e-6), qmax)
         codes = torch.clamp(torch.round(t / s), -qmax, qmax).to(torch.int8)
         if bits == 4:
             codes = pack_nibbles(codes)

@@ -34,6 +34,7 @@ from collections.abc import Callable
 
 import torch
 
+from repro_torch.core.quantize import true_div
 from repro_torch.parallel.sharding import cut_axes
 from repro_torch.tree import tree_leaves, tree_leaves_along, tree_map
 
@@ -249,7 +250,7 @@ def adam8bit(lr: float = 1e-3, b1: float = 0.9, b2: float = 0.95,
         amax = x.abs().max()
         if cut is not None:
             amax = cut.all_reduce_max(amax)
-        s = torch.clamp_min(amax, 1e-8) / 127.0
+        s = true_div(torch.clamp_min(amax, 1e-8), 127.0)
         # round half to even, as jnp.round; the int8 cast of an in-range
         # integral float is exact in both packages
         return {"q": torch.clamp(torch.round(x / s), -127, 127

@@ -6,6 +6,8 @@ runs on the card's machine:
     PYTHONPATH=src python -m pytest -q -m cuda tests/test_torch_cuda.py
 """
 import importlib
+
+import numpy as np
 import pytest
 
 torch = pytest.importorskip("torch")
@@ -494,7 +496,7 @@ def _bf16_grid(lo, hi):
 
 
 # (M, F): decode rows, a ragged F (scalar path), a CNN im2col shape
-AQ_SHAPES = [(4, 576), (4, 1536), (37, 100), (25088, 576)]
+AQ_SHAPES = [(4, 576), (4, 1536), (37, 100), (3, 7), (25088, 576)]
 
 
 def _aq_inputs(gen, gpu, x_dtype):
@@ -526,7 +528,10 @@ def test_act_quant_kernels_equal_plain(gpu, bits, x_dtype, compute):
     """All three quantizers, torch.equal to their plain versions, one
     launch each: unsigned on |x| / 2 (the bf16 grid gives every bf16 value
     of [0, 1]: ties), signed with a power-of-two scale (ties) and an absmax
-    scale, grouped with G = 1 and G = 4 (F allowing)."""
+    scale, and in its tensor form (codes and scale, compute in x's dtype),
+    grouped with G = 1 and G = 4 (F allowing).  The rows hold a ragged F
+    (37, 100), fewer values than one vector a thread (3, 7), a grid-stride
+    shape (25088, 576) and a view 4 bytes off (scalar loads)."""
     gen = torch.Generator().manual_seed(bits)
     qmax = (1 << (bits - 1)) - 1
     kw = dict(bits=bits, compute_dtype=compute)
@@ -541,6 +546,11 @@ def test_act_quant_kernels_equal_plain(gpu, bits, x_dtype, compute):
                                lambda: taq.act_quant_signed(x, s, **kw))
             assert torch.equal(got, ref.act_quant_signed_ref(
                 x, bits, s, compute_dtype=compute))
+        if bits >= 2 and compute == x_dtype:
+            q, s = _launch_once("act_quant_signed", lambda:
+                                taq.act_quant_signed_tensor(x, bits=bits))
+            q_ref, s_ref = ref.act_quant_signed_tensor_ref(x, bits)
+            assert torch.equal(s, s_ref) and torch.equal(q, q_ref)
         for g in (1, 4):
             if x.shape[1] % g:
                 continue
@@ -551,6 +561,124 @@ def test_act_quant_kernels_equal_plain(gpu, bits, x_dtype, compute):
             assert torch.equal(got, ref.act_quant_signed_grouped_ref(
                 x, bits, s, compute_dtype=compute))
         torch.cuda.synchronize()
+
+
+@pytest.mark.parametrize("x_dtype", [torch.float32, torch.bfloat16],
+                         ids=["x_f32", "x_bf16"])
+def test_act_quant_flat_kernels_past_l2(gpu, x_dtype):
+    """B7a, B7b and B7b's tensor form at ResNet-34's stem rows at batch 32,
+    (401408, 64) (77 MB in bf16, past the 50 MB L2; the grid-stride loops
+    and the tensor form's second read), compute in x's dtype, bits 2, 4
+    and 8: torch.equal to the plain versions, one launch each."""
+    gen = torch.Generator().manual_seed(401408)
+    x = (torch.randn((32 * 112 * 112, 64), generator=gen) * 2).to(gpu, x_dtype)
+    xu = torch.relu(x) / 4
+    kw = dict(compute_dtype=x_dtype)
+    for bits in (2, 4, 8):
+        got = _launch_once("act_quant", lambda: taq.act_quant(xu, bits=bits, **kw))
+        assert torch.equal(got, ref.act_quant_ref(xu, bits, **kw))
+        q, s = _launch_once("act_quant_signed", lambda:
+                            taq.act_quant_signed_tensor(x, bits=bits))
+        q_ref, s_ref = ref.act_quant_signed_tensor_ref(x, bits)
+        assert torch.equal(s, s_ref) and torch.equal(q, q_ref)
+        got = _launch_once("act_quant_signed", lambda: taq.act_quant_signed(
+            x, s_ref.to(x_dtype), bits=bits, **kw))
+        assert torch.equal(got, q_ref)
+        torch.cuda.synchronize()
+
+
+def _tensor_state_words(device) -> int:
+    """The sum of every tensor-form state word on ``device``: 0 at rest."""
+    words = [t for (d, _), t in taq._STREAM_STATE.items() if d == device]
+    words += [taq._GRAPH_POOL[device][0]] if device in taq._GRAPH_POOL else []
+    return sum(int(t.abs().sum()) for t in words)
+
+
+def test_act_quant_tensor_form_state_and_graph_replay(gpu):
+    """The tensor form's state words are zero after every call, and a
+    CUDA graph of three calls (a multi-block grid and a one-block one)
+    replays to the eager results, twice."""
+    gen = torch.Generator().manual_seed(5)
+    xs = [(torch.randn(shape, generator=gen) * s).to(gpu, torch.bfloat16)
+          for shape, s in (((25088, 576), 3.0), ((4, 576), 0.5),
+                           ((25088, 64), 1.0))]
+    want = [ref.act_quant_signed_tensor_ref(x, 4) for x in xs]
+    for x, (q_ref, s_ref) in zip(xs, want):
+        q, s = taq.act_quant_signed_tensor(x, bits=4)
+        torch.cuda.synchronize()
+        assert torch.equal(q, q_ref) and torch.equal(s, s_ref)
+        assert _tensor_state_words(gpu) == 0
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        outs = [taq.act_quant_signed_tensor(x, bits=4) for x in xs]
+    for _ in range(2):
+        for q, _s in outs:
+            q.zero_()
+        graph.replay()
+        torch.cuda.synchronize()
+        for (q, s), (q_ref, s_ref) in zip(outs, want):
+            assert torch.equal(q, q_ref) and torch.equal(s, s_ref)
+        assert _tensor_state_words(gpu) == 0
+
+
+def test_act_quant_tensor_form_on_two_streams(gpu):
+    """Tensor-form calls on two streams at once, eager and as two captured
+    graphs replayed on two streams, each give its own tensor's codes and
+    scale: no call reads another's max or arrivals."""
+    gen = torch.Generator().manual_seed(6)
+    xs = [(torch.randn((401408, 64), generator=gen) * s).to(gpu, torch.bfloat16)
+          for s in (1.0, 40.0)]
+    want = [ref.act_quant_signed_tensor_ref(x, 4) for x in xs]
+    streams = [torch.cuda.Stream(gpu) for _ in xs]
+    for st in streams:
+        st.wait_stream(torch.cuda.current_stream(gpu))
+    got = [[] for _ in xs]
+    for _ in range(20):
+        for x, st, g in zip(xs, streams, got):
+            with torch.cuda.stream(st):
+                g.append(taq.act_quant_signed_tensor(x, bits=4))
+    torch.cuda.synchronize()
+    for g, (q_ref, s_ref) in zip(got, want):
+        for q, s in g:
+            assert torch.equal(q, q_ref) and torch.equal(s, s_ref)
+    graphs, outs = [], []
+    for x in xs:
+        graphs.append(torch.cuda.CUDAGraph())
+        with torch.cuda.graph(graphs[-1]):
+            outs.append(taq.act_quant_signed_tensor(x, bits=4))
+    for _ in range(20):
+        for graph, st in zip(graphs, streams):
+            st.wait_stream(torch.cuda.current_stream(gpu))
+            with torch.cuda.stream(st):
+                graph.replay()
+        torch.cuda.synchronize()
+        for (q, s), (q_ref, s_ref) in zip(outs, want):
+            assert torch.equal(q, q_ref) and torch.equal(s, s_ref)
+    assert _tensor_state_words(gpu) == 0
+
+
+@pytest.mark.parametrize("bits", [8, 4])
+def test_kv_quantize_scales_are_true_quotients(gpu, bits):
+    """``_kv_quantize``'s scales on the card equal numpy's float32 quotient
+    ``max(amax|row|, 1e-6) / qmax`` for 10^5 random (token, head) rows of
+    Dh 64 (rows drawn at scales from 1e-3 to 1e3), K and V alike."""
+    from repro_torch.models import layers
+    rng = np.random.default_rng(bits)
+    shape = (4, 12500, 2, 64)
+    k, v = (rng.normal(size=shape).astype(np.float32)
+            * np.exp(rng.uniform(-7, 7, size=shape[:3] + (1,))).astype(np.float32)
+            for _ in range(2))
+    _, ks, _, vs = layers._kv_quantize(torch.from_numpy(k).to(gpu),
+                                       torch.from_numpy(v).to(gpu), bits)
+    qmax = np.float32((1 << (bits - 1)) - 1)
+    bad = {}
+    for name, t, got in (("K", k, ks), ("V", v, vs)):
+        want = np.maximum(np.abs(t).max(axis=3, keepdims=True),
+                          np.float32(1e-6)) / qmax
+        bad[name] = int((got.cpu().numpy() != want).sum())
+    print(f"kv{bits}: scales that differ from the float32 quotient, of "
+          f"{shape[0] * shape[1] * shape[2]} a tensor: {bad}")
+    assert bad == {"K": 0, "V": 0}, f"kv{bits}: {bad}"
 
 
 def test_act_quant_wrappers_refuse_what_the_kernel_does_not_take(gpu):
@@ -568,6 +696,12 @@ def test_act_quant_wrappers_refuse_what_the_kernel_does_not_take(gpu):
         taq.act_quant_signed_grouped(x, torch.ones((4, 3), device=gpu), bits=2)
     with pytest.raises(ValueError):
         taq.act_quant_signed(x, torch.ones(1), bits=2)
+    with pytest.raises(ValueError):
+        taq.act_quant_signed_tensor(x, bits=1)
+    with pytest.raises(ValueError):
+        taq.act_quant_signed_tensor(x[:0], bits=4)
+    with pytest.raises(ValueError):          # computes in x's dtype
+        taq.act_quant_signed_tensor(x.half(), bits=4)
     assert sum(engine.launch_counts().values()) == 0
 
 
